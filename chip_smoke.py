@@ -1,38 +1,52 @@
 #!/usr/bin/env python3
-"""Smoke run of tpuflow_torch's main path on one NVIDIA GPU.
+"""Smoke run of tpuflow_torch's main paths on one NVIDIA GPU.
 
-Drives the streaming pyramidal Lucas-Kanade path that serves frames,
-``lucas_kanade_pyramidal_step`` with ``PYRAMID_CONFIGS["production"]`` and
-``backend="cuda"``, on a stream of 8-bit 1080p frames, and checks each
-hand-written CUDA kernel on it against its plain PyTorch version. Phases,
-one line each (any failure raises and the script exits non-zero):
+Drives, with ``backend="cuda"`` on 8-bit 1080p frames, the streaming
+pyramidal Lucas-Kanade path that serves frames
+(``lucas_kanade_pyramidal_step``) with ``PYRAMID_CONFIGS["production"]``
+(K1, K2, K3) and with ``PYRAMID_CONFIGS["default"]`` (K4, K5), and
+single-scale flow (``lucas_kanade_single_scale``, K6, and with
+``return_confidence``, K7); then the 13-pattern verifier gate
+(``tpuflow_torch.eval.verifier``) for every config with a committed
+fast-path baseline. Each hand-written CUDA kernel is checked against its
+plain PyTorch version. Phases, one line each or more (any failure raises
+and the script exits non-zero):
 
 1. device: the card (name and power limit from nvidia-smi), the TF32 flags;
 2. build: nvcc builds every kernel from tpuflow_torch/csrc/;
-3. kernels: each kernel at the main path's shapes against its plain version
+3. kernels: each kernel at the main paths' shapes against its plain version
    on the card, with its median device time and the plain version's (CUDA
    events);
-4. main path: 16 frames streamed through the kernels (launch counts reset
-   just before, read just after), then the same stream through the plain
-   versions on the card, compared frame by frame;
-5. profile: device time by kernel and the device's busy share over 4
-   frames (torch.profiler).
+4. main paths: each path run with the launch counts reset just before and
+   read just after; the two streams (16 frames each) also run through the
+   plain versions on the card and are compared frame by frame;
+5. gate: the 13-pattern suite through both LK modes for each config with a
+   committed Pallas baseline, within 10% of it (provenance guard included);
+6. profile: device time by kernel and the device's busy share over 4 frames
+   of each stream (torch.profiler).
 
-Limits on the card: the warps (K1, K2) bit-exact against their plain
-versions; the refine (K3) u, v within 1e-5 px and its sums to rtol 1e-5
-(block partials summed in another order); the stream: the same rounds per
-level on every frame and max |du|, |dv| <= 1e-3 px.
+Limits on the card: the warps (K1, K2, K4) bit-exact against their plain
+versions at bands 2/3/8 (K4 with clamp_flow on and off); the refine steps
+(K3, K5) u, v within 1e-5 px and their sums to rtol 1e-5 (block partials
+summed in another order); the single-scale solves (K6, K7) u, v and |det|
+within 1e-5; each stream: the same rounds per level on every frame, max
+|du|, |dv| <= 1e-3 px, mean EPE < 0.5 px against the 2 px shift; the gate:
+every pattern within 10%, no_motion exactly 0 in both modes for the
+configs without packed-u16 warps, and the production configs' no_motion
+floor in (0, 1e-3) px.
 
 It prints one JSON object of the kernels' readings on the line before the
 last, and ``{"ok": true, "device": {...}}`` as the last line. Frames are
-made from ``--seed`` with numpy and scipy. Needs one CUDA device; fails
-without one. Run: ``python3 chip_smoke.py``.
+made from ``--seed`` with numpy and scipy; the suite is the committed
+fixture. Needs one CUDA device; fails without one. Run:
+``python3 chip_smoke.py``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -43,8 +57,9 @@ import torch
 from scipy.ndimage import gaussian_filter
 from scipy.ndimage import shift as nd_shift
 
-from tpuflow_torch import PYRAMID_CONFIGS, lucas_kanade_pyramidal_step
+from tpuflow_torch import PYRAMID_CONFIGS, lucas_kanade_pyramidal_step, lucas_kanade_single_scale
 from tpuflow_torch.core import ops
+from tpuflow_torch.eval import verifier
 from tpuflow_torch.flow import pyramidal
 from tpuflow_torch.kernels import _build, launch_counts, lk, reset_launch_counts, torch_ref, warp
 
@@ -53,11 +68,26 @@ N_FRAMES = 16
 SHIFT_PX = 2.0
 STREAM_ATOL = 1e-3
 REFINE_ATOL = 1e-5
+FUSED_ATOL = 1e-5
 SUM_RTOL = 1e-5
+WARP_CU = "tpuflow_torch/csrc/warp.cu"
+REFINE_CU = "tpuflow_torch/csrc/lk_refine.cu"
+FUSED_CU = "tpuflow_torch/csrc/lk_fused.cu"
 KERNELS = {
-    "warp_packed_u8": ("tpuflow_torch/csrc/warp.cu", "tpuflow/kernels/pallas_warp.py:498"),
-    "warp_packed_u16": ("tpuflow_torch/csrc/warp.cu", "tpuflow/kernels/pallas_warp.py:498"),
-    "lk_refine": ("tpuflow_torch/csrc/lk_refine.cu", "tpuflow/kernels/pallas_lk.py:573"),
+    "warp_packed_u8": (WARP_CU, "tpuflow/kernels/pallas_warp.py:498"),
+    "warp_packed_u16": (WARP_CU, "tpuflow/kernels/pallas_warp.py:498"),
+    "warp_exact": (WARP_CU, "tpuflow/kernels/pallas_warp.py:498"),
+    "lk_refine": (REFINE_CU, "tpuflow/kernels/pallas_lk.py:573"),
+    "lk_refine_exact": (REFINE_CU, "tpuflow/kernels/pallas_lk.py:573"),
+    "lk_fused": (FUSED_CU, "tpuflow/kernels/pallas_lk.py:460"),
+    "lk_fused_conf": (FUSED_CU, "tpuflow/kernels/pallas_lk.py:460"),
+}
+# The kernels each main path must launch, and no others.
+PATH_KERNELS = {
+    "production stream": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
+    "default stream": {"warp_exact", "lk_refine_exact"},
+    "single scale": {"lk_fused"},
+    "single scale + confidence": {"lk_fused_conf"},
 }
 
 
@@ -100,17 +130,48 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max())
 
 
+def _flow(rng, shape, reach, dev):
+    return [torch.from_numpy(rng.uniform(-reach, reach, shape).astype(np.float32)).to(dev)
+            for _ in range(2)]
+
+
+def _record(readings, name, ms, plain_ms, shape):
+    if "ms" not in readings[name]:  # the largest shape on the path
+        readings[name].update(ms=ms, plain_ms=plain_ms, shape=list(shape))
+
+
+def check_refine(readings, name, rargs_base, dev, shape, windows):
+    """The refine kernel against its plain version, converged or not, at each
+    window; returns the max |du|, |dv| and the sums' max relative error."""
+    err = sums_rel = 0.0
+    for window in windows:
+        for frozen in (False, True):
+            conv = torch.tensor(frozen, device=dev)
+            rargs = rargs_base(conv, window)
+            got, want = lk.lucas_kanade_refine(*rargs), lk.lucas_kanade_refine_ref(*rargs)
+            torch.cuda.synchronize()
+            err = max(err, max_abs(got[0], want[0]), max_abs(got[1], want[1]))
+            sums_rel = max(sums_rel, *(abs(float(g) - float(w)) / max(abs(float(w)), 1e-30)
+                                       for g, w in zip(got[2:], want[2:])))
+            if err > REFINE_ATOL or sums_rel > SUM_RTOL:
+                raise AssertionError(f"{name} at {shape} window {window} converged={frozen}: "
+                                     f"max |d| {err}, sums rel {sums_rel}")
+    readings[name]["max_abs_err"] = max(readings[name]["max_abs_err"], err)
+    return err, sums_rel
+
+
 def check_kernels(dev, a, b, rng):
-    """Phase 3: every kernel at the path's shapes against its plain version."""
+    """Phase 3: every kernel at the paths' shapes against its plain version."""
+    readings = {name: {"max_abs_err": 0.0} for name in KERNELS}
+
+    # K1, K2, K3 at the production pyramid's levels.
     cfg = PYRAMID_CONFIGS["production"]
     pyr_a = torch_ref.build_gaussian_pyramid(a, cfg.levels, cfg.scale_factor)
     pyr_b = torch_ref.build_gaussian_pyramid(b, cfg.levels, cfg.scale_factor)
-    readings = {name: {"max_abs_err": 0.0} for name in KERNELS}
     for level in reversed(range(cfg.levels)):
         prev, curr = pyr_a[level], pyr_b[level]
         shape = tuple(prev.shape)
-        flow = [torch.from_numpy(rng.uniform(-9.0, 9.0, shape).astype(np.float32)).to(dev)
-                for _ in range(2)]
+        flow = _flow(rng, shape, 9.0, dev)
         packing = "u8" if level == cfg.levels - 1 else "u16"
         name = f"warp_packed_{packing}"
         for band in (2, 3, 8):
@@ -125,32 +186,82 @@ def check_kernels(dev, a, b, rng):
         plain_ms = time_ms(lambda: warp.warp_banded_ref(*args))
         print(f"[kernels] {name} {shape[0]}x{shape[1]}: bit-exact at bands 2/3/8, "
               f"{ms:.4f} ms (plain {plain_ms:.4f} ms)")
-        if "ms" not in readings[name]:  # the largest shape on the path
-            readings[name].update(ms=ms, plain_ms=plain_ms, shape=list(shape))
+        _record(readings, name, ms, plain_ms, shape)
 
         warped = warp.warp_banded(*args)
-        err = sums_rel = 0.0
-        for frozen in (False, True):
-            conv = torch.tensor(frozen, device=dev)
-            rargs = (prev, warped, *flow, conv, cfg.window_size, cfg.det_threshold, 8.0, 3.0)
-            got, want = lk.lucas_kanade_refine(*rargs), lk.lucas_kanade_refine_ref(*rargs)
-            torch.cuda.synchronize()
-            err = max(err, max_abs(got[0], want[0]), max_abs(got[1], want[1]))
-            sums_rel = max(sums_rel, *(abs(float(g) - float(w)) / max(abs(float(w)), 1e-30)
-                                       for g, w in zip(got[2:], want[2:])))
-            if err > REFINE_ATOL or sums_rel > SUM_RTOL:
-                raise AssertionError(
-                    f"lk_refine at {shape} converged={frozen}: max |d| {err}, sums rel {sums_rel}"
-                )
-            readings["lk_refine"]["max_abs_err"] = max(readings["lk_refine"]["max_abs_err"], err)
+        # The window repair (3, 7) is checked once, at the finest level.
+        windows = (3, 5, 7) if level == cfg.levels - 1 else (5,)
+        err, sums_rel = check_refine(
+            readings, "lk_refine",
+            lambda conv, w: (prev, warped, *flow, conv, w, cfg.det_threshold, 8.0, 3.0, True),
+            dev, shape, windows)
         conv = torch.tensor(False, device=dev)
-        rargs = (prev, warped, *flow, conv, cfg.window_size, cfg.det_threshold, 8.0, 3.0)
+        rargs = (prev, warped, *flow, conv, cfg.window_size, cfg.det_threshold, 8.0, 3.0, True)
         ms = time_ms(lambda: lk.lucas_kanade_refine(*rargs))
         plain_ms = time_ms(lambda: lk.lucas_kanade_refine_ref(*rargs))
-        print(f"[kernels] lk_refine {shape[0]}x{shape[1]}: max |d| {err:.3g} px, "
-              f"sums rel {sums_rel:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms)")
-        if "ms" not in readings["lk_refine"]:
-            readings["lk_refine"].update(ms=ms, plain_ms=plain_ms, shape=list(shape))
+        print(f"[kernels] lk_refine {shape[0]}x{shape[1]} windows {windows}: max |d| {err:.3g} "
+              f"px, sums rel {sums_rel:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms)")
+        _record(readings, "lk_refine", ms, plain_ms, shape)
+
+    # K4, K5 at the default pyramid's levels (float gray levels).
+    cfg = PYRAMID_CONFIGS["default"]
+    pyr_a = torch_ref.build_gaussian_pyramid(a, cfg.levels, cfg.scale_factor)
+    pyr_b = torch_ref.build_gaussian_pyramid(b, cfg.levels, cfg.scale_factor)
+    for level in reversed(range(cfg.levels)):
+        prev, curr = pyr_a[level], pyr_b[level]
+        shape = tuple(prev.shape)
+        for clamp, reach in ((True, 9.0), (False, 12.0)):
+            flow = _flow(rng, shape, reach, dev)
+            for band in (2, 3, 8):
+                args = (curr, *flow, cfg.max_disp, band, "exact", clamp)
+                got, want = warp.warp_banded(*args), warp.warp_banded_ref(*args)
+                torch.cuda.synchronize()
+                err = max_abs(got, want)
+                if err != 0.0:
+                    raise AssertionError(f"warp_exact clamp_flow={clamp} band {band} at "
+                                         f"{shape}: max |d| {err} != 0")
+        flow = _flow(rng, shape, 9.0, dev)
+        args = (curr, *flow, cfg.max_disp, 8, "exact", True)
+        ms = time_ms(lambda: warp.warp_banded(*args))
+        plain_ms = time_ms(lambda: warp.warp_banded_ref(*args))
+        print(f"[kernels] warp_exact {shape[0]}x{shape[1]}: bit-exact at bands 2/3/8, "
+              f"clamp_flow on and off, {ms:.4f} ms (plain {plain_ms:.4f} ms)")
+        _record(readings, "warp_exact", ms, plain_ms, shape)
+
+        warped = warp.warp_banded(*args)
+        windows = (3, 5, 7) if level == cfg.levels - 1 else (5,)
+        err, sums_rel = check_refine(
+            readings, "lk_refine_exact",
+            lambda conv, w: (prev, warped, *flow, conv, w, cfg.det_threshold, 8.0, 8.0, False),
+            dev, shape, windows)
+        conv = torch.tensor(False, device=dev)
+        rargs = (prev, warped, *flow, conv, cfg.window_size, cfg.det_threshold, 8.0, 8.0, False)
+        ms = time_ms(lambda: lk.lucas_kanade_refine(*rargs))
+        plain_ms = time_ms(lambda: lk.lucas_kanade_refine_ref(*rargs))
+        print(f"[kernels] lk_refine_exact {shape[0]}x{shape[1]} windows {windows}: max |d| "
+              f"{err:.3g} px, sums rel {sums_rel:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms)")
+        _record(readings, "lk_refine_exact", ms, plain_ms, shape)
+
+    # K6, K7 at 1080p: exact and relaxed, windows 3/5/7, taps at window 5.
+    shape = tuple(a.shape)
+    for conf, name in ((False, "lk_fused"), (True, "lk_fused_conf")):
+        err = 0.0
+        for relaxed in (False, True):
+            for window, taps in ((3, False), (5, False), (7, False), (5, True)):
+                fargs = (a, b, window, 1e-4, taps, 1.0, conf, relaxed)
+                got, want = lk.lucas_kanade_fused(*fargs), lk.lucas_kanade_fused_ref(*fargs)
+                torch.cuda.synchronize()
+                err = max(err, *(max_abs(g, w) for g, w in zip(got, want)))
+                if err > FUSED_ATOL:
+                    raise AssertionError(f"{name} window {window} taps={taps} "
+                                         f"relaxed={relaxed}: max |d| {err}")
+        readings[name]["max_abs_err"] = err
+        fargs = (a, b, 5, 1e-4, False, 1.0, conf, False)
+        ms = time_ms(lambda: lk.lucas_kanade_fused(*fargs))
+        plain_ms = time_ms(lambda: lk.lucas_kanade_fused_ref(*fargs))
+        print(f"[kernels] {name} {shape[0]}x{shape[1]}: exact and relaxed, windows 3/5/7, "
+              f"taps at 5: max |d| {err:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms)")
+        _record(readings, name, ms, plain_ms, shape)
     return readings
 
 
@@ -165,10 +276,10 @@ def plain_versions():
         warp.warp_banded, lk.lucas_kanade_refine = saved
 
 
-def run_stream(a, b, n_frames: int = N_FRAMES):
-    """Stream n frames (b, a, b, ...) through the production path. Returns
+def run_stream(a, b, config: str, n_frames: int = N_FRAMES):
+    """Stream n frames (b, a, b, ...) through a config's fast path. Returns
     the flows, the rounds per level of each frame and the seconds taken."""
-    cfg = PYRAMID_CONFIGS["production"]
+    cfg = PYRAMID_CONFIGS[config]
     carry = torch_ref.build_gaussian_pyramid(a, cfg.levels, cfg.scale_factor)
     flows, rounds = [], []
     torch.cuda.synchronize()
@@ -194,19 +305,141 @@ def mean_epe(flows, margin: int = 32) -> float:
     return float(np.mean(errs))
 
 
-def profile_stream(a, b) -> None:
+def counted(path: str, fn):
+    """Run one main path with the launch counts reset just before and read
+    just after; fail unless it launched exactly the path's kernels."""
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {name: n for name, n in launch_counts().items() if n}
+    if set(counts) != PATH_KERNELS[path]:
+        raise AssertionError(f"{path} launched {counts}; expected {sorted(PATH_KERNELS[path])}")
+    return out, counts
+
+
+def check_stream(a, b, config: str):
+    """Phase 4, one stream: kernels, then plain versions, frame by frame."""
+    run_stream(a, b, config, 2)  # warm-up: cuBLAS handles, operator blocks on the card
+    pyramidal.counters.reset()
+    (flows, rounds, seconds), counts = counted(f"{config} stream",
+                                               lambda: run_stream(a, b, config))
+    reads = (pyramidal.counters.convergence_reads, pyramidal.counters.band_reads)
+    for u, v in flows:
+        finite = bool(torch.isfinite(u).all()) and bool(torch.isfinite(v).all())
+        if u.shape != (HEIGHT, WIDTH) or not finite:
+            raise AssertionError(f"{config} stream gave non-finite or misshapen flow")
+    epe = mean_epe(flows)
+    # Two more timed runs: the host clock spreads from run to run.
+    again = [N_FRAMES / run_stream(a, b, config)[2] for _ in range(2)]
+    print(f"[main] {N_FRAMES} frames {HEIGHT}x{WIDTH} {config}: "
+          f"{N_FRAMES / seconds:.2f} frames/s ({1000 * seconds / N_FRAMES:.3f} ms/frame; "
+          f"then {again[0]:.2f} and {again[1]:.2f} frames/s), launches {counts}, "
+          f"host reads convergence={reads[0]} band={reads[1]}, rounds per level "
+          f"(distinct over the frames) {sorted(set(map(tuple, rounds)))}, "
+          f"mean EPE {epe:.4f} px")
+
+    before = launch_counts()
+    with plain_versions():
+        plain_flows, plain_rounds, plain_seconds = run_stream(a, b, config)
+    if launch_counts() != before:
+        raise AssertionError("the plain run launched a kernel")
+    if plain_rounds != rounds:
+        raise AssertionError(f"{config}: rounds per level differ: kernels {rounds}, "
+                             f"plain {plain_rounds}")
+    diff = max(max(max_abs(u, pu), max_abs(v, pv))
+               for (u, v), (pu, pv) in zip(flows, plain_flows))
+    print(f"[main] {config} through the plain versions on the card: "
+          f"{N_FRAMES / plain_seconds:.2f} frames/s, same rounds on every frame, "
+          f"max |du|,|dv| vs kernels {diff:.3g} px, mean EPE {mean_epe(plain_flows):.4f} px")
+    if diff > STREAM_ATOL:
+        raise AssertionError(f"{config} stream differs from the plain path by {diff} px "
+                             f"> {STREAM_ATOL}")
+    if epe > 0.5:
+        raise AssertionError(f"{config}: mean EPE {epe} px against the known {SHIFT_PX} px shift")
+    return counts
+
+
+def check_single_scale(a, b, confidence: bool):
+    """Phase 4, single-scale flow at 1080p through K6 (K7 with confidence),
+    against the plain version on the same frames."""
+    path = "single scale + confidence" if confidence else "single scale"
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = lucas_kanade_single_scale(a, b, 5, backend="cuda", return_confidence=confidence)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    lucas_kanade_single_scale(a, b, 5, backend="cuda", return_confidence=confidence)  # warm-up
+    (out, seconds), counts = counted(path, run)
+    want = lk.lucas_kanade_fused_ref(a, b, 5, return_confidence=confidence)
+    err = max(max_abs(g, w) for g, w in zip(out, want))
+    finite = all(bool(torch.isfinite(t).all()) and t.shape == (HEIGHT, WIDTH) for t in out)
+    u = out[0][32:-32, 32:-32]
+    print(f"[main] {path} {HEIGHT}x{WIDTH}: {1000 * seconds:.3f} ms (host clock), "
+          f"launches {counts}, max |d| vs plain {err:.3g}, interior median u "
+          f"{float(u.median()):.4f} px")
+    if not finite or err > FUSED_ATOL:
+        raise AssertionError(f"{path}: non-finite or misshapen output, or max |d| {err}")
+    return counts
+
+
+def run_gate():
+    """Phase 5: the verifier's 13-pattern gate on the card, each config with
+    a committed Pallas baseline."""
+    exact_zero = ("default", "narrow_vertical", "adaptive_vertical", "relaxed_order")
+    for config, baseline in verifier.PALLAS_BASELINES.items():
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        results = verifier.run_suite(pyramid_config_name=config, backend="cuda", verbose=False)
+        seconds = time.perf_counter() - t0
+        used = {name: n for name, n in launch_counts().items() if n}
+        if not used.get("lk_fused"):
+            raise AssertionError(f"gate {config}: single scale launched no kernel: {used}")
+        ok = verifier.compare_against_baseline(
+            results, verifier.BASELINE_DIR / baseline, 10.0, verbose=True, backend="cuda")
+        nm = next(r for r in results if r["pattern_name"] == "no_motion")
+        nm_single = nm["single_scale"]["metrics"]
+        nm_pyr = nm["pyramidal"]["metrics"]
+        base = json.loads((verifier.BASELINE_DIR / baseline).read_text())["patterns"]
+        worst = max(
+            abs(d["change_percent"])
+            for r in results for mode in ("single_scale", "pyramidal")
+            for d in verifier.compare_metrics(
+                r[mode]["metrics"], base[r["pattern_name"]][mode]["metrics"]
+            )["differences"].values()
+        )
+        print(f"[gate] {config}: {len(results)} patterns vs {baseline}: "
+              f"{'PASS' if ok else 'FAIL'}, worst |change| {worst:.3f}%, no_motion single "
+              f"epe {nm_single['epe']:.3g} pyramidal mae_u {nm_pyr['mae_u']:.3g} "
+              f"mae_v {nm_pyr['mae_v']:.3g}, {seconds:.2f} s, launches {used}")
+        if not ok:
+            raise AssertionError(f"gate {config}: regression against {baseline}")
+        if nm_single["epe"] != 0.0:
+            raise AssertionError(f"gate {config}: no_motion single-scale flow is not 0")
+        if config in exact_zero:
+            if nm_pyr["mae_u"] != 0.0 or nm_pyr["mae_v"] != 0.0:
+                raise AssertionError(f"gate {config}: no_motion pyramidal flow is not 0")
+        elif not 0.0 < nm_pyr["mae_u"] < 1e-3:
+            raise AssertionError(f"gate {config}: no_motion floor {nm_pyr['mae_u']} "
+                                 "outside (0, 1e-3) px")
+
+
+def profile_stream(a, b, config: str) -> None:
     """Device time by kernel and the device's busy share over a 4-frame
     stream (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run_stream(a, b, 2)
+    run_stream(a, b, config, 2)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, seconds = run_stream(a, b, 4)
+        _, _, seconds = run_stream(a, b, config, 4)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    print(f"[profile] 4 frames under the profiler: wall {1000 * seconds / 4:.3f} ms/frame, "
-          f"device busy {busy_us / 4000:.3f} ms/frame ({100 * busy_us / 1e6 / seconds:.1f}%)")
+    print(f"[profile] {config}, 4 frames under the profiler: wall "
+          f"{1000 * seconds / 4:.3f} ms/frame, device busy {busy_us / 4000:.3f} ms/frame "
+          f"({100 * busy_us / 1e6 / seconds:.1f}%)")
     print(f"[profile] {'device us/frame':>15} {'calls/frame':>11}  kernel")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
         print(f"[profile] {e.self_device_time_total / 4:15.1f} {e.count / 4:11.1f}  {e.key[:90]}")
@@ -235,8 +468,11 @@ def main() -> None:
     # 2. build
     t0 = time.perf_counter()
     _build.load()
+    usage = re.findall(r"Used (\d+) registers.*?(\d+) bytes smem", _build.build_log)
     print(f"[build] {_build.library_path().name} ready in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 0.0:.1f} s)")
+          f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 0.0:.1f} s; "
+          f"at most {max((int(r) for r, _ in usage), default=0)} registers and "
+          f"{max((int(s) for _, s in usage), default=0)} B of shared memory a block)")
 
     # 3. kernels
     fa, fb = make_frames(args.seed)
@@ -244,46 +480,24 @@ def main() -> None:
     rng = np.random.default_rng(args.seed + 1)
     readings = check_kernels(dev, a, b, rng)
 
-    # 4. main path
-    run_stream(a, b, 2)  # warm-up: cuBLAS handles, operator blocks on the card
-    reset_launch_counts()
-    pyramidal.counters.reset()
-    flows, rounds, seconds = run_stream(a, b)
-    counts = launch_counts()
-    reads = (pyramidal.counters.convergence_reads, pyramidal.counters.band_reads)
-    for name, n in counts.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-    for u, v in flows:
-        finite = bool(torch.isfinite(u).all()) and bool(torch.isfinite(v).all())
-        if u.shape != (HEIGHT, WIDTH) or not finite:
-            raise AssertionError("main path gave non-finite or misshapen flow")
-    epe = mean_epe(flows)
-    print(f"[main] {N_FRAMES} frames {HEIGHT}x{WIDTH} production: "
-          f"{N_FRAMES / seconds:.2f} frames/s ({1000 * seconds / N_FRAMES:.3f} ms/frame), "
-          f"launches {counts}, host reads convergence={reads[0]} band={reads[1]}, "
-          f"rounds per level {rounds}, mean EPE {epe:.4f} px")
-
-    with plain_versions():
-        plain_flows, plain_rounds, plain_seconds = run_stream(a, b)
-    if launch_counts() != counts:
-        raise AssertionError("the plain run launched a kernel")
-    if plain_rounds != rounds:
-        raise AssertionError(f"rounds per level differ: kernels {rounds}, plain {plain_rounds}")
-    diff = max(max(max_abs(u, pu), max_abs(v, pv))
-               for (u, v), (pu, pv) in zip(flows, plain_flows))
-    print(f"[main] plain versions on the card: {N_FRAMES / plain_seconds:.2f} frames/s, "
-          f"same rounds on every frame, max |du|,|dv| vs kernels {diff:.3g} px, "
-          f"mean EPE {mean_epe(plain_flows):.4f} px")
-    if diff > STREAM_ATOL:
-        raise AssertionError(f"stream differs from the plain path by {diff} px > {STREAM_ATOL}")
-    if epe > 0.5:
-        raise AssertionError(f"mean EPE {epe} px against the known {SHIFT_PX} px shift")
+    # 4. main paths
+    counts = {}
+    counts.update(check_stream(a, b, "production"))
+    counts.update(check_stream(a, b, "default"))
+    counts.update(check_single_scale(a, b, confidence=False))
+    counts.update(check_single_scale(a, b, confidence=True))
+    missing = [name for name in KERNELS if not counts.get(name)]
+    if missing:
+        raise AssertionError(f"kernels launched on no main path: {missing}")
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise AssertionError("TF32 was enabled on the main path")
 
-    # 5. profile
-    profile_stream(a, b)
+    # 5. gate
+    run_gate()
+
+    # 6. profile
+    profile_stream(a, b, "production")
+    profile_stream(a, b, "default")
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": counts[name],

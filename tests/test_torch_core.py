@@ -29,7 +29,7 @@ from tpuflow_torch import convert
 from tpuflow_torch.core import config as tconfig
 from tpuflow_torch.core import ops as tops
 from tpuflow_torch.flow import lucas_kanade_single_scale as t_single_scale
-from tpuflow_torch.kernels import torch_ref
+from tpuflow_torch.kernels import lk, torch_ref
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -228,12 +228,19 @@ def test_single_scale_flow_on_pattern_exact(name):
         assert not got[0].any() and not got[1].any()
 
 
-def test_single_scale_cuda_backend_names_missing_kernel():
-    z = torch.zeros(16, 16)
-    with pytest.raises(NotImplementedError, match="K6"):
-        t_single_scale(z, z, backend="cuda")
+def test_single_scale_cuda_backend_names_missing_kernel(rng):
+    # backend="cuda" is the fused kernel (K6, K7 with confidence); on CPU
+    # tensors it runs the kernel's plain version.
+    f0 = _t(nd_gaussian_filter(rng.uniform(0, 255, (40, 56)), 2.0))
+    f1 = f0.roll(1, dims=1)
+    for conf in (False, True):
+        got = t_single_scale(f0, f1, backend="cuda", return_confidence=conf)
+        want = lk.lucas_kanade_fused_ref(f0, f1, 5, return_confidence=conf)
+        assert len(got) == len(want) == (3 if conf else 2)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
     with pytest.raises(ValueError):
-        t_single_scale(z, z, backend="pallas")
+        t_single_scale(f0, f1, backend="pallas")
 
 
 # --- (h) import isolation, (i) no CPU fallback for the chip smoke ------------
@@ -244,7 +251,7 @@ def test_import_pulls_in_no_jax_triton_or_build():
         "import sys\n"
         "import tpuflow_torch, tpuflow_torch.convert, tpuflow_torch.core.ops\n"
         "import tpuflow_torch.kernels.warp, tpuflow_torch.kernels.lk\n"
-        "import tpuflow_torch.flow.pyramidal\n"
+        "import tpuflow_torch.flow.pyramidal, tpuflow_torch.eval.verifier\n"
         "from tpuflow_torch.kernels import _build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpuflow', 'triton')]\n"
         "assert not bad, bad\n"

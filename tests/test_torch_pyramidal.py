@@ -1,6 +1,9 @@
-"""The port's pyramidal main path (``production``, ``backend="cuda"``, which
-runs the kernels' plain versions on CPU tensors) against the JAX package's
-``backend="pallas"`` path in interpret mode, at 320x240.
+"""The port's pyramidal fast path (``backend="cuda"``, which runs the
+kernels' plain versions on CPU tensors) against the JAX package's
+``backend="pallas"`` path in interpret mode: ``production`` and ``default``
+at 320x240; ``shallow``, ``deep``, ``large_window`` and a window-7
+relaxed-order config at 160x120. Also single scale through the fused
+kernel's plain version against ``pallas_lk.lucas_kanade_fused``.
 
 Tolerance. Both sides start from the same JAX-built pyramids (carried over
 with ``convert.pyramid_from_numpy``). At the coarsest level the two agree
@@ -11,6 +14,9 @@ translate_medium, the port in f32 against the same port in f64, measures
 p99.9 8.4e-4 px and max 3.4e-3 px at the finest level. Interpret mode's
 XLA:CPU contracts some products into FMAs where the port rounds each one,
 so the finest level is held to p99.9 <= 2e-3 px, about twice that floor.
+Single scale has no pyramid to amplify the differences, but its weakly
+textured windows amplify the one-ulp det differences the same way: 5e-5 px
+(measured 1.6e-5 px on 5 of 76,800 pixels, translate_medium).
 """
 
 import jax
@@ -21,14 +27,15 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from tpuflow.core.config import PYRAMID_CONFIGS as JAX_CONFIGS
+from tpuflow.core.config import PyramidConfig as JaxPyramidConfig
 from tpuflow.eval import patterns, verifier
 from tpuflow.eval.metrics import compute_all_metrics
 from tpuflow.flow import lucas_kanade_pyramidal_from_pyramids as jax_from_pyramids
-from tpuflow.kernels import jnp_ref
-from tpuflow_torch import convert, lucas_kanade_pyramidal_step
+from tpuflow.kernels import jnp_ref, pallas_lk
+from tpuflow_torch import convert, lucas_kanade_pyramidal_step, lucas_kanade_single_scale
 from tpuflow_torch.core.config import PYRAMID_CONFIGS
 from tpuflow_torch.flow import pyramidal
-from tpuflow_torch.kernels import torch_ref
+from tpuflow_torch.kernels import lk, torch_ref, warp
 
 CFG = PYRAMID_CONFIGS["production"]
 JAX_CFG = JAX_CONFIGS["production"]
@@ -49,13 +56,15 @@ def jax_production():
     return run
 
 
-def _pattern(name):
-    f0, f1 = patterns.generate_test_pattern(patterns.TEST_PATTERNS[name], 320, 240, output_dir=None)
+def _pattern(name, width=320, height=240):
+    f0, f1 = patterns.generate_test_pattern(
+        patterns.TEST_PATTERNS[name], width, height, output_dir=None
+    )
     return f0.astype(np.float32), f1.astype(np.float32)
 
 
-def _jax_pyramid(frame):
-    return jnp_ref.build_gaussian_pyramid(jnp.asarray(frame), JAX_CFG.levels, JAX_CFG.scale_factor)
+def _jax_pyramid(frame, cfg=JAX_CFG):
+    return jnp_ref.build_gaussian_pyramid(jnp.asarray(frame), cfg.levels, cfg.scale_factor)
 
 
 def _p999(*diffs):
@@ -85,6 +94,57 @@ def test_production_from_jax_pyramids_matches_pallas(jax_production, name):
         # (clip, then one last residual step), on both sides.
         mask = verifier.get_test_region_mask((240, 320), name)
         assert np.median(u.numpy()[mask]) < 9.0 and np.median(ju[mask]) < 9.0
+
+
+# (config name, pattern, width, height); "relaxed_w7" is the window-7
+# relaxed-order config whose refine the port once refused.
+SLICES = [
+    ("default", "translate_medium", 320, 240),
+    ("default", "translate_large", 320, 240),
+    ("shallow", "translate_medium", 160, 120),
+    ("deep", "translate_medium", 160, 120),
+    ("large_window", "translate_medium", 160, 120),
+    ("relaxed_w7", "translate_medium", 160, 120),
+]
+
+
+def _configs(name):
+    if name == "relaxed_w7":
+        fields = dict(levels=2, window_size=7, relaxed_order=True)
+        return JaxPyramidConfig(**fields), convert.config_from_reference(JaxPyramidConfig(**fields))
+    return JAX_CONFIGS[name], PYRAMID_CONFIGS[name]
+
+
+@pytest.mark.parametrize("config,name,width,height", SLICES)
+def test_slice_from_jax_pyramids_matches_pallas(config, name, width, height):
+    jax_cfg, cfg = _configs(config)
+    f0, f1 = _pattern(name, width, height)
+    pyr_a, pyr_b = _jax_pyramid(f0, jax_cfg), _jax_pyramid(f1, jax_cfg)
+    fn = jax.jit(
+        lambda a, b: jax_from_pyramids(a, b, jax_cfg, backend="pallas", return_levels=True)
+    )
+    with pltpu.force_tpu_interpret_mode():
+        ju, jv, jlevels = fn(pyr_a, pyr_b)
+
+    to_port = lambda pyr: convert.pyramid_from_numpy([np.asarray(x) for x in pyr])  # noqa: E731
+    u, v, levels = pyramidal.lucas_kanade_pyramidal_from_pyramids(
+        to_port(pyr_a), to_port(pyr_b), cfg, backend="cuda", return_levels=True
+    )
+    assert len(levels) == cfg.levels and u.shape == (height, width)
+    assert torch.isfinite(u).all() and torch.isfinite(v).all()
+    (cu, cv), (ju0, jv0) = levels[0], jlevels[0]
+    assert _p999(cu.numpy() - np.asarray(ju0), cv.numpy() - np.asarray(jv0)) <= 1e-4
+    assert _p999(u.numpy() - np.asarray(ju), v.numpy() - np.asarray(jv)) <= 2e-3
+
+
+def test_single_scale_cuda_matches_pallas():
+    f0, f1 = _pattern("translate_medium")
+    with pltpu.force_tpu_interpret_mode():
+        want = pallas_lk.lucas_kanade_fused(jnp.asarray(f0), jnp.asarray(f1), window_size=5)
+    got = lucas_kanade_single_scale(torch.from_numpy(f0), torch.from_numpy(f1), 5,
+                                    backend="cuda")
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=5e-5)
 
 
 def test_streaming_steps_stay_within_verifier_envelope(jax_production):
@@ -137,12 +197,33 @@ def test_no_motion_parity_path_is_exactly_zero():
 
 
 @pytest.mark.parametrize("name,kernel", [("default", "K5"), ("relaxed_order", "K4")])
-def test_fast_path_configs_without_a_kernel_name_it(name, kernel):
-    z = torch.zeros(32, 32)
-    with pytest.raises(NotImplementedError, match=kernel):
-        pyramidal.lucas_kanade_pyramidal(z, z, config=PYRAMID_CONFIGS[name], backend="cuda")
+def test_fast_path_configs_without_a_kernel_name_it(monkeypatch, name, kernel):
+    # Both configs now run under backend="cuda" through the kernel named
+    # (K5: the exact-order refine; K4: the unpacked warp), and agree with the
+    # port's own parity path under the same clamp to the finest-level
+    # tolerance.
+    cfg = PYRAMID_CONFIGS[name]
+    f0, f1 = _pattern("translate_medium", 160, 120)
+    a, b = torch.from_numpy(f0), torch.from_numpy(f1)
+    calls = set()
+    plain_warp, plain_refine = warp.warp_banded, lk.lucas_kanade_refine
+
+    def spy_warp(*args, **kw):
+        calls.add("K4" if kw["packing"] == "exact" else "K1/K2")
+        return plain_warp(*args, **kw)
+
+    def spy_refine(*args, **kw):
+        calls.add("K3" if kw["relaxed_order"] else "K5")
+        return plain_refine(*args, **kw)
+
+    monkeypatch.setattr(warp, "warp_banded", spy_warp)
+    monkeypatch.setattr(lk, "lucas_kanade_refine", spy_refine)
+    u, v = pyramidal.lucas_kanade_pyramidal(a, b, config=cfg, backend="cuda")
+    assert kernel in calls
+    pu, pv = pyramidal.lucas_kanade_pyramidal(a, b, config=cfg, backend="torch", rtl_clamp=True)
+    assert _p999(u.numpy() - pu.numpy(), v.numpy() - pv.numpy()) <= 2e-3
     with pytest.raises(ValueError):
-        pyramidal.lucas_kanade_pyramidal(z, z, config=CFG, backend="pallas")
+        pyramidal.lucas_kanade_pyramidal(a, b, config=CFG, backend="pallas")
 
 
 def test_select_band_index_masked_interior():

@@ -1,65 +1,47 @@
-"""The 13-pattern regression gate on the port: single scale through the
-parity path (``backend="torch"``) and pyramidal through the fast path
-(``backend="cuda"``, the kernels' plain versions on CPU tensors), scored by
-the JAX package's verifier against the committed baselines at their 10%
-threshold: ``pallas_production_baseline.json`` and
-``pallas_production_fullband_baseline.json``. That includes the
-production no_motion floor: the packed-u16 coarse warp quantizes to 1/256
-gray, so identical frames read about 3.65e-4 px of pyramidal mae_u, by
-design."""
+"""The 13-pattern regression gate on the port, on the CPU: the port's own
+verifier (``tpuflow_torch.eval.verifier.run_suite`` on the committed suite
+fixture) with ``backend="cuda"``, whose kernels run their plain versions
+on CPU tensors (single scale through the fused kernel, pyramidal through
+the warp and refine kernels), for every config with a committed Pallas
+baseline. Each pattern is scored against the baseline at its 10%
+threshold by both the port's and the JAX package's
+``compare_against_baseline``, which must agree.
 
-from pathlib import Path
+no_motion must be exactly 0 in both modes wherever the coarse warp is not
+packed. The production configs have a floor by design: the packed-u16
+coarse warp quantizes to 1/256 gray, so identical frames read about
+3.7e-4 px of pyramidal mae_u (ROADMAP queue 3, item e).
+"""
 
 import pytest
-import torch
 
-from tpuflow.eval import patterns, verifier
-from tpuflow_torch import PYRAMID_CONFIGS, lucas_kanade_pyramidal, lucas_kanade_single_scale
+from tpuflow.eval import patterns
+from tpuflow.eval import verifier as jverifier
+from tpuflow_torch.eval import verifier
 
-DATA = Path(verifier.__file__).parent / "data"
-CONFIGS = ("production", "production_fullband")
-
-
-def _runners(cfg):
-    def single(prev, curr):
-        u, v = lucas_kanade_single_scale(
-            torch.from_numpy(prev), torch.from_numpy(curr), cfg.window_size, backend="torch"
-        )
-        return u.numpy(), v.numpy()
-
-    def pyramidal(prev, curr):
-        u, v = lucas_kanade_pyramidal(
-            torch.from_numpy(prev), torch.from_numpy(curr), config=cfg, backend="cuda"
-        )
-        return u.numpy(), v.numpy()
-
-    return single, pyramidal
+CONFIGS = tuple(verifier.PALLAS_BASELINES)
+PACKED_U16 = ("production", "production_fullband")
 
 
 @pytest.fixture(scope="module")
 def results():
     out = {}
-    for name, params in patterns.TEST_PATTERNS.items():
-        f0, f1 = patterns.generate_test_pattern(params, 320, 240, output_dir=None)
-        data = {
-            "frame_prev": f0.astype("float32"),
-            "frame_curr": f1.astype("float32"),
-            "metadata": {"motion_parameters": params.to_dict()},
-        }
-        for config in CONFIGS:
-            out[config, name] = verifier.verify_pattern(
-                name, data, _runners(PYRAMID_CONFIGS[config]), config, verbose=False
-            )
+    for config in CONFIGS:
+        for r in verifier.run_suite(pyramid_config_name=config, backend="cuda", verbose=False):
+            out[config, r["pattern_name"]] = r
     return out
 
 
 @pytest.mark.parametrize("config", CONFIGS)
 @pytest.mark.parametrize("name", sorted(patterns.TEST_PATTERNS))
 def test_pattern_within_committed_baseline(results, config, name):
-    assert verifier.compare_against_baseline(
-        [results[config, name]], DATA / f"pallas_{config}_baseline.json",
-        threshold_percent=10.0, verbose=True,
-    )
+    path = verifier.BASELINE_DIR / verifier.PALLAS_BASELINES[config]
+    result = [results[config, name]]
+    ours = verifier.compare_against_baseline(result, path, 10.0, verbose=True, backend="cuda")
+    theirs = jverifier.compare_against_baseline(result, path, 10.0, verbose=True,
+                                                backend="pallas")
+    assert ours == theirs
+    assert ours
 
 
 @pytest.mark.parametrize("config", CONFIGS)
@@ -67,4 +49,7 @@ def test_no_motion_floor(results, config):
     nm = results[config, "no_motion"]
     assert nm["single_scale"]["metrics"]["epe"] == 0.0
     mae_u = nm["pyramidal"]["metrics"]["mae_u"]
-    assert 0.0 < mae_u < 1e-3, mae_u
+    if config in PACKED_U16:
+        assert 0.0 < mae_u < 1e-3, mae_u
+    else:
+        assert nm["pyramidal"]["metrics"]["epe"] == 0.0

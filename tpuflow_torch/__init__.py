@@ -10,6 +10,8 @@ The PyTorch counterpart of ``tpuflow`` (JAX), module for module:
 - ``tpuflow_torch.flow``     single-scale and pyramidal flow:
                              ``backend="torch"`` (parity) and
                              ``backend="cuda"`` (fast path).
+- ``tpuflow_torch.eval``     the 13-pattern verifier and its CLI
+                             (``python -m tpuflow_torch.eval.verifier``).
 - ``tpuflow_torch.convert``  configs and pyramids carried over from
                              ``tpuflow``.
 

@@ -5,10 +5,11 @@ fine, and at each level up to ``cfg.iterations`` rounds of warp -> residual
 LK -> accumulate with the reference's early exit.
 
 ``backend="torch"`` is the parity path (the JAX package's ``"jnp"``).
-``backend="cuda"`` is the fast path (its ``"pallas"``): each round is one
-banded warp kernel and one fused refine kernel (``kernels.warp``,
-``kernels.lk``), which launch their CUDA kernels for CUDA tensors and run
-their plain PyTorch versions for CPU tensors.
+``backend="cuda"`` is the fast path (its ``"pallas"``), for every named
+config: each round is one banded warp kernel (K1/K2 packed, K4 exact) and
+one fused refine kernel (K3 relaxed order, K5 exact order), which launch
+their CUDA kernels for CUDA tensors and run their plain PyTorch versions
+for CPU tensors (``kernels.warp``, ``kernels.lk``).
 
 Two kinds of host read keep the JAX control flow exactly: the early-exit
 flag is read once per round (the ``lax.while_loop`` condition), and with
@@ -47,29 +48,13 @@ counters = Counters()
 
 def _warp_packing(cfg: PyramidConfig, finest: bool) -> str:
     """The fast path's warp variant: packed-u8 on the finest level (the raw
-    8-bit frame), packed-u16 on the blurred coarse levels."""
+    8-bit frame), packed-u16 on the blurred coarse levels, f32 corners
+    (K4) wherever the config packs nothing."""
     if cfg.warp_packed_u8 and finest:
         return "u8"
     if cfg.warp_packed_u16:
         return "u16"
-    raise NotImplementedError(
-        "backend='cuda' with unpacked warps needs the exact banded warp "
-        "kernel (pallas_warp._warp_block exact branch, K4), which is not "
-        "ported yet; use a packed config such as 'production' or "
-        "backend='torch'"
-    )
-
-
-def _check_fast_path(cfg: PyramidConfig) -> None:
-    if not cfg.relaxed_order:
-        raise NotImplementedError(
-            "backend='cuda' with exact-order sums needs the exact-order refine "
-            "kernel (pallas_lk._lk_tile relaxed_order=False, K5), which is not "
-            "ported yet; use a relaxed-order config such as 'production' or "
-            "backend='torch'"
-        )
-    for finest in (False, True):
-        _warp_packing(cfg, finest)
+    return "exact"
 
 
 def _refine_level(
@@ -104,6 +89,7 @@ def _refine_level(
                 img_prev, warped, u, v, converged,
                 window_size=cfg.window_size, det_threshold=cfg.det_threshold,
                 max_disp=float(cfg.max_disp), max_disp_v=float(mdv),
+                relaxed_order=cfg.relaxed_order,
             )
             # f32 on the device, as tpuflow's sdu / n_px < thr.
             now_converged = (sdu / n_px < thr) & (sdv / n_px < thr)
@@ -221,8 +207,6 @@ def lucas_kanade_pyramidal_from_pyramids(
     first), so a stream can reuse each frame's pyramid."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    if backend == "cuda":
-        _check_fast_path(cfg)
     flow_u = torch.zeros_like(pyr_prev[0])
     flow_v = torch.zeros_like(pyr_prev[0])
 

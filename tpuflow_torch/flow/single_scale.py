@@ -1,9 +1,10 @@
 """Single-scale Lucas-Kanade dense flow.
 
 Counterpart of ``tpuflow.flow.single_scale``. ``backend="torch"`` is the
-parity path (``"jnp"`` in the JAX package). The fused single-scale CUDA
-kernel (the Pallas ``_lk_kernel``) is not ported yet, so
-``backend="cuda"`` raises.
+parity path (``"jnp"`` in the JAX package). ``backend="cuda"`` is the fused
+single-scale kernel (its ``"pallas"``): ``kernels.lk.lucas_kanade_fused``,
+which launches K6 (K7 with ``return_confidence``) for CUDA tensors and runs
+its plain PyTorch version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Literal
 
 import torch
 
-from tpuflow_torch.kernels import torch_ref
+from tpuflow_torch.kernels import lk, torch_ref
 
 Backend = Literal["torch", "cuda"]
 BACKENDS = ("torch", "cuda")
@@ -27,17 +28,24 @@ def lucas_kanade_single_scale(
     gaussian_weights: bool = False,
     backend: Backend = "torch",
     return_confidence: bool = False,
+    relaxed_order: bool = False,
 ):
     """Dense (u, v) flow between two grayscale float32 frames: Sobel/8
     gradients on the averaged frame, unweighted ``window_size`` squared
     structure-tensor sums, Cramer solve gated on ``|det| > det_threshold``,
     zero flow on the window border. ``return_confidence`` adds the |det|
-    plane."""
+    plane. ``relaxed_order=True`` (``"cuda"`` only; the parity path ignores
+    it) reassociates the Sobel and window sums, as
+    ``PyramidConfig.relaxed_order``."""
     if backend == "cuda":
-        raise NotImplementedError(
-            "single-scale backend='cuda' needs the fused single-scale LK "
-            "kernel (pallas_lk._lk_kernel, K6), which is not ported yet; "
-            "use backend='torch'"
+        return lk.lucas_kanade_fused(
+            frame_prev,
+            frame_curr,
+            window_size=window_size,
+            det_threshold=det_threshold,
+            gaussian_weights=gaussian_weights,
+            return_confidence=return_confidence,
+            relaxed_order=relaxed_order,
         )
     if backend != "torch":
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")

@@ -1,9 +1,10 @@
 """Kernels of the flow path and their plain PyTorch versions.
 
 ``torch_ref`` holds the parity-path functions (counterpart of
-``tpuflow.kernels.jnp_ref``). ``warp`` and ``lk`` each hold one hand-written
-CUDA kernel's wrapper, its plain PyTorch version and its launch counter.
-Nothing here builds or loads the CUDA library at import.
+``tpuflow.kernels.jnp_ref``). ``warp`` (K1, K2, K4) and ``lk`` (K3, K5, K6,
+K7) hold the hand-written CUDA kernels' wrappers, their plain PyTorch
+versions and their launch counters. Nothing here builds or loads the CUDA
+library at import.
 """
 
 from tpuflow_torch.kernels import lk, warp

@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, loaded with ``ctypes``.
-The build happens at the first kernel launch, never at import, into
-``build/tpuflow_torch/`` beside the package; the library's file name
-carries a hash of the sources and flags, so an edited source is rebuilt
-and a stale library is never loaded.
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` process per source, all started together, and the objects are
+linked into one shared library with a plain C interface, loaded with
+``ctypes``. The build happens at the first kernel launch, never at import,
+into ``build/tpuflow_torch/`` beside the package; the library's file name
+carries a hash of the sources, headers and flags, so an edited source is
+rebuilt and a stale library is never loaded. ``build_log`` keeps ptxas's
+register and shared-memory report of the last build.
 
 ``-fmad=false`` keeps every ``a*b + c`` as two rounded operations, as the
 plain PyTorch versions compute them; ``--use_fast_math`` is never used
@@ -26,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpuflow_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
@@ -34,15 +36,23 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes. Each returns the cudaError_t of its launch.
 _SIGNATURES = {
-    # img, u, v, out, height, width, max_disp, max_disp_v, packing, stream
-    "tpuflow_warp_banded": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # img, u, v, out, height, width, max_disp, max_disp_v, packing,
+    # clamp_flow, stream
+    "tpuflow_warp_banded": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # prev, warped, u, v, converged, u_out, v_out, part_du, part_dv,
-    # height, width, det_threshold, max_disp, max_disp_v, stream
-    "tpuflow_lk_refine": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
+    # height, width, window, relaxed, det_threshold, max_disp, max_disp_v,
+    # stream
+    "tpuflow_lk_refine": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P,
+    ),
+    # prev, curr, u_out, v_out, det_out (or null), height, width, window,
+    # relaxed, taps (host f32[window] or null), det_threshold, stream
+    "tpuflow_lk_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _P),
 }
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None
+build_log: str = ""
 
 
 def _nvcc() -> str:
@@ -59,7 +69,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -72,23 +82,33 @@ def is_loaded() -> bool:
 
 def load() -> ctypes.CDLL:
     """The kernels' library, built first if this checkout has none yet."""
-    global _lib, build_seconds
+    global _lib, build_seconds, build_log
     if _lib is not None:
         return _lib
     path = library_path()
     if not path.exists():
         t0 = time.perf_counter()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
+        nvcc = _nvcc()
+        tag = f"{path.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(_sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]  # waits for every one
+        for cmd, proc, log in zip(cmds, procs, logs):
+            _check_nvcc(cmd, proc.returncode, log)
+        tmp = BUILD_DIR / f"{tag}.tmp"
+        link_cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        link = subprocess.run(link_cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        _check_nvcc(link_cmd, link.returncode, link.stdout)
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, path)
         build_seconds = time.perf_counter() - t0
+        build_log = "".join(logs)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -100,6 +120,11 @@ def load() -> ctypes.CDLL:
     lib.tpuflow_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+def _check_nvcc(cmd: list[str], code: int, log: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{log}")
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -1,19 +1,28 @@
-"""Banded bilinear backward warp: the packed-corner kernels and their plain
-PyTorch version.
+"""Banded bilinear backward warp: the CUDA kernels and their plain PyTorch
+version.
 
-Counterpart of ``tpuflow.kernels.pallas_warp.warp_image_banded`` with
-``clamp_flow=True`` and ``packed_u8=True`` (K1, the finest pyramid level)
-or ``packed_u16=True`` (K2, the coarse levels). The CUDA kernel is
-``csrc/warp.cu``; ``warp_banded_ref`` is the same function in plain
-PyTorch, in the same f32 expression order, and is what ``warp_banded``
-runs for a tensor on the CPU.
+Counterpart of ``tpuflow.kernels.pallas_warp.warp_image_banded``:
+``packing="exact"`` is its unpacked branch (K4, f32 corners, with or
+without ``clamp_flow``), ``"u8"`` its ``packed_u8`` variant (K1, the
+finest pyramid level) and ``"u16"`` its ``packed_u16`` variant (K2, the
+coarse levels). The CUDA kernel is ``csrc/warp.cu``; ``warp_banded_ref``
+is the same function in plain PyTorch, in the same f32 expression order,
+and is what ``warp_banded`` runs for a tensor on the CPU.
 
-out(x, y) = image(x + u, y + v) with u, v clipped to the band, the source
-column clamped to [x - max_disp - 1, x + max_disp] and [0, W - 1], corners
-outside the image read as 0, and samples outside [0, N - 1] giving 0.
-Corner decoding: ``"u8"`` truncates to whole gray levels (exact for frames
-of integer values in [0, 255]); ``"u16"`` rounds to 8.8 fixed point and
-scales the result by 1/256 after the vertical lerp.
+out(x, y) = image(x + u, y + v), with u, v clipped to the band when
+``clamp_flow``; the source column x0 clamped to [x - max_disp - 1,
+x + max_disp] and then [0, W - 1]; the second column x0 + 1 for the packed
+variants (reading 0 past the last column) and, for ``"exact"``, int(x0f) + 1
+clamped to [x - max_disp - 1, x + max_disp + 1] and then [0, W - 1]
+(pallas_warp.py:92-96). With f = floor(yf) - y, the upper row's sample is
+used only for f in [-max_disp_v, max_disp_v + 1] and the lower row's only
+for f in [-max_disp_v, max_disp_v], else 0 (the TPU kernel's candidate-row
+loop, pallas_warp.py:349-380; with ``clamp_flow`` f always lies inside).
+Rows outside the image read 0, and samples with xf or yf outside [0, N - 1]
+give 0. Corner decoding: ``"exact"`` uses the f32 value, ``"u8"`` truncates
+to whole gray levels (exact for frames of integer values in [0, 255]),
+``"u16"`` rounds to 8.8 fixed point and scales the result by 1/256 after
+the vertical lerp.
 """
 
 from __future__ import annotations
@@ -22,13 +31,17 @@ import torch
 
 from tpuflow_torch.kernels import _build
 
-PACKINGS = {"u8": 8, "u16": 16}
+# Packing name -> the kernel's template value.
+PACKINGS = {"exact": 0, "u8": 8, "u16": 16}
+_COUNTER = {"exact": "warp_exact", "u8": "warp_packed_u8", "u16": "warp_packed_u16"}
 
 # Kernel launches per variant; incremented only where a kernel is launched.
-launch_counts = {"warp_packed_u8": 0, "warp_packed_u16": 0}
+launch_counts = {name: 0 for name in _COUNTER.values()}
 
 
 def _decode(image: torch.Tensor, packing: str) -> torch.Tensor:
+    if packing == "exact":
+        return image
     if packing == "u8":
         return image.to(torch.int32).to(torch.float32)
     q = (image * 256.0 + 0.5).to(torch.int32) & 0xFFFF
@@ -42,14 +55,17 @@ def warp_banded_ref(
     max_disp: int = 8,
     max_disp_v: int | None = None,
     packing: str = "u8",
+    clamp_flow: bool = True,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the packed banded warp kernel."""
+    """Plain PyTorch version of the banded warp kernel."""
     if max_disp_v is None:
         max_disp_v = max_disp
     h, w = image.shape
     dev = image.device
-    u = flow_u.clamp(-float(max_disp), float(max_disp))
-    v = flow_v.clamp(-float(max_disp_v), float(max_disp_v))
+    u, v = flow_u, flow_v
+    if clamp_flow:
+        u = u.clamp(-float(max_disp), float(max_disp))
+        v = v.clamp(-float(max_disp_v), float(max_disp_v))
     xx_i = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
     yy_i = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
     xf = xx_i.to(torch.float32) + u
@@ -61,32 +77,37 @@ def warp_banded_ref(
     fxc = 1.0 - fx
     fyc = 1.0 - fy
 
-    x0 = torch.minimum(torch.maximum(x0f.to(torch.int32), xx_i - (max_disp + 1)),
-                       xx_i + max_disp)
-    x0 = x0.clamp(0, w - 1).to(torch.int64)
-    y0 = y0f.to(torch.int64)
+    ix0 = x0f.to(torch.int32)
+    x0 = torch.minimum(torch.maximum(ix0, xx_i - (max_disp + 1)), xx_i + max_disp)
+    x0 = x0.clamp(0, w - 1)
+    if packing == "exact":
+        x1 = torch.minimum(torch.maximum(ix0 + 1, xx_i - (max_disp + 1)),
+                           xx_i + (max_disp + 1))
+        x1 = x1.clamp(0, w - 1)
+    else:
+        x1 = x0 + 1  # column w is the zero column below
+    y0 = y0f.to(torch.int32)
+    f = y0 - yy_i
 
-    # Decoded image with zero rows above and below the band and one zero
-    # column on the right: every corner the clipped flow can reach.
-    pad = max_disp_v + 1
-    dec = torch.nn.functional.pad(_decode(image, packing), (0, 1, pad, pad))
-    flat = dec.reshape(-1)
-    stride = w + 1
+    # Decoded image with one zero column on the right; rows outside the
+    # image are masked to 0.
+    dec = torch.nn.functional.pad(_decode(image, packing), (0, 1)).reshape(-1)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
 
-    def corner(r, c):
-        return flat[(r + pad) * stride + c]
+    def row(r):
+        valid = (r >= 0) & (r < h)
+        base = r.clamp(0, h - 1).to(torch.int64) * (w + 1)
+        c0 = torch.where(valid, dec[base + x0.to(torch.int64)], zero)
+        c1 = torch.where(valid, dec[base + x1.to(torch.int64)], zero)
+        return c0 * fxc + c1 * fx
 
-    c00 = corner(y0, x0)
-    c01 = corner(y0, x0 + 1)
-    c10 = corner(y0 + 1, x0)
-    c11 = corner(y0 + 1, x0 + 1)
-    up = c00 * fxc + c01 * fx
-    low = c10 * fxc + c11 * fx
+    up = torch.where((f >= -max_disp_v) & (f <= max_disp_v + 1), row(y0), zero)
+    low = torch.where((f >= -max_disp_v) & (f <= max_disp_v), row(y0 + 1), zero)
     out = up * fyc + low * fy
     if packing == "u16":
         out = out * (1.0 / 256.0)
     inside = (xf >= 0.0) & (xf <= float(w - 1)) & (yf >= 0.0) & (yf <= float(h - 1))
-    return torch.where(inside, out, torch.zeros_like(out))
+    return torch.where(inside, out, zero)
 
 
 def warp_banded(
@@ -96,13 +117,17 @@ def warp_banded(
     max_disp: int = 8,
     max_disp_v: int | None = None,
     packing: str = "u8",
+    clamp_flow: bool = True,
 ) -> torch.Tensor:
-    """Packed banded warp: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor. Bands up to 31 px (the TPU kernel's limit)."""
+    """Banded warp: the CUDA kernel for a CUDA tensor, the plain version for
+    a CPU tensor. Bands up to 31 px (the TPU kernel's limit); the packed
+    variants need ``clamp_flow`` (pallas_warp.py:598-601)."""
     if max_disp_v is None:
         max_disp_v = max_disp
     if packing not in PACKINGS:
         raise ValueError(f"packing must be one of {sorted(PACKINGS)}, got {packing!r}")
+    if packing != "exact" and not clamp_flow:
+        raise ValueError("the packed warps require clamp_flow=True")
     if not (0 <= max_disp <= 31 and 0 <= max_disp_v <= 31):
         raise ValueError("banded warp supports bands of 0..31 px")
     if image.ndim != 2 or flow_u.shape != image.shape or flow_v.shape != image.shape:
@@ -113,7 +138,8 @@ def warp_banded(
         if t.device != image.device:
             raise ValueError("image and flow must lie on one device")
     if image.device.type == "cpu":
-        return warp_banded_ref(image, flow_u, flow_v, max_disp, max_disp_v, packing)
+        return warp_banded_ref(image, flow_u, flow_v, max_disp, max_disp_v, packing,
+                               clamp_flow)
     if image.device.type != "cuda":
         raise ValueError(f"unsupported device {image.device}")
     if not (image.is_contiguous() and flow_u.is_contiguous() and flow_v.is_contiguous()):
@@ -125,8 +151,9 @@ def warp_banded(
     stream = torch.cuda.current_stream(image.device).cuda_stream
     code = lib.tpuflow_warp_banded(
         image.data_ptr(), flow_u.data_ptr(), flow_v.data_ptr(), out.data_ptr(),
-        h, w, max_disp, max_disp_v, PACKINGS[packing], stream,
+        h, w, max_disp, max_disp_v, PACKINGS[packing], int(clamp_flow), stream,
     )
-    _build.check(lib, code, f"warp_packed_{packing}")
-    launch_counts[f"warp_packed_{packing}"] += 1
+    name = _COUNTER[packing]
+    _build.check(lib, code, name)
+    launch_counts[name] += 1
     return out
