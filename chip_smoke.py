@@ -6,20 +6,29 @@ pyramidal Lucas-Kanade path that serves frames
 (``lucas_kanade_pyramidal_step``) with ``PYRAMID_CONFIGS["production"]``
 (K1, K2, K3) and with ``PYRAMID_CONFIGS["default"]`` (K4, K5), and
 single-scale flow (``lucas_kanade_single_scale``, K6, and with
-``return_confidence``, K7); then the 13-pattern verifier gate
-(``tpuflow_torch.eval.verifier``) for every config with a committed
-fast-path baseline. Each hand-written CUDA kernel is checked against its
-plain PyTorch version. Phases, one line each or more (any failure raises
-and the script exits non-zero):
+``return_confidence``, K7); then the measurement entry points: the batched
+kernel API with ``window_mxu`` (K10), the shift ablation (K8), the
+warp-gather ablation (K9) and the stage profiler; then the 13-pattern
+verifier gate (``tpuflow_torch.eval.verifier``) for every config with a
+committed fast-path baseline. Each hand-written CUDA kernel is checked
+against its plain PyTorch version. Phases, one line each or more (any
+failure raises and the script exits non-zero):
 
 1. device: the card (name and power limit from nvidia-smi), the TF32 flags;
-2. build: nvcc builds every kernel from tpuflow_torch/csrc/;
+2. build: nvcc builds every kernel from tpuflow_torch/csrc/ (and, where
+   cuobjdump is present, counts the tensor-core mma instructions);
 3. kernels: each kernel at the main paths' shapes against its plain version
    on the card, with its median device time and the plain version's (CUDA
-   events);
+   events); K1-K7 also as batches of two 1080p planes (each element
+   against the plain version and against the kernel's 2-D launch); K10 at
+   windows 3/5/7, exact and relaxed Sobel, on a plane and a batch of two,
+   timed beside K6 and K3; K8 in its four kinds and K9 in both modes;
 4. main paths: each path run with the launch counts reset just before and
    read just after; the two streams (16 frames each) also run through the
-   plain versions on the card and are compared frame by frame;
+   plain versions on the card and are compared frame by frame; the
+   window_mxu kernel API on a 1080p batch; the two ablations' own
+   measurements (their JSON and lines printed); the profiler's 1080p
+   ``production`` report;
 5. gate: the 13-pattern suite through both LK modes for each config with a
    committed Pallas baseline, within 10% of it (provenance guard included);
 6. profile: device time by kernel and the device's busy share over 4 frames
@@ -29,7 +38,13 @@ Limits on the card: the warps (K1, K2, K4) bit-exact against their plain
 versions at bands 2/3/8 (K4 with clamp_flow on and off); the refine steps
 (K3, K5) u, v within 1e-5 px and their sums to rtol 1e-5 (block partials
 summed in another order); the single-scale solves (K6, K7) u, v and |det|
-within 1e-5; each stream: the same rounds per level on every frame, max
+within 1e-5; a batch element bit-identical to the kernel's 2-D launch; K10
+(tensor-core sums, which round otherwise than the plain version's
+torch.matmul) u, v within 2e-3 / 2e-4 / 5e-5 px at windows 3 / 5 / 7
+(widened, with the readings and the reason, at MXU_ATOL), and no further
+from an f64 solve than its plain version, |det| within 2e-6 of the
+plane's largest, sums to rtol 1e-5; K8 and K9
+bit-exact; each stream: the same rounds per level on every frame, max
 |du|, |dv| <= 1e-3 px, mean EPE < 0.5 px against the 2 px shift; the gate:
 every pattern within 10%, no_motion exactly 0 in both modes for the
 configs without packed-u16 warps, and the production configs' no_motion
@@ -47,7 +62,7 @@ from __future__ import annotations
 import argparse
 import json
 import re
-import statistics
+import shutil
 import subprocess
 import time
 from contextlib import contextmanager
@@ -58,10 +73,12 @@ from scipy.ndimage import gaussian_filter
 from scipy.ndimage import shift as nd_shift
 
 from tpuflow_torch import PYRAMID_CONFIGS, lucas_kanade_pyramidal_step, lucas_kanade_single_scale
+from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation
 from tpuflow_torch.core import ops
-from tpuflow_torch.eval import verifier
+from tpuflow_torch.eval import profile, verifier
+from tpuflow_torch.eval.timing import card_label, device_ms
 from tpuflow_torch.flow import pyramidal
-from tpuflow_torch.kernels import _build, launch_counts, lk, reset_launch_counts, torch_ref, warp
+from tpuflow_torch.kernels import _build, lk, torch_ref, warp
 
 HEIGHT, WIDTH = 1080, 1920
 N_FRAMES = 16
@@ -73,6 +90,8 @@ SUM_RTOL = 1e-5
 WARP_CU = "tpuflow_torch/csrc/warp.cu"
 REFINE_CU = "tpuflow_torch/csrc/lk_refine.cu"
 FUSED_CU = "tpuflow_torch/csrc/lk_fused.cu"
+MXU_CU = "tpuflow_torch/csrc/lk_mxu.cu"
+ABLATION_CU = "tpuflow_torch/csrc/ablation.cu"
 KERNELS = {
     "warp_packed_u8": (WARP_CU, "tpuflow/kernels/pallas_warp.py:498"),
     "warp_packed_u16": (WARP_CU, "tpuflow/kernels/pallas_warp.py:498"),
@@ -81,6 +100,11 @@ KERNELS = {
     "lk_refine_exact": (REFINE_CU, "tpuflow/kernels/pallas_lk.py:573"),
     "lk_fused": (FUSED_CU, "tpuflow/kernels/pallas_lk.py:460"),
     "lk_fused_conf": (FUSED_CU, "tpuflow/kernels/pallas_lk.py:460"),
+    "lk_refine_mxu": (MXU_CU, "tpuflow/kernels/pallas_lk.py:139"),
+    "lk_fused_mxu": (MXU_CU, "tpuflow/kernels/pallas_lk.py:139"),
+    "lk_fused_conf_mxu": (MXU_CU, "tpuflow/kernels/pallas_lk.py:139"),
+    "shift_ablation": (ABLATION_CU, "scripts/shift_ablation.py:82"),
+    "warp_mxu_ablation": (ABLATION_CU, "scripts/warp_mxu_ablation.py:91"),
 }
 # The kernels each main path must launch, and no others.
 PATH_KERNELS = {
@@ -88,7 +112,36 @@ PATH_KERNELS = {
     "default stream": {"warp_exact", "lk_refine_exact"},
     "single scale": {"lk_fused"},
     "single scale + confidence": {"lk_fused_conf"},
+    "batched kernel API, window_mxu": {"lk_refine_mxu", "lk_fused_mxu", "lk_fused_conf_mxu"},
+    "shift ablation": {"shift_ablation"},
+    "warp gather ablation": {"warp_mxu_ablation"},
 }
+# K10's tensor-core sums against the plain version's torch.matmul, u, v in
+# px by window. The first limits asked, 1e-4 / 1e-5 / 1e-5, hold on the
+# 8-bit frames (max |d| 0) and in tests/test_torch_gpu.py, but not on the
+# blurred float frames at 1080p, where the card read 6.4e-4 px (exact
+# Sobel, pixel (495, 1474), det 13.4 against a median of 460) and 9.0e-4
+# px (relaxed, (1069, 411), det 18.5) at window 3, 7.8e-5 px at window 5
+# and 2.4e-5 px at window 7. Those are the plain version's own f32
+# rounding at weakly conditioned windows: against an f64 solve K10 is the
+# closer of the two (window 3: both 1.2e-3 px; window 5: 5.0e-5 against
+# 6.1e-5; window 7: 1.3e-5 against 2.5e-5), which check_mxu re-checks. So
+# each limit is about twice the plain version's own error against f64.
+MXU_ATOL = {3: 2e-3, 5: 2e-4, 7: 5e-5}
+DET_RTOL = 2e-6  # of the plane's largest |det|
+_COUNTS = (warp.launch_counts, lk.launch_counts, shift_ablation.launch_counts,
+           warp_mxu_ablation.launch_counts)
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of every kernel, the ablations' included."""
+    return {name: n for counts in _COUNTS for name, n in counts.items()}
+
+
+def reset_launch_counts() -> None:
+    for counts in _COUNTS:
+        for name in counts:
+            counts[name] = 0
 
 
 def make_frames(seed: int, height: int = HEIGHT, width: int = WIDTH):
@@ -98,32 +151,6 @@ def make_frames(seed: int, height: int = HEIGHT, width: int = WIDTH):
     a = np.round(gaussian_filter(rng.uniform(0.0, 255.0, (height, width)), 2.0))
     b = nd_shift(a, (0.0, SHIFT_PX), order=1, mode="constant", cval=128.0)
     return a.astype(np.float32), b.astype(np.float32)
-
-
-def time_ms(fn, reps: int = 20, batches: int = 5) -> float:
-    """Median over ``batches`` of the device time of one call, each batch
-    timed with CUDA events around ``reps`` back-to-back calls. The calls
-    queue behind a GPU spin that outlasts their enqueue, so the host's
-    launch overhead does not show in the reading."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    enqueue_s = time.perf_counter() - t0
-    readings = []
-    for _ in range(batches):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(4 * enqueue_s * 2.0e9) + 1_000_000)  # ~4x the enqueue at 2 GHz
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        readings.append(start.elapsed_time(end) / reps)
-    return statistics.median(readings)
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -182,8 +209,8 @@ def check_kernels(dev, a, b, rng):
             if err != 0.0:
                 raise AssertionError(f"{name} band {band} at {shape}: max |d| {err} != 0")
         args = (curr, *flow, cfg.max_disp, 8, packing)
-        ms = time_ms(lambda: warp.warp_banded(*args))
-        plain_ms = time_ms(lambda: warp.warp_banded_ref(*args))
+        ms = device_ms(lambda: warp.warp_banded(*args))
+        plain_ms = device_ms(lambda: warp.warp_banded_ref(*args))
         print(f"[kernels] {name} {shape[0]}x{shape[1]}: bit-exact at bands 2/3/8, "
               f"{ms:.4f} ms (plain {plain_ms:.4f} ms)")
         _record(readings, name, ms, plain_ms, shape)
@@ -197,8 +224,8 @@ def check_kernels(dev, a, b, rng):
             dev, shape, windows)
         conv = torch.tensor(False, device=dev)
         rargs = (prev, warped, *flow, conv, cfg.window_size, cfg.det_threshold, 8.0, 3.0, True)
-        ms = time_ms(lambda: lk.lucas_kanade_refine(*rargs))
-        plain_ms = time_ms(lambda: lk.lucas_kanade_refine_ref(*rargs))
+        ms = device_ms(lambda: lk.lucas_kanade_refine(*rargs))
+        plain_ms = device_ms(lambda: lk.lucas_kanade_refine_ref(*rargs))
         print(f"[kernels] lk_refine {shape[0]}x{shape[1]} windows {windows}: max |d| {err:.3g} "
               f"px, sums rel {sums_rel:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms)")
         _record(readings, "lk_refine", ms, plain_ms, shape)
@@ -222,8 +249,8 @@ def check_kernels(dev, a, b, rng):
                                          f"{shape}: max |d| {err} != 0")
         flow = _flow(rng, shape, 9.0, dev)
         args = (curr, *flow, cfg.max_disp, 8, "exact", True)
-        ms = time_ms(lambda: warp.warp_banded(*args))
-        plain_ms = time_ms(lambda: warp.warp_banded_ref(*args))
+        ms = device_ms(lambda: warp.warp_banded(*args))
+        plain_ms = device_ms(lambda: warp.warp_banded_ref(*args))
         print(f"[kernels] warp_exact {shape[0]}x{shape[1]}: bit-exact at bands 2/3/8, "
               f"clamp_flow on and off, {ms:.4f} ms (plain {plain_ms:.4f} ms)")
         _record(readings, "warp_exact", ms, plain_ms, shape)
@@ -236,8 +263,8 @@ def check_kernels(dev, a, b, rng):
             dev, shape, windows)
         conv = torch.tensor(False, device=dev)
         rargs = (prev, warped, *flow, conv, cfg.window_size, cfg.det_threshold, 8.0, 8.0, False)
-        ms = time_ms(lambda: lk.lucas_kanade_refine(*rargs))
-        plain_ms = time_ms(lambda: lk.lucas_kanade_refine_ref(*rargs))
+        ms = device_ms(lambda: lk.lucas_kanade_refine(*rargs))
+        plain_ms = device_ms(lambda: lk.lucas_kanade_refine_ref(*rargs))
         print(f"[kernels] lk_refine_exact {shape[0]}x{shape[1]} windows {windows}: max |d| "
               f"{err:.3g} px, sums rel {sums_rel:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms)")
         _record(readings, "lk_refine_exact", ms, plain_ms, shape)
@@ -257,12 +284,249 @@ def check_kernels(dev, a, b, rng):
                                          f"relaxed={relaxed}: max |d| {err}")
         readings[name]["max_abs_err"] = err
         fargs = (a, b, 5, 1e-4, False, 1.0, conf, False)
-        ms = time_ms(lambda: lk.lucas_kanade_fused(*fargs))
-        plain_ms = time_ms(lambda: lk.lucas_kanade_fused_ref(*fargs))
+        ms = device_ms(lambda: lk.lucas_kanade_fused(*fargs))
+        plain_ms = device_ms(lambda: lk.lucas_kanade_fused_ref(*fargs))
         print(f"[kernels] {name} {shape[0]}x{shape[1]}: exact and relaxed, windows 3/5/7, "
               f"taps at 5: max |d| {err:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms)")
         _record(readings, name, ms, plain_ms, shape)
+
+    check_batched(dev, a, b, rng)
+    check_mxu(dev, a, b, rng, readings)
+    check_ablations(dev, readings)
     return readings
+
+
+def _equal_per_element(name, got, args_of, fn):
+    """Each batch element of a kernel's outputs equals its 2-D launch."""
+    for b in range(got[0].shape[0]):
+        single = fn(*args_of(b))
+        single = single if isinstance(single, tuple) else (single,)
+        for g, w in zip(got, single):
+            if not torch.equal(g[b], w):
+                raise AssertionError(f"{name}: batch element {b} differs from its 2-D launch")
+
+
+def check_batched(dev, a, b, rng):
+    """Phase 3, batches: K1-K7 on two 1080p planes (the coarse level for
+    K2), each element against the plain version and the kernel's own 2-D
+    launch."""
+    pair = torch.stack([a, b])
+    swap = torch.stack([b, a])
+    shape = tuple(pair.shape)
+    cfg = PYRAMID_CONFIGS["production"]
+    coarse = torch.stack([torch_ref.build_gaussian_pyramid(f, 2, cfg.scale_factor)[0]
+                          for f in (a, b)])
+    cases = [("warp_packed_u8", pair, (8, 3, "u8", True)),
+             ("warp_packed_u16", coarse, (8, 3, "u16", True)),
+             ("warp_exact", pair, (8, 8, "exact", True)),
+             ("warp_exact", pair, (8, 3, "exact", False))]
+    for name, img, wargs in cases:
+        flow = [torch.from_numpy(rng.uniform(-12, 12, img.shape).astype(np.float32)).to(dev)
+                for _ in range(2)]
+        got = warp.warp_banded(img, *flow, *wargs)
+        torch.cuda.synchronize()
+        err = max_abs(got, warp.warp_banded_ref(img, *flow, *wargs))
+        if err != 0.0:
+            raise AssertionError(f"batched {name} {wargs}: max |d| {err} != 0")
+        _equal_per_element(name, (got,), lambda i: (img[i], flow[0][i], flow[1][i], *wargs),
+                           warp.warp_banded)
+    ms = device_ms(lambda: warp.warp_banded(pair, *flow, *cases[-1][2]))
+    print(f"[kernels] batched warps, B=2: u8 and exact at {shape[1]}x{shape[2]}, u16 at "
+          f"{coarse.shape[1]}x{coarse.shape[2]}: bit-exact, each element = its 2-D launch; "
+          f"warp_exact B=2 {ms:.4f} ms")
+
+    flow = _flow(rng, shape, 9.0, dev)
+    conv = torch.tensor([False, True], device=dev)
+    for relaxed, name in ((True, "lk_refine"), (False, "lk_refine_exact")):
+        err = sums_rel = 0.0
+        for window in (3, 5, 7):
+            rargs = (pair, swap, *flow, conv, window, 1e-4, 8.0, 3.0, relaxed)
+            got = lk.lucas_kanade_refine(*rargs)
+            want = lk.lucas_kanade_refine_ref(*rargs)
+            torch.cuda.synchronize()
+            err = max(err, max_abs(got[0], want[0]), max_abs(got[1], want[1]))
+            sums_rel = max(sums_rel, float(((got[2] - want[2]).abs() / want[2].abs()).max()),
+                           float(((got[3] - want[3]).abs() / want[3].abs()).max()))
+            if err > REFINE_ATOL or sums_rel > SUM_RTOL:
+                raise AssertionError(f"batched {name} window {window}: max |d| {err}, "
+                                     f"sums rel {sums_rel}")
+            _equal_per_element(name, got, lambda i: (pair[i], swap[i], flow[0][i], flow[1][i],
+                                                     conv[i:i + 1], *rargs[5:]),
+                               lk.lucas_kanade_refine)
+        ms = device_ms(lambda: lk.lucas_kanade_refine(*rargs[:5], 5, *rargs[6:]))
+        print(f"[kernels] batched {name}, B=2 at {shape[1]}x{shape[2]}, windows 3/5/7, one "
+              f"element converged: max |d| {err:.3g} px, sums rel {sums_rel:.3g}, each element "
+              f"= its 2-D launch; window 5 {ms:.4f} ms")
+
+    for conf, name in ((False, "lk_fused"), (True, "lk_fused_conf")):
+        err = 0.0
+        for relaxed in (False, True):
+            for window, taps in ((3, False), (5, False), (7, False), (5, True)):
+                fargs = (pair, swap, window, 1e-4, taps, 1.0, conf, relaxed)
+                got = lk.lucas_kanade_fused(*fargs)
+                want = lk.lucas_kanade_fused_ref(*fargs)
+                torch.cuda.synchronize()
+                err = max(err, *(max_abs(g, w) for g, w in zip(got, want)))
+                if err > FUSED_ATOL:
+                    raise AssertionError(f"batched {name} window {window} taps={taps} "
+                                         f"relaxed={relaxed}: max |d| {err}")
+                _equal_per_element(name, got, lambda i: (pair[i], swap[i], *fargs[2:]),
+                                   lk.lucas_kanade_fused)
+        print(f"[kernels] batched {name}, B=2 at {shape[1]}x{shape[2]}, exact and relaxed, "
+              f"windows 3/5/7, taps at 5: max |d| {err:.3g}, each element = its 2-D launch")
+
+
+def _mxu_errors(got, want, window):
+    """K10 against its plain version: the u, v error and its place, the
+    |det| error relative to the plane's largest |det|, the sums' relative
+    error; raises past the limits."""
+    err, where = 0.0, None
+    for g, w in zip(got[:2], want[:2]):
+        d = (g - w).abs()
+        if float(d.max()) > err:
+            err = float(d.max())
+            where = np.unravel_index(int(d.argmax()), tuple(d.shape))
+    det_rel = sums_rel = 0.0
+    if len(got) == 3:
+        det_rel = max_abs(got[2], want[2]) / float(want[2].abs().max())
+    if len(got) == 4:
+        sums_rel = max(float(((g - w).abs() / w.abs()).max()) for g, w in zip(got[2:], want[2:]))
+    if err > MXU_ATOL[window] or det_rel > DET_RTOL or sums_rel > SUM_RTOL:
+        raise AssertionError(f"window {window}: max |du|,|dv| {err} at {where}, |det| rel "
+                             f"{det_rel}, sums rel {sums_rel}")
+    return err, det_rel, sums_rel
+
+
+def check_mxu(dev, a, b, rng, readings):
+    """Phase 3, K10: the window_mxu refine, fused and fused-with-|det|
+    kernels at 1080p against their plain versions, on a plane and a batch of
+    two, windows 3/5/7, exact and relaxed Sobel; timed beside K6 and K3.
+    On the 8-bit frames every product is a multiple of 2^-8, and on these
+    smooth frames the window sums stay small enough to be exact in f32, so
+    any order of the adds gives the same sums; the same frames blurred
+    (sigma 1, not rounded) make the tensor-core rounding show."""
+    flow1 = _flow(rng, tuple(a.shape), 9.0, dev)
+    flow2 = [torch.stack([f, f.flip(0)]) for f in flow1]
+    inputs = []
+    for frames, (fa, fb) in (("8-bit", (a, b)),
+                             ("float", (ops.gaussian_filter(a, 1.0), ops.gaussian_filter(b, 1.0)))):
+        inputs.append((frames, 1, fa, fb, flow1, torch.tensor(False, device=dev)))
+        inputs.append((frames, 2, torch.stack([fa, fb]), torch.stack([fb, fa]), flow2,
+                       torch.tensor([False, True], device=dev)))
+    for name in ("lk_refine_mxu", "lk_fused_mxu", "lk_fused_conf_mxu"):
+        worst = {frames: {3: 0.0, 5: 0.0, 7: 0.0} for frames in ("8-bit", "float")}
+        det_rel = sums_rel = 0.0
+        for frames, batch, p, c, flow, conv in inputs:
+            for relaxed in (False, True):
+                for window in (3, 5, 7):
+                    if name == "lk_refine_mxu":
+                        args = (p, c, *flow, conv, window, 1e-4, 8.0, 3.0, relaxed, True)
+                        got = lk.lucas_kanade_refine(*args)
+                        want = lk.lucas_kanade_refine_ref(*args)
+                    else:
+                        args = (p, c, window, 1e-4, False, 1.0, name == "lk_fused_conf_mxu",
+                                relaxed, True)
+                        got = lk.lucas_kanade_fused(*args)
+                        want = lk.lucas_kanade_fused_ref(*args)
+                    torch.cuda.synchronize()
+                    try:
+                        err, drel, srel = _mxu_errors(got, want, window)
+                    except AssertionError as exc:
+                        raise AssertionError(f"{name} {frames} frames B={batch} "
+                                             f"relaxed={relaxed}: {exc}") from exc
+                    worst[frames][window] = max(worst[frames][window], err)
+                    det_rel, sums_rel = max(det_rel, drel), max(sums_rel, srel)
+        readings[name]["max_abs_err"] = max(max(w.values()) for w in worst.values())
+        readings[name]["max_abs_err_by_window"] = worst
+        print(f"[kernels] {name} 1080x1920, plane and B=2, exact and relaxed: max |du|,|dv| "
+              + "; ".join(f"{frames} frames {w[3]:.3g} / {w[5]:.3g} / {w[7]:.3g} px"
+                          for frames, w in worst.items())
+              + " at windows 3/5/7"
+              + (f", |det| rel {det_rel:.3g}" if name == "lk_fused_conf_mxu" else "")
+              + (f", sums rel {sums_rel:.3g}" if name == "lk_refine_mxu" else ""))
+
+    # Accuracy against an f64 solve on the float frames: K10 no further from
+    # it than its plain version (10% slack), K6 printed beside them.
+    fa, fb = inputs[2][2], inputs[2][3]
+    for relaxed in (False, True):
+        errs = {}
+        for window in (3, 5, 7):
+            truth = lk.lucas_kanade_fused_ref(fa.double(), fb.double(), window,
+                                              relaxed_order=relaxed)
+            for label, out in (
+                ("K10", lk.lucas_kanade_fused(fa, fb, window, relaxed_order=relaxed,
+                                              window_mxu=True)),
+                ("plain", lk.lucas_kanade_fused_ref(fa, fb, window, relaxed_order=relaxed,
+                                                    window_mxu=True)),
+                ("K6", lk.lucas_kanade_fused(fa, fb, window, relaxed_order=relaxed)),
+            ):
+                errs[label, window] = max(float((o.double() - t).abs().max())
+                                          for o, t in zip(out, truth))
+            if errs["K10", window] > 1.1 * errs["plain", window]:
+                raise AssertionError(f"lk_fused_mxu relaxed={relaxed} window {window}: "
+                                     f"{errs} against an f64 solve")
+        print(f"[kernels] K10 against an f64 solve, float frames, relaxed={relaxed}: max "
+              "|du|,|dv| at windows 3/5/7 " + "; ".join(
+                  f"{label} " + " / ".join(f"{errs[label, w]:.3g}" for w in (3, 5, 7))
+                  for label in ("K10", "plain", "K6")) + " px")
+
+    # Device time at window 5 beside the shift-sum kernels: the fused solve
+    # in exact order (K6), the refine in relaxed order (K3).
+    conv = torch.tensor(False, device=dev)
+    pairs = {
+        "lk_fused_mxu": ((a, b, 5, 1e-4, False, 1.0, False, False, True),
+                         lk.lucas_kanade_fused, lk.lucas_kanade_fused_ref, "lk_fused"),
+        "lk_fused_conf_mxu": ((a, b, 5, 1e-4, False, 1.0, True, False, True),
+                              lk.lucas_kanade_fused, lk.lucas_kanade_fused_ref, "lk_fused_conf"),
+        "lk_refine_mxu": ((a, b, *flow1, conv, 5, 1e-4, 8.0, 3.0, True, True),
+                          lk.lucas_kanade_refine, lk.lucas_kanade_refine_ref, "lk_refine"),
+    }
+    for name, (args, fn, ref, shift_name) in pairs.items():
+        shift_args = args[:-1] + (False,)
+        shift_ms = device_ms(lambda: fn(*shift_args))
+        ms = device_ms(lambda: fn(*args))
+        plain_ms = device_ms(lambda: ref(*args))
+        again_shift = device_ms(lambda: fn(*shift_args))
+        readings[name].update(ms=ms, plain_ms=plain_ms, shape=[HEIGHT, WIDTH],
+                              beside={shift_name: [shift_ms, again_shift]})
+        print(f"[kernels] {name} 1080x1920 window 5: {ms:.4f} ms (plain {plain_ms:.4f} ms); "
+              f"{shift_name} in the same call {shift_ms:.4f} and {again_shift:.4f} ms")
+
+
+def check_ablations(dev, readings):
+    """Phase 3, K8 and K9: every kind and mode bit-exact against the plain
+    versions, with device times of kernel and plain."""
+    a = shift_ablation.make_input(dev)
+    for kind in shift_ablation.KINDS:
+        got, want = shift_ablation.shift_adds(a, kind), shift_ablation.shift_adds_ref(a, kind)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"shift_ablation {kind}: max |d| {max_abs(got, want)} != 0")
+    ms = device_ms(lambda: shift_ablation.shift_adds(a, "aligned"), reps=200)
+    plain_ms = device_ms(lambda: shift_ablation.shift_adds_ref(a, "aligned"))
+    readings["shift_ablation"].update(ms=ms, plain_ms=plain_ms, shape=list(a.shape))
+    print(f"[kernels] shift_ablation {tuple(a.shape)} -> ({shift_ablation.OUT_R}, "
+          f"{shift_ablation.OUT_C}): bit-exact in all four kinds; aligned {ms:.4f} ms "
+          f"(plain {plain_ms:.4f} ms)")
+
+    x, off = warp_mxu_ablation.make_inputs(dev)
+    times = {}
+    for mode in warp_mxu_ablation.MODES:
+        got = warp_mxu_ablation.candidate_accumulate(x, off, mode)
+        want = warp_mxu_ablation.candidate_accumulate_ref(x, off, mode)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"warp_mxu_ablation {mode}: max |d| {max_abs(got, want)} != 0")
+        times[mode] = (
+            device_ms(lambda mode=mode: warp_mxu_ablation.candidate_accumulate(x, off, mode),
+                    reps=200),
+            device_ms(lambda mode=mode: warp_mxu_ablation.candidate_accumulate_ref(x, off, mode)))
+    readings["warp_mxu_ablation"].update(ms=times["gather"][0], plain_ms=times["gather"][1],
+                                         shifts_ms=times["shifts"][0],
+                                         shifts_plain_ms=times["shifts"][1], shape=list(off.shape))
+    print(f"[kernels] warp_mxu_ablation {tuple(off.shape)}: bit-exact in both modes; gather "
+          f"{times['gather'][0]:.4f} ms (plain {times['gather'][1]:.4f}), shifts "
+          f"{times['shifts'][0]:.4f} ms (plain {times['shifts'][1]:.4f})")
 
 
 @contextmanager
@@ -385,6 +649,59 @@ def check_single_scale(a, b, confidence: bool):
     return counts
 
 
+def check_mxu_path(a, b):
+    """Phase 4, the window_mxu kernel API a user calls: the refine step and
+    the fused solve, with and without |det|, on a 1080p batch of two."""
+    pair, swap = torch.stack([a, b]), torch.stack([b, a])
+    zeros = torch.zeros_like(pair)
+    conv = torch.zeros(2, dtype=torch.bool, device=a.device)
+
+    def run():
+        refine = lk.lucas_kanade_refine(pair, swap, zeros, zeros, conv, 5, 1e-4, 8.0, 3.0,
+                                        True, window_mxu=True)
+        fused = lk.lucas_kanade_fused(pair, swap, window_mxu=True)
+        conf = lk.lucas_kanade_fused(pair, swap, return_confidence=True, window_mxu=True)
+        return refine, fused, conf
+
+    (refine, fused, conf), counts = counted("batched kernel API, window_mxu", run)
+    for out in (refine[:2], fused, conf):
+        if not all(t.shape == pair.shape and bool(torch.isfinite(t).all()) for t in out):
+            raise AssertionError("window_mxu path gave non-finite or misshapen output")
+    # a -> b moves +2 px, b -> a -2 px.
+    med = [float(fused[0][i, 32:-32, 32:-32].median()) for i in range(2)]
+    print(f"[main] batched kernel API, window_mxu, B=2 at {HEIGHT}x{WIDTH}: launches {counts}, "
+          f"interior median u {med[0]:.4f} / {med[1]:.4f} px (a->b, b->a), sums |du| "
+          f"{[round(float(t), 1) for t in refine[2]]}")
+    if not (0.5 < med[0] < 3.0 and -3.0 < med[1] < -0.5):
+        raise AssertionError(f"window_mxu flow medians {med}: not the +-{SHIFT_PX} px motion")
+    return counts
+
+
+def check_ablation_paths(dev):
+    """Phase 4, the ablations' own measurements (their main()), printed as
+    the TPU scripts print them."""
+    doc, counts = counted("shift ablation",
+                          lambda: shift_ablation.measure(shift_ablation.make_input(dev)))
+    print(f"[main] shift ablation: launches {counts}")
+    print(json.dumps(doc))
+    all_counts = dict(counts)
+    times, counts = counted("warp gather ablation",
+                            lambda: warp_mxu_ablation.measure(*warp_mxu_ablation.make_inputs(dev)))
+    print(f"[main] warp gather ablation: launches {counts}")
+    for mode, us in times.items():
+        print(f"{mode:7s}: {us:8.2f} us per {warp_mxu_ablation.ROWS}x{warp_mxu_ablation.WP} "
+              f"tile ({warp_mxu_ablation.ITERS} candidate iterations)")
+    all_counts.update(counts)
+    return all_counts
+
+
+def report_profile(label: str) -> None:
+    """Phase 4, the stage profiler's 1080p production report."""
+    rows = profile.profile_pipeline(HEIGHT, WIDTH, "production")
+    for line in profile.format_report(rows, HEIGHT, WIDTH, label).splitlines():
+        print(f"[profiler] {line}")
+
+
 def run_gate():
     """Phase 5: the verifier's 13-pattern gate on the card, each config with
     a committed Pallas baseline."""
@@ -454,10 +771,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only on a GPU")
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_label()
     ops.pin_f32_matmul()
     print(f"[device] {smi}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -473,6 +787,14 @@ def main() -> None:
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 0.0:.1f} s; "
           f"at most {max((int(r) for r, _ in usage), default=0)} registers and "
           f"{max((int(s) for _, s in usage), default=0)} B of shared memory a block)")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path())],
+                              capture_output=True, text=True, check=True, timeout=120).stdout
+        print(f"[build] tensor-core mma (HMMA) instructions in the library: "
+              f"{sass.count('HMMA')}")
+    except (OSError, subprocess.SubprocessError) as exc:
+        print(f"[build] tensor-core mma count not taken: {exc}")
 
     # 3. kernels
     fa, fb = make_frames(args.seed)
@@ -486,6 +808,9 @@ def main() -> None:
     counts.update(check_stream(a, b, "default"))
     counts.update(check_single_scale(a, b, confidence=False))
     counts.update(check_single_scale(a, b, confidence=True))
+    counts.update(check_mxu_path(a, b))
+    counts.update(check_ablation_paths(dev))
+    report_profile(smi)
     missing = [name for name in KERNELS if not counts.get(name)]
     if missing:
         raise AssertionError(f"kernels launched on no main path: {missing}")

@@ -1,0 +1,106 @@
+"""The ablation microkernels' plain PyTorch versions (K8, K9) against the
+TPU scripts' Pallas kernels, run in interpret mode on the CPU. The scripts
+are not a package; they are imported by file path and stay unedited.
+
+- K8 (``shift_ablation.shift_adds``): against ``make_fn(kind)(a, 1)``, which
+  returns the kernel's out[0, 0] * 1e-20, exactly, and against slice-adds
+  built in numpy from the script's ``_offsets``, exactly, for all four
+  kinds (there are only adds, in one order).
+- K9 (``warp_mxu_ablation.candidate_accumulate``): against ``_build(mode, 8,
+  256)`` in both modes, within one ulp of the largest |acc|. XLA:CPU contracts
+  ``acc + g * c`` into an FMA where the port rounds the product and the add
+  separately, as the CUDA kernel does under ``-fmad=false`` (measured 4.9e-4,
+  one ulp at |acc| < 8192, on 29% of pixels in gather mode and 32% in
+  shifts mode).
+"""
+
+import importlib.util
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation
+
+SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
+
+
+def _script(name):
+    spec = importlib.util.spec_from_file_location(f"_tpu_{name}", SCRIPTS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def tpu_shift():
+    return _script("shift_ablation")
+
+
+@pytest.fixture(scope="module")
+def tpu_warp():
+    return _script("warp_mxu_ablation")
+
+
+def test_shift_constants_match_the_script(tpu_shift):
+    assert (shift_ablation.ROWS, shift_ablation.COLS) == (tpu_shift.ROWS, tpu_shift.COLS)
+    assert (shift_ablation.OUT_R, shift_ablation.OUT_C) == (tpu_shift.OUT_R, tpu_shift.OUT_C)
+    assert shift_ablation.N_SHIFTS == tpu_shift.N_SHIFTS
+    for kind in shift_ablation.KINDS:
+        assert shift_ablation.offsets(kind) == tpu_shift._offsets(kind)
+
+
+@pytest.mark.parametrize("kind", shift_ablation.KINDS)
+def test_shift_adds_plain_matches_pallas(rng, tpu_shift, kind):
+    a = rng.uniform(0.0, 1.0, (tpu_shift.ROWS, tpu_shift.COLS)).astype(np.float32)
+    got = shift_ablation.shift_adds(torch.from_numpy(a), kind).numpy()
+    with pltpu.force_tpu_interpret_mode():
+        scalar = float(tpu_shift.make_fn(kind)(jnp.asarray(a), 1))
+    assert scalar == float(np.float32(got[0, 0]) * np.float32(1e-20))
+    r, c = tpu_shift._offsets(kind)
+    n_r, n_c = tpu_shift.OUT_R, tpu_shift.OUT_C
+    want = a[r[0] : r[0] + n_r, c[0] : c[0] + n_c]
+    for i in range(1, len(r)):
+        want = want + a[r[i] : r[i] + n_r, c[0] : c[0] + n_c]
+    for i in range(1, len(c)):
+        want = want + a[r[0] : r[0] + n_r, c[i] : c[i] + n_c]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_warp_gather_constants_match_the_script(tpu_warp):
+    assert warp_mxu_ablation.ITERS == tpu_warp.ITERS
+    assert warp_mxu_ablation.MAXD == tpu_warp.MAXD
+
+
+@pytest.mark.parametrize("mode", warp_mxu_ablation.MODES)
+def test_warp_gather_plain_matches_pallas(tpu_warp, mode):
+    rows, wp = 8, 256
+    x, off = warp_mxu_ablation.make_inputs(torch.device("cpu"), rows, wp)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(tpu_warp._build(mode, rows, wp)(
+            jnp.asarray(x.numpy()[None]), jnp.asarray(off.numpy()[None])))[0]
+    got = warp_mxu_ablation.candidate_accumulate(x, off, mode).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=float(np.spacing(np.abs(want).max())))
+    assert (got != want).any()  # the FMA contraction is real, so the limit is needed
+
+
+def test_ablation_wrappers_check_inputs_and_count_no_cpu_launch():
+    before = (dict(shift_ablation.launch_counts), dict(warp_mxu_ablation.launch_counts))
+    a = shift_ablation.make_input(torch.device("cpu"))
+    with pytest.raises(ValueError):
+        shift_ablation.shift_adds(a, "diagonal")
+    with pytest.raises(ValueError):
+        shift_ablation.shift_adds(a[:, :1024], "aligned")
+    shift_ablation.shift_adds(a, "aligned")
+    x, off = warp_mxu_ablation.make_inputs(torch.device("cpu"), 2, 128)
+    with pytest.raises(ValueError):
+        warp_mxu_ablation.candidate_accumulate(x, off, "matmul")
+    with pytest.raises(ValueError):
+        warp_mxu_ablation.candidate_accumulate(x[:, :300], off, "gather")
+    with pytest.raises(TypeError):
+        warp_mxu_ablation.candidate_accumulate(x, off.to(torch.int64), "gather")
+    warp_mxu_ablation.candidate_accumulate(x, off, "shifts")
+    assert (shift_ablation.launch_counts, warp_mxu_ablation.launch_counts) == before

@@ -10,7 +10,13 @@ Limits: the warps (K1, K2, K4) bit-exact; the refine steps' (K3, K5) u, v
 within 1e-5 px and their sums to rtol 1e-5 (per-block partials are summed
 in another order); the fused single-scale solve (K6, K7) u, v and |det|
 within 1e-5; short `production` and `default` streams with the same rounds
-per level and within 1e-3 px.
+per level and within 1e-3 px. Batches (B = 2): each element of a batched
+launch bit-identical to the same kernel's 2-D launch on that plane, and
+within the limits above of the plain version. The window_mxu kernels
+(K10), whose tensor-core sums round otherwise than the plain version's
+torch.matmul: u, v within 1e-4 px at window 3 and 1e-5 px at 5 and 7,
+|det| within 2e-6 of the plane's largest, sums to rtol 1e-5. The ablation
+microkernels (K8, K9) bit-exact.
 """
 
 import numpy as np
@@ -19,6 +25,7 @@ import torch
 from scipy.ndimage import gaussian_filter
 
 from tpuflow_torch import PYRAMID_CONFIGS, lucas_kanade_pyramidal_step
+from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation
 from tpuflow_torch.flow import pyramidal
 from tpuflow_torch.kernels import launch_counts, lk, torch_ref, warp
 
@@ -144,3 +151,116 @@ def test_short_stream_matches_plain_path(cuda, monkeypatch, config):
         assert n == pn
         torch.testing.assert_close(u, pu, rtol=0, atol=1e-3)
         torch.testing.assert_close(v, pv, rtol=0, atol=1e-3)
+
+
+def _smooth(rng, shape, dev):
+    """Textured frames (a smoothed noise frame, batched along axis 0) and
+    the same shifted 1 px with noise."""
+    prev = np.stack([gaussian_filter(rng.uniform(0, 255, shape[-2:]), 2.0)
+                     for _ in range(int(np.prod(shape[:-2])))]).reshape(shape)
+    prev = torch.from_numpy(prev.astype(np.float32)).to(dev)
+    return prev, prev.roll(1, dims=-1) + _rand(rng, shape, -1, 1, dev)
+
+
+@pytest.mark.parametrize("packing,clamp", [("u8", True), ("u16", True), ("exact", True),
+                                           ("exact", False)])
+def test_batched_warp_kernel_bit_exact_per_element(cuda, packing, clamp):
+    rng = np.random.default_rng(7)
+    shape = (2, 37, 61)
+    img = _rand(rng, shape, 0, 255, cuda)
+    if packing == "u8":
+        img = img.round()
+    u, v = _rand(rng, shape, -12, 12, cuda), _rand(rng, shape, -12, 12, cuda)
+    args = (8, 3, packing, clamp)
+    got = warp.warp_banded(img, u, v, *args)
+    assert torch.equal(got, warp.warp_banded_ref(img, u, v, *args))
+    for b in range(2):
+        assert torch.equal(got[b], warp.warp_banded(img[b], u[b], v[b], *args))
+
+
+@pytest.mark.parametrize("window", [3, 5, 7])
+@pytest.mark.parametrize("relaxed", [True, False])
+@pytest.mark.parametrize("mxu", [False, True])
+def test_batched_refine_kernel_per_element(cuda, window, relaxed, mxu):
+    rng = np.random.default_rng(window)
+    prev, warped = _smooth(rng, (2, 52, 200), cuda)
+    u, v = _rand(rng, prev.shape, -9, 9, cuda), _rand(rng, prev.shape, -9, 9, cuda)
+    conv = torch.tensor([True, False], device=cuda)
+    args = (window, 1e-4, 8.0, 3.0, relaxed, mxu)
+    name = "lk_refine_mxu" if mxu else "lk_refine" if relaxed else "lk_refine_exact"
+    before = launch_counts()[name]
+    got = lk.lucas_kanade_refine(prev, warped, u, v, conv, *args)
+    want = lk.lucas_kanade_refine_ref(prev, warped, u, v, conv, *args)
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == before + 1
+    assert got[2].shape == got[3].shape == (2,)
+    atol = 1e-4 if mxu and window == 3 else 1e-5
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=0, atol=atol)
+    for g, w in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got[0][0], u[0].clamp(-8, 8))
+    for b in range(2):
+        single = lk.lucas_kanade_refine(prev[b], warped[b], u[b], v[b], conv[b:b + 1], *args)
+        for g, s in zip(got, single):
+            assert torch.equal(g[b], s)
+
+
+@pytest.mark.parametrize("window,taps", [(3, False), (5, False), (7, False), (5, True)])
+@pytest.mark.parametrize("relaxed", [False, True])
+@pytest.mark.parametrize("mxu", [False, True])
+def test_batched_fused_kernel_per_element(cuda, window, taps, relaxed, mxu):
+    rng = np.random.default_rng(10 + window)
+    prev, curr = _smooth(rng, (2, 37, 161), cuda)
+    kw = dict(gaussian_weights=taps, return_confidence=True, relaxed_order=relaxed,
+              window_mxu=mxu)
+    name = "lk_fused_conf" + ("_mxu" if mxu and not taps else "")
+    before = launch_counts()[name]
+    got = lk.lucas_kanade_fused(prev, curr, window, **kw)
+    want = lk.lucas_kanade_fused_ref(prev, curr, window, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == before + 1
+    atol = 1e-4 if mxu and not taps and window == 3 else 1e-5
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=0, atol=atol)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=2e-6 * float(want[2].max()))
+    for b in range(2):
+        single = lk.lucas_kanade_fused(prev[b], curr[b], window, **kw)
+        for g, s in zip(got, single):
+            assert torch.equal(g[b], s)
+
+
+@pytest.mark.parametrize("window", [3, 5, 7])
+@pytest.mark.parametrize("relaxed", [False, True])
+def test_mxu_fused_kernel_on_planes(cuda, window, relaxed):
+    rng = np.random.default_rng(20 + window)
+    prev, curr = _smooth(rng, (64, 200), cuda)
+    before = launch_counts()["lk_fused_mxu"]
+    got = lk.lucas_kanade_fused(prev, curr, window, relaxed_order=relaxed, window_mxu=True)
+    want = lk.lucas_kanade_fused_ref(prev, curr, window, relaxed_order=relaxed, window_mxu=True)
+    torch.cuda.synchronize()
+    assert launch_counts()["lk_fused_mxu"] == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 if window == 3 else 1e-5)
+
+
+@pytest.mark.parametrize("kind", shift_ablation.KINDS)
+def test_shift_ablation_kernel_bit_exact(cuda, kind):
+    a = shift_ablation.make_input(cuda)
+    before = shift_ablation.launch_counts["shift_ablation"]
+    got = shift_ablation.shift_adds(a, kind)
+    want = shift_ablation.shift_adds_ref(a, kind)
+    torch.cuda.synchronize()
+    assert shift_ablation.launch_counts["shift_ablation"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", warp_mxu_ablation.MODES)
+def test_warp_gather_ablation_kernel_bit_exact(cuda, mode):
+    x, off = warp_mxu_ablation.make_inputs(cuda)
+    before = warp_mxu_ablation.launch_counts["warp_mxu_ablation"]
+    got = warp_mxu_ablation.candidate_accumulate(x, off, mode)
+    want = warp_mxu_ablation.candidate_accumulate_ref(x, off, mode)
+    torch.cuda.synchronize()
+    assert warp_mxu_ablation.launch_counts["warp_mxu_ablation"] == before + 1
+    assert torch.equal(got, want)

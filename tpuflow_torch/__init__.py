@@ -11,7 +11,10 @@ The PyTorch counterpart of ``tpuflow`` (JAX), module for module:
                              ``backend="torch"`` (parity) and
                              ``backend="cuda"`` (fast path).
 - ``tpuflow_torch.eval``     the 13-pattern verifier and its CLI
-                             (``python -m tpuflow_torch.eval.verifier``).
+                             (``python -m tpuflow_torch.eval.verifier``),
+                             and the stage profiler
+                             (``python -m tpuflow_torch.eval.profile``).
+- ``tpuflow_torch.ablation`` the two measurement microkernels (K8, K9).
 - ``tpuflow_torch.convert``  configs and pyramids carried over from
                              ``tpuflow``.
 

@@ -6,15 +6,18 @@
 // :573) -> _lk_refine_kernel -> _lk_tile, windows 3, 5 and 7:
 //   relaxed = 1: relaxed_order=True, separable Sobel and shift-tree sums (K3);
 //   relaxed = 0: relaxed_order=False, direct Sobel and sequential sums (K5).
-// The tile kernel, what it computes and its design are in lk_tile.cuh. The
-// wrapper adds the per-block partials with torch.sum, as XLA adds the TPU
-// kernel's per-tile partials (pallas_lk.py:606-607).
+// The tile kernel, what it computes and its design are in lk_tile.cuh. One
+// launch covers a batch of `batch` elements (blockIdx.z), each with its own
+// converged flag. The wrapper adds each element's per-block partials with
+// torch.sum, as XLA adds the TPU kernel's per-tile partials
+// (pallas_lk.py:606-607). The window_mxu variant (K10) is in lk_mxu.cu.
 
 #include "lk_tile.cuh"
 
 using namespace tpuflow_lk;
 
-// Number of per-block partial sums (the length of part_du / part_dv).
+// Number of per-block partial sums of one batch element (part_du and
+// part_dv hold batch times as many).
 extern "C" int tpuflow_lk_refine_blocks(int height, int width) {
   return num_blocks(height, width);
 }
@@ -23,9 +26,10 @@ extern "C" int tpuflow_lk_refine(const float* prev, const float* warped,
                                  const float* u_in, const float* v_in,
                                  const void* converged, float* u_out,
                                  float* v_out, float* part_du, float* part_dv,
-                                 int height, int width, int window, int relaxed,
-                                 float det_threshold, float max_disp,
-                                 float max_disp_v, void* stream) {
+                                 int batch, int height, int width, int window,
+                                 int relaxed, float det_threshold,
+                                 float max_disp, float max_disp_v,
+                                 void* stream) {
   LkArgs args{};
   args.prev = prev;
   args.curr = warped;
@@ -42,6 +46,6 @@ extern "C" int tpuflow_lk_refine(const float* prev, const float* warped,
   args.max_disp = max_disp;
   args.max_disp_v = max_disp_v;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (relaxed) return launch_window<true, false, kRefine>(window, args, s);
-  return launch_window<false, false, kRefine>(window, args, s);
+  if (relaxed) return launch_window<true, kUniform, kRefine>(window, args, batch, s);
+  return launch_window<false, kUniform, kRefine>(window, args, batch, s);
 }

@@ -37,7 +37,9 @@
 // Bound: device memory. Each pixel reads u, v and four corners (the
 // corners mostly hit L1/L2: neighbouring threads read neighbouring
 // columns) and writes one f32, about 16 B of DRAM traffic per pixel. One
-// thread per pixel, 32x8 blocks, coalesced row-major accesses.
+// thread per pixel, 32x8 blocks, coalesced row-major accesses. A batch of
+// planes is one launch, blockIdx.z the element (the TPU kernel's
+// flattened (batch * row tiles) grid).
 
 #include <cuda_runtime.h>
 
@@ -79,7 +81,9 @@ warp_banded_kernel(const float* __restrict__ img, const float* __restrict__ fu,
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= width || y >= height) return;
-  const size_t i = (size_t)y * width + x;
+  const size_t plane = (size_t)blockIdx.z * height * width;
+  img += plane;
+  const size_t i = plane + (size_t)y * width + x;
 
   float u = fu[i];
   float v = fv[i];
@@ -124,12 +128,15 @@ warp_banded_kernel(const float* __restrict__ img, const float* __restrict__ fu,
 
 }  // namespace
 
+// img, u, v and out each hold `batch` contiguous (height, width) planes.
 extern "C" int tpuflow_warp_banded(const float* img, const float* u,
-                                   const float* v, float* out, int height,
-                                   int width, int max_disp, int max_disp_v,
-                                   int packing, int clamp_flow, void* stream) {
+                                   const float* v, float* out, int batch,
+                                   int height, int width, int max_disp,
+                                   int max_disp_v, int packing, int clamp_flow,
+                                   void* stream) {
+  if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
   const dim3 block(32, 8);
-  const dim3 grid((width + 31) / 32, (height + 7) / 8);
+  const dim3 grid((width + 31) / 32, (height + 7) / 8, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool clamp = clamp_flow != 0;
   if (packing == 0) {

@@ -2,9 +2,10 @@
 
 ``torch_ref`` holds the parity-path functions (counterpart of
 ``tpuflow.kernels.jnp_ref``). ``warp`` (K1, K2, K4) and ``lk`` (K3, K5, K6,
-K7) hold the hand-written CUDA kernels' wrappers, their plain PyTorch
-versions and their launch counters. Nothing here builds or loads the CUDA
-library at import.
+K7, and K10 with ``window_mxu``) hold the hand-written CUDA kernels'
+wrappers, their plain PyTorch versions and their launch counters; each
+takes one (H, W) plane or a (B, H, W) batch. Nothing here builds or loads
+the CUDA library at import.
 """
 
 from tpuflow_torch.kernels import lk, warp

@@ -31,23 +31,37 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
+# Largest batch one launch takes: the batch is the grid's z dimension.
+MAX_BATCH = 65535
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes. Each returns the cudaError_t of its launch.
 _SIGNATURES = {
-    # img, u, v, out, height, width, max_disp, max_disp_v, packing,
+    # img, u, v, out, batch, height, width, max_disp, max_disp_v, packing,
     # clamp_flow, stream
-    "tpuflow_warp_banded": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "tpuflow_warp_banded": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # prev, warped, u, v, converged, u_out, v_out, part_du, part_dv,
-    # height, width, window, relaxed, det_threshold, max_disp, max_disp_v,
-    # stream
+    # batch, height, width, window, relaxed, det_threshold, max_disp,
+    # max_disp_v, stream
     "tpuflow_lk_refine": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
-    # prev, curr, u_out, v_out, det_out (or null), height, width, window,
-    # relaxed, taps (host f32[window] or null), det_threshold, stream
-    "tpuflow_lk_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _P),
+    "tpuflow_lk_refine_mxu": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+    ),
+    # prev, curr, u_out, v_out, det_out (or null), batch, height, width,
+    # window, relaxed, taps (host f32[window] or null), det_threshold, stream
+    "tpuflow_lk_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _P),
+    # as tpuflow_lk_fused without taps
+    "tpuflow_lk_fused_mxu": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # a, out, in_cols, out_rows, out_cols, n_shifts, row offsets (host
+    # i32[n_shifts]), column offsets (host i32[n_shifts]), stream
+    "tpuflow_shift_ablation": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # x, off, out, rows, wp, mode, iters, maxd, coefficients (host
+    # f32[iters]), stream
+    "tpuflow_warp_gather_ablation": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None

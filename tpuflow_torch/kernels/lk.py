@@ -12,12 +12,27 @@ both f32 orders and for windows 3, 5 and 7:
 - ``lucas_kanade_fused``, single-scale flow (``lucas_kanade_fused``):
   (prev, curr) -> (u, v), K6, or (u, v, |det|) with ``return_confidence``,
   K7; uniform or Gaussian-weighted windows.
+- ``window_mxu=True`` on either (K10, ``pallas_lk._wsum_mxu``): the five
+  structure-tensor planes are window-summed as banded-ones matrix
+  products, a vertical (H, H + w - 1) operator and then one (128 + w - 1,
+  128) block per 128 output columns; the Sobel form still follows
+  ``relaxed_order`` and Gaussian taps take precedence over the flag. The
+  JAX package honours the flag only on its batched route; here it holds
+  for (H, W) planes too.
 
-The CUDA kernels are ``csrc/lk_refine.cu`` and ``csrc/lk_fused.cu`` (one
-tile kernel, ``csrc/lk_tile.cuh``). ``lucas_kanade_refine_ref`` and
+Each takes one (H, W) plane or a (B, H, W) batch (the TPU kernels'
+batched entries, ``_refine_batched`` and ``_fused_batched``). A batch is
+one kernel launch; each element is computed exactly as the same plane
+alone. For a batch the refine's ``converged`` is a (B,) bool tensor and its
+sums are (B,) tensors, one per element.
+
+The CUDA kernels are ``csrc/lk_refine.cu`` and ``csrc/lk_fused.cu``, and
+``csrc/lk_mxu.cu`` for ``window_mxu`` (one tile kernel,
+``csrc/lk_tile.cuh``). ``lucas_kanade_refine_ref`` and
 ``lucas_kanade_fused_ref`` are the same functions in plain PyTorch, in the
-Pallas kernel's f32 expression order with its reciprocal-form solve, and
-are what the wrappers run for tensors on the CPU.
+Pallas kernel's f32 expression order with its reciprocal-form solve (the
+``window_mxu`` sums as ``torch.matmul`` in true f32), and are what the
+wrappers run for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -27,12 +42,16 @@ import ctypes
 import numpy as np
 import torch
 
+from tpuflow_torch.core import ops
 from tpuflow_torch.kernels import _build
 
 WINDOWS = (3, 5, 7)
 
 # Kernel launches; incremented only where a kernel is launched.
-launch_counts = {"lk_refine": 0, "lk_refine_exact": 0, "lk_fused": 0, "lk_fused_conf": 0}
+launch_counts = {
+    "lk_refine": 0, "lk_refine_exact": 0, "lk_fused": 0, "lk_fused_conf": 0,
+    "lk_refine_mxu": 0, "lk_fused_mxu": 0, "lk_fused_conf_mxu": 0,
+}
 
 
 def _check_window(window_size: int) -> None:
@@ -56,9 +75,10 @@ def _window_taps(window_size: int, weight_sigma: float) -> tuple[float, ...]:
 
 
 def _pad_frame(f: torch.Tensor, zeros: int) -> torch.Tensor:
-    """Symmetric pad by 1 (edge included), then ``zeros`` rows/cols of 0."""
-    f = torch.cat([f[:1], f, f[-1:]], dim=0)
-    f = torch.cat([f[:, :1], f, f[:, -1:]], dim=1)
+    """Symmetric pad by 1 (edge included), then ``zeros`` rows/cols of 0,
+    over the last two dims."""
+    f = torch.cat([f[..., :1, :], f, f[..., -1:, :]], dim=-2)
+    f = torch.cat([f[..., :1], f, f[..., -1:]], dim=-1)
     return torch.nn.functional.pad(f, (zeros, zeros, zeros, zeros))
 
 
@@ -86,7 +106,7 @@ def _sliding_sum_tree(a: torch.Tensor, w: int, out_rows: int, out_cols: int):
                 rem -= size
         return out
 
-    return axis_sum(axis_sum(a, 0, out_rows), 1, out_cols)
+    return axis_sum(axis_sum(a, -2, out_rows), -1, out_cols)
 
 
 def _sliding_sum_sequential(a: torch.Tensor, w: int, out_rows: int, out_cols: int,
@@ -103,15 +123,47 @@ def _sliding_sum_sequential(a: torch.Tensor, w: int, out_rows: int, out_cols: in
             out = piece if out is None else out + piece
         return out
 
-    return axis_sum(axis_sum(a, 0, out_rows), 1, out_cols)
+    return axis_sum(axis_sum(a, -2, out_rows), -1, out_cols)
+
+
+# Output columns per block of the horizontal window_mxu product
+# (pallas_lk.py:166-179: one (128 + w - 1, 128) banded block per 128 lanes).
+_MXU_BLOCK = 128
+
+
+def _band(rows: int, cols: int, w: int, device: torch.device) -> torch.Tensor:
+    """(rows, cols) banded-ones matrix, entry (i, j) = 1 for 0 <= j - i < w."""
+    i = torch.arange(rows, device=device)[:, None]
+    j = torch.arange(cols, device=device)[None, :]
+    return ((j >= i) & (j < i + w)).to(torch.float32)
+
+
+def _wsum_mxu_ref(a: torch.Tensor, w: int, out_rows: int, out_cols: int) -> torch.Tensor:
+    """Sliding w-tap window sum over the last two dims as banded-ones
+    products (``pallas_lk._wsum_mxu``): rows = Wv @ a with the (out_rows,
+    out_rows + w - 1) band, then, for each 128-column output block, rows'
+    (128 + w - 1)-column segment @ the (128 + w - 1, 128) band. The zero
+    entries add exact zeros, so the sums equal the plain window sums up to
+    the order of the matmul's adds. True f32 (TF32 pinned off) on the
+    card."""
+    if a.is_cuda:
+        ops.pin_f32_matmul()
+    rows = torch.matmul(_band(out_rows, a.shape[-2], w, a.device), a)
+    n_blk = -(-out_cols // _MXU_BLOCK)
+    # Zero columns past the last one make the ragged last block a full one:
+    # they only meet band entries of output columns that are cut off.
+    rows = torch.nn.functional.pad(rows, (0, n_blk * _MXU_BLOCK + w - 1 - rows.shape[-1]))
+    segs = rows.unfold(-1, _MXU_BLOCK + w - 1, _MXU_BLOCK)
+    sums = torch.matmul(segs, _band(_MXU_BLOCK, _MXU_BLOCK + w - 1, w, a.device).T)
+    return sums.flatten(-2)[..., :out_cols]
 
 
 def _lk_solve_ref(frame_prev: torch.Tensor, frame_curr: torch.Tensor, window_size: int,
                   det_threshold: float, relaxed_order: bool,
-                  taps: tuple[float, ...] | None = None):
-    """The tile math of ``pallas_lk._lk_tile`` over the whole frame: the
-    interior-masked (du, dv), det, and the interior mask."""
-    h, w = frame_prev.shape
+                  taps: tuple[float, ...] | None = None, window_mxu: bool = False):
+    """The tile math of ``pallas_lk._lk_tile`` over whole (..., H, W)
+    frames: the interior-masked (du, dv), det, and the interior mask."""
+    h, w = frame_prev.shape[-2:]
     half = window_size // 2
     # Padded frames hold image rows/cols -(half+1) .. N+half.
     p = _pad_frame(frame_prev, half)
@@ -122,13 +174,13 @@ def _lk_solve_ref(frame_prev: torch.Tensor, frame_curr: torch.Tensor, window_siz
     if relaxed_order:
         # Separable Sobel: [1,2,1] / [1,0,-1] down the rows over all columns,
         # then across the columns.
-        sv = avg[0:gh] + 2.0 * avg[1 : gh + 1] + avg[2 : gh + 2]
-        dv = avg[0:gh] - avg[2 : gh + 2]
-        ix = (sv[:, 0:gw] - sv[:, 2 : gw + 2]) * 0.125
-        iy = (dv[:, 0:gw] + 2.0 * dv[:, 1 : gw + 1] + dv[:, 2 : gw + 2]) * 0.125
+        sv = avg[..., 0:gh, :] + 2.0 * avg[..., 1 : gh + 1, :] + avg[..., 2 : gh + 2, :]
+        dv = avg[..., 0:gh, :] - avg[..., 2 : gh + 2, :]
+        ix = (sv[..., 0:gw] - sv[..., 2 : gw + 2]) * 0.125
+        iy = (dv[..., 0:gw] + 2.0 * dv[..., 1 : gw + 1] + dv[..., 2 : gw + 2]) * 0.125
     else:
         def sh(dy: int, dx: int) -> torch.Tensor:
-            return avg[1 + dy : 1 + dy + gh, 1 + dx : 1 + dx + gw]
+            return avg[..., 1 + dy : 1 + dy + gh, 1 + dx : 1 + dx + gw]
 
         ix = (
             (sh(-1, -1) - sh(-1, 1)) + 2.0 * (sh(0, -1) - sh(0, 1)) + (sh(1, -1) - sh(1, 1))
@@ -136,9 +188,13 @@ def _lk_solve_ref(frame_prev: torch.Tensor, frame_curr: torch.Tensor, window_siz
         iy = (
             (sh(-1, -1) - sh(1, -1)) + 2.0 * (sh(-1, 0) - sh(1, 0)) + (sh(-1, 1) - sh(1, 1))
         ) * 0.125
-    it = p[1 : gh + 1, 1 : gw + 1] - c[1 : gh + 1, 1 : gw + 1]
+    it = p[..., 1 : gh + 1, 1 : gw + 1] - c[..., 1 : gh + 1, 1 : gw + 1]
 
     def wsum(a):
+        # Taps first, then window_mxu, then the Sobel order's own sums
+        # (pallas_lk.py:256-277).
+        if taps is None and window_mxu:
+            return _wsum_mxu_ref(a, window_size, h, w)
         if taps is None and relaxed_order:
             return _sliding_sum_tree(a, window_size, h, w)
         return _sliding_sum_sequential(a, window_size, h, w, taps)
@@ -174,27 +230,34 @@ def lucas_kanade_refine_ref(
     max_disp: float = 8.0,
     max_disp_v: float | None = None,
     relaxed_order: bool = False,
+    window_mxu: bool = False,
 ):
-    """Plain PyTorch version of the refine kernels (K3, K5).
+    """Plain PyTorch version of the refine kernels (K3, K5; K10 with
+    ``window_mxu``).
 
     Returns ``(u_next, v_next, sum|du|, sum|dv|)``, the sums as 0-d
-    tensors on the input's device.
+    tensors (a plane) or (B,) tensors (a batch) on the input's device.
     """
     if max_disp_v is None:
         max_disp_v = max_disp
     du, dv, _, _ = _lk_solve_ref(frame_prev, warped, window_size, det_threshold,
-                                 relaxed_order)
+                                 relaxed_order, window_mxu=window_mxu)
     u_c = flow_u.clamp(-max_disp, max_disp)
     v_c = flow_v.clamp(-max_disp_v, max_disp_v)
-    frozen = converged.reshape(()).to(torch.bool)
+    batched = frame_prev.ndim == 3
+    frozen = converged.reshape((-1, 1, 1) if batched else ()).to(torch.bool)
     u_next = torch.where(frozen, u_c, u_c + du)
     v_next = torch.where(frozen, v_c, v_c + dv)
+    if batched:
+        return u_next, v_next, du.abs().sum(dim=(-2, -1)), dv.abs().sum(dim=(-2, -1))
     return u_next, v_next, du.abs().sum(), dv.abs().sum()
 
 
 def _check_planes(planes, what: str) -> None:
-    if planes[0].ndim != 2 or any(t.shape != planes[0].shape for t in planes):
-        raise ValueError(f"{what} must share one (H, W) shape")
+    if planes[0].ndim not in (2, 3) or any(t.shape != planes[0].shape for t in planes):
+        raise ValueError(f"{what} must share one (H, W) or (B, H, W) shape")
+    if planes[0].ndim == 3 and not 1 <= planes[0].shape[0] <= _build.MAX_BATCH:
+        raise ValueError(f"batches of 1..{_build.MAX_BATCH} planes are supported")
     for t in planes:
         if t.dtype != torch.float32:
             raise TypeError(f"float32 expected, got {t.dtype}")
@@ -222,41 +285,50 @@ def lucas_kanade_refine(
     max_disp: float = 8.0,
     max_disp_v: float | None = None,
     relaxed_order: bool = False,
+    window_mxu: bool = False,
 ):
     """Refine step: the CUDA kernel for CUDA tensors (K3 relaxed order, K5
-    exact order), the plain version for CPU tensors. ``converged`` is a 0-d
-    bool tensor on the same device (read by the kernel, never by the
-    host)."""
+    exact order, K10 with ``window_mxu``), the plain version for CPU
+    tensors. ``converged`` is a one-element bool tensor for a plane and a
+    (B,) bool tensor for a batch, on the same device (read by the kernel,
+    never by the host)."""
     if max_disp_v is None:
         max_disp_v = max_disp
     _check_window(window_size)
     planes = (frame_prev, warped, flow_u, flow_v)
     _check_planes(planes, "frames and flow")
-    if converged.dtype != torch.bool or converged.numel() != 1:
-        raise TypeError("converged must be a one-element bool tensor")
+    batch = frame_prev.shape[0] if frame_prev.ndim == 3 else 1
+    if converged.dtype != torch.bool:
+        raise TypeError("converged must be a bool tensor")
+    if (frame_prev.ndim == 3 and converged.shape != (batch,)) or converged.numel() != batch:
+        raise ValueError("converged must hold one flag per plane: (B,) for a batch")
     dev = _device_of((*planes, converged))
-    args = (window_size, det_threshold, float(max_disp), float(max_disp_v), relaxed_order)
+    args = (window_size, det_threshold, float(max_disp), float(max_disp_v), relaxed_order,
+            window_mxu)
     if dev.type == "cpu":
         return lucas_kanade_refine_ref(frame_prev, warped, flow_u, flow_v, converged, *args)
 
     lib = _build.load()
-    h, w = frame_prev.shape
+    h, w = frame_prev.shape[-2:]
     u_out = torch.empty_like(flow_u)
     v_out = torch.empty_like(flow_v)
     n_blocks = lib.tpuflow_lk_refine_blocks(h, w)
-    parts = torch.empty((2, n_blocks), dtype=torch.float32, device=dev)
+    parts = torch.empty((2, batch, n_blocks), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.tpuflow_lk_refine(
+    fn = lib.tpuflow_lk_refine_mxu if window_mxu else lib.tpuflow_lk_refine
+    code = fn(
         frame_prev.data_ptr(), warped.data_ptr(), flow_u.data_ptr(), flow_v.data_ptr(),
         converged.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
-        parts[0].data_ptr(), parts[1].data_ptr(), h, w, window_size, int(relaxed_order),
-        float(det_threshold), float(max_disp), float(max_disp_v), stream,
+        parts[0].data_ptr(), parts[1].data_ptr(), batch, h, w, window_size,
+        int(relaxed_order), float(det_threshold), float(max_disp), float(max_disp_v), stream,
     )
-    name = "lk_refine" if relaxed_order else "lk_refine_exact"
+    name = "lk_refine_mxu" if window_mxu else "lk_refine" if relaxed_order else "lk_refine_exact"
     _build.check(lib, code, name)
     launch_counts[name] += 1
-    sums = parts.sum(dim=1)
-    return u_out, v_out, sums[0], sums[1]
+    sums = parts.sum(dim=2)
+    if frame_prev.ndim == 3:
+        return u_out, v_out, sums[0], sums[1]
+    return u_out, v_out, sums[0, 0], sums[1, 0]
 
 
 def lucas_kanade_fused_ref(
@@ -268,11 +340,13 @@ def lucas_kanade_fused_ref(
     weight_sigma: float = 1.0,
     return_confidence: bool = False,
     relaxed_order: bool = False,
+    window_mxu: bool = False,
 ):
-    """Plain PyTorch version of the fused single-scale kernels (K6, K7)."""
+    """Plain PyTorch version of the fused single-scale kernels (K6, K7;
+    K10 with ``window_mxu`` and no Gaussian taps)."""
     taps = _window_taps(window_size, weight_sigma) if gaussian_weights else None
     du, dv, det, interior = _lk_solve_ref(frame_prev, frame_curr, window_size,
-                                          det_threshold, relaxed_order, taps)
+                                          det_threshold, relaxed_order, taps, window_mxu)
     if return_confidence:
         return du, dv, torch.where(interior, det.abs(), torch.zeros_like(det))
     return du, dv
@@ -287,33 +361,44 @@ def lucas_kanade_fused(
     weight_sigma: float = 1.0,
     return_confidence: bool = False,
     relaxed_order: bool = False,
+    window_mxu: bool = False,
 ):
     """Fused single-scale LK, (u, v) or (u, v, |det|) with
-    ``return_confidence``: the CUDA kernel for CUDA tensors (K6, K7), the
-    plain version for CPU tensors."""
+    ``return_confidence``: the CUDA kernel for CUDA tensors (K6, K7; K10
+    with ``window_mxu`` and no Gaussian taps), the plain version for CPU
+    tensors."""
     _check_window(window_size)
     _check_planes((frame_prev, frame_curr), "frames")
     dev = _device_of((frame_prev, frame_curr))
     args = (window_size, det_threshold, gaussian_weights, weight_sigma, return_confidence,
-            relaxed_order)
+            relaxed_order, window_mxu)
     if dev.type == "cpu":
         return lucas_kanade_fused_ref(frame_prev, frame_curr, *args)
 
     lib = _build.load()
-    h, w = frame_prev.shape
+    h, w = frame_prev.shape[-2:]
+    batch = frame_prev.shape[0] if frame_prev.ndim == 3 else 1
     u = torch.empty_like(frame_prev)
     v = torch.empty_like(frame_prev)
     det = torch.empty_like(frame_prev) if return_confidence else None
-    taps = None
-    if gaussian_weights:
-        taps = (ctypes.c_float * window_size)(*_window_taps(window_size, weight_sigma))
+    det_ptr = None if det is None else det.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.tpuflow_lk_fused(
-        frame_prev.data_ptr(), frame_curr.data_ptr(), u.data_ptr(), v.data_ptr(),
-        None if det is None else det.data_ptr(), h, w, window_size, int(relaxed_order),
-        taps, float(det_threshold), stream,
-    )
-    name = "lk_fused_conf" if return_confidence else "lk_fused"
+    mxu = window_mxu and not gaussian_weights  # taps take precedence
+    if mxu:
+        code = lib.tpuflow_lk_fused_mxu(
+            frame_prev.data_ptr(), frame_curr.data_ptr(), u.data_ptr(), v.data_ptr(),
+            det_ptr, batch, h, w, window_size, int(relaxed_order), float(det_threshold), stream,
+        )
+    else:
+        taps = None
+        if gaussian_weights:
+            taps = (ctypes.c_float * window_size)(*_window_taps(window_size, weight_sigma))
+        code = lib.tpuflow_lk_fused(
+            frame_prev.data_ptr(), frame_curr.data_ptr(), u.data_ptr(), v.data_ptr(),
+            det_ptr, batch, h, w, window_size, int(relaxed_order), taps,
+            float(det_threshold), stream,
+        )
+    name = ("lk_fused_conf" if return_confidence else "lk_fused") + ("_mxu" if mxu else "")
     _build.check(lib, code, name)
     launch_counts[name] += 1
     return (u, v, det) if return_confidence else (u, v)

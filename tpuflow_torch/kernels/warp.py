@@ -23,6 +23,10 @@ give 0. Corner decoding: ``"exact"`` uses the f32 value, ``"u8"`` truncates
 to whole gray levels (exact for frames of integer values in [0, 255]),
 ``"u16"`` rounds to 8.8 fixed point and scales the result by 1/256 after
 the vertical lerp.
+
+Frames come as one (H, W) plane or a (B, H, W) batch (the TPU kernel's
+batched entry, ``_warp_batched``); a batch is one kernel launch and each
+element is warped exactly as the same plane alone.
 """
 
 from __future__ import annotations
@@ -57,10 +61,11 @@ def warp_banded_ref(
     packing: str = "u8",
     clamp_flow: bool = True,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the banded warp kernel."""
+    """Plain PyTorch version of the banded warp kernel, for (H, W) planes
+    or (B, H, W) batches."""
     if max_disp_v is None:
         max_disp_v = max_disp
-    h, w = image.shape
+    h, w = image.shape[-2:]
     dev = image.device
     u, v = flow_u, flow_v
     if clamp_flow:
@@ -89,16 +94,19 @@ def warp_banded_ref(
     y0 = y0f.to(torch.int32)
     f = y0 - yy_i
 
-    # Decoded image with one zero column on the right; rows outside the
-    # image are masked to 0.
-    dec = torch.nn.functional.pad(_decode(image, packing), (0, 1)).reshape(-1)
+    # Decoded image with one zero column on the right, each plane
+    # flattened; rows outside the image are masked to 0.
+    dec = torch.nn.functional.pad(_decode(image, packing), (0, 1)).flatten(-2)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def take(idx):
+        return dec.gather(-1, idx.flatten(-2)).reshape(idx.shape)
 
     def row(r):
         valid = (r >= 0) & (r < h)
         base = r.clamp(0, h - 1).to(torch.int64) * (w + 1)
-        c0 = torch.where(valid, dec[base + x0.to(torch.int64)], zero)
-        c1 = torch.where(valid, dec[base + x1.to(torch.int64)], zero)
+        c0 = torch.where(valid, take(base + x0.to(torch.int64)), zero)
+        c1 = torch.where(valid, take(base + x1.to(torch.int64)), zero)
         return c0 * fxc + c1 * fx
 
     up = torch.where((f >= -max_disp_v) & (f <= max_disp_v + 1), row(y0), zero)
@@ -119,9 +127,10 @@ def warp_banded(
     packing: str = "u8",
     clamp_flow: bool = True,
 ) -> torch.Tensor:
-    """Banded warp: the CUDA kernel for a CUDA tensor, the plain version for
-    a CPU tensor. Bands up to 31 px (the TPU kernel's limit); the packed
-    variants need ``clamp_flow`` (pallas_warp.py:598-601)."""
+    """Banded warp of an (H, W) plane or a (B, H, W) batch: the CUDA
+    kernel for a CUDA tensor, the plain version for a CPU tensor. Bands up
+    to 31 px (the TPU kernel's limit); the packed variants need
+    ``clamp_flow`` (pallas_warp.py:598-601)."""
     if max_disp_v is None:
         max_disp_v = max_disp
     if packing not in PACKINGS:
@@ -130,8 +139,10 @@ def warp_banded(
         raise ValueError("the packed warps require clamp_flow=True")
     if not (0 <= max_disp <= 31 and 0 <= max_disp_v <= 31):
         raise ValueError("banded warp supports bands of 0..31 px")
-    if image.ndim != 2 or flow_u.shape != image.shape or flow_v.shape != image.shape:
-        raise ValueError("image, flow_u and flow_v must share one (H, W) shape")
+    if image.ndim not in (2, 3) or flow_u.shape != image.shape or flow_v.shape != image.shape:
+        raise ValueError("image, flow_u and flow_v must share one (H, W) or (B, H, W) shape")
+    if image.ndim == 3 and not 1 <= image.shape[0] <= _build.MAX_BATCH:
+        raise ValueError(f"batches of 1..{_build.MAX_BATCH} planes are supported")
     for t in (image, flow_u, flow_v):
         if t.dtype != torch.float32:
             raise TypeError(f"float32 expected, got {t.dtype}")
@@ -146,12 +157,13 @@ def warp_banded(
         raise ValueError("the CUDA warp needs contiguous tensors")
 
     lib = _build.load()
-    h, w = image.shape
+    h, w = image.shape[-2:]
+    batch = image.shape[0] if image.ndim == 3 else 1
     out = torch.empty_like(image)
     stream = torch.cuda.current_stream(image.device).cuda_stream
     code = lib.tpuflow_warp_banded(
         image.data_ptr(), flow_u.data_ptr(), flow_v.data_ptr(), out.data_ptr(),
-        h, w, max_disp, max_disp_v, PACKINGS[packing], int(clamp_flow), stream,
+        batch, h, w, max_disp, max_disp_v, PACKINGS[packing], int(clamp_flow), stream,
     )
     name = _COUNTER[packing]
     _build.check(lib, code, name)
