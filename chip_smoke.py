@@ -36,9 +36,10 @@ failure raises and the script exits non-zero):
 
 Limits on the card: the warps (K1, K2, K4) bit-exact against their plain
 versions at bands 2/3/8 (K4 with clamp_flow on and off); the refine steps
-(K3, K5) u, v within 1e-5 px and their sums to rtol 1e-5 (block partials
-summed in another order); the single-scale solves (K6, K7) u, v and |det|
-within 1e-5; a batch element bit-identical to the kernel's 2-D launch; K10
+(K3, K5) u, v bit-identical (max |d| 0) and their sums to rtol 1e-5 (block
+partials summed in another order); the single-scale solves (K6, K7) u, v
+and |det| bit-identical; a batch element bit-identical to the kernel's 2-D
+launch; K10
 (tensor-core sums, which round otherwise than the plain version's
 torch.matmul) u, v within 2e-3 / 2e-4 / 5e-5 px at windows 3 / 5 / 7
 (widened, with the readings and the reason, at MXU_ATOL), and no further
@@ -50,8 +51,14 @@ every pattern within 10%, no_motion exactly 0 in both modes for the
 configs without packed-u16 warps, and the production configs' no_motion
 floor in (0, 1e-3) px.
 
-It prints one JSON object of the kernels' readings on the line before the
-last, and ``{"ok": true, "device": {...}}`` as the last line. Frames are
+Each kernel's time is printed beside its bound (``eval/bounds.py``: the
+bytes one call must move over the card's 3.35 TB/s) and its share of it;
+the build prints ptxas's registers, spills and shared memory of the LK
+column-walk kernels. It prints one JSON object of the kernels' readings on
+the line before the last (time, plain version's time, bytes, bound,
+share, launches on the main path and per stream frame, and a one-call
+PyTorch yardstick's time where one exists, else null with the reason),
+and ``{"ok": true, "device": {...}}`` as the last line. Frames are
 made from ``--seed`` with numpy and scipy; the suite is the committed
 fixture. Needs one CUDA device; fails without one. Run:
 ``python3 chip_smoke.py``.
@@ -75,7 +82,7 @@ from scipy.ndimage import shift as nd_shift
 from tpuflow_torch import PYRAMID_CONFIGS, lucas_kanade_pyramidal_step, lucas_kanade_single_scale
 from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation
 from tpuflow_torch.core import ops
-from tpuflow_torch.eval import profile, verifier
+from tpuflow_torch.eval import bounds, profile, verifier
 from tpuflow_torch.eval.timing import card_label, device_ms
 from tpuflow_torch.flow import pyramidal
 from tpuflow_torch.kernels import _build, lk, torch_ref, warp
@@ -84,8 +91,6 @@ HEIGHT, WIDTH = 1080, 1920
 N_FRAMES = 16
 SHIFT_PX = 2.0
 STREAM_ATOL = 1e-3
-REFINE_ATOL = 1e-5
-FUSED_ATOL = 1e-5
 SUM_RTOL = 1e-5
 WARP_CU = "tpuflow_torch/csrc/warp.cu"
 REFINE_CU = "tpuflow_torch/csrc/lk_refine.cu"
@@ -107,6 +112,25 @@ KERNELS = {
     "warp_mxu_ablation": (ABLATION_CU, "scripts/warp_mxu_ablation.py:91"),
 }
 # The kernels each main path must launch, and no others.
+# One PyTorch call that computes the same function as a kernel, where one
+# exists: only the shift ablation's shifted adds, as one correlation (the
+# slices' offsets as a sparse weight). The others have none: the LK solve
+# (Sobel, five window sums, the gated solve, clip and latch), the banded
+# warps (flow clip, column band clamp, packed corner decodes) and K9's
+# 18-step candidate gather-accumulate are no single library call.
+NO_LIBRARY_CALL = {
+    "warp_packed_u8": "no single PyTorch call warps with the band clamps and the u8 corner decode",
+    "warp_packed_u16": "no single PyTorch call warps with the band clamps and the 8.8 corner decode",
+    "warp_exact": "grid_sample has neither the flow clip nor the column band clamp",
+    "lk_refine": "no single PyTorch call computes the LK solve with its clip and latch",
+    "lk_refine_exact": "no single PyTorch call computes the LK solve with its clip and latch",
+    "lk_fused": "no single PyTorch call computes the LK solve",
+    "lk_fused_conf": "no single PyTorch call computes the LK solve",
+    "lk_refine_mxu": "no single PyTorch call computes the LK solve with its clip and latch",
+    "lk_fused_mxu": "no single PyTorch call computes the LK solve",
+    "lk_fused_conf_mxu": "no single PyTorch call computes the LK solve",
+    "warp_mxu_ablation": "no single PyTorch call does the 18-step gather-accumulate",
+}
 PATH_KERNELS = {
     "production stream": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
     "default stream": {"warp_exact", "lk_refine_exact"},
@@ -167,6 +191,13 @@ def _record(readings, name, ms, plain_ms, shape):
         readings[name].update(ms=ms, plain_ms=plain_ms, shape=list(shape))
 
 
+def _bound_note(name: str, shape, ms: float) -> str:
+    """The kernel's bound at a (H, W) or (B, H, W) shape, and ms's share."""
+    dims = (1, *shape) if len(shape) == 2 else tuple(shape)
+    bound_ms, by = bounds.bound(name, *dims)
+    return f"bound {bound_ms:.5f} ms ({by}), {100 * bound_ms / ms:.1f}% of it"
+
+
 def check_refine(readings, name, rargs_base, dev, shape, windows):
     """The refine kernel against its plain version, converged or not, at each
     window; returns the max |du|, |dv| and the sums' max relative error."""
@@ -180,7 +211,7 @@ def check_refine(readings, name, rargs_base, dev, shape, windows):
             err = max(err, max_abs(got[0], want[0]), max_abs(got[1], want[1]))
             sums_rel = max(sums_rel, *(abs(float(g) - float(w)) / max(abs(float(w)), 1e-30)
                                        for g, w in zip(got[2:], want[2:])))
-            if err > REFINE_ATOL or sums_rel > SUM_RTOL:
+            if err != 0.0 or sums_rel > SUM_RTOL:
                 raise AssertionError(f"{name} at {shape} window {window} converged={frozen}: "
                                      f"max |d| {err}, sums rel {sums_rel}")
     readings[name]["max_abs_err"] = max(readings[name]["max_abs_err"], err)
@@ -212,7 +243,7 @@ def check_kernels(dev, a, b, rng):
         ms = device_ms(lambda: warp.warp_banded(*args))
         plain_ms = device_ms(lambda: warp.warp_banded_ref(*args))
         print(f"[kernels] {name} {shape[0]}x{shape[1]}: bit-exact at bands 2/3/8, "
-              f"{ms:.4f} ms (plain {plain_ms:.4f} ms)")
+              f"{ms:.4f} ms (plain {plain_ms:.4f} ms; {_bound_note(name, shape, ms)})")
         _record(readings, name, ms, plain_ms, shape)
 
         warped = warp.warp_banded(*args)
@@ -227,7 +258,8 @@ def check_kernels(dev, a, b, rng):
         ms = device_ms(lambda: lk.lucas_kanade_refine(*rargs))
         plain_ms = device_ms(lambda: lk.lucas_kanade_refine_ref(*rargs))
         print(f"[kernels] lk_refine {shape[0]}x{shape[1]} windows {windows}: max |d| {err:.3g} "
-              f"px, sums rel {sums_rel:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms)")
+              f"px, sums rel {sums_rel:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms; "
+              f"{_bound_note('lk_refine', shape, ms)})")
         _record(readings, "lk_refine", ms, plain_ms, shape)
 
     # K4, K5 at the default pyramid's levels (float gray levels).
@@ -252,7 +284,8 @@ def check_kernels(dev, a, b, rng):
         ms = device_ms(lambda: warp.warp_banded(*args))
         plain_ms = device_ms(lambda: warp.warp_banded_ref(*args))
         print(f"[kernels] warp_exact {shape[0]}x{shape[1]}: bit-exact at bands 2/3/8, "
-              f"clamp_flow on and off, {ms:.4f} ms (plain {plain_ms:.4f} ms)")
+              f"clamp_flow on and off, {ms:.4f} ms (plain {plain_ms:.4f} ms; "
+              f"{_bound_note('warp_exact', shape, ms)})")
         _record(readings, "warp_exact", ms, plain_ms, shape)
 
         warped = warp.warp_banded(*args)
@@ -266,7 +299,8 @@ def check_kernels(dev, a, b, rng):
         ms = device_ms(lambda: lk.lucas_kanade_refine(*rargs))
         plain_ms = device_ms(lambda: lk.lucas_kanade_refine_ref(*rargs))
         print(f"[kernels] lk_refine_exact {shape[0]}x{shape[1]} windows {windows}: max |d| "
-              f"{err:.3g} px, sums rel {sums_rel:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms)")
+              f"{err:.3g} px, sums rel {sums_rel:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms; "
+              f"{_bound_note('lk_refine_exact', shape, ms)})")
         _record(readings, "lk_refine_exact", ms, plain_ms, shape)
 
     # K6, K7 at 1080p: exact and relaxed, windows 3/5/7, taps at window 5.
@@ -279,7 +313,7 @@ def check_kernels(dev, a, b, rng):
                 got, want = lk.lucas_kanade_fused(*fargs), lk.lucas_kanade_fused_ref(*fargs)
                 torch.cuda.synchronize()
                 err = max(err, *(max_abs(g, w) for g, w in zip(got, want)))
-                if err > FUSED_ATOL:
+                if err != 0.0:
                     raise AssertionError(f"{name} window {window} taps={taps} "
                                          f"relaxed={relaxed}: max |d| {err}")
         readings[name]["max_abs_err"] = err
@@ -287,7 +321,8 @@ def check_kernels(dev, a, b, rng):
         ms = device_ms(lambda: lk.lucas_kanade_fused(*fargs))
         plain_ms = device_ms(lambda: lk.lucas_kanade_fused_ref(*fargs))
         print(f"[kernels] {name} {shape[0]}x{shape[1]}: exact and relaxed, windows 3/5/7, "
-              f"taps at 5: max |d| {err:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms)")
+              f"taps at 5: max |d| {err:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms; "
+              f"{_bound_note(name, shape, ms)})")
         _record(readings, name, ms, plain_ms, shape)
 
     check_batched(dev, a, b, rng)
@@ -347,7 +382,7 @@ def check_batched(dev, a, b, rng):
             err = max(err, max_abs(got[0], want[0]), max_abs(got[1], want[1]))
             sums_rel = max(sums_rel, float(((got[2] - want[2]).abs() / want[2].abs()).max()),
                            float(((got[3] - want[3]).abs() / want[3].abs()).max()))
-            if err > REFINE_ATOL or sums_rel > SUM_RTOL:
+            if err != 0.0 or sums_rel > SUM_RTOL:
                 raise AssertionError(f"batched {name} window {window}: max |d| {err}, "
                                      f"sums rel {sums_rel}")
             _equal_per_element(name, got, lambda i: (pair[i], swap[i], flow[0][i], flow[1][i],
@@ -367,7 +402,7 @@ def check_batched(dev, a, b, rng):
                 want = lk.lucas_kanade_fused_ref(*fargs)
                 torch.cuda.synchronize()
                 err = max(err, *(max_abs(g, w) for g, w in zip(got, want)))
-                if err > FUSED_ATOL:
+                if err != 0.0:
                     raise AssertionError(f"batched {name} window {window} taps={taps} "
                                          f"relaxed={relaxed}: max |d| {err}")
                 _equal_per_element(name, got, lambda i: (pair[i], swap[i], *fargs[2:]),
@@ -489,13 +524,29 @@ def check_mxu(dev, a, b, rng, readings):
         again_shift = device_ms(lambda: fn(*shift_args))
         readings[name].update(ms=ms, plain_ms=plain_ms, shape=[HEIGHT, WIDTH],
                               beside={shift_name: [shift_ms, again_shift]})
-        print(f"[kernels] {name} 1080x1920 window 5: {ms:.4f} ms (plain {plain_ms:.4f} ms); "
-              f"{shift_name} in the same call {shift_ms:.4f} and {again_shift:.4f} ms")
+        print(f"[kernels] {name} 1080x1920 window 5: {ms:.4f} ms (plain {plain_ms:.4f} ms; "
+              f"{_bound_note(name, (HEIGHT, WIDTH), ms)}); {shift_name} in the same call "
+              f"{shift_ms:.4f} and {again_shift:.4f} ms")
+
+
+def shift_adds_conv(a: torch.Tensor, kind: str):
+    """The shift ablation's function as one PyTorch call, a correlation
+    (``F.conv2d``, cuDNN with TF32 off) whose weight counts the slices at
+    each (row, column) offset; and its arguments, made once."""
+    r, c = shift_ablation.offsets(kind)
+    offs = [(r[i], c[0]) for i in range(len(r))] + [(r[0], c[i]) for i in range(1, len(c))]
+    kh, kw = max(o[0] for o in offs) + 1, max(o[1] for o in offs) + 1
+    weight = torch.zeros((1, 1, kh, kw), dtype=torch.float32, device=a.device)
+    for i, j in offs:
+        weight[0, 0, i, j] += 1.0
+    x = a[None, None, : shift_ablation.OUT_R + kh - 1, : shift_ablation.OUT_C + kw - 1]
+    return lambda: torch.nn.functional.conv2d(x, weight)[0, 0]
 
 
 def check_ablations(dev, readings):
     """Phase 3, K8 and K9: every kind and mode bit-exact against the plain
-    versions, with device times of kernel and plain."""
+    versions, with device times of kernel and plain; K8's also beside one
+    correlation call that computes the same sums."""
     a = shift_ablation.make_input(dev)
     for kind in shift_ablation.KINDS:
         got, want = shift_ablation.shift_adds(a, kind), shift_ablation.shift_adds_ref(a, kind)
@@ -504,10 +555,20 @@ def check_ablations(dev, readings):
             raise AssertionError(f"shift_ablation {kind}: max |d| {max_abs(got, want)} != 0")
     ms = device_ms(lambda: shift_ablation.shift_adds(a, "aligned"), reps=200)
     plain_ms = device_ms(lambda: shift_ablation.shift_adds_ref(a, "aligned"))
-    readings["shift_ablation"].update(ms=ms, plain_ms=plain_ms, shape=list(a.shape))
-    print(f"[kernels] shift_ablation {tuple(a.shape)} -> ({shift_ablation.OUT_R}, "
-          f"{shift_ablation.OUT_C}): bit-exact in all four kinds; aligned {ms:.4f} ms "
-          f"(plain {plain_ms:.4f} ms)")
+    ops.pin_f32_matmul()
+    conv = shift_adds_conv(a, "aligned")
+    conv_err = max_abs(conv(), shift_ablation.shift_adds_ref(a, "aligned"))
+    if conv_err > 1e-4:
+        raise AssertionError(f"shift_ablation's correlation differs by {conv_err}")
+    library_ms = device_ms(conv)
+    out = (shift_ablation.OUT_R, shift_ablation.OUT_C)
+    readings["shift_ablation"].update(
+        ms=ms, plain_ms=plain_ms, shape=list(a.shape), library_ms=library_ms,
+        library="torch.nn.functional.conv2d, cuDNN, TF32 off, the slices' offsets as a "
+                "sparse (121, 897) weight")
+    print(f"[kernels] shift_ablation {tuple(a.shape)} -> {out}: bit-exact in all four kinds; "
+          f"aligned {ms:.4f} ms (plain {plain_ms:.4f} ms; {_bound_note('shift_ablation', out, ms)}"
+          f"); one F.conv2d {library_ms:.4f} ms (max |d| {conv_err:.3g})")
 
     x, off = warp_mxu_ablation.make_inputs(dev)
     times = {}
@@ -525,7 +586,8 @@ def check_ablations(dev, readings):
                                          shifts_ms=times["shifts"][0],
                                          shifts_plain_ms=times["shifts"][1], shape=list(off.shape))
     print(f"[kernels] warp_mxu_ablation {tuple(off.shape)}: bit-exact in both modes; gather "
-          f"{times['gather'][0]:.4f} ms (plain {times['gather'][1]:.4f}), shifts "
+          f"{times['gather'][0]:.4f} ms (plain {times['gather'][1]:.4f}; "
+          f"{_bound_note('warp_mxu_ablation', tuple(off.shape), times['gather'][0])}), shifts "
           f"{times['shifts'][0]:.4f} ms (plain {times['shifts'][1]:.4f})")
 
 
@@ -644,7 +706,7 @@ def check_single_scale(a, b, confidence: bool):
     print(f"[main] {path} {HEIGHT}x{WIDTH}: {1000 * seconds:.3f} ms (host clock), "
           f"launches {counts}, max |d| vs plain {err:.3g}, interior median u "
           f"{float(u.median()):.4f} px")
-    if not finite or err > FUSED_ATOL:
+    if not finite or err != 0.0:
         raise AssertionError(f"{path}: non-finite or misshapen output, or max |d| {err}")
     return counts
 
@@ -762,6 +824,36 @@ def profile_stream(a, b, config: str) -> None:
         print(f"[profile] {e.self_device_time_total / 4:15.1f} {e.count / 4:11.1f}  {e.key[:90]}")
 
 
+_WALK_NAMES = {(0, 1): "K3", (0, 0): "K5", (1, 0): "K6", (1, 1): "K6 relaxed",
+               (2, 0): "K7", (2, 1): "K7 relaxed"}
+
+
+def walk_ptxas(log: str) -> dict[int, list[str]]:
+    """ptxas's registers, spill stores and shared memory of each LK
+    column-walk instantiation (``-Xptxas=-v``), by window."""
+    out: dict[int, list[str]] = {}
+    cur = spill = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN10tpuflow_lk14lk_walk_kernel"
+                      r"ILi(\d)ELb(\d)ELi(\d)ELi(\d)E", line)
+        if m:
+            cur, spill = tuple(map(int, m.groups())), None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m:
+            window, relaxed, taps, mode = cur
+            name = _WALK_NAMES[mode, relaxed] + (" taps" if taps else "")
+            out.setdefault(window, []).append(
+                f"{name} {m.group(1)} regs/{spill} B spilled/{m.group(2)} B smem")
+            cur = None
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -787,6 +879,8 @@ def main() -> None:
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 0.0:.1f} s; "
           f"at most {max((int(r) for r, _ in usage), default=0)} registers and "
           f"{max((int(s) for _, s in usage), default=0)} B of shared memory a block)")
+    for window, entries in sorted(walk_ptxas(_build.build_log).items()):
+        print(f"[build] LK column walk, window {window}: " + "; ".join(sorted(entries)))
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path())],
@@ -806,6 +900,7 @@ def main() -> None:
     counts = {}
     counts.update(check_stream(a, b, "production"))
     counts.update(check_stream(a, b, "default"))
+    stream_counts = dict(counts)  # the two streams' kernels, N_FRAMES frames each
     counts.update(check_single_scale(a, b, confidence=False))
     counts.update(check_single_scale(a, b, confidence=True))
     counts.update(check_mxu_path(a, b))
@@ -824,11 +919,18 @@ def main() -> None:
     profile_stream(a, b, "production")
     profile_stream(a, b, "default")
 
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": counts[name],
-         **readings[name]}
-        for name, (src, rep) in KERNELS.items()
-    ]
+    kernels = []
+    for name, (src, rep) in KERNELS.items():
+        r = readings[name]
+        dims = ((1, shift_ablation.OUT_R, shift_ablation.OUT_C) if name == "shift_ablation"
+                else (1, *r["shape"]))
+        bound_ms, bound_by = bounds.bound(name, *dims)
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": counts[name], "launches_per_frame": stream_counts.get(name, 0) / N_FRAMES,
+            "library_ms": None, "library": NO_LIBRARY_CALL.get(name), **r,
+            "bytes": bounds.call_bytes(name, *dims), "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms / r["ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,12 +7,17 @@ only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
 Limits: the warps (K1, K2, K4) bit-exact; the refine steps' (K3, K5) u, v
-within 1e-5 px and their sums to rtol 1e-5 (per-block partials are summed
+bit-identical and their sums to rtol 1e-5 (per-block partials are summed
 in another order); the fused single-scale solve (K6, K7) u, v and |det|
-within 1e-5; short `production` and `default` streams with the same rounds
-per level and within 1e-3 px. Batches (B = 2): each element of a batched
-launch bit-identical to the same kernel's 2-D launch on that plane, and
-within the limits above of the plain version. The window_mxu kernels
+bit-identical; short `production` and `default` streams with the same
+rounds per level and within 1e-3 px. The refine and fused shapes straddle
+the column walk's strip and block edges (``lk_tile.cuh``: 28/26/24 output
+columns a strip at windows 3/5/7, 4 strips a block, and 4, 8, 16 or 32
+rows a block by the plane's size), include planes narrower or shorter than
+the window, a plane of border blocks only, mostly interior ones, and
+planes that take each walk length with a ragged last block. Batches (B = 2): each element of a
+batched launch bit-identical to the same kernel's 2-D launch on that
+plane, and within the limits above of the plain version. The window_mxu kernels
 (K10), whose tensor-core sums round otherwise than the plain version's
 torch.matmul: u, v within 1e-4 px at window 3 and 1e-5 px at 5 and 7,
 |det| within 2e-6 of the plane's largest, sums to rtol 1e-5. The ablation
@@ -74,7 +79,13 @@ def test_exact_warp_kernel_unclamped_bit_exact(cuda, shape, band):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("shape", [(5, 7), (17, 33), (52, 200), (64, 96)])
+# Strip widths 28/26/24 (windows 3/5/7) +- 1, heights around the 4-row
+# walk these small planes take (and 32 +- 1), a plane several blocks wide
+# with a ragged last strip, planes narrower or shorter than the window.
+_WALK_SHAPES = [(31, 25), (33, 27), (32, 29), (5, 61), (70, 233), (2, 40), (40, 2), (3, 6)]
+
+
+@pytest.mark.parametrize("shape", [(5, 7), (17, 33), (52, 200), (64, 96), *_WALK_SHAPES])
 @pytest.mark.parametrize("converged", [False, True])
 @pytest.mark.parametrize("window", [3, 5, 7])
 @pytest.mark.parametrize("relaxed", [True, False])
@@ -92,12 +103,12 @@ def test_refine_kernel_matches_plain(cuda, shape, converged, window, relaxed):
     torch.cuda.synchronize()
     assert launch_counts()[name] == before + 1
     for g, w in zip(got[:2], want[:2]):
-        torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+        assert torch.equal(g, w)
     for g, w in zip(got[2:], want[2:]):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("shape", [(37, 61), (1, 1), (52, 200)])
+@pytest.mark.parametrize("shape", [(37, 61), (1, 1), (52, 200), *_WALK_SHAPES])
 @pytest.mark.parametrize("window,taps", [(3, False), (5, False), (7, False), (5, True)])
 @pytest.mark.parametrize("relaxed", [False, True])
 @pytest.mark.parametrize("confidence", [False, True])
@@ -114,7 +125,32 @@ def test_fused_kernel_matches_plain(cuda, shape, window, taps, relaxed, confiden
     assert launch_counts()[name] == before + 1
     assert len(got) == len(want)
     for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+        assert torch.equal(g, w)
+
+
+# Border blocks only: every block of the walk meets the frame's edge (one
+# block at every window). Interior-heavy: 300x560, 75 x 6 blocks of 4-row
+# walks at window 7, most away from every edge. Then planes whose walks are
+# 8, 16 and 32 rows (lk_tile.cuh::walk_rows), each with a ragged last block.
+@pytest.mark.parametrize("shape", [(30, 90), (300, 560), (545, 960), (601, 1920), (1057, 1920)])
+@pytest.mark.parametrize("window", [3, 5, 7])
+@pytest.mark.parametrize("relaxed", [True, False])
+def test_walk_border_and_interior_blocks_bit_exact(cuda, shape, window, relaxed):
+    rng = np.random.default_rng(window)
+    prev, curr = _smooth(rng, shape, cuda)
+    u, v = _rand(rng, shape, -9, 9, cuda), _rand(rng, shape, -9, 9, cuda)
+    conv = torch.tensor(False, device=cuda)
+    rargs = (prev, curr, u, v, conv, window, 1e-4, 8.0, 3.0, relaxed)
+    got, want = lk.lucas_kanade_refine(*rargs), lk.lucas_kanade_refine_ref(*rargs)
+    for g, w in zip(got[:2], want[:2]):
+        assert torch.equal(g, w)
+    for g, w in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    for taps in (False, True):
+        fargs = (prev, curr, window, 1e-4, taps, 1.0, True, relaxed)
+        got, want = lk.lucas_kanade_fused(*fargs), lk.lucas_kanade_fused_ref(*fargs)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 def test_wrappers_reject_non_contiguous(cuda):
@@ -194,7 +230,7 @@ def test_batched_refine_kernel_per_element(cuda, window, relaxed, mxu):
     torch.cuda.synchronize()
     assert launch_counts()[name] == before + 1
     assert got[2].shape == got[3].shape == (2,)
-    atol = 1e-4 if mxu and window == 3 else 1e-5
+    atol = 1e-4 if mxu and window == 3 else 1e-5 if mxu else 0.0
     for g, w in zip(got[:2], want[:2]):
         torch.testing.assert_close(g, w, rtol=0, atol=atol)
     for g, w in zip(got[2:], want[2:]):
@@ -220,10 +256,12 @@ def test_batched_fused_kernel_per_element(cuda, window, taps, relaxed, mxu):
     want = lk.lucas_kanade_fused_ref(prev, curr, window, **kw)
     torch.cuda.synchronize()
     assert launch_counts()[name] == before + 1
-    atol = 1e-4 if mxu and not taps and window == 3 else 1e-5
+    walk = not mxu or taps  # taps take precedence over window_mxu
+    atol = 0.0 if walk else 1e-4 if window == 3 else 1e-5
     for g, w in zip(got[:2], want[:2]):
         torch.testing.assert_close(g, w, rtol=0, atol=atol)
-    torch.testing.assert_close(got[2], want[2], rtol=0, atol=2e-6 * float(want[2].max()))
+    det_atol = 0.0 if walk else 2e-6 * float(want[2].max())
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=det_atol)
     for b in range(2):
         single = lk.lucas_kanade_fused(prev[b], curr[b], window, **kw)
         for g, s in zip(got, single):

@@ -6,8 +6,9 @@
 // windows 3, 5 and 7, in exact or relaxed order, with uniform window sums
 // or the separable Gaussian taps of _window_taps (:388-397), which the
 // wrapper computes and passes as f32 values. One launch covers a batch of
-// `batch` elements (blockIdx.z). The tile kernel, what it computes and its
-// design are in lk_tile.cuh. The window_mxu variant (K10) is in lk_mxu.cu.
+// `batch` elements (blockIdx.z). The column-walk kernel, what it computes
+// and its design are in lk_tile.cuh. The window_mxu variant (K10) is in
+// lk_mxu.cu.
 
 #include "lk_tile.cuh"
 

@@ -6,20 +6,20 @@
 // :573) -> _lk_refine_kernel -> _lk_tile, windows 3, 5 and 7:
 //   relaxed = 1: relaxed_order=True, separable Sobel and shift-tree sums (K3);
 //   relaxed = 0: relaxed_order=False, direct Sobel and sequential sums (K5).
-// The tile kernel, what it computes and its design are in lk_tile.cuh. One
-// launch covers a batch of `batch` elements (blockIdx.z), each with its own
-// converged flag. The wrapper adds each element's per-block partials with
-// torch.sum, as XLA adds the TPU kernel's per-tile partials
-// (pallas_lk.py:606-607). The window_mxu variant (K10) is in lk_mxu.cu.
+// The column-walk kernel, what it computes and its design are in
+// lk_tile.cuh. One launch covers a batch of `batch` elements (blockIdx.z),
+// each with its own converged flag. The wrapper adds each element's
+// per-block partials with torch.sum, as XLA adds the TPU kernel's per-tile
+// partials (pallas_lk.py:606-607). The window_mxu variant (K10) is in lk_mxu.cu.
 
 #include "lk_tile.cuh"
 
 using namespace tpuflow_lk;
 
-// Number of per-block partial sums of one batch element (part_du and
-// part_dv hold batch times as many).
-extern "C" int tpuflow_lk_refine_blocks(int height, int width) {
-  return num_blocks(height, width);
+// Number of per-block partial sums of one batch element at a window
+// (part_du and part_dv hold batch times as many).
+extern "C" int tpuflow_lk_refine_blocks(int height, int width, int window) {
+  return num_blocks(height, width, window);
 }
 
 extern "C" int tpuflow_lk_refine(const float* prev, const float* warped,

@@ -1,6 +1,7 @@
 // Lucas-Kanade tile kernel on Hopper (sm_90a), shared by the refine step
 // (lk_refine.cu: K3 relaxed order, K5 exact order) and the fused
-// single-scale solve (lk_fused.cu: K6, K7 with the |det| plane).
+// single-scale solve (lk_fused.cu: K6, K7 with the |det| plane). The
+// window_mxu variant (K10) keeps a staged body of its own, in lk_mxu.cu.
 //
 // Replaces tpuflow/kernels/pallas_lk.py::_lk_tile (:189-311) as reached by
 // _lk_refine_kernel (:351), _lk_kernel (:314) and _lk_conf_kernel (:331).
@@ -17,15 +18,12 @@
 //       ix = (sv[-1] - sv[+1]) * 0.125, iy = ((dv[-1] + 2*dv[0]) + dv[+1])
 //       * 0.125 across the columns;
 //   the five products ix*ix, iy*iy, ix*iy, ix*it, iy*it summed over the
-//   window, rows first, then columns, in one of four orders:
+//   window, rows first, then columns, in one of three orders:
 //     sequential ((((a0 + a1) + a2) + a3) + a4) (pallas_lk.py:262-268);
 //     the shift tree of _sliding_sum_tree (pallas_lk.py:94-136), e.g.
 //       ((a0 + a1) + (a2 + a3)) + a4 at window 5;
 //     Gaussian taps, t0*a0 + t1*a1 + ... sequentially (pallas_lk.py:
 //       269-277), whatever the Sobel order;
-//     banded-ones matrix products on the tensor cores (K10, the
-//       window_mxu branch, _wsum_mxu at pallas_lk.py:139-186), whatever
-//       the Sobel order: see "Window sums on the tensor cores" below;
 //   det = sxx*syy - sxy*sxy, inv = |det| > det_threshold ? 1/det : 0,
 //   du = (syy*b0 - sxy*b1) * inv, dv = (sxx*b1 - sxy*b0) * inv with
 //   b0 = -sxt, b1 = -syt (pallas_lk.py:288-292), zero outside the interior
@@ -39,45 +37,53 @@
 //   fused with det: also |det| on the interior and 0 elsewhere
 //     (pallas_lk.py:305-310).
 //
-// Bound: device memory, 16-24 B per pixel (two frames in, flow in and out)
-// against about 200 flops per pixel. One block per 32x16 output tile; the
-// tile and its halo (Sobel 1 + window half, up to 4 px at window 7) of both
-// frames are staged once in shared memory, and every intermediate plane
-// (avg, it, ix, iy, the five row-summed products) stays there, never in
-// device memory: 28 KB of static shared memory at window 7. The TPU
-// kernel's double-buffered slab DMA has no counterpart: many blocks per SM
-// hide the load latency instead.
+// Bound on this card: device memory. Each pixel's bytes, each input read
+// once and each output written once: 24 B for the refine (prev, warped,
+// u, v in; u, v out), 16 B fused (prev, curr in; u, v out), 20 B with
+// |det|; at 1080p 0.0149, 0.0099 and 0.0124 ms at 3.35 TB/s. The ~100 f32
+// operations a pixel take a third of that at the card's f32 rate. What a
+// design must avoid is on chip: staging whole tiles in shared memory and
+// re-reading them per window tap (K10's body, lk_mxu.cu) spends ~130
+// shared-memory words an output.
+//
+// Design: a column walk. Each warp walks down a strip of 32 frame columns,
+// one column a lane, and each lane keeps its column's state in registers:
+//   - the frames arrive two rows a step by 4-byte cp.async (each lane its
+//     own column, zero-filled outside the padded frame) into a per-warp
+//     ring of kStages steps in shared memory, a step ahead of use; the
+//     lane's padded source column is fixed for the walk and the source
+//     row is one compare a row, so no element pays a division or a
+//     padding branch; the refine's u, v ride in the same ring;
+//   - avg is formed once a pixel and reaches the two neighbouring columns
+//     by two warp shuffles; each lane keeps two rows of avg for its column
+//     and both neighbours, and forms Sobel, it and the five products once a
+//     gradient pixel, for two rows at a time (two independent chains);
+//   - the products go into a register ring of w rows x 5 planes (the step
+//     loop is unrolled by w, so every ring index is static); the vertical
+//     window sum is formed from the ring in the order above;
+//   - the horizontal window sum takes its neighbours' row sums by warp
+//     shuffles (the shift tree shares its runs: 2/3/4 shuffles a plane at
+//     windows 3/5/7, the other orders w - 1), then the solve and the
+//     epilogue run in the lane.
+// About 4 shared-memory words and 2 + 5(w - 1) shuffles (tree: 2 + 5 x
+// 2/3/4) a row a lane, and no block barrier until the refine's partial
+// sums. A strip's 32 columns give 30 gradient columns and 30 - 2*(w/2)
+// outputs (28/26/24 at windows 3/5/7): adjacent strips re-read 2 + 2*(w/2)
+// columns, from L1 or L2. A block is kStripWarps = 4 adjacent strips (128
+// threads) by up to kMaxRows = 32 output rows, whose walk re-reads
+// 2 + 2*(w/2) rows at its top (1.19x at window 5). A 1080p plane is ~650
+// blocks, about 5 an SM: one wave at <= 102 registers a thread (window 7
+// takes 4 an SM, 128 registers, or it spills). Smaller planes walk 16, 8
+// or 4 rows a block (walk_rows), since a walk's steps are sequential and a
+// coarse pyramid level would otherwise leave most SMs idle. Two ring slots
+// read faster than four or eight on the card (a scratch sweep), likely
+// because the ring's shared memory comes out of the L1 that catches the
+// strips' overlap.
 // Batches: blockIdx.z is the batch element (the TPU kernels' flattened
 // (batch * row tiles) grid); each element reads its own planes, its own
 // converged flag and writes its own block partials.
 // Built with -fmad=false: no product is fused into an FMA, so each pixel
-// is bit-identical to the plain PyTorch version in kernels/lk.py (the
-// tensor-core order excepted: see below).
-//
-// Window sums on the tensor cores (kSum == kMxu). The TPU branch asked
-// whether the matrix unit beats shifted adds for the window sums; on
-// Hopper the same question is mma.sync against the shift tree. Each of
-// the five planes P (gradient region, kGH x kGW) is summed as two banded
-// products per 32x16 tile, both with m16n8k8 TF32 mma.sync:
-//   rows = Wv @ P, Wv the (16, kGH) band Wv[i][k] = (i <= k < i + w):
-//     M = 16, K = kGH <= 22 (3 k-steps), N = kGW <= 38 (5 n-tiles);
-//   sums = rows @ Wh, Wh the (kGW, 32) band Wh[k][j] = (j <= k < j + w):
-//     M = 16, K = kGW <= 38 (5 k-steps), N = 32 (4 n-tiles).
-// The bands are generated in registers (0 or 1, exact in TF32). TF32
-// keeps 10 mantissa bits, so every data operand x is split into three
-// TF32 parts, hi = tf32(x), mid = tf32(x - hi), lo = x - hi - mid, whose
-// sum is x exactly (each difference is exact in f32, and lo has at most
-// two significant bits). Each part has its own f32 accumulator, and the
-// three are added with IEEE adds at the end, (lo + mid) + hi. One shared
-// accumulator would be simpler, but the tensor core aligns its addends to
-// the largest exponent and truncates, so adding the small parts' products
-// to the large running sum lost up to several ulp (measured on the card:
-// 1.3e-3 px at window 3, >1e-5 px on 2% of 1080p pixels of float frames);
-// a part's own sum of at most w 11-bit terms of like size seldom needs
-// any. The
-// products are exact; the sums still round otherwise than the plain
-// version's (torch.matmul in true f32), so K10 is held to it within stated
-// limits, not bit for bit.
+// is bit-identical to the plain PyTorch version in kernels/lk.py.
 
 #pragma once
 
@@ -86,10 +92,6 @@
 
 namespace tpuflow_lk {
 
-constexpr int kTW = 32;       // output tile width
-constexpr int kTH = 16;       // output tile height
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxWindow = 7;
 constexpr int kMaxBatch = 65535;  // gridDim.z
 
@@ -120,17 +122,6 @@ struct LkArgs {
   Taps taps;
 };
 
-// Padded-frame read: symmetric by one pixel, zeros beyond.
-__device__ __forceinline__ float padded(const float* __restrict__ img, int r,
-                                        int c, int height, int width) {
-  if (r == -1) r = 0;
-  else if (r == height) r = height - 1;
-  if (c == -1) c = 0;
-  else if (c == width) c = width - 1;
-  if (r < 0 || r >= height || c < 0 || c >= width) return 0.0f;
-  return __ldg(img + (size_t)r * width + c);
-}
-
 // Shift-tree run of N = 2^k taps: run<2N>(a) = run<N>(a) + run<N>(a + N).
 template <int N>
 __device__ __forceinline__ float run_sum(const float* a) {
@@ -157,8 +148,9 @@ __device__ __forceinline__ float tree_rest(float acc, const float* a) {
 enum Order { kSequential = 0, kTree = 1, kWeighted = 2 };
 
 // How the window is summed: uniform (sequential or shift tree, by the
-// Sobel order), Gaussian taps, or banded products on the tensor cores.
-enum WindowSum { kUniform = 0, kGaussian = 1, kMxu = 2 };
+// Sobel order) or with Gaussian taps. (K10's banded products on the tensor
+// cores are lk_mxu.cu's own kernel.)
+enum WindowSum { kUniform = 0, kGaussian = 1 };
 
 template <int W, int kOrder>
 __device__ __forceinline__ float window_sum(const float (&a)[W],
@@ -179,314 +171,346 @@ __device__ __forceinline__ float window_sum(const float (&a)[W],
   }
 }
 
-// f32 -> TF32 (round to nearest, ties away), as a 32-bit operand.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// Part 0 (hi), 1 (mid) or 2 (lo) of x's exact three-way TF32 split.
-__device__ __forceinline__ uint32_t tf32_part(float x, int part) {
-  const float hi = __uint_as_float(to_tf32(x));
-  if (part == 0) return __float_as_uint(hi);
-  const float r = x - hi;
-  const float mid = __uint_as_float(to_tf32(r));
-  if (part == 1) return __float_as_uint(mid);
-  return __float_as_uint(r - mid);
-}
-
-constexpr uint32_t kOne = 0x3f800000u;  // 1.0f, exact in TF32
-
-// d += a @ b, one m16n8k8 TF32 tile with an f32 accumulator. Fragments
-// (g = lane / 4, t = lane % 4): a0 = A[g][t], a1 = A[g+8][t],
-// a2 = A[g][t+4], a3 = A[g+8][t+4]; b0 = B[t][g], b1 = B[t+4][g];
-// d0 = D[g][2t], d1 = D[g][2t+1], d2 = D[g+8][2t], d3 = D[g+8][2t+1].
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Product plane q at gradient-region pixel (k, h).
-template <int kGH, int kGW>
-__device__ __forceinline__ float product(const float (&ix_s)[kGH][kGW],
-                                         const float (&iy_s)[kGH][kGW],
-                                         const float (&it_s)[kGH][kGW], int q,
-                                         int k, int h) {
-  const float gx = ix_s[k][h], gy = iy_s[k][h], gt = it_s[k][h];
-  return q == 0 ? gx * gx : q == 1 ? gy * gy : q == 2 ? gx * gy
-       : q == 3 ? gx * gt : gy * gt;
-}
-
-// d[part] += a @ b[part] for the three parts of a data operand b.
-__device__ __forceinline__ void mma_parts(float (&d)[3][4], const uint32_t (&a)[4],
-                                          const float (&b)[2]) {
-#pragma unroll
-  for (int part = 0; part < 3; ++part) {
-    const uint32_t bp[2] = {tf32_part(b[0], part), tf32_part(b[1], part)};
-    mma_tf32(d[part], a, bp);
+// The solve of one pixel at (y, x) from its five window sums, then, if
+// `store`, the mode's epilogue into u_dst, v_dst (and det_dst); the refine
+// then adds |du|, |dv| to acc_u, acc_v. Only the stores and the adds are
+// conditional, so a warp's lanes run the solve together.
+template <int kHalf, int kMode>
+__device__ __forceinline__ void solve_store(const LkArgs& args, const float (&s)[5],
+                                            int y, int x, bool store, bool frozen,
+                                            float u_in, float v_in, float* u_dst,
+                                            float* v_dst, float* det_dst, float& acc_u,
+                                            float& acc_v) {
+  const int height = args.height, width = args.width;
+  const float s_xx = s[0], s_yy = s[1], s_xy = s[2];
+  const float b0 = -s[3], b1 = -s[4];
+  const float det = s_xx * s_yy - s_xy * s_xy;
+  const float inv = fabsf(det) > args.det_threshold ? 1.0f / det : 0.0f;
+  float du = (s_yy * b0 - s_xy * b1) * inv;
+  float dv = (s_xx * b1 - s_xy * b0) * inv;
+  const bool interior =
+      y >= kHalf && y < height - kHalf && x >= kHalf && x < width - kHalf;
+  if (!interior) {
+    du = 0.0f;
+    dv = 0.0f;
   }
-}
-
-// d[part] += a[part] @ b for the three parts of a data operand a.
-__device__ __forceinline__ void mma_parts(float (&d)[3][4], const float (&a)[4],
-                                          const uint32_t (&b)[2]) {
-#pragma unroll
-  for (int part = 0; part < 3; ++part) {
-    const uint32_t ap[4] = {tf32_part(a[0], part), tf32_part(a[1], part),
-                            tf32_part(a[2], part), tf32_part(a[3], part)};
-    mma_tf32(d[part], ap, b);
-  }
-}
-
-// The three parts' sums, element i: (lo + mid) + hi.
-__device__ __forceinline__ float combine(const float (&d)[3][4], int i) {
-  return (d[2][i] + d[1][i]) + d[0][i];
-}
-
-// Vertical pass on the tensor cores: rows_s[q] = Wv @ P_q for the five
-// planes, one warp per (plane, 8-column tile).
-template <int kWindow, int kGH, int kGW>
-__device__ __forceinline__ void mxu_rows(const float (&ix_s)[kGH][kGW],
-                                         const float (&iy_s)[kGH][kGW],
-                                         const float (&it_s)[kGH][kGW],
-                                         float (&rows_s)[5][kTH][kGW]) {
-  constexpr int kNT = (kGW + 7) / 8;
-  constexpr int kKT = (kGH + 7) / 8;
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  for (int task = threadIdx.x / 32; task < 5 * kNT; task += kWarps) {
-    const int q = task / kNT, n0 = (task % kNT) * 8;
-    const int h = n0 + g;  // this lane's B column
-    float d[3][4] = {};
-#pragma unroll
-    for (int kt = 0; kt < kKT; ++kt) {
-      const int k0 = kt * 8 + t, k1 = k0 + 4;
-      const uint32_t a[4] = {
-          (k0 >= g && k0 < g + kWindow) ? kOne : 0u,
-          (k0 >= g + 8 && k0 < g + 8 + kWindow) ? kOne : 0u,
-          (k1 >= g && k1 < g + kWindow) ? kOne : 0u,
-          (k1 >= g + 8 && k1 < g + 8 + kWindow) ? kOne : 0u,
-      };
-      const float b[2] = {
-          (k0 < kGH && h < kGW) ? product(ix_s, iy_s, it_s, q, k0, h) : 0.0f,
-          (k1 < kGH && h < kGW) ? product(ix_s, iy_s, it_s, q, k1, h) : 0.0f,
-      };
-      mma_parts(d, a, b);
+  if constexpr (kMode == kRefine) {
+    const float uc = fminf(fmaxf(u_in, -args.max_disp), args.max_disp);
+    const float vc = fminf(fmaxf(v_in, -args.max_disp_v), args.max_disp_v);
+    const float u_next = frozen ? uc : uc + du;
+    const float v_next = frozen ? vc : vc + dv;
+    if (store) {
+      *u_dst = u_next;
+      *v_dst = v_next;
+      acc_u += fabsf(du);
+      acc_v += fabsf(dv);
     }
-    const int c = n0 + 2 * t;
-    if (c < kGW) {
-      rows_s[q][g][c] = combine(d, 0);
-      rows_s[q][g + 8][c] = combine(d, 2);
-    }
-    if (c + 1 < kGW) {
-      rows_s[q][g][c + 1] = combine(d, 1);
-      rows_s[q][g + 8][c + 1] = combine(d, 3);
+  } else {
+    const float det_out = interior ? fabsf(det) : 0.0f;
+    if (store) {
+      *u_dst = du;
+      *v_dst = dv;
+      if constexpr (kMode == kFusedDet) *det_dst = det_out;
     }
   }
 }
 
-// Horizontal pass on the tensor cores: sums_s[q] = rows_s[q] @ Wh, one
-// warp per (plane, 8-column output tile).
-template <int kWindow, int kGW>
-__device__ __forceinline__ void mxu_cols(const float (&rows_s)[5][kTH][kGW],
-                                         float (&sums_s)[5][kTH][kTW]) {
-  constexpr int kNT = kTW / 8;
-  constexpr int kKT = (kGW + 7) / 8;
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  for (int task = threadIdx.x / 32; task < 5 * kNT; task += kWarps) {
-    const int q = task / kNT, n0 = (task % kNT) * 8;
-    const int j = n0 + g;  // this lane's B column
-    float d[3][4] = {};
+// ---------------------------------------------------------------------------
+// The column walk (K3, K5, K6, K7).
+
+constexpr int kLanes = 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kStripWarps = 4;                 // strips (warps) per block
+constexpr int kWalkThreads = kStripWarps * kLanes;
+constexpr int kMaxRows = 32;                   // output rows per block, at most
+constexpr int kMinRows = 4;
+constexpr int kFillBlocks = 512;               // ~4 blocks an SM of the H100's 132
+constexpr int kStages = 2;                     // ring slots, a step (two frame rows) each
+static_assert((kStages & (kStages - 1)) == 0, "a power of two");
+
+// Output columns of one strip at a window.
+__host__ __device__ constexpr int strip_width(int window) {
+  return kLanes - 2 - 2 * (window / 2);
+}
+
+// 4-byte asynchronous copy global -> shared, or 4 zero bytes if !valid.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's copy groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Window sum across lanes: lane l gets the sum of lanes l .. l + W - 1 of
+// v, in window_sum's order. The shift tree shares its runs between lanes
+// (2/3/4 shuffles at windows 3/5/7, tree_rest's order); the sequential and
+// weighted sums take each tap's lane (W - 1 shuffles).
+template <int W, int kOrder>
+__device__ __forceinline__ float lane_window_sum(float v, const float* taps) {
+  if constexpr (kOrder == kTree) {
+    const float r2 = v + __shfl_down_sync(kFull, v, 1);  // run of 2 at l
+    if constexpr (W == 3) return r2 + __shfl_down_sync(kFull, v, 2);
+    const float r4 = r2 + __shfl_down_sync(kFull, r2, 2);  // run of 4 at l
+    if constexpr (W == 5) return r4 + __shfl_down_sync(kFull, v, 4);
+    return (r4 + __shfl_down_sync(kFull, r2, 4)) + __shfl_down_sync(kFull, v, 6);
+  } else {
+    float a[W];
+    a[0] = v;
 #pragma unroll
-    for (int kt = 0; kt < kKT; ++kt) {
-      const int k0 = kt * 8 + t, k1 = k0 + 4;
-      const float a[4] = {
-          k0 < kGW ? rows_s[q][g][k0] : 0.0f,
-          k0 < kGW ? rows_s[q][g + 8][k0] : 0.0f,
-          k1 < kGW ? rows_s[q][g][k1] : 0.0f,
-          k1 < kGW ? rows_s[q][g + 8][k1] : 0.0f,
-      };
-      const uint32_t b[2] = {
-          (k0 >= j && k0 < j + kWindow) ? kOne : 0u,
-          (k1 >= j && k1 < j + kWindow) ? kOne : 0u,
-      };
-      mma_parts(d, a, b);
-    }
-    const int c = n0 + 2 * t;
-    sums_s[q][g][c] = combine(d, 0);
-    sums_s[q][g][c + 1] = combine(d, 1);
-    sums_s[q][g + 8][c] = combine(d, 2);
-    sums_s[q][g + 8][c + 1] = combine(d, 3);
+    for (int d = 1; d < W; ++d) a[d] = __shfl_down_sync(kFull, v, d);
+    return window_sum<W, kOrder>(a, taps);
   }
+}
+
+// Sobel/8 of avg at a lane's column from three avg rows (top, mid, bot) at
+// its left (l), own (c) and right (r) columns, in the Sobel order.
+template <bool kRelaxed>
+__device__ __forceinline__ void sobel(float lt, float lm, float lb, float ct, float cb,
+                                      float rt, float rm, float rb, float& gx, float& gy) {
+  if constexpr (kRelaxed) {
+    const float sv_m = (lt + 2.0f * lm) + lb;
+    const float sv_p = (rt + 2.0f * rm) + rb;
+    const float dv_m = lt - lb;
+    const float dv_0 = ct - cb;
+    const float dv_p = rt - rb;
+    gx = (sv_m - sv_p) * 0.125f;
+    gy = ((dv_m + 2.0f * dv_0) + dv_p) * 0.125f;
+  } else {
+    gx = (((lt - rt) + 2.0f * (lm - rm)) + (lb - rb)) * 0.125f;
+    gy = (((lt - lb) + 2.0f * (ct - cb)) + (rt - rb)) * 0.125f;
+  }
+}
+
+// Blocks an SM must hold at once, which caps the registers a thread: 5
+// (102 registers) keeps a 1080p plane's blocks in one wave; window 7 needs
+// ~120 registers without spilling, so 4.
+template <int kWindow>
+__host__ __device__ constexpr int walk_min_blocks() {
+  return kWindow == 7 ? 4 : 5;
 }
 
 template <int kWindow, bool kRelaxed, int kSum, int kMode>
-__global__ void __launch_bounds__(kThreads) lk_tile_kernel(const LkArgs args) {
+__global__ void __launch_bounds__(kWalkThreads, walk_min_blocks<kWindow>())
+    lk_walk_kernel(const LkArgs args, int rows) {
   static_assert(kWindow == 3 || kWindow == 5 || kWindow == 7, "window 3/5/7");
   constexpr int kHalf = kWindow / 2;
-  constexpr int kR = kHalf + 1;          // halo: Sobel 1 + window half
-  constexpr int kAW = kTW + 2 * kR;      // staged avg tile
-  constexpr int kAH = kTH + 2 * kR;
-  constexpr int kGW = kTW + 2 * kHalf;   // gradient region
-  constexpr int kGH = kTH + 2 * kHalf;
+  constexpr int kOutW = strip_width(kWindow);
   constexpr int kOrder =
       kSum == kGaussian ? kWeighted : (kRelaxed ? kTree : kSequential);
+  // Per frame row of a ring slot: prev and curr, and for the refine the
+  // carried u and v at the output row of the same step.
+  constexpr int kPlanes = kMode == kRefine ? 4 : 2;
 
-  __shared__ float avg_s[kAH][kAW];
-  __shared__ float it_s[kGH][kGW];
-  __shared__ float ix_s[kGH][kGW];
-  __shared__ float iy_s[kGH][kGW];
-  __shared__ float rows_s[5][kTH][kGW];
-  // Tensor cores only: the window sums (one float otherwise).
-  constexpr bool kTc = kSum == kMxu;
-  __shared__ float sums_s[kTc ? 5 : 1][kTc ? kTH : 1][kTc ? kTW : 1];
-  __shared__ float red_u[kThreads];  // refine only
-  __shared__ float red_v[kThreads];
+  __shared__ float stage[kStripWarps][kStages][2][kPlanes][kLanes];
+  __shared__ float red[2][kStripWarps];  // refine only
 
   const int height = args.height, width = args.width;
-  const int tid = threadIdx.x;
-  const int r0 = blockIdx.y * kTH;
-  const int c0 = blockIdx.x * kTW;
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int x0 = (blockIdx.x * kStripWarps + warp) * kOutW;  // first output column
+  const int r0 = blockIdx.y * rows;                           // first output row
   const float* taps = args.taps.t;
   const size_t plane = (size_t)blockIdx.z * height * width;
-  const float* prev = args.prev + plane;
-  const float* curr = args.curr + plane;
 
-  // Stage the padded tile: avg over the whole halo, it over the gradient
-  // region. avg_s[r][c] is image pixel (r0 + r - kR, c0 + c - kR).
-  for (int k = tid; k < kAH * kAW; k += kThreads) {
-    const int r = k / kAW, c = k % kAW;
-    const float p = padded(prev, r0 + r - kR, c0 + c - kR, height, width);
-    const float q = padded(curr, r0 + r - kR, c0 + c - kR, height, width);
-    avg_s[r][c] = (p + q) * 0.5f;
-    if (r >= 1 && r < kAH - 1 && c >= 1 && c < kAW - 1) it_s[r - 1][c - 1] = p - q;
-  }
-  __syncthreads();
+  // This lane's frame column (the avg column) and its source column in the
+  // padded frame; lanes 1 .. kOutW write output column xo, whose window
+  // spans lanes l .. l + 2*kHalf.
+  const int x = x0 - kHalf - 1 + lane;
+  const int xs = x == -1 ? 0 : x == width ? width - 1 : x;
+  const bool col_ok = xs >= 0 && xs < width;
+  const int xo = x + kHalf;
+  const bool out_lane = lane >= 1 && lane <= kOutW && xo < width;
+  // Per-lane bases; a row adds an unsigned 32-bit offset (a plane holds
+  // fewer than 2^31 pixels: the wrappers check).
+  const float* prev_c = args.prev + plane + (col_ok ? xs : 0);
+  const float* curr_c = args.curr + plane + (col_ok ? xs : 0);
+  const size_t out_c = plane + (out_lane ? xo : 0);
+  const float* u_in_c = args.u_in + out_c;
+  const float* v_in_c = args.v_in + out_c;
+  float* u_out_c = args.u_out + out_c;
+  float* v_out_c = args.v_out + out_c;
+  float* det_out_c = kMode == kFusedDet ? args.det_out + out_c : u_out_c;  // else unused
+  const uint32_t stage_lane =
+      static_cast<uint32_t>(__cvta_generic_to_shared(&stage[warp][0][0][0][lane]));
+  constexpr uint32_t kPlaneBytes = kLanes * sizeof(float);
+  constexpr uint32_t kRowBytes = kPlanes * kPlaneBytes;
 
-  // Sobel over the gradient region; ix_s[g][h] is image pixel
-  // (r0 + g - kHalf, c0 + h - kHalf), centred on avg_s[g + 1][h + 1].
-  for (int k = tid; k < kGH * kGW; k += kThreads) {
-    const int g = k / kGW, h = k % kGW;
-    if constexpr (kRelaxed) {
-      const float sv_m = (avg_s[g][h] + 2.0f * avg_s[g + 1][h]) + avg_s[g + 2][h];
-      const float sv_p =
-          (avg_s[g][h + 2] + 2.0f * avg_s[g + 1][h + 2]) + avg_s[g + 2][h + 2];
-      const float dv_m = avg_s[g][h] - avg_s[g + 2][h];
-      const float dv_0 = avg_s[g][h + 1] - avg_s[g + 2][h + 1];
-      const float dv_p = avg_s[g][h + 2] - avg_s[g + 2][h + 2];
-      ix_s[g][h] = (sv_m - sv_p) * 0.125f;
-      iy_s[g][h] = ((dv_m + 2.0f * dv_0) + dv_p) * 0.125f;
-    } else {
-      // a(dy, dx) = avg at (g + 1 + dy, h + 1 + dx).
-      const float mm = avg_s[g][h], m0 = avg_s[g][h + 1], mp = avg_s[g][h + 2];
-      const float zm = avg_s[g + 1][h], zp = avg_s[g + 1][h + 2];
-      const float pm = avg_s[g + 2][h], p0 = avg_s[g + 2][h + 1], pp = avg_s[g + 2][h + 2];
-      ix_s[g][h] = (((mm - mp) + 2.0f * (zm - zp)) + (pm - pp)) * 0.125f;
-      iy_s[g][h] = (((mm - pm) + 2.0f * (m0 - p0)) + (mp - pp)) * 0.125f;
+  // Frame row f (of r0 - kHalf - 1 + f) is read at step f / 2; gradient
+  // row g is centred on frame row g + 1; output row r0 + y comes from
+  // gradient rows y .. y + 2*kHalf. So step j reads frame rows 2j, 2j + 1,
+  // forms gradient rows 2j - 2, 2j - 1 and outputs rows 2j - 2 - 2*kHalf
+  // and 2j - 1 - 2*kHalf where they are in 0 .. n_out - 1.
+  const int n_out = x0 < width ? min(rows, height - r0) : 0;
+  const int n_frame = n_out + 2 * kHalf + 2;  // even iff n_out is
+  const int n_steps = x0 < width ? (n_frame + 1) / 2 : 0;
+
+  auto fetch_row = [&](int f, uint32_t dst) {
+    const int r = r0 - kHalf - 1 + f;
+    const int rs = r == -1 ? 0 : r == height ? height - 1 : r;
+    const bool ok = col_ok && f < n_frame && (unsigned)rs < (unsigned)height;
+    const unsigned off = ok ? (unsigned)(rs * width) : 0u;
+    cp_async4(dst, prev_c + off, ok);
+    cp_async4(dst + kPlaneBytes, curr_c + off, ok);
+    if constexpr (kMode == kRefine) {
+      const int y = f - 2 - 2 * kHalf;  // the output row formed at this row's step
+      const bool uv_ok = out_lane && (unsigned)y < (unsigned)n_out;
+      const unsigned uv_off = uv_ok ? (unsigned)((r0 + y) * width) : 0u;
+      cp_async4(dst + 2 * kPlaneBytes, u_in_c + uv_off, uv_ok);
+      cp_async4(dst + 3 * kPlaneBytes, v_in_c + uv_off, uv_ok);
     }
-  }
-  __syncthreads();
+  };
+  auto fetch = [&](int j) {
+    const uint32_t slot = stage_lane + (j & (kStages - 1)) * 2 * kRowBytes;
+    fetch_row(2 * j, slot);
+    fetch_row(2 * j + 1, slot + kRowBytes);
+    cp_async_commit();  // one group a step, empty past the end
+  };
 
-  if constexpr (kSum == kMxu) {
-    // Both window passes as banded products on the tensor cores.
-    mxu_rows<kWindow>(ix_s, iy_s, it_s, rows_s);
-    __syncthreads();
-    mxu_cols<kWindow>(rows_s, sums_s);
-    __syncthreads();
-  } else {
-    // Window sums down the rows for the five product planes.
-    for (int k = tid; k < 5 * kTH * kGW; k += kThreads) {
-      const int q = k / (kTH * kGW);
-      const int i = (k / kGW) % kTH;
-      const int h = k % kGW;
-      float a[kWindow];
-#pragma unroll
-      for (int d = 0; d < kWindow; ++d) a[d] = product(ix_s, iy_s, it_s, q, i + d, h);
-      rows_s[q][i][h] = window_sum<kWindow, kOrder>(a, taps);
-    }
-    __syncthreads();
-  }
-
-  // Window sums across the columns (unless already summed), the solve, and
-  // the mode's epilogue.
   bool frozen = false;
   if constexpr (kMode == kRefine) frozen = args.converged[blockIdx.z] != 0;
   float acc_u = 0.0f, acc_v = 0.0f;
-  for (int k = tid; k < kTH * kTW; k += kThreads) {
-    const int i = k / kTW, j = k % kTW;
-    const int y = r0 + i, x = c0 + j;
-    if (y >= height || x >= width) continue;
+
+  // Window sums and the solve of output row y (if in range) from gradient
+  // rows in ring slots g0 + 1 .. g0 + kWindow (mod kWindow), oldest first.
+  float prod[5][kWindow];  // gradient row g in slot g % kWindow
+  auto emit = [&](int g0, int y, const float* row) {
     float s[5];
 #pragma unroll
-    for (int q = 0; q < 5; ++q) {
-      if constexpr (kSum == kMxu) {
-        s[q] = sums_s[q][i][j];
-      } else {
-        float a[kWindow];
+    for (int pl = 0; pl < 5; ++pl) {
+      float col[kWindow];
 #pragma unroll
-        for (int d = 0; d < kWindow; ++d) a[d] = rows_s[q][i][j + d];
-        s[q] = window_sum<kWindow, kOrder>(a, taps);
-      }
+      for (int d = 0; d < kWindow; ++d) col[d] = prod[pl][(g0 + 1 + d) % kWindow];
+      s[pl] = lane_window_sum<kWindow, kOrder>(window_sum<kWindow, kOrder>(col, taps), taps);
     }
-    const float s_xx = s[0], s_yy = s[1], s_xy = s[2];
-    const float b0 = -s[3], b1 = -s[4];
-    const float det = s_xx * s_yy - s_xy * s_xy;
-    const float inv = fabsf(det) > args.det_threshold ? 1.0f / det : 0.0f;
-    float du = (s_yy * b0 - s_xy * b1) * inv;
-    float dv = (s_xx * b1 - s_xy * b0) * inv;
-    const bool interior =
-        y >= kHalf && y < height - kHalf && x >= kHalf && x < width - kHalf;
-    if (!interior) {
-      du = 0.0f;
-      dv = 0.0f;
-    }
-    const size_t o = plane + (size_t)y * width + x;
+    const unsigned o = (unsigned)((r0 + y) * width);
+    float u_in = 0.0f, v_in = 0.0f;
     if constexpr (kMode == kRefine) {
-      const float uc = fminf(fmaxf(args.u_in[o], -args.max_disp), args.max_disp);
-      const float vc = fminf(fmaxf(args.v_in[o], -args.max_disp_v), args.max_disp_v);
-      args.u_out[o] = frozen ? uc : uc + du;
-      args.v_out[o] = frozen ? vc : vc + dv;
-      acc_u += fabsf(du);
-      acc_v += fabsf(dv);
-    } else {
-      args.u_out[o] = du;
-      args.v_out[o] = dv;
-      if constexpr (kMode == kFusedDet) args.det_out[o] = interior ? fabsf(det) : 0.0f;
+      u_in = row[2 * kLanes];
+      v_in = row[3 * kLanes];
+    }
+    solve_store<kHalf, kMode>(args, s, r0 + y, xo, out_lane && y < n_out, frozen, u_in, v_in,
+                              u_out_c + o, v_out_c + o, det_out_c + o, acc_u, acc_v);
+  };
+  auto products = [&](int g, float gx, float gy, float gt) {
+    prod[0][g] = gx * gx;
+    prod[1][g] = gy * gy;
+    prod[2][g] = gx * gy;
+    prod[3][g] = gx * gt;
+    prod[4][g] = gy * gt;
+  };
+
+  // avg of the last two frame rows (h2 older, h1 newer) at this lane's
+  // column (c) and its neighbours (l, r); it of the newer.
+  float l_h2 = 0.0f, l_h1 = 0.0f, c_h2 = 0.0f, c_h1 = 0.0f, r_h2 = 0.0f, r_h1 = 0.0f;
+  float it_h1 = 0.0f;
+
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) fetch(j);
+
+  for (int base = 0; base < n_steps; base += kWindow) {
+#pragma unroll
+    for (int k = 0; k < kWindow; ++k) {
+      const int j = base + k;
+      if (j >= n_steps) break;
+      fetch(j + kStages - 1);
+      cp_async_wait<kStages - 1>();  // step j's group has landed
+      const float* row_a = &stage[warp][j & (kStages - 1)][0][0][lane];
+      const float* row_b = &stage[warp][j & (kStages - 1)][1][0][lane];
+      const float pa = row_a[0], qa = row_a[kLanes];
+      const float pb = row_b[0], qb = row_b[kLanes];
+      const float a_c = (pa + qa) * 0.5f, b_c = (pb + qb) * 0.5f;
+      const float a_l = __shfl_up_sync(kFull, a_c, 1);
+      const float a_r = __shfl_down_sync(kFull, a_c, 1);
+      const float b_l = __shfl_up_sync(kFull, b_c, 1);
+      const float b_r = __shfl_down_sync(kFull, b_c, 1);
+      const float it_a = pa - qa;
+      if (j >= 1) {
+        // Gradient rows 2j - 2 (centred on h1) and 2j - 1 (centred on a),
+        // ring slots (2j - 2) % kWindow and (2j - 1) % kWindow, static.
+        const int g1 = (2 * k + 2 * kWindow - 2) % kWindow;
+        const int g2 = (2 * k + 2 * kWindow - 1) % kWindow;
+        float gx1, gy1, gx2, gy2;
+        sobel<kRelaxed>(l_h2, l_h1, a_l, c_h2, a_c, r_h2, r_h1, a_r, gx1, gy1);
+        sobel<kRelaxed>(l_h1, a_l, b_l, c_h1, b_c, r_h1, a_r, b_r, gx2, gy2);
+        // Row 2j - 1 takes the slot of row 2j - 2's oldest window row, so
+        // row 2j - 2 is summed first.
+        products(g1, gx1, gy1, it_h1);
+        if (2 * j - 2 >= 2 * kHalf) emit(g1, 2 * j - 2 - 2 * kHalf, row_a);
+        products(g2, gx2, gy2, it_a);
+        if (2 * j - 1 >= 2 * kHalf) emit(g2, 2 * j - 1 - 2 * kHalf, row_b);
+      }
+      l_h2 = a_l; l_h1 = b_l;
+      c_h2 = a_c; c_h1 = b_c;
+      r_h2 = a_r; r_h1 = b_r;
+      it_h1 = pb - qb;
     }
   }
+  cp_async_wait<0>();
 
   if constexpr (kMode == kRefine) {
-    red_u[tid] = acc_u;
-    red_v[tid] = acc_v;
-    __syncthreads();
-    for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-      if (tid < stride) {
-        red_u[tid] += red_u[tid + stride];
-        red_v[tid] += red_v[tid + stride];
-      }
-      __syncthreads();
+    // Lanes by a fixed butterfly, then the warps in order.
+#pragma unroll
+    for (int m = kLanes / 2; m > 0; m >>= 1) {
+      acc_u += __shfl_xor_sync(kFull, acc_u, m);
+      acc_v += __shfl_xor_sync(kFull, acc_v, m);
     }
-    if (tid == 0) {
+    if (lane == 0) {
+      red[0][warp] = acc_u;
+      red[1][warp] = acc_v;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float su = red[0][0], sv = red[1][0];
+#pragma unroll
+      for (int w = 1; w < kStripWarps; ++w) {
+        su += red[0][w];
+        sv += red[1][w];
+      }
       const int b = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-      args.part_du[b] = red_u[0];
-      args.part_dv[b] = red_v[0];
+      args.part_du[b] = su;
+      args.part_dv[b] = sv;
     }
   }
 }
 
+// Output rows a block walks: kMaxRows, halved down to kMinRows while the
+// plane would give fewer than kFillBlocks blocks. A walk's steps run one
+// after another, so a small plane (a coarse pyramid level) needs more,
+// shorter walks to keep the card busy. A function of the plane alone, so a
+// batch element's partial sums are those of its 2-D launch.
+inline int walk_rows(int height, int width, int window) {
+  const int strips = (width + strip_width(window) - 1) / strip_width(window);
+  const int cols = (strips + kStripWarps - 1) / kStripWarps;
+  int rows = kMaxRows;
+  while (rows > kMinRows && cols * ((height + rows - 1) / rows) < kFillBlocks) rows /= 2;
+  return rows;
+}
+
+// The walk's grid for a batch.
+inline dim3 walk_grid(int height, int width, int window, int batch) {
+  const int strips = (width + strip_width(window) - 1) / strip_width(window);
+  const int rows = walk_rows(height, width, window);
+  return dim3((strips + kStripWarps - 1) / kStripWarps, (height + rows - 1) / rows, batch);
+}
+
 // Blocks per batch element (the refine's partial sums per element).
-inline int num_blocks(int height, int width) {
-  return ((width + kTW - 1) / kTW) * ((height + kTH - 1) / kTH);
+inline int num_blocks(int height, int width, int window) {
+  const dim3 g = walk_grid(height, width, window, 1);
+  return (int)(g.x * g.y);
 }
 
 template <int kWindow, bool kRelaxed, int kSum, int kMode>
 int launch(const LkArgs& args, int batch, cudaStream_t stream) {
-  const dim3 grid((args.width + kTW - 1) / kTW, (args.height + kTH - 1) / kTH, batch);
-  lk_tile_kernel<kWindow, kRelaxed, kSum, kMode><<<grid, kThreads, 0, stream>>>(args);
+  const dim3 grid = walk_grid(args.height, args.width, kWindow, batch);
+  const int rows = walk_rows(args.height, args.width, kWindow);
+  lk_walk_kernel<kWindow, kRelaxed, kSum, kMode><<<grid, kWalkThreads, 0, stream>>>(args, rows);
   return (int)cudaGetLastError();
 }
 

@@ -128,8 +128,10 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    lib.tpuflow_lk_refine_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.tpuflow_lk_refine_blocks.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.tpuflow_lk_refine_blocks.restype = ctypes.c_int
+    lib.tpuflow_lk_refine_mxu_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.tpuflow_lk_refine_mxu_blocks.restype = ctypes.c_int
     lib.tpuflow_error_string.argtypes = [ctypes.c_int]
     lib.tpuflow_error_string.restype = ctypes.c_char_p
     _lib = lib

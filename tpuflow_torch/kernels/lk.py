@@ -26,9 +26,9 @@ one kernel launch; each element is computed exactly as the same plane
 alone. For a batch the refine's ``converged`` is a (B,) bool tensor and its
 sums are (B,) tensors, one per element.
 
-The CUDA kernels are ``csrc/lk_refine.cu`` and ``csrc/lk_fused.cu``, and
-``csrc/lk_mxu.cu`` for ``window_mxu`` (one tile kernel,
-``csrc/lk_tile.cuh``). ``lucas_kanade_refine_ref`` and
+The CUDA kernels are ``csrc/lk_refine.cu`` and ``csrc/lk_fused.cu`` (one
+column-walk kernel, ``csrc/lk_tile.cuh``), and ``csrc/lk_mxu.cu`` for
+``window_mxu`` (a staged tile kernel of its own). ``lucas_kanade_refine_ref`` and
 ``lucas_kanade_fused_ref`` are the same functions in plain PyTorch, in the
 Pallas kernel's f32 expression order with its reciprocal-form solve (the
 ``window_mxu`` sums as ``torch.matmul`` in true f32), and are what the
@@ -258,6 +258,8 @@ def _check_planes(planes, what: str) -> None:
         raise ValueError(f"{what} must share one (H, W) or (B, H, W) shape")
     if planes[0].ndim == 3 and not 1 <= planes[0].shape[0] <= _build.MAX_BATCH:
         raise ValueError(f"batches of 1..{_build.MAX_BATCH} planes are supported")
+    if planes[0].shape[-2] * planes[0].shape[-1] >= 2**31:
+        raise ValueError("a plane must hold fewer than 2**31 pixels")
     for t in planes:
         if t.dtype != torch.float32:
             raise TypeError(f"float32 expected, got {t.dtype}")
@@ -312,7 +314,10 @@ def lucas_kanade_refine(
     h, w = frame_prev.shape[-2:]
     u_out = torch.empty_like(flow_u)
     v_out = torch.empty_like(flow_v)
-    n_blocks = lib.tpuflow_lk_refine_blocks(h, w)
+    if window_mxu:
+        n_blocks = lib.tpuflow_lk_refine_mxu_blocks(h, w)
+    else:
+        n_blocks = lib.tpuflow_lk_refine_blocks(h, w, window_size)
     parts = torch.empty((2, batch, n_blocks), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn = lib.tpuflow_lk_refine_mxu if window_mxu else lib.tpuflow_lk_refine
@@ -325,10 +330,14 @@ def lucas_kanade_refine(
     name = "lk_refine_mxu" if window_mxu else "lk_refine" if relaxed_order else "lk_refine_exact"
     _build.check(lib, code, name)
     launch_counts[name] += 1
-    sums = parts.sum(dim=2)
+    # Each element's partials are summed alone, as its 2-D launch sums
+    # them: the order of torch's reduction depends on how many sums one
+    # call forms.
+    sums = [parts[:, b].contiguous().sum(dim=1) for b in range(batch)]
     if frame_prev.ndim == 3:
+        sums = torch.stack(sums, dim=1)
         return u_out, v_out, sums[0], sums[1]
-    return u_out, v_out, sums[0, 0], sums[1, 0]
+    return u_out, v_out, sums[0][0], sums[0][1]
 
 
 def lucas_kanade_fused_ref(
