@@ -325,7 +325,7 @@ def check_kernels(dev, a, b, rng):
               f"{_bound_note(name, shape, ms)})")
         _record(readings, name, ms, plain_ms, shape)
 
-    check_batched(dev, a, b, rng)
+    check_batched(dev, a, b, rng, readings)
     check_mxu(dev, a, b, rng, readings)
     check_ablations(dev, readings)
     return readings
@@ -341,10 +341,11 @@ def _equal_per_element(name, got, args_of, fn):
                 raise AssertionError(f"{name}: batch element {b} differs from its 2-D launch")
 
 
-def check_batched(dev, a, b, rng):
+def check_batched(dev, a, b, rng, readings):
     """Phase 3, batches: K1-K7 on two 1080p planes (the coarse level for
     K2), each element against the plain version and the kernel's own 2-D
-    launch."""
+    launch; the refine's B=2 time (its block partials summed per element)
+    goes into its readings as ``batch2_ms``."""
     pair = torch.stack([a, b])
     swap = torch.stack([b, a])
     shape = tuple(pair.shape)
@@ -389,6 +390,7 @@ def check_batched(dev, a, b, rng):
                                                      conv[i:i + 1], *rargs[5:]),
                                lk.lucas_kanade_refine)
         ms = device_ms(lambda: lk.lucas_kanade_refine(*rargs[:5], 5, *rargs[6:]))
+        readings[name]["batch2_ms"] = ms
         print(f"[kernels] batched {name}, B=2 at {shape[1]}x{shape[2]}, windows 3/5/7, one "
               f"element converged: max |d| {err:.3g} px, sums rel {sums_rel:.3g}, each element "
               f"= its 2-D launch; window 5 {ms:.4f} ms")
@@ -582,13 +584,16 @@ def check_ablations(dev, readings):
             device_ms(lambda mode=mode: warp_mxu_ablation.candidate_accumulate(x, off, mode),
                     reps=200),
             device_ms(lambda mode=mode: warp_mxu_ablation.candidate_accumulate_ref(x, off, mode)))
+    shifts_bound_ms = bounds.bound_ms("warp_mxu_ablation", 1, *off.shape, "shifts")
     readings["warp_mxu_ablation"].update(ms=times["gather"][0], plain_ms=times["gather"][1],
                                          shifts_ms=times["shifts"][0],
-                                         shifts_plain_ms=times["shifts"][1], shape=list(off.shape))
+                                         shifts_plain_ms=times["shifts"][1],
+                                         shifts_bound_ms=shifts_bound_ms, shape=list(off.shape))
     print(f"[kernels] warp_mxu_ablation {tuple(off.shape)}: bit-exact in both modes; gather "
           f"{times['gather'][0]:.4f} ms (plain {times['gather'][1]:.4f}; "
           f"{_bound_note('warp_mxu_ablation', tuple(off.shape), times['gather'][0])}), shifts "
-          f"{times['shifts'][0]:.4f} ms (plain {times['shifts'][1]:.4f})")
+          f"{times['shifts'][0]:.4f} ms (plain {times['shifts'][1]:.4f}; bound "
+          f"{shifts_bound_ms:.5f} ms, {100 * shifts_bound_ms / times['shifts'][0]:.1f}% of it)")
 
 
 @contextmanager

@@ -250,26 +250,13 @@ __global__ void __launch_bounds__(kThreads) lk_mxu_kernel(const LkArgs args) {
   __syncthreads();
 
   // Sobel over the gradient region; ix_s[g][h] is image pixel
-  // (r0 + g - kHalf, c0 + h - kHalf), centred on avg_s[g + 1][h + 1].
+  // (r0 + g - kHalf, c0 + h - kHalf), centred on avg_s[g + 1][h + 1]. The
+  // walk's sobel() (lk_tile.cuh), so both kernels share one order.
   for (int k = tid; k < kGH * kGW; k += kThreads) {
     const int g = k / kGW, h = k % kGW;
-    if constexpr (kRelaxed) {
-      const float sv_m = (avg_s[g][h] + 2.0f * avg_s[g + 1][h]) + avg_s[g + 2][h];
-      const float sv_p =
-          (avg_s[g][h + 2] + 2.0f * avg_s[g + 1][h + 2]) + avg_s[g + 2][h + 2];
-      const float dv_m = avg_s[g][h] - avg_s[g + 2][h];
-      const float dv_0 = avg_s[g][h + 1] - avg_s[g + 2][h + 1];
-      const float dv_p = avg_s[g][h + 2] - avg_s[g + 2][h + 2];
-      ix_s[g][h] = (sv_m - sv_p) * 0.125f;
-      iy_s[g][h] = ((dv_m + 2.0f * dv_0) + dv_p) * 0.125f;
-    } else {
-      // a(dy, dx) = avg at (g + 1 + dy, h + 1 + dx).
-      const float mm = avg_s[g][h], m0 = avg_s[g][h + 1], mp = avg_s[g][h + 2];
-      const float zm = avg_s[g + 1][h], zp = avg_s[g + 1][h + 2];
-      const float pm = avg_s[g + 2][h], p0 = avg_s[g + 2][h + 1], pp = avg_s[g + 2][h + 2];
-      ix_s[g][h] = (((mm - mp) + 2.0f * (zm - zp)) + (pm - pp)) * 0.125f;
-      iy_s[g][h] = (((mm - pm) + 2.0f * (m0 - p0)) + (mp - pp)) * 0.125f;
-    }
+    sobel<kRelaxed>(avg_s[g][h], avg_s[g + 1][h], avg_s[g + 2][h], avg_s[g][h + 1],
+                    avg_s[g + 2][h + 1], avg_s[g][h + 2], avg_s[g + 1][h + 2],
+                    avg_s[g + 2][h + 2], ix_s[g][h], iy_s[g][h]);
   }
   __syncthreads();
 

@@ -16,11 +16,17 @@ Bytes per call, by kernel name (``chip_smoke.KERNELS``):
   flag are left out);
 - fused (K6, K10 fused): 16 B a pixel: prev and curr in, u and v out;
   with |det| (K7, K10 fused with |det|): 20 B;
-- shift ablation (K8), at its script's shape only: the (256, 2048) input
-  read once and the (64, 1024) output written once;
-- warp-gather ablation (K9), (height, width) = (rows, wp): the (rows,
-  wp + 256) band and the (rows, wp) int32 offsets in, the (rows, wp)
-  output.
+- shift ablation (K8), at its script's shape only, by kind: the elements of
+  the (256, 2048) input that the kind's 31 slices cover, each read once,
+  and the (64, 1024) output written once ("aligned", the kind the smoke
+  times, covers rows 0-183 of columns 0-1023 and rows 0-63 of columns
+  1024-1919: 1,245,184 B in all);
+- warp-gather ablation (K9), (height, width) = (rows, wp), by mode: the
+  (rows, wp) int32 offsets in and the (rows, wp) output out, and of the
+  (rows, wp + 256) band what the mode reads: "gather" the wp columns
+  x[:, 128:128 + wp] (each lane's 18 steps always reach its own column, so
+  every one is read), "shifts" the wp + 2 * maxd + 2 columns its selects
+  can pick for offsets in [-maxd, maxd].
 
 For example the refine at 1080x1920 moves 24 * 2,073,600 = 49,766,400 B,
 0.014855 ms at 3.35 TB/s. No timing here: these are the counts a chip
@@ -29,11 +35,17 @@ run's times are divided by.
 
 from __future__ import annotations
 
+import numpy as np
+
 from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation
 from tpuflow_torch.eval.profile import HBM_GBPS
 
 # f32 operations a second outside the tensor cores, NVIDIA H100 SXM at its
-# 700 W limit (NVIDIA's data sheet, dense).
+# 700 W limit (NVIDIA's data sheet, dense). The rate counts a fused
+# multiply-add as two operations. The kernels are built with -fmad=false
+# and so issue at most half of it; the bound is the card's for the
+# function, not for one build, and at half the rate every kernel's
+# operations still take less time than its bytes.
 F32_TFLOPS = 67.0
 
 BYTES_PER_PIXEL = {
@@ -69,19 +81,34 @@ OPS_PER_PIXEL = {
 KERNELS = (*BYTES_PER_PIXEL, "shift_ablation", "warp_mxu_ablation")
 
 
-def call_bytes(name: str, batch: int, height: int, width: int) -> int:
+def _shift_ablation_elements(kind: str) -> int:
+    """Input elements the 31 slices of one kind cover, each counted once."""
+    rows, cols = shift_ablation.offsets(kind)
+    covered = np.zeros((shift_ablation.ROWS, shift_ablation.COLS), dtype=bool)
+    for r, c in [(r, cols[0]) for r in rows] + [(rows[0], c) for c in cols]:
+        covered[r : r + shift_ablation.OUT_R, c : c + shift_ablation.OUT_C] = True
+    return int(covered.sum())
+
+
+def call_bytes(name: str, batch: int, height: int, width: int,
+               variant: str | None = None) -> int:
     """Bytes one call of kernel ``name`` must move on a (batch, height,
-    width) input (for the ablations, their own shapes as described above)."""
+    width) input (for the ablations, their own shapes as described above;
+    ``variant`` is K8's kind, default "aligned", or K9's mode, default
+    "gather")."""
     if name in BYTES_PER_PIXEL:
         return BYTES_PER_PIXEL[name] * batch * height * width
     if name == "shift_ablation":
         if (batch, height, width) != (1, shift_ablation.OUT_R, shift_ablation.OUT_C):
             raise ValueError("shift_ablation has one shape: batch 1, "
                              f"({shift_ablation.OUT_R}, {shift_ablation.OUT_C}) out")
-        return 4 * (shift_ablation.ROWS * shift_ablation.COLS
-                    + shift_ablation.OUT_R * shift_ablation.OUT_C)
+        return 4 * (_shift_ablation_elements(variant or "aligned") + height * width)
     if name == "warp_mxu_ablation":
-        return 4 * batch * height * ((width + 256) + width + width)
+        mode = variant or "gather"
+        if mode not in warp_mxu_ablation.MODES:
+            raise ValueError(f"mode must be one of {warp_mxu_ablation.MODES}, got {mode!r}")
+        band = width if mode == "gather" else width + 2 * warp_mxu_ablation.MAXD + 2
+        return 4 * batch * height * (band + 2 * width)
     raise KeyError(f"no byte count for kernel {name!r}")
 
 
@@ -97,13 +124,15 @@ def call_ops(name: str, batch: int, height: int, width: int) -> int:
     raise KeyError(f"no operation count for kernel {name!r}")
 
 
-def bound(name: str, batch: int, height: int, width: int) -> tuple[float, str]:
+def bound(name: str, batch: int, height: int, width: int,
+          variant: str | None = None) -> tuple[float, str]:
     """(bound in ms, "bytes" or "operations"): the larger of the two times."""
-    bytes_ms = call_bytes(name, batch, height, width) / (HBM_GBPS * 1e9) * 1e3
+    bytes_ms = call_bytes(name, batch, height, width, variant) / (HBM_GBPS * 1e9) * 1e3
     ops_ms = call_ops(name, batch, height, width) / (F32_TFLOPS * 1e12) * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def bound_ms(name: str, batch: int, height: int, width: int) -> float:
+def bound_ms(name: str, batch: int, height: int, width: int,
+             variant: str | None = None) -> float:
     """The least time in ms one call could take on the card."""
-    return bound(name, batch, height, width)[0]
+    return bound(name, batch, height, width, variant)[0]
