@@ -19,7 +19,9 @@ failure raises and the script exits non-zero):
    cuobjdump is present, counts the tensor-core mma instructions);
 3. kernels: each kernel at the main paths' shapes against its plain version
    on the card, with its median device time and the plain version's (CUDA
-   events); K1-K7 also as batches of two 1080p planes (each element
+   events); the warps (K1, K2, K4) at every level of both pyramids, on the
+   plane and a B=2 batch, timed at each level beside an empty kernel's
+   launch floor; K1-K7 also as batches of two 1080p planes (each element
    against the plain version and against the kernel's 2-D launch); K10 at
    windows 3/5/7, exact and relaxed Sobel, on a plane and a batch of two,
    timed beside K6 and K3; K8 in its four kinds and K9 in both modes;
@@ -35,7 +37,8 @@ failure raises and the script exits non-zero):
    of each stream (torch.profiler).
 
 Limits on the card: the warps (K1, K2, K4) bit-exact against their plain
-versions at bands 2/3/8 (K4 with clamp_flow on and off); the refine steps
+versions at vertical bands 0/2/3/8/31 and at md = mdv = 0 and 31 (K4 with
+clamp_flow on and off), each batch element equal to its 2-D launch; the refine steps
 (K3, K5) u, v bit-identical (max |d| 0) and their sums to rtol 1e-5 (block
 partials summed in another order); the single-scale solves (K6, K7) u, v
 and |det| bit-identical; a batch element bit-identical to the kernel's 2-D
@@ -54,7 +57,7 @@ floor in (0, 1e-3) px.
 Each kernel's time is printed beside its bound (``eval/bounds.py``: the
 bytes one call must move over the card's 3.35 TB/s) and its share of it;
 the build prints ptxas's registers, spills and shared memory of the LK
-column-walk kernels. It prints one JSON object of the kernels' readings on
+column-walk kernels and of each banded-warp instantiation. It prints one JSON object of the kernels' readings on
 the line before the last (time, plain version's time, bytes, bound,
 share, launches on the main path and per stream frame, and a one-call
 PyTorch yardstick's time where one exists, else null with the reason),
@@ -153,6 +156,9 @@ PATH_KERNELS = {
 # each limit is about twice the plain version's own error against f64.
 MXU_ATOL = {3: 2e-3, 5: 2e-4, 7: 5e-5}
 DET_RTOL = 2e-6  # of the plane's largest |det|
+# The warps' vertical bands (the adaptive ladder's 2/3/8, none, the widest).
+WARP_BANDS = (0, 2, 3, 8, 31)
+MAX_BAND = warp.MAX_BAND
 _COUNTS = (warp.launch_counts, lk.launch_counts, shift_ablation.launch_counts,
            warp_mxu_ablation.launch_counts)
 
@@ -198,6 +204,56 @@ def _bound_note(name: str, shape, ms: float) -> str:
     return f"bound {bound_ms:.5f} ms ({by}), {100 * bound_ms / ms:.1f}% of it"
 
 
+def check_warp(readings, name, curr, packing, max_disp, rng, dev):
+    """K1, K2 or K4 at one pyramid level against the plain version, max |d|
+    0: vertical bands 0/2/3/8/31 beside the config's horizontal one, and
+    both bands 0 and 31; clamp_flow on (flows to 3 px past the band) and,
+    for K4, off (40 px past it); the plane and a B=2 batch, each element
+    also against its 2-D launch. Then its device time at band 8 beside the
+    plain version's, its bound and its block. Returns that flow and those
+    arguments."""
+    shape = tuple(curr.shape)
+    pair = torch.stack([curr, curr.flip(0)])
+    bands = [(max_disp, mdv) for mdv in WARP_BANDS] + [(0, 0), (MAX_BAND, MAX_BAND)]
+    for clamp in ((True, False) if packing == "exact" else (True,)):
+        for md, mdv in bands:
+            reach = max(md, mdv) + (3 if clamp else 40)
+            for img in (curr, pair):
+                flow = _flow(rng, tuple(img.shape), reach, dev)
+                wargs = (md, mdv, packing, clamp)
+                got = warp.warp_banded(img, *flow, *wargs)
+                torch.cuda.synchronize()
+                err = max_abs(got, warp.warp_banded_ref(img, *flow, *wargs))
+                if err != 0.0:
+                    raise AssertionError(f"{name} clamp_flow={clamp} bands ({md}, {mdv}) at "
+                                         f"{tuple(img.shape)}: max |d| {err} != 0")
+                if img.ndim == 3:
+                    _equal_per_element(name, (got,), lambda i: (img[i], flow[0][i], flow[1][i],
+                                                                 *wargs), warp.warp_banded)
+    flow = _flow(rng, shape, 9.0, dev)
+    args = (curr, *flow, max_disp, 8, packing)
+    ms = device_ms(lambda: warp.warp_banded(*args))
+    plain_ms = device_ms(lambda: warp.warp_banded_ref(*args))
+    geo = warp.tile_geometry(*shape, max_disp, 8)
+    # The block the plane did not choose, on the same inputs: the reason
+    # for the choice, measured in this run.
+    other = not geo["staged"]
+    if not torch.equal(warp.warp_banded(*args, staged=other), warp.warp_banded(*args)):
+        raise AssertionError(f"{name} at {shape}: the two blocks differ")
+    other_ms = device_ms(lambda: warp.warp_banded(*args, staged=other))
+    block = (f"staged {geo['tile_w']}x{geo['rows']} tiles, {geo['smem_bytes']} B of shared "
+             "memory" if geo["staged"] else f"gathers in {geo['tile_w']}x{geo['rows']} blocks")
+    print(f"[kernels] {name} {shape[0]}x{shape[1]}: bit-exact at (md, mdv) {bands}, clamp_flow "
+          f"{'on and off' if packing == 'exact' else 'on'}, plane and B=2; {ms:.4f} ms (plain "
+          f"{plain_ms:.4f} ms; {_bound_note(name, shape, ms)}); {block}, {geo['threads']} "
+          f"threads; {'staged' if other else 'gathering'} instead {other_ms:.4f} ms")
+    readings[name].setdefault("by_shape", {})[f"{shape[0]}x{shape[1]}"] = {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds.bound(name, 1, *shape)[0],
+        "other_block_ms": other_ms, **geo}
+    _record(readings, name, ms, plain_ms, shape)
+    return flow, args
+
+
 def check_refine(readings, name, rargs_base, dev, shape, windows):
     """The refine kernel against its plain version, converged or not, at each
     window; returns the max |du|, |dv| and the sums' max relative error."""
@@ -229,23 +285,9 @@ def check_kernels(dev, a, b, rng):
     for level in reversed(range(cfg.levels)):
         prev, curr = pyr_a[level], pyr_b[level]
         shape = tuple(prev.shape)
-        flow = _flow(rng, shape, 9.0, dev)
         packing = "u8" if level == cfg.levels - 1 else "u16"
-        name = f"warp_packed_{packing}"
-        for band in (2, 3, 8):
-            args = (curr, *flow, cfg.max_disp, band, packing)
-            got, want = warp.warp_banded(*args), warp.warp_banded_ref(*args)
-            torch.cuda.synchronize()
-            err = max_abs(got, want)
-            if err != 0.0:
-                raise AssertionError(f"{name} band {band} at {shape}: max |d| {err} != 0")
-        args = (curr, *flow, cfg.max_disp, 8, packing)
-        ms = device_ms(lambda: warp.warp_banded(*args))
-        plain_ms = device_ms(lambda: warp.warp_banded_ref(*args))
-        print(f"[kernels] {name} {shape[0]}x{shape[1]}: bit-exact at bands 2/3/8, "
-              f"{ms:.4f} ms (plain {plain_ms:.4f} ms; {_bound_note(name, shape, ms)})")
-        _record(readings, name, ms, plain_ms, shape)
-
+        flow, args = check_warp(readings, f"warp_packed_{packing}", curr, packing, cfg.max_disp,
+                                rng, dev)
         warped = warp.warp_banded(*args)
         # The window repair (3, 7) is checked once, at the finest level.
         windows = (3, 5, 7) if level == cfg.levels - 1 else (5,)
@@ -269,25 +311,7 @@ def check_kernels(dev, a, b, rng):
     for level in reversed(range(cfg.levels)):
         prev, curr = pyr_a[level], pyr_b[level]
         shape = tuple(prev.shape)
-        for clamp, reach in ((True, 9.0), (False, 12.0)):
-            flow = _flow(rng, shape, reach, dev)
-            for band in (2, 3, 8):
-                args = (curr, *flow, cfg.max_disp, band, "exact", clamp)
-                got, want = warp.warp_banded(*args), warp.warp_banded_ref(*args)
-                torch.cuda.synchronize()
-                err = max_abs(got, want)
-                if err != 0.0:
-                    raise AssertionError(f"warp_exact clamp_flow={clamp} band {band} at "
-                                         f"{shape}: max |d| {err} != 0")
-        flow = _flow(rng, shape, 9.0, dev)
-        args = (curr, *flow, cfg.max_disp, 8, "exact", True)
-        ms = device_ms(lambda: warp.warp_banded(*args))
-        plain_ms = device_ms(lambda: warp.warp_banded_ref(*args))
-        print(f"[kernels] warp_exact {shape[0]}x{shape[1]}: bit-exact at bands 2/3/8, "
-              f"clamp_flow on and off, {ms:.4f} ms (plain {plain_ms:.4f} ms; "
-              f"{_bound_note('warp_exact', shape, ms)})")
-        _record(readings, "warp_exact", ms, plain_ms, shape)
-
+        flow, args = check_warp(readings, "warp_exact", curr, "exact", cfg.max_disp, rng, dev)
         warped = warp.warp_banded(*args)
         windows = (3, 5, 7) if level == cfg.levels - 1 else (5,)
         err, sums_rel = check_refine(
@@ -302,6 +326,11 @@ def check_kernels(dev, a, b, rng):
               f"{err:.3g} px, sums rel {sums_rel:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms; "
               f"{_bound_note('lk_refine_exact', shape, ms)})")
         _record(readings, "lk_refine_exact", ms, plain_ms, shape)
+    floor_ms = device_ms(_build.launch_empty)
+    print(f"[kernels] launch floor: one empty kernel of the library {floor_ms:.4f} ms "
+          "(device_ms, as every time here); no kernel time can fall below it")
+    for name in ("warp_packed_u8", "warp_packed_u16", "warp_exact"):
+        readings[name]["launch_floor_ms"] = floor_ms
 
     # K6, K7 at 1080p: exact and relaxed, windows 3/5/7, taps at window 5.
     shape = tuple(a.shape)
@@ -776,7 +805,8 @@ def run_gate():
     for config, baseline in verifier.PALLAS_BASELINES.items():
         t0 = time.perf_counter()
         reset_launch_counts()
-        results = verifier.run_suite(pyramid_config_name=config, backend="cuda", verbose=False)
+        results = verifier.run_suite(pyramid_config_name=config, backend="cuda", verbose=False,
+                                     device=torch.device("cuda", 0))
         seconds = time.perf_counter() - t0
         used = {name: n for name, n in launch_counts().items() if n}
         if not used.get("lk_fused"):
@@ -831,32 +861,50 @@ def profile_stream(a, b, config: str) -> None:
 
 _WALK_NAMES = {(0, 1): "K3", (0, 0): "K5", (1, 0): "K6", (1, 1): "K6 relaxed",
                (2, 0): "K7", (2, 1): "K7 relaxed"}
+_WARP_NAMES = {(8, 1): "K1", (16, 1): "K2", (0, 1): "K4", (0, 0): "K4 unclamped"}
 
 
-def walk_ptxas(log: str) -> dict[int, list[str]]:
-    """ptxas's registers, spill stores and shared memory of each LK
-    column-walk instantiation (``-Xptxas=-v``), by window."""
-    out: dict[int, list[str]] = {}
+def ptxas_usage(log: str, entry: str):
+    """(template arguments, registers, spill-store bytes, static shared
+    memory bytes) of each kernel whose mangled name matches ``entry``, from
+    ptxas's report (``-Xptxas=-v``)."""
     cur = spill = None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '_ZN10tpuflow_lk14lk_walk_kernel"
-                      r"ILi(\d)ELb(\d)ELi(\d)ELi(\d)E", line)
+        m = re.search(r"Compiling entry function '" + entry, line)
         if m:
-            cur, spill = tuple(map(int, m.groups())), None
+            cur, spill = tuple(map(int, m.groups())), 0
             continue
         if cur is None:
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = int(m.group(1))
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        m = re.search(r"Used (\d+) registers", line)
         if m:
-            window, relaxed, taps, mode = cur
-            name = _WALK_NAMES[mode, relaxed] + (" taps" if taps else "")
-            out.setdefault(window, []).append(
-                f"{name} {m.group(1)} regs/{spill} B spilled/{m.group(2)} B smem")
+            smem = re.search(r"(\d+) bytes smem", line)
+            yield cur, int(m.group(1)), spill, int(smem.group(1)) if smem else 0
             cur = None
+
+
+def walk_ptxas(log: str) -> dict[int, list[str]]:
+    """ptxas's registers, spill stores and shared memory of each LK
+    column-walk instantiation, by window."""
+    out: dict[int, list[str]] = {}
+    for (window, relaxed, taps, mode), regs, spill, smem in ptxas_usage(
+            log, r"_ZN10tpuflow_lk14lk_walk_kernelILi(\d)ELb(\d)ELi(\d)ELi(\d)E"):
+        name = _WALK_NAMES[mode, relaxed] + (" taps" if taps else "")
+        out.setdefault(window, []).append(f"{name} {regs} regs/{spill} B spilled/{smem} B smem")
     return out
+
+
+def warp_ptxas(log: str) -> list[str]:
+    """ptxas's registers and spill stores of each warp instantiation (its
+    shared memory is dynamic, sized by the band: see the [kernels] lines)."""
+    return [f"{_WARP_NAMES[packing, clamp]} {'staged' if staged else 'gather'} {tw}x{rows} "
+            f"{threads} threads: {regs} regs/{spill} B spilled"
+            for (packing, clamp, staged, tw, rows, threads), regs, spill, _ in ptxas_usage(
+                log, r"_ZN12tpuflow_warp16warp_tile_kernelILi(\d+)ELb(\d)ELb(\d)ELi(\d+)"
+                     r"ELi(\d+)ELi(\d+)E")]
 
 
 def main() -> None:
@@ -886,6 +934,7 @@ def main() -> None:
           f"{max((int(s) for _, s in usage), default=0)} B of shared memory a block)")
     for window, entries in sorted(walk_ptxas(_build.build_log).items()):
         print(f"[build] LK column walk, window {window}: " + "; ".join(sorted(entries)))
+    print("[build] banded warp: " + "; ".join(sorted(warp_ptxas(_build.build_log))))
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path())],

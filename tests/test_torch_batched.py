@@ -185,6 +185,19 @@ def test_wsum_mxu_plain_matches_jax(rng, window):
 
 
 @pytest.mark.parametrize("window", [3, 5, 7])
+@pytest.mark.parametrize("batch", [1, 2, 5])
+def test_wsum_mxu_batch_element_equals_its_plane(rng, window, batch):
+    # Each element of a batched window_mxu sum is its plane's 2-D sum bit for
+    # bit, whatever blocking the GEMM would choose for either shape.
+    for out_rows, out_cols in [(1, 1), (8, 16), (37, 130), (64, 200), (120, 300)]:
+        a = rng.uniform(0, 50, (batch, out_rows + window - 1, out_cols + window - 1))
+        got = lk._wsum_mxu_ref(_t(a), window, out_rows, out_cols)
+        assert got.shape == (batch, out_rows, out_cols)
+        for b in range(batch):
+            assert torch.equal(got[b], lk._wsum_mxu_ref(_t(a[b]), window, out_rows, out_cols))
+
+
+@pytest.mark.parametrize("window", [3, 5, 7])
 @pytest.mark.parametrize("relaxed", [False, True])
 def test_mxu_refine_plain_matches_pallas_without_flag(rng, window, relaxed):
     prev, warped, u, v = _refine_inputs(rng)

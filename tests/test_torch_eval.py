@@ -116,7 +116,7 @@ def test_provenance_guard_maps_backend_names(tmp_path, capsys):
 
 
 def test_verify_pattern_and_report_match_jax(suite):
-    runners = verifier._make_runners(verifier.PYRAMID_CONFIGS["default"], "torch")
+    runners = verifier._make_runners(verifier.PYRAMID_CONFIGS["default"], "torch", device="cpu")
     for name in ("rotate_small", "translate_medium"):
         got = verifier.verify_pattern(name, suite[name], runners, verbose=False, dense_gt=True)
         want = jverifier.verify_pattern(name, suite[name], runners, verbose=False, dense_gt=True)
@@ -140,7 +140,7 @@ def test_cli_exit_codes(tmp_path, capsys):
     out = tmp_path / "out"
     base = tmp_path / "base.json"
     common = ["--pattern", "translate_medium", "no_motion", "--backend", "torch",
-              "--output-dir", str(out), "--baseline", str(base)]
+              "--device", "cpu", "--output-dir", str(out), "--baseline", str(base)]
     assert _cli(["--pattern", "bogus", "--output-dir", str(out)]) == 1
     assert "Unknown pattern(s): bogus" in capsys.readouterr().out
     assert _cli(["--pyramid-config", "bogus", "--output-dir", str(out)]) == 1
@@ -165,14 +165,31 @@ def test_cli_exit_codes(tmp_path, capsys):
 
 
 def test_run_suite_on_the_cpu_runs_plain_versions():
-    # No card here: the suite's tensors lie on the CPU and the kernels'
+    # Asked for the CPU, the suite's tensors lie there and the kernels'
     # plain versions run; no launch is counted.
     from tpuflow_torch.kernels import launch_counts
 
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present: the suite would run on it")
     before = launch_counts()
-    results = verifier.run_suite(["no_motion"], "default", backend="cuda", verbose=False)
+    results = verifier.run_suite(["no_motion"], "default", backend="cuda", verbose=False,
+                                 device="cpu")
     assert launch_counts() == before
     assert results[0]["single_scale"]["metrics"]["epe"] == 0.0
     assert results[0]["pyramidal"]["metrics"]["epe"] == 0.0
+
+
+def test_verifier_needs_a_card_unless_the_cpu_is_asked_for(monkeypatch, tmp_path, capsys):
+    # Without a card, no entry point of the verifier falls back to the CPU
+    # by itself: the library calls and the CLI's default raise.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = verifier.PYRAMID_CONFIGS["default"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        verifier._make_runners(cfg, "cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        verifier.run_suite(["no_motion"], "default", backend="cuda", verbose=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        verifier.main(["--pattern", "no_motion", "--backend", "cuda",
+                       "--output-dir", str(tmp_path)])
+    assert not (tmp_path / "verification_results.json").exists()
+    verifier.main(["--pattern", "no_motion", "--backend", "cuda", "--device", "cpu",
+                   "--output-dir", str(tmp_path)])
+    assert "backend=cuda on cpu" in capsys.readouterr().out

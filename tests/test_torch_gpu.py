@@ -6,7 +6,9 @@ only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-Limits: the warps (K1, K2, K4) bit-exact; the refine steps' (K3, K5) u, v
+Limits: the warps (K1, K2, K4) bit-exact, at their blocks' edges, on
+planes down to 1x1, at bands 0 to 31, with flows far past the band, from an
+unaligned base and per batch element; the refine steps' (K3, K5) u, v
 bit-identical and their sums to rtol 1e-5 (per-block partials are summed
 in another order); the fused single-scale solve (K6, K7) u, v and |det|
 bit-identical; short `production` and `default` streams with the same
@@ -32,7 +34,7 @@ from scipy.ndimage import gaussian_filter
 from tpuflow_torch import PYRAMID_CONFIGS, lucas_kanade_pyramidal_step
 from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation
 from tpuflow_torch.flow import pyramidal
-from tpuflow_torch.kernels import launch_counts, lk, torch_ref, warp
+from tpuflow_torch.kernels import _build, launch_counts, lk, torch_ref, warp
 
 pytestmark = pytest.mark.gpu
 
@@ -65,6 +67,125 @@ def test_warp_kernel_bit_exact(cuda, shape, packing, band):
     torch.cuda.synchronize()
     assert launch_counts()[_WARP_COUNTER[packing]] == before + 1
     assert torch.equal(got, want)
+
+
+# The warp's blocks (csrc/warp.cu): planes under 2**20 pixels gather their
+# corners in 32x16 blocks, larger ones stage the band in 128x32 tiles.
+# Shapes at and across the block edges (widths 31-33, 127-129, 255-257,
+# heights around 16 and 32), widths that are not a multiple of 4 (4-byte
+# staging), planes smaller than a block down to 1x1, one row and one
+# column, and staged planes with ragged last tiles, one tile row, one
+# narrow tile column, and an odd width.
+_TILE_SHAPES = [(1, 1), (1, 200), (200, 1), (3, 5), (15, 31), (16, 32), (17, 33), (31, 127),
+                (33, 129), (65, 61), (130, 1922), (270, 480), (545, 960), (1057, 1920),
+                (1025, 1027), (9, 120000), (120000, 9)]
+# (max_disp, max_disp_v): the narrowest and widest bands, and a mix.
+_TILE_BANDS = [(0, 0), (8, 3), (0, 31), (31, 0), (31, 31)]
+
+
+# Each shape through the block its size chooses, and through each block
+# forced (the same output bit for bit).
+@pytest.mark.parametrize("staged", [None, False, True])
+@pytest.mark.parametrize("shape", _TILE_SHAPES)
+@pytest.mark.parametrize("packing", ["u8", "u16", "exact"])
+def test_warp_tile_edges_and_bands_bit_exact(cuda, shape, packing, staged):
+    rng = np.random.default_rng(7 * shape[0] + shape[1])
+    img = _rand(rng, shape, 0, 255, cuda)
+    if packing == "u8":
+        img = img.round()
+    for md, mdv in _TILE_BANDS:
+        u, v = _rand(rng, shape, -md - 3, md + 3, cuda), _rand(rng, shape, -mdv - 3, mdv + 3, cuda)
+        got = warp.warp_banded(img, u, v, md, mdv, packing, staged=staged)
+        want = warp.warp_banded_ref(img, u, v, md, mdv, packing)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (md, mdv)
+
+
+@pytest.mark.parametrize("staged", [None, False, True])
+@pytest.mark.parametrize("shape", _TILE_SHAPES)
+def test_exact_warp_far_outside_the_band_unclamped(cuda, shape, staged):
+    # clamp_flow off, flows up to 40 px past the band: the row rule and the
+    # column clamps keep every corner inside the staged window.
+    rng = np.random.default_rng(shape[1])
+    img = _rand(rng, shape, 0, 255, cuda)
+    for md, mdv in _TILE_BANDS:
+        reach = max(md, mdv) + 40
+        u, v = _rand(rng, shape, -reach, reach, cuda), _rand(rng, shape, -reach, reach, cuda)
+        got = warp.warp_banded(img, u, v, md, mdv, "exact", clamp_flow=False, staged=staged)
+        want = warp.warp_banded_ref(img, u, v, md, mdv, "exact", clamp_flow=False)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (md, mdv)
+
+
+@pytest.mark.parametrize("packing", ["u8", "u16", "exact"])
+def test_warp_unaligned_base_bit_exact(cuda, packing):
+    # A staged plane whose width is a multiple of 4, on a base that is not
+    # 16-byte aligned, stages by 4-byte copies.
+    rng = np.random.default_rng(11)
+    shape = (1025, 1024)
+    buf = _rand(rng, (shape[0] * shape[1] + 1,), 0, 255, cuda)
+    if packing == "u8":
+        buf = buf.round()
+    img = buf[1:].view(shape)
+    assert img.data_ptr() % 16 != 0 and warp.tile_geometry(*shape, 8, 8)["staged"]
+    u, v = _rand(rng, shape, -9, 9, cuda), _rand(rng, shape, -9, 9, cuda)
+    for md, mdv in _TILE_BANDS:
+        got = warp.warp_banded(img, u, v, md, mdv, packing)
+        assert torch.equal(got, warp.warp_banded_ref(img, u, v, md, mdv, packing)), (md, mdv)
+
+
+@pytest.mark.parametrize("shape", [(3, 1, 1), (2, 33, 257), (3, 545, 130), (2, 270, 480),
+                                   (2, 1057, 1000)])
+@pytest.mark.parametrize("packing,clamp", [("u8", True), ("u16", True), ("exact", True),
+                                           ("exact", False)])
+def test_batched_warp_tiles_per_element(cuda, shape, packing, clamp):
+    rng = np.random.default_rng(shape[-1])
+    img = _rand(rng, shape, 0, 255, cuda)
+    if packing == "u8":
+        img = img.round()
+    for md, mdv in [(0, 0), (8, 3), (31, 31)]:
+        reach = max(md, mdv) + (3 if clamp else 40)
+        u, v = _rand(rng, shape, -reach, reach, cuda), _rand(rng, shape, -reach, reach, cuda)
+        args = (md, mdv, packing, clamp)
+        got = warp.warp_banded(img, u, v, *args)
+        assert torch.equal(got, warp.warp_banded_ref(img, u, v, *args)), (md, mdv)
+        for b in range(shape[0]):
+            assert torch.equal(got[b], warp.warp_banded(img[b], u[b], v[b], *args)), (md, mdv, b)
+
+
+def test_warp_geometry_by_plane_size(cuda):
+    # The production pyramid's coarse levels gather, its 1080p level stages
+    # the band: 29,792 B at md = mdv = 8, 72,960 B at the widest band.
+    gather = dict(staged=0, tile_w=32, rows=16, threads=256, smem_bytes=0)
+    assert warp.tile_geometry(270, 480, 8, 8) == gather
+    assert warp.tile_geometry(540, 960, 8, 8) == gather
+    staged = dict(staged=1, tile_w=128, rows=32, threads=256)
+    assert warp.tile_geometry(1080, 1920, 8, 8) == dict(staged, smem_bytes=49 * 152 * 4)
+    assert warp.tile_geometry(1080, 1920, 31, 31) == dict(staged, smem_bytes=95 * 192 * 4)
+    assert warp.tile_geometry(270, 480, 8, 8, staged=True) == dict(
+        staged=1, tile_w=64, rows=16, threads=256, smem_bytes=33 * 88 * 4)
+    assert warp.tile_geometry(1080, 1920, 8, 8, staged=False) == gather
+    _build.launch_empty()
+    torch.cuda.synchronize()
+
+
+def test_warp_refuses_a_window_that_does_not_fit(cuda, monkeypatch):
+    # Past the wrapper's band limit, a staged window beyond the card's
+    # 227 KB of shared memory a block is refused before launch; one above
+    # the default 48 KB that fits runs, bit-exact.
+    monkeypatch.setattr(warp, "MAX_BAND", 400)
+    rng = np.random.default_rng(5)
+    shape = (1100, 1000)
+    img = _rand(rng, shape, 0, 255, cuda)
+    u, v = _rand(rng, shape, -50, 50, cuda), _rand(rng, shape, -50, 50, cuda)
+    assert warp.tile_geometry(*shape, 300, 300)["smem_bytes"] > 232448
+    before = launch_counts()["warp_exact"]
+    with pytest.raises(RuntimeError, match="configuration"):
+        warp.warp_banded(img, u, v, 300, 300, "exact")
+    assert launch_counts()["warp_exact"] == before
+    assert 48 * 1024 < warp.tile_geometry(*shape, 60, 40)["smem_bytes"] <= 232448
+    got = warp.warp_banded(img, u, v, 60, 40, "exact")
+    assert torch.equal(got, warp.warp_banded_ref(img, u, v, 60, 40, "exact"))
 
 
 @pytest.mark.parametrize("shape", [(37, 61), (64, 200), (1, 1)])

@@ -152,3 +152,16 @@ def test_cpu_tensors_run_plain_versions_and_count_no_launch(rng):
     lk.lucas_kanade_fused(img, img)
     lk.lucas_kanade_fused(img, img, return_confidence=True)
     assert launch_counts() == before
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_warp_block_choice_leaves_the_cpu_result_alone(rng, staged):
+    # Choosing the CUDA kernel's block is for measurement on the card; on
+    # the CPU the plain version runs whatever is chosen, and no launch is
+    # counted.
+    before = launch_counts()
+    img = _t(np.round(rng.uniform(0, 255, (16, 24))))
+    u, v = _flow(rng, (16, 24))
+    want = warp.warp_banded(img, _t(u), _t(v), 8, 3)
+    assert torch.equal(warp.warp_banded(img, _t(u), _t(v), 8, 3, staged=staged), want)
+    assert launch_counts() == before

@@ -51,7 +51,7 @@ def test_profile_needs_a_device_by_default(monkeypatch):
 
 
 def test_natural_frame_matches_jax_pair():
-    f0, f1 = profile.natural_pair()
+    f0, f1 = profile.natural_pair(device="cpu")
     j0, j1 = jax_profile._natural_pair(1080, 1920)
     np.testing.assert_array_equal(f0.numpy(), j0)
     assert np.load(profile.NATURAL)["frame"].tobytes() == j0.astype(np.uint8).tobytes()

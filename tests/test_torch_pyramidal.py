@@ -77,7 +77,7 @@ def test_production_from_jax_pyramids_matches_pallas(jax_production, name):
     pyr_a, pyr_b = _jax_pyramid(f0), _jax_pyramid(f1)
     ju, jv, jlevels = jax_production(pyr_a, pyr_b)
 
-    to_port = lambda pyr: convert.pyramid_from_numpy([np.asarray(x) for x in pyr])  # noqa: E731
+    to_port = lambda pyr: convert.pyramid_from_numpy([np.asarray(x) for x in pyr], "cpu")  # noqa: E731
     u, v, levels = pyramidal.lucas_kanade_pyramidal_from_pyramids(
         to_port(pyr_a), to_port(pyr_b), CFG, backend="cuda", return_levels=True
     )
@@ -94,6 +94,19 @@ def test_production_from_jax_pyramids_matches_pallas(jax_production, name):
         # (clip, then one last residual step), on both sides.
         mask = verifier.get_test_region_mask((240, 320), name)
         assert np.median(u.numpy()[mask]) < 9.0 and np.median(ju[mask]) < 9.0
+
+
+def test_pyramid_carry_goes_to_the_card_by_default(monkeypatch):
+    # The carry crosses over onto the card unless the caller names another
+    # device; without a card the default raises instead of falling back.
+    levels = [np.full((3, 4), 1.5, np.float64), np.zeros((6, 8), np.float32)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.pyramid_from_numpy(levels)
+    carry = convert.pyramid_from_numpy(levels, "cpu")
+    assert [t.device.type for t in carry] == ["cpu", "cpu"]
+    assert all(t.dtype == torch.float32 and t.is_contiguous() for t in carry)
+    assert torch.equal(carry[0], torch.full((3, 4), 1.5))
 
 
 # (config name, pattern, width, height); "relaxed_w7" is the window-7
@@ -126,7 +139,7 @@ def test_slice_from_jax_pyramids_matches_pallas(config, name, width, height):
     with pltpu.force_tpu_interpret_mode():
         ju, jv, jlevels = fn(pyr_a, pyr_b)
 
-    to_port = lambda pyr: convert.pyramid_from_numpy([np.asarray(x) for x in pyr])  # noqa: E731
+    to_port = lambda pyr: convert.pyramid_from_numpy([np.asarray(x) for x in pyr], "cpu")  # noqa: E731
     u, v, levels = pyramidal.lucas_kanade_pyramidal_from_pyramids(
         to_port(pyr_a), to_port(pyr_b), cfg, backend="cuda", return_levels=True
     )

@@ -27,7 +27,8 @@ PACKED_U16 = ("production", "production_fullband")
 def results():
     out = {}
     for config in CONFIGS:
-        for r in verifier.run_suite(pyramid_config_name=config, backend="cuda", verbose=False):
+        for r in verifier.run_suite(pyramid_config_name=config, backend="cuda", verbose=False,
+                                    device="cpu"):
             out[config, r["pattern_name"]] = r
     return out
 

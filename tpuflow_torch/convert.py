@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from tpuflow_torch.core.config import PyramidConfig
+from tpuflow_torch.eval.timing import require_cuda
 
 _FIELDS = tuple(f.name for f in dataclasses.fields(PyramidConfig))
 
@@ -39,10 +40,12 @@ def config_from_reference(cfg: Any) -> PyramidConfig:
 
 
 def pyramid_from_numpy(
-    levels: Sequence[np.ndarray], device: torch.device | str = "cpu"
+    levels: Sequence[np.ndarray], device: torch.device | str | None = None
 ) -> list[torch.Tensor]:
     """A pyramid carry from (H, W) arrays ordered coarse first: float32,
-    contiguous, on ``device``."""
+    contiguous, on ``device``: the card unless the caller names another;
+    raises without a card."""
+    device = require_cuda() if device is None else torch.device(device)
     out = []
     for i, level in enumerate(levels):
         a = np.asarray(level)

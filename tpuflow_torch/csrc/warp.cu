@@ -26,24 +26,83 @@
 //   f always lies inside, so the rule only acts on unclamped flow.)
 //   out = up*(1-fy) + low*fy (times 1/256 for 8.8); 0 where xf or yf lies
 //   outside [0, N-1].
-// The TPU kernel's two-copy 128-lane gather selection, scratch copy and
-// candidate-row loop exist only to gather on the TPU's vector unit; a GPU
-// thread reads its four corners directly, so none of them is carried over.
 // The f32 expression order is the Pallas kernel's (pallas_warp.py:80-85,
 // :216-227, :307-318, :373-380); the build uses -fmad=false so no product
 // is fused into an FMA, and the result is bit-identical to the plain
 // PyTorch version in tpuflow_torch/kernels/warp.py.
 //
-// Bound: device memory. Each pixel reads u, v and four corners (the
-// corners mostly hit L1/L2: neighbouring threads read neighbouring
-// columns) and writes one f32, about 16 B of DRAM traffic per pixel. One
-// thread per pixel, 32x8 blocks, coalesced row-major accesses. A batch of
-// planes is one launch, blockIdx.z the element (the TPU kernel's
-// flattened (batch * row tiles) grid).
+// Bound on this card: device memory. Each pixel reads u, v and its image
+// pixel once and writes one f32: 16 B a pixel, 0.0099 ms at 1080p at
+// 3.35 TB/s. The old body (one thread an output, 32x8 blocks) waited for
+// its flow, then for four scalar gathers behind it: two memory round trips
+// in a row on every output, and two waves of blocks at 540x960.
+//
+// Design: one body, two ways to its corners, chosen by plane size.
+// - Large planes (>= 2^20 pixels: the 1080p level of K1 and K4) stage the
+//   band before the flow. The clamps fix every corner a block can read
+//   before any flow is known: rows [y_first - mdv, y_last + mdv + 1] (the
+//   row rule) and columns [x_first - md - 1, x_last + md + 1] (the column
+//   clamps), with clamp_flow on or off. A block of 128 output columns by
+//   32 rows, 256 threads,
+//     1. issues 16-byte cp.async copies of that window into shared memory
+//        (4-byte ones where the width or the base is not 16-byte aligned),
+//        the zero-fill form for rows outside the image and columns at or
+//        past W, which is the corner test done once a staged pixel; the
+//        window's left edge is rounded down to a 16-byte chunk;
+//     2. then loads its u and v, so the flow's fetch overlaps the image's:
+//        one memory round trip, not two;
+//     3. decodes each staged pixel once in shared memory (K1 (float)(int)a,
+//        K2 the 8.8 word as a float, K4 as it is), not four times an output;
+//     4. computes 16 outputs a thread, one column on every other row (a
+//        warp takes 32 consecutive columns of a row: coalesced, and
+//        consecutive shared-memory banks), every corner from the tile.
+//   Shared memory: (32 + 2*mdv + 1) x pitch(128, md) floats: 29,792 B at
+//   md = mdv = 8, 72,960 B at 31. A window that does not fit the card is
+//   refused before launch. The halo (1.82x the tile at md = mdv = 8) is
+//   read from L2, where neighbouring windows overlap.
+// - Smaller planes (the coarse levels: K2, and K4 there) read each corner
+//   through L1 after the flow, decoded where it is read, 2 outputs a thread
+//   in 32x16 blocks, so 540x960 is one wave of 1,020 blocks. Staged
+//   windows lose there (chip_smoke.py times both blocks at every level):
+//   with few blocks an SM, each block waits for its whole window at one barrier
+//   and then computes and stores in step, so reads, arithmetic and writes
+//   do not overlap, and the halo (2x-3x the tile at the block counts these
+//   planes need) costs more L2 traffic than L1 saves.
+// With the flow clipped, the band clamps and the row rule change nothing
+// and are compiled out (kClamp).
+// A batch of planes is one launch, blockIdx.z the element (the TPU
+// kernel's flattened (batch * row tiles) grid); the geometry depends on
+// the plane alone, so an element equals its 2-D launch.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-namespace {
+namespace tpuflow_warp {
+
+constexpr int kMaxBatch = 65535;  // gridDim.z
+
+// A block's outputs, `tile_w` columns by `rows` rows, on `threads`
+// threads; `staged`: corners from the band staged in shared memory, else
+// read from the image through L1.
+struct Geometry {
+  bool staged;
+  int tile_w;
+  int rows;
+  int threads;
+};
+
+// Staged columns left of the tile: md + 1, rounded up to a 16-byte chunk
+// (x_first is a multiple of the tile width, so the window starts on a chunk).
+__host__ __device__ constexpr int left_halo(int max_disp) { return (max_disp + 4) / 4 * 4; }
+
+// Staged row pitch in floats: the window's columns, a whole number of chunks.
+__host__ __device__ constexpr int pitch(int tile_w, int max_disp) {
+  return (left_halo(max_disp) + tile_w + max_disp + 1 + 3) / 4 * 4;
+}
+
+__host__ __device__ constexpr int staged_rows(int rows, int max_disp_v) {
+  return rows + 2 * max_disp_v + 1;
+}
 
 template <int kPacking>
 __device__ __forceinline__ float decode(float a) {
@@ -56,102 +115,301 @@ __device__ __forceinline__ float decode(float a) {
   return (float)(((int)(a * 256.0f + 0.5f)) & 0xFFFF);
 }
 
-template <int kPacking>
-__device__ __forceinline__ float corner(const float* __restrict__ img, int r,
-                                        int c, int height, int width) {
-  if (r < 0 || r >= height || c >= width) return 0.0f;
-  return decode<kPacking>(__ldg(img + (size_t)r * width + c));
+// Asynchronous copy global -> shared of N = 4 or 16 bytes, of which the
+// first `bytes` are read and the rest zero-filled.
+template <int N>
+__device__ __forceinline__ void cp_async(uint32_t dst, const float* src, int bytes) {
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+  }
 }
 
-template <int kPacking>
-__device__ __forceinline__ float lerp_row(const float* __restrict__ img, int r,
-                                          int x0, int x1, float fx, float fxc,
-                                          int height, int width) {
-  const float c0 = corner<kPacking>(img, r, x0, height, width);
-  const float c1 = corner<kPacking>(img, r, x1, height, width);
-  return c0 * fxc + c1 * fx;
+// Copy the window into the tile, N bytes a copy, rows outside the image
+// and columns < 0 or >= width zero-filled (a chunk never straddles column
+// 0). Each thread steps through (row, chunk) pairs without a division.
+template <int N, int kThreads>
+__device__ __forceinline__ void stage(uint32_t tile_s, const float* img, int n_rows, int p,
+                                      int r_base, int c_base, int height, int width) {
+  constexpr int kFloats = N / 4;
+  const int chunks = p / kFloats;
+  const int step_r = kThreads / chunks, step_c = kThreads - step_r * chunks;
+  int tr = threadIdx.x / chunks, tc = threadIdx.x - tr * chunks;
+  for (; tr < n_rows; tr += step_r) {
+    const int r = r_base + tr, c = c_base + tc * kFloats;
+    const int bytes = r >= 0 && r < height && c >= 0 ? max(0, min(kFloats, width - c)) * 4 : 0;
+    cp_async<N>(tile_s + (uint32_t)(tr * p + tc * kFloats) * 4u,
+                bytes ? img + (size_t)r * width + c : img, bytes);
+    tc += step_c;
+    if (tc >= chunks) {
+      tc -= chunks;
+      ++tr;
+    }
+  }
 }
 
-template <int kPacking>
-__global__ void __launch_bounds__(256)
-warp_banded_kernel(const float* __restrict__ img, const float* __restrict__ fu,
-                   const float* __restrict__ fv, float* __restrict__ out,
-                   int height, int width, int max_disp, int max_disp_v,
-                   bool clamp_flow) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= width || y >= height) return;
+template <int kPacking, bool kClamp, bool kStaged, int kTileW, int kRows, int kThreads>
+__global__ void __launch_bounds__(kThreads)
+warp_tile_kernel(const float* __restrict__ img, const float* __restrict__ fu,
+                 const float* __restrict__ fv, float* __restrict__ out, int height,
+                 int width, int max_disp, int max_disp_v, bool vec) {
+  constexpr int kRowStep = kThreads / kTileW;  // rows a pass of the block
+  constexpr int kPasses = kRows / kRowStep;    // outputs a thread
+  static_assert(kThreads % kTileW == 0 && kRows % kRowStep == 0, "whole rows a pass");
+  extern __shared__ __align__(16) float tile[];
+
+  const int col = threadIdx.x % kTileW, row = threadIdx.x / kTileW;
+  const int x_first = blockIdx.x * kTileW, y_first = blockIdx.y * kRows;
   const size_t plane = (size_t)blockIdx.z * height * width;
   img += plane;
-  const size_t i = plane + (size_t)y * width + x;
+  fu += plane;
+  fv += plane;
+  out += plane;
+  const int p = pitch(kTileW, max_disp);
+  const int n_rows = staged_rows(kRows, max_disp_v);
+  const int r_base = y_first - max_disp_v;           // image row of tile row 0
+  const int c_base = x_first - left_halo(max_disp);  // image column of tile column 0
 
-  float u = fu[i];
-  float v = fv[i];
-  if (clamp_flow) {
-    const float md = (float)max_disp;
-    const float mdv = (float)max_disp_v;
-    u = fminf(fmaxf(u, -md), md);
-    v = fminf(fmaxf(v, -mdv), mdv);
+  // 1. The band's window, before any flow is read.
+  if constexpr (kStaged) {
+    const uint32_t tile_s = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
+    if (vec) {
+      stage<16, kThreads>(tile_s, img, n_rows, p, r_base, c_base, height, width);
+    } else {
+      stage<4, kThreads>(tile_s, img, n_rows, p, r_base, c_base, height, width);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
-  const float xf = (float)x + u;
-  const float yf = (float)y + v;
-  const float x0f = floorf(xf);
-  const float y0f = floorf(yf);
-  const float fx = xf - x0f;
-  const float fy = yf - y0f;
-  const float fxc = 1.0f - fx;
-  const float fyc = 1.0f - fy;
 
-  const int ix0 = (int)x0f;
-  int x0 = min(max(ix0, x - max_disp - 1), x + max_disp);
-  x0 = min(max(x0, 0), width - 1);
-  int x1 = x0 + 1;
-  if (kPacking == 0) {
-    x1 = min(max(ix0 + 1, x - max_disp - 1), x + max_disp + 1);
-    x1 = min(max(x1, 0), width - 1);
+  // 2. The flow, in flight with the window (a plane holds < 2^31 pixels).
+  const int x = x_first + col;
+  float u[kPasses], v[kPasses];
+#pragma unroll
+  for (int k = 0; k < kPasses; ++k) {
+    const int y = y_first + row + kRowStep * k;
+    const bool ok = x < width && y < height;
+    const int i = ok ? y * width + x : 0;
+    u[k] = ok ? __ldg(fu + i) : 0.0f;
+    v[k] = ok ? __ldg(fv + i) : 0.0f;
   }
-  const int y0 = (int)y0f;
-  const int f = y0 - y;
 
-  float up = 0.0f, low = 0.0f;
-  if (f >= -max_disp_v && f <= max_disp_v + 1)
-    up = lerp_row<kPacking>(img, y0, x0, x1, fx, fxc, height, width);
-  if (f >= -max_disp_v && f <= max_disp_v)
-    low = lerp_row<kPacking>(img, y0 + 1, x0, x1, fx, fxc, height, width);
-  float res = up * fyc + low * fy;
-  if (kPacking == 16) res = res * (1.0f / 256.0f);
+  // 3. Decode each staged pixel once, four at a time.
+  if constexpr (kStaged) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    if constexpr (kPacking != 0) {
+      float4* t4 = reinterpret_cast<float4*>(tile);
+      for (int i = threadIdx.x; i < n_rows * p / 4; i += kThreads) {
+        float4 a = t4[i];
+        a.x = decode<kPacking>(a.x);
+        a.y = decode<kPacking>(a.y);
+        a.z = decode<kPacking>(a.z);
+        a.w = decode<kPacking>(a.w);
+        t4[i] = a;
+      }
+      __syncthreads();
+    }
+  }
+  if (x >= width) return;
 
-  const bool inside = xf >= 0.0f && xf <= (float)(width - 1) && yf >= 0.0f &&
-                      yf <= (float)(height - 1);
-  out[i] = inside ? res : 0.0f;
+  // 4. The outputs.
+  const float md = (float)max_disp;
+  const float mdv = (float)max_disp_v;
+#pragma unroll
+  for (int k = 0; k < kPasses; ++k) {
+    const int y = y_first + row + kRowStep * k;
+    if (y >= height) break;
+    float uu = u[k], vv = v[k];
+    if (kClamp) {
+      uu = fminf(fmaxf(uu, -md), md);
+      vv = fminf(fmaxf(vv, -mdv), mdv);
+    }
+    const float xf = (float)x + uu;
+    const float yf = (float)y + vv;
+    const float x0f = floorf(xf);
+    const float y0f = floorf(yf);
+    const float fx = xf - x0f;
+    const float fy = yf - y0f;
+    const float fxc = 1.0f - fx;
+    const float fyc = 1.0f - fy;
+
+    // With the flow clipped, floor(xf) lies in [x - md, x + md] and
+    // floor(yf) - y in [-mdv, mdv] (x + md and y + mdv are exact floats,
+    // and rounding is monotonic), so the band clamps and the row rule
+    // change nothing and are left out.
+    const int ix0 = (int)x0f;
+    int x0 = kClamp ? ix0 : min(max(ix0, x - max_disp - 1), x + max_disp);
+    x0 = min(max(x0, 0), width - 1);
+    int x1 = x0 + 1;  // column width is staged as 0
+    if (kPacking == 0) {
+      x1 = kClamp ? ix0 + 1 : min(max(ix0 + 1, x - max_disp - 1), x + max_disp + 1);
+      x1 = min(max(x1, 0), width - 1);
+    }
+    const int f = (int)y0f - y;
+    const bool up_ok = kClamp || (f >= -max_disp_v && f <= max_disp_v + 1);
+    const bool low_ok = kClamp || (f >= -max_disp_v && f <= max_disp_v);
+
+    float up = 0.0f, low = 0.0f;
+    if constexpr (kStaged) {
+      // Image row y + f is tile row y - y_first + mdv + f: inside the
+      // window whenever the row rule lets that row count.
+      const float* row_y = tile + (y - y_first + max_disp_v) * p;
+      const int t0 = x0 - c_base, t1 = x1 - c_base;
+      if (up_ok) {
+        const float* r = row_y + f * p;
+        up = r[t0] * fxc + r[t1] * fx;
+      }
+      if (low_ok) {
+        const float* r = row_y + (f + 1) * p;
+        low = r[t0] * fxc + r[t1] * fx;
+      }
+    } else {
+      // The staged window's zeros, tested where each corner is read.
+      auto corner = [&](int r, int c) {
+        return r < 0 || r >= height || c >= width ? 0.0f
+                                                  : decode<kPacking>(__ldg(img + r * width + c));
+      };
+      const int y0 = y + f;
+      if (up_ok) up = corner(y0, x0) * fxc + corner(y0, x1) * fx;
+      if (low_ok) low = corner(y0 + 1, x0) * fxc + corner(y0 + 1, x1) * fx;
+    }
+    float res = up * fyc + low * fy;
+    if (kPacking == 16) res = res * (1.0f / 256.0f);
+
+    const bool inside = xf >= 0.0f && xf <= (float)(width - 1) && yf >= 0.0f &&
+                        yf <= (float)(height - 1);
+    out[y * width + x] = inside ? res : 0.0f;
+  }
 }
 
-}  // namespace
+// Planes of this many pixels and more stage the band in 128x32 tiles;
+// smaller ones read their corners through L1 in 32x16 blocks (see the
+// design note above). A small plane made to stage takes 64x16 tiles, the
+// staged tile that came closest to gathering there.
+constexpr long kStagedMinPixels = 1L << 20;
+constexpr Geometry kStagedTile{true, 128, 32, 256};
+constexpr Geometry kStagedSmallTile{true, 64, 16, 256};
+constexpr Geometry kGatherTile{false, 32, 16, 256};
 
-// img, u, v and out each hold `batch` contiguous (height, width) planes.
+// The block a plane gets, a function of the plane alone (so a batch
+// element equals its 2-D launch).
+inline Geometry geometry(int height, int width) {
+  return (long)height * width >= kStagedMinPixels ? kStagedTile : kGatherTile;
+}
+
+inline size_t smem_bytes(const Geometry& g, int max_disp, int max_disp_v) {
+  if (!g.staged) return 0;
+  return (size_t)staged_rows(g.rows, max_disp_v) * pitch(g.tile_w, max_disp) * sizeof(float);
+}
+
+struct Args {
+  const float* img;
+  const float* u;
+  const float* v;
+  float* out;
+  int batch, height, width, max_disp, max_disp_v;
+  bool vec;
+};
+
+template <int kPacking, bool kClamp, bool kStaged, int kTileW, int kRows, int kThreads>
+int launch(const Args& a, cudaStream_t s) {
+  const size_t smem = smem_bytes({kStaged, kTileW, kRows, kThreads}, a.max_disp, a.max_disp_v);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidConfiguration;  // never launched
+  auto kernel = warp_tile_kernel<kPacking, kClamp, kStaged, kTileW, kRows, kThreads>;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((a.width + kTileW - 1) / kTileW, (a.height + kRows - 1) / kRows, a.batch);
+  kernel<<<grid, kThreads, smem, s>>>(a.img, a.u, a.v, a.out, a.height, a.width, a.max_disp,
+                                      a.max_disp_v, a.vec);
+  return (int)cudaGetLastError();
+}
+
+template <int kPacking, bool kClamp>
+int launch_geometry(const Geometry& g, const Args& a, cudaStream_t s) {
+  if (!g.staged)
+    return launch<kPacking, kClamp, false, kGatherTile.tile_w, kGatherTile.rows,
+                  kGatherTile.threads>(a, s);
+  if (g.tile_w == kStagedTile.tile_w)
+    return launch<kPacking, kClamp, true, kStagedTile.tile_w, kStagedTile.rows,
+                  kStagedTile.threads>(a, s);
+  return launch<kPacking, kClamp, true, kStagedSmallTile.tile_w, kStagedSmallTile.rows,
+                kStagedSmallTile.threads>(a, s);
+}
+
+int launch_any(const Geometry& g, int packing, bool clamp, const Args& a, cudaStream_t s) {
+  if (packing == 0)
+    return clamp ? launch_geometry<0, true>(g, a, s) : launch_geometry<0, false>(g, a, s);
+  if (!clamp) return (int)cudaErrorInvalidValue;  // the packed variants clip the flow
+  if (packing == 8) return launch_geometry<8, true>(g, a, s);
+  if (packing == 16) return launch_geometry<16, true>(g, a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+__global__ void empty_kernel() {}
+
+}  // namespace tpuflow_warp
+
+using namespace tpuflow_warp;
+
+// The block a plane gets: by its size where staged < 0, else staged (1)
+// or gathering (0) whatever its size.
+inline Geometry choose(int height, int width, int staged) {
+  if (staged < 0) return geometry(height, width);
+  if (!staged) return kGatherTile;
+  return (long)height * width >= kStagedMinPixels ? kStagedTile : kStagedSmallTile;
+}
+
+// img, u, v and out each hold `batch` contiguous (height, width) planes;
+// `staged` as in choose().
+extern "C" int tpuflow_warp_banded_as(const float* img, const float* u, const float* v,
+                                      float* out, int batch, int height, int width,
+                                      int max_disp, int max_disp_v, int packing,
+                                      int clamp_flow, int staged, void* stream) {
+  if (batch < 1 || batch > kMaxBatch || height < 1 || width < 1 ||
+      (long)height * width >= (1L << 31) || max_disp < 0 || max_disp_v < 0)
+    return (int)cudaErrorInvalidValue;
+  const Args a{img, u, v, out, batch, height, width, max_disp, max_disp_v,
+               width % 4 == 0 && reinterpret_cast<uintptr_t>(img) % 16 == 0};
+  return launch_any(choose(height, width, staged), packing, clamp_flow != 0, a,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// The warp with the block its plane's size chooses.
 extern "C" int tpuflow_warp_banded(const float* img, const float* u,
                                    const float* v, float* out, int batch,
                                    int height, int width, int max_disp,
                                    int max_disp_v, int packing, int clamp_flow,
                                    void* stream) {
-  if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 block(32, 8);
-  const dim3 grid((width + 31) / 32, (height + 7) / 8, batch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool clamp = clamp_flow != 0;
-  if (packing == 0) {
-    warp_banded_kernel<0><<<grid, block, 0, s>>>(img, u, v, out, height, width,
-                                                 max_disp, max_disp_v, clamp);
-  } else if (packing == 8 && clamp) {
-    warp_banded_kernel<8><<<grid, block, 0, s>>>(img, u, v, out, height, width,
-                                                 max_disp, max_disp_v, clamp);
-  } else if (packing == 16 && clamp) {
-    warp_banded_kernel<16><<<grid, block, 0, s>>>(img, u, v, out, height,
-                                                  width, max_disp, max_disp_v,
-                                                  clamp);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  return tpuflow_warp_banded_as(img, u, v, out, batch, height, width, max_disp, max_disp_v,
+                                packing, clamp_flow, -1, stream);
+}
+
+// The block a plane gets (`staged` as above) and the shared memory it
+// stages at a band, into out[5]: staged (0 or 1), tile width, rows,
+// threads, bytes.
+extern "C" void tpuflow_warp_geometry(int height, int width, int max_disp, int max_disp_v,
+                                      int staged, int* out) {
+  const Geometry g = choose(height, width, staged);
+  out[0] = g.staged;
+  out[1] = g.tile_w;
+  out[2] = g.rows;
+  out[3] = g.threads;
+  out[4] = (int)smem_bytes(g, max_disp, max_disp_v);
+}
+
+// One launch of an empty kernel: the floor under any kernel's time.
+extern "C" int tpuflow_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 

@@ -51,10 +51,12 @@ STREAM_ITERS = 15  # loop iterations per timed run: two frames each
 STREAM_RUNS = 3
 
 
-def natural_pair(dx: float = 2.0, device: torch.device | str = "cpu"):
+def natural_pair(dx: float = 2.0, device: torch.device | str | None = None):
     """The natural 1080p frame and the same frame shifted ``dx`` px right
-    (bilinear, gray 128 fill), as ``tpuflow.eval.profile._natural_pair``."""
-    f0 = torch.from_numpy(np.load(NATURAL)["frame"].astype(np.float32)).to(device)
+    (bilinear, gray 128 fill), as ``tpuflow.eval.profile._natural_pair``,
+    on ``device``: the card unless the caller names another."""
+    dev = require_cuda() if device is None else torch.device(device)
+    f0 = torch.from_numpy(np.load(NATURAL)["frame"].astype(np.float32)).to(dev)
     h, w = f0.shape
     yy = torch.arange(h, dtype=torch.float32, device=f0.device)[:, None].expand(h, w)
     xx = torch.arange(w, dtype=torch.float32, device=f0.device)[None, :].expand(h, w)

@@ -54,5 +54,5 @@ def card_label() -> str:
 def require_cuda() -> torch.device:
     """The first CUDA device; raises where there is none."""
     if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: this measurement runs only on a GPU")
+        raise RuntimeError("no CUDA device: this runs on a GPU unless the CPU is asked for")
     return torch.device("cuda", 0)

@@ -8,9 +8,11 @@ md/JSON reports, and a nonzero exit on regression. It imports neither JAX
 nor ``tpuflow``: the suite comes from the committed fixture
 (``patterns.load_suite``), and the committed baselines under
 ``tpuflow/eval/data/`` are read as files. ``backend="cuda"`` runs the
-hand-written kernels on a card (their plain versions on the CPU),
-``backend="torch"`` the parity path; a baseline's ``backend`` is recorded
-in the JAX package's names, ``pallas`` and ``jnp``.
+hand-written kernels, ``backend="torch"`` the parity path; a baseline's
+``backend`` is recorded in the JAX package's names, ``pallas`` and
+``jnp``. The flow is computed on the card and the run fails without one,
+unless the caller asks for the CPU (``device="cpu"``, ``--device cpu``),
+where the kernels' plain versions run.
 
 Not carried over: ``--config YAML`` (no PyYAML on the GPU host) and the
 plots (no matplotlib).
@@ -35,6 +37,7 @@ import torch
 from tpuflow_torch.core.config import PYRAMID_CONFIGS, PyramidConfig
 from tpuflow_torch.eval import patterns as patterns_mod
 from tpuflow_torch.eval.metrics import compute_all_metrics, compute_all_metrics_dense
+from tpuflow_torch.eval.timing import require_cuda
 from tpuflow_torch.flow import lucas_kanade_pyramidal, lucas_kanade_single_scale
 
 BASELINE_DIR = Path(__file__).resolve().parents[2] / "tpuflow" / "eval" / "data"
@@ -114,17 +117,14 @@ def classify_result(mae_u: float, mae_v: float, pattern_name: str) -> str:
     return "Fail"
 
 
-def _device() -> torch.device:
-    """The card where there is one (the kernels launch there), else the CPU
-    (the kernels' plain versions run)."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-
-
 def _make_runners(
-    pyramid_config: PyramidConfig, backend: str, gaussian_weights: bool = False
+    pyramid_config: PyramidConfig, backend: str, gaussian_weights: bool = False,
+    device: torch.device | str | None = None,
 ):
-    """Single-scale and pyramidal runners: numpy frames in, numpy flow out."""
-    dev = _device()
+    """Single-scale and pyramidal runners: numpy frames in, numpy flow out,
+    computed on ``device``: the card unless the caller names another (on
+    the CPU the kernels' plain versions run); raises without a card."""
+    dev = require_cuda() if device is None else torch.device(device)
 
     def single(prev, curr):
         u, v = lucas_kanade_single_scale(
@@ -385,6 +385,15 @@ def save_results_json(results: List[Dict[str, Any]], output_path: Path) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _check_pattern_names(pattern_names: Optional[List[str]], suite: Dict[str, Any]) -> None:
+    unknown = [n for n in pattern_names or () if n not in suite]
+    if unknown:
+        raise SystemExit(
+            f"Unknown pattern(s): {', '.join(unknown)}. "
+            f"Available: {', '.join(sorted(suite))}"
+        )
+
+
 def run_suite(
     pattern_names: Optional[List[str]] = None,
     pyramid_config_name: str = "default",
@@ -392,21 +401,16 @@ def run_suite(
     verbose: bool = True,
     gaussian_weights: bool = False,
     dense_gt: bool = False,
+    device: torch.device | str | None = None,
 ) -> List[Dict[str, Any]]:
-    """Run verification over the committed suite, on the card where there
-    is one."""
+    """Run verification over the committed suite on ``device``: the card
+    unless the caller names another; raises without a card."""
     suite = patterns_mod.load_suite()
-    if pattern_names:
-        unknown = [n for n in pattern_names if n not in suite]
-        if unknown:
-            raise SystemExit(
-                f"Unknown pattern(s): {', '.join(unknown)}. "
-                f"Available: {', '.join(sorted(suite))}"
-            )
+    _check_pattern_names(pattern_names, suite)
     names = pattern_names or list(suite)
 
     cfg = PYRAMID_CONFIGS[pyramid_config_name]
-    runners = _make_runners(cfg, backend, gaussian_weights)
+    runners = _make_runners(cfg, backend, gaussian_weights, device)
     return [
         verify_pattern(
             name, suite[name], runners, pyramid_config_name, verbose=verbose,
@@ -426,6 +430,11 @@ def main(argv: Optional[List[str]] = None) -> None:
         help=f"named pyramid config ({', '.join(sorted(PYRAMID_CONFIGS))})",
     )
     parser.add_argument("--backend", type=str, default="torch", choices=["torch", "cuda"])
+    parser.add_argument(
+        "--device", type=str, default="cuda", choices=["cuda", "cpu"],
+        help="where the flow is computed: the card (default; fails without one) "
+        "or the CPU, where the kernels' plain versions run",
+    )
     parser.add_argument(
         "--gaussian-weights", action="store_true",
         help="Gaussian window weighting for single scale (the committed "
@@ -452,13 +461,18 @@ def main(argv: Optional[List[str]] = None) -> None:
             f"Available: {', '.join(sorted(PYRAMID_CONFIGS))}"
         )
 
-    print(f"backend={args.backend} on {_device()}")
+    # The arguments first: an unknown name exits 1 with its message on any
+    # machine, before the device is resolved.
+    _check_pattern_names(args.pattern, patterns_mod.load_suite())
+    device = require_cuda() if args.device == "cuda" else torch.device("cpu")
+    print(f"backend={args.backend} on {device}")
     results = run_suite(
         pattern_names=args.pattern,
         pyramid_config_name=args.pyramid_config,
         backend=args.backend,
         gaussian_weights=args.gaussian_weights,
         dense_gt=args.dense_gt,
+        device=device,
     )
 
     out_dir = Path(args.output_dir)

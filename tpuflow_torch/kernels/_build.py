@@ -42,6 +42,9 @@ _SIGNATURES = {
     # img, u, v, out, batch, height, width, max_disp, max_disp_v, packing,
     # clamp_flow, stream
     "tpuflow_warp_banded": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # as tpuflow_warp_banded, with staged (1), gathering (0) or by plane
+    # size (-1) before the stream
+    "tpuflow_warp_banded_as": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # prev, warped, u, v, converged, u_out, v_out, part_du, part_dv,
     # batch, height, width, window, relaxed, det_threshold, max_disp,
     # max_disp_v, stream
@@ -132,6 +135,10 @@ def load() -> ctypes.CDLL:
     lib.tpuflow_lk_refine_blocks.restype = ctypes.c_int
     lib.tpuflow_lk_refine_mxu_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.tpuflow_lk_refine_mxu_blocks.restype = ctypes.c_int
+    lib.tpuflow_warp_geometry.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.tpuflow_warp_geometry.restype = None
+    lib.tpuflow_empty.argtypes = [ctypes.c_void_p]
+    lib.tpuflow_empty.restype = ctypes.c_int
     lib.tpuflow_error_string.argtypes = [ctypes.c_int]
     lib.tpuflow_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -141,6 +148,15 @@ def load() -> ctypes.CDLL:
 def _check_nvcc(cmd: list[str], code: int, log: str) -> None:
     if code != 0:
         raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{log}")
+
+
+def launch_empty() -> None:
+    """Launch one empty kernel of the library on the current stream: timed
+    with ``eval.timing.device_ms``, the floor under any kernel's time."""
+    import torch
+
+    lib = load()
+    check(lib, lib.tpuflow_empty(torch.cuda.current_stream().cuda_stream), "empty kernel")
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -145,7 +145,13 @@ def _wsum_mxu_ref(a: torch.Tensor, w: int, out_rows: int, out_cols: int) -> torc
     (128 + w - 1)-column segment @ the (128 + w - 1, 128) band. The zero
     entries add exact zeros, so the sums equal the plain window sums up to
     the order of the matmul's adds. True f32 (TF32 pinned off) on the
-    card."""
+    card. A batch runs plane by plane through the same two products: a
+    GEMM blocks a (B, H, W) operand otherwise than an (H, W) one, so its
+    adds would come in another order and an element would not equal its
+    plane's call."""
+    if a.ndim > 2:
+        planes = [_wsum_mxu_ref(p, w, out_rows, out_cols) for p in a.flatten(0, -3)]
+        return torch.stack(planes).unflatten(0, a.shape[:-2])
     if a.is_cuda:
         ops.pin_f32_matmul()
     rows = torch.matmul(_band(out_rows, a.shape[-2], w, a.device), a)

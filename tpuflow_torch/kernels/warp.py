@@ -31,6 +31,8 @@ element is warped exactly as the same plane alone.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from tpuflow_torch.kernels import _build
@@ -41,6 +43,23 @@ _COUNTER = {"exact": "warp_exact", "u8": "warp_packed_u8", "u16": "warp_packed_u
 
 # Kernel launches per variant; incremented only where a kernel is launched.
 launch_counts = {name: 0 for name in _COUNTER.values()}
+
+# Widest band, either way (the TPU kernel's limit); where the CUDA kernel
+# stages the band, it takes at most 72,960 B of shared memory a block there.
+MAX_BAND = 31
+
+
+def tile_geometry(height: int, width: int, max_disp: int, max_disp_v: int,
+                  staged: bool | None = None) -> dict:
+    """The CUDA kernel's block at a plane size and band (``staged`` as in
+    ``warp_banded``): whether it stages the band in shared memory, its
+    output columns and rows, its threads, and the bytes of shared memory it
+    stages."""
+    lib = _build.load()
+    out = (ctypes.c_int * 5)()
+    lib.tpuflow_warp_geometry(height, width, max_disp, max_disp_v,
+                              -1 if staged is None else int(staged), out)
+    return dict(zip(("staged", "tile_w", "rows", "threads", "smem_bytes"), out))
 
 
 def _decode(image: torch.Tensor, packing: str) -> torch.Tensor:
@@ -126,19 +145,25 @@ def warp_banded(
     max_disp_v: int | None = None,
     packing: str = "u8",
     clamp_flow: bool = True,
+    staged: bool | None = None,
 ) -> torch.Tensor:
     """Banded warp of an (H, W) plane or a (B, H, W) batch: the CUDA
     kernel for a CUDA tensor, the plain version for a CPU tensor. Bands up
-    to 31 px (the TPU kernel's limit); the packed variants need
-    ``clamp_flow`` (pallas_warp.py:598-601)."""
+    to ``MAX_BAND`` px (the TPU kernel's limit); the packed variants need
+    ``clamp_flow`` (pallas_warp.py:598-601). The kernel stages the band in
+    shared memory on planes of 2**20 pixels and more and gathers through L1
+    on smaller ones; ``staged`` forces one or the other (the same output
+    bit for bit; for measurement). It refuses, before it launches, a band
+    whose staged window exceeds the card's shared memory a block, and the
+    wrapper raises."""
     if max_disp_v is None:
         max_disp_v = max_disp
     if packing not in PACKINGS:
         raise ValueError(f"packing must be one of {sorted(PACKINGS)}, got {packing!r}")
     if packing != "exact" and not clamp_flow:
         raise ValueError("the packed warps require clamp_flow=True")
-    if not (0 <= max_disp <= 31 and 0 <= max_disp_v <= 31):
-        raise ValueError("banded warp supports bands of 0..31 px")
+    if not (0 <= max_disp <= MAX_BAND and 0 <= max_disp_v <= MAX_BAND):
+        raise ValueError(f"banded warp supports bands of 0..{MAX_BAND} px")
     if image.ndim not in (2, 3) or flow_u.shape != image.shape or flow_v.shape != image.shape:
         raise ValueError("image, flow_u and flow_v must share one (H, W) or (B, H, W) shape")
     if image.ndim == 3 and not 1 <= image.shape[0] <= _build.MAX_BATCH:
@@ -161,10 +186,10 @@ def warp_banded(
     batch = image.shape[0] if image.ndim == 3 else 1
     out = torch.empty_like(image)
     stream = torch.cuda.current_stream(image.device).cuda_stream
-    code = lib.tpuflow_warp_banded(
-        image.data_ptr(), flow_u.data_ptr(), flow_v.data_ptr(), out.data_ptr(),
-        batch, h, w, max_disp, max_disp_v, PACKINGS[packing], int(clamp_flow), stream,
-    )
+    args = (image.data_ptr(), flow_u.data_ptr(), flow_v.data_ptr(), out.data_ptr(),
+            batch, h, w, max_disp, max_disp_v, PACKINGS[packing], int(clamp_flow))
+    code = (lib.tpuflow_warp_banded(*args, stream) if staged is None
+            else lib.tpuflow_warp_banded_as(*args, int(staged), stream))
     name = _COUNTER[packing]
     _build.check(lib, code, name)
     launch_counts[name] += 1
