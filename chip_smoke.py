@@ -20,9 +20,11 @@ failure raises and the script exits non-zero):
 3. kernels: each kernel at the main paths' shapes against its plain version
    on the card, with its median device time and the plain version's (CUDA
    events); the warps (K1, K2, K4) at every level of both pyramids, on the
-   plane and a B=2 batch, timed at each level beside an empty kernel's
-   launch floor; K1-K7 also as batches of two 1080p planes (each element
-   against the plain version and against the kernel's 2-D launch); K10 at
+   plane and a B=2 batch, timed at each level beside the kernel's other
+   block (forced), the walk ablation (``ablation.warp_walk``) at three
+   walk lengths and an empty kernel's launch floor; K1-K7 also as batches
+   of two 1080p planes (each element against the plain version and
+   against the kernel's 2-D launch); K10 at
    windows 3/5/7, exact and relaxed Sobel, on a plane and a batch of two,
    timed beside K6 and K3; K8 in its four kinds and K9 in both modes;
 4. main paths: each path run with the launch counts reset just before and
@@ -83,7 +85,7 @@ from scipy.ndimage import gaussian_filter
 from scipy.ndimage import shift as nd_shift
 
 from tpuflow_torch import PYRAMID_CONFIGS, lucas_kanade_pyramidal_step, lucas_kanade_single_scale
-from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation
+from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation, warp_walk
 from tpuflow_torch.core import ops
 from tpuflow_torch.eval import bounds, profile, verifier
 from tpuflow_torch.eval.timing import card_label, device_ms
@@ -232,24 +234,28 @@ def check_warp(readings, name, curr, packing, max_disp, rng, dev):
                                                                  *wargs), warp.warp_banded)
     flow = _flow(rng, shape, 9.0, dev)
     args = (curr, *flow, max_disp, 8, packing)
-    ms = device_ms(lambda: warp.warp_banded(*args))
+    # The kernel, its other block (forced) and the walk ablation at 16, 32
+    # and 64 rows a walk, each bit-exact first, then timed on the same
+    # inputs: the reason for the block each plane gets, measured in this run.
+    walk = warp_walk.measure(*args)
+    ms = walk["kernel_ms"]
     plain_ms = device_ms(lambda: warp.warp_banded_ref(*args))
     geo = warp.tile_geometry(*shape, max_disp, 8)
-    # The block the plane did not choose, on the same inputs: the reason
-    # for the choice, measured in this run.
-    other = not geo["staged"]
-    if not torch.equal(warp.warp_banded(*args, staged=other), warp.warp_banded(*args)):
-        raise AssertionError(f"{name} at {shape}: the two blocks differ")
-    other_ms = device_ms(lambda: warp.warp_banded(*args, staged=other))
     block = (f"staged {geo['tile_w']}x{geo['rows']} tiles, {geo['smem_bytes']} B of shared "
              "memory" if geo["staged"] else f"gathers in {geo['tile_w']}x{geo['rows']} blocks")
+    walks = "/".join(f"{walk[f'walk_{n}_ms']:.4f}" for n in warp_walk.WALKS)
     print(f"[kernels] {name} {shape[0]}x{shape[1]}: bit-exact at (md, mdv) {bands}, clamp_flow "
           f"{'on and off' if packing == 'exact' else 'on'}, plane and B=2; {ms:.4f} ms (plain "
           f"{plain_ms:.4f} ms; {_bound_note(name, shape, ms)}); {block}, {geo['threads']} "
-          f"threads; {'staged' if other else 'gathering'} instead {other_ms:.4f} ms")
+          f"threads; {'gathering' if geo['staged'] else 'staged'} instead "
+          f"{walk['other_block_ms']:.4f} ms; walk ablation "
+          f"{'/'.join(map(str, warp_walk.WALKS))} rows a walk {walks} ms; launch floor "
+          f"{walk['launch_floor_ms']:.4f} ms")
     readings[name].setdefault("by_shape", {})[f"{shape[0]}x{shape[1]}"] = {
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds.bound(name, 1, *shape)[0],
-        "other_block_ms": other_ms, **geo}
+        "other_block_ms": walk["other_block_ms"],
+        "walk_ms": {n: walk[f"walk_{n}_ms"] for n in warp_walk.WALKS},
+        "launch_floor_ms": walk["launch_floor_ms"], **geo}
     _record(readings, name, ms, plain_ms, shape)
     return flow, args
 
@@ -898,13 +904,20 @@ def walk_ptxas(log: str) -> dict[int, list[str]]:
 
 
 def warp_ptxas(log: str) -> list[str]:
-    """ptxas's registers and spill stores of each warp instantiation (its
-    shared memory is dynamic, sized by the band: see the [kernels] lines)."""
-    return [f"{_WARP_NAMES[packing, clamp]} {'staged' if staged else 'gather'} {tw}x{rows} "
-            f"{threads} threads: {regs} regs/{spill} B spilled"
-            for (packing, clamp, staged, tw, rows, threads), regs, spill, _ in ptxas_usage(
-                log, r"_ZN12tpuflow_warp16warp_tile_kernelILi(\d+)ELb(\d)ELb(\d)ELi(\d+)"
-                     r"ELi(\d+)ELi(\d+)E")]
+    """ptxas's registers and spill stores of each warp instantiation, the
+    walk ablation's included (their shared memory is dynamic, sized by the
+    band: see the [kernels] lines)."""
+    tiles = [f"{_WARP_NAMES[packing, clamp]} {'staged' if staged else 'gather'} {tw}x{rows} "
+             f"{threads} threads: {regs} regs/{spill} B spilled"
+             for (packing, clamp, staged, tw, rows, threads), regs, spill, _ in ptxas_usage(
+                 log, r"_ZN12tpuflow_warp16warp_tile_kernelILi(\d+)ELb(\d)ELb(\d)ELi(\d+)"
+                      r"ELi(\d+)ELi(\d+)E")]
+    walks = [f"{_WARP_NAMES[packing, clamp]} walk {tw}x{step} {threads} threads: {regs} regs/"
+             f"{spill} B spilled"
+             for (packing, clamp, tw, step, threads), regs, spill, _ in ptxas_usage(
+                 log, r"_ZN12tpuflow_warp16warp_walk_kernelILi(\d+)ELb(\d)ELi(\d+)ELi(\d+)"
+                      r"ELi(\d+)E")]
+    return tiles + walks
 
 
 def main() -> None:

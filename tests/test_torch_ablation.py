@@ -23,7 +23,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation
+from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation, warp_walk
 
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 
@@ -104,3 +104,38 @@ def test_ablation_wrappers_check_inputs_and_count_no_cpu_launch():
         warp_mxu_ablation.candidate_accumulate(x, off.to(torch.int64), "gather")
     warp_mxu_ablation.candidate_accumulate(x, off, "shifts")
     assert (shift_ablation.launch_counts, warp_mxu_ablation.launch_counts) == before
+
+
+# The walk ablation's function is the banded warp's: its plain version
+# against the Pallas warp (interpret mode), to test_torch_kernels' limit.
+@pytest.mark.parametrize("packing", ["u8", "u16", "exact"])
+@pytest.mark.parametrize("band", [(8, 3), (8, 8), (0, 0)])
+def test_warp_walk_plain_matches_pallas(rng, packing, band):
+    from tpuflow.kernels import pallas_warp
+
+    shape = (40, 72)
+    md, mdv = band
+    img = np.round(rng.uniform(0, 255, shape)).astype(np.float32)
+    u, v = (rng.uniform(-md - 1, md + 1, shape).astype(np.float32) for _ in range(2))
+    with pltpu.force_tpu_interpret_mode():
+        want = pallas_warp.warp_image_banded(
+            jnp.asarray(img), jnp.asarray(u), jnp.asarray(v), max_disp=md, clamp_flow=True,
+            max_disp_v=mdv, packed_u8=packing == "u8", packed_u16=packing == "u16")
+    got = warp_walk.warp_walk(*(torch.from_numpy(a) for a in (img, u, v)), md, mdv, packing,
+                              walk_rows=16)
+    atol = 2 * float(np.spacing(np.float32(255.0)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=atol)
+
+
+def test_warp_walk_checks_inputs_and_counts_no_cpu_launch():
+    before = dict(warp_walk.launch_counts)
+    z = torch.zeros(8, 16)
+    for walk_rows in (0, 8, 24):
+        with pytest.raises(ValueError):
+            warp_walk.warp_walk(z, z, z, walk_rows=walk_rows)
+    with pytest.raises(ValueError):
+        warp_walk.warp_walk(z, z, z, packing="u8", clamp_flow=False)
+    with pytest.raises(ValueError):
+        warp_walk.warp_block(z, z, z, 8, 8, "u16", True, staged=True)
+    assert torch.equal(warp_walk.warp_walk(z, z, z, walk_rows=48), z)
+    assert warp_walk.launch_counts == before

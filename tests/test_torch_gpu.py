@@ -6,7 +6,8 @@ only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-Limits: the warps (K1, K2, K4) bit-exact, at their blocks' edges, on
+Limits: the warps (K1, K2, K4) bit-exact, at their blocks' edges (through
+the block a plane gets, each block forced, and the walk ablation), on
 planes down to 1x1, at bands 0 to 31, with flows far past the band, from an
 unaligned base and per batch element; the refine steps' (K3, K5) u, v
 bit-identical and their sums to rtol 1e-5 (per-block partials are summed
@@ -32,7 +33,7 @@ import torch
 from scipy.ndimage import gaussian_filter
 
 from tpuflow_torch import PYRAMID_CONFIGS, lucas_kanade_pyramidal_step
-from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation
+from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation, warp_walk
 from tpuflow_torch.flow import pyramidal
 from tpuflow_torch.kernels import _build, launch_counts, lk, torch_ref, warp
 
@@ -83,9 +84,23 @@ _TILE_SHAPES = [(1, 1), (1, 200), (200, 1), (3, 5), (15, 31), (16, 32), (17, 33)
 _TILE_BANDS = [(0, 0), (8, 3), (0, 31), (31, 0), (31, 31)]
 
 
-# Each shape through the block its size chooses, and through each block
-# forced (the same output bit for bit).
-@pytest.mark.parametrize("staged", [None, False, True])
+def _warp_as(block, *args):
+    """The warp with its CUDA block: by plane size (None), forced staged
+    (True) or gathering (False), or the walk ablation ("walk16", "walk48")."""
+    if block is None:
+        return warp.warp_banded(*args)
+    if block in (False, True):
+        return warp_walk.warp_block(*args, staged=block)
+    return warp_walk.warp_walk(*args, walk_rows=int(block[4:]))
+
+
+# Each shape through the block its size chooses, through each block forced
+# and through the walk ablation at one and three steps a walk (the same
+# output bit for bit).
+_BLOCKS = [None, False, True, "walk16", "walk48"]
+
+
+@pytest.mark.parametrize("staged", _BLOCKS)
 @pytest.mark.parametrize("shape", _TILE_SHAPES)
 @pytest.mark.parametrize("packing", ["u8", "u16", "exact"])
 def test_warp_tile_edges_and_bands_bit_exact(cuda, shape, packing, staged):
@@ -95,13 +110,13 @@ def test_warp_tile_edges_and_bands_bit_exact(cuda, shape, packing, staged):
         img = img.round()
     for md, mdv in _TILE_BANDS:
         u, v = _rand(rng, shape, -md - 3, md + 3, cuda), _rand(rng, shape, -mdv - 3, mdv + 3, cuda)
-        got = warp.warp_banded(img, u, v, md, mdv, packing, staged=staged)
+        got = _warp_as(staged, img, u, v, md, mdv, packing, True)
         want = warp.warp_banded_ref(img, u, v, md, mdv, packing)
         torch.cuda.synchronize()
         assert torch.equal(got, want), (md, mdv)
 
 
-@pytest.mark.parametrize("staged", [None, False, True])
+@pytest.mark.parametrize("staged", _BLOCKS)
 @pytest.mark.parametrize("shape", _TILE_SHAPES)
 def test_exact_warp_far_outside_the_band_unclamped(cuda, shape, staged):
     # clamp_flow off, flows up to 40 px past the band: the row rule and the
@@ -111,26 +126,29 @@ def test_exact_warp_far_outside_the_band_unclamped(cuda, shape, staged):
     for md, mdv in _TILE_BANDS:
         reach = max(md, mdv) + 40
         u, v = _rand(rng, shape, -reach, reach, cuda), _rand(rng, shape, -reach, reach, cuda)
-        got = warp.warp_banded(img, u, v, md, mdv, "exact", clamp_flow=False, staged=staged)
+        got = _warp_as(staged, img, u, v, md, mdv, "exact", False)
         want = warp.warp_banded_ref(img, u, v, md, mdv, "exact", clamp_flow=False)
         torch.cuda.synchronize()
         assert torch.equal(got, want), (md, mdv)
 
 
+@pytest.mark.parametrize("staged", [None, "walk32"])
 @pytest.mark.parametrize("packing", ["u8", "u16", "exact"])
-def test_warp_unaligned_base_bit_exact(cuda, packing):
+def test_warp_unaligned_base_bit_exact(cuda, packing, staged):
     # A staged plane whose width is a multiple of 4, on a base that is not
-    # 16-byte aligned, stages by 4-byte copies.
+    # 16-byte aligned, stages by 4-byte copies; the walk also stages an
+    # unaligned flow so.
     rng = np.random.default_rng(11)
     shape = (1025, 1024)
-    buf = _rand(rng, (shape[0] * shape[1] + 1,), 0, 255, cuda)
+    buf = _rand(rng, (3, shape[0] * shape[1] + 1), 0, 255, cuda)
+    buf[1:] = buf[1:] * (18 / 255) - 9  # flows in [-9, 9]
     if packing == "u8":
-        buf = buf.round()
-    img = buf[1:].view(shape)
+        buf[0] = buf[0].round()
+    img, u, v = (b[1:].view(shape) for b in buf)
+    assert u.data_ptr() % 16 != 0 and v.data_ptr() % 16 != 0
     assert img.data_ptr() % 16 != 0 and warp.tile_geometry(*shape, 8, 8)["staged"]
-    u, v = _rand(rng, shape, -9, 9, cuda), _rand(rng, shape, -9, 9, cuda)
     for md, mdv in _TILE_BANDS:
-        got = warp.warp_banded(img, u, v, md, mdv, packing)
+        got = _warp_as(staged, img, u, v, md, mdv, packing, True)
         assert torch.equal(got, warp.warp_banded_ref(img, u, v, md, mdv, packing)), (md, mdv)
 
 
@@ -159,13 +177,35 @@ def test_warp_geometry_by_plane_size(cuda):
     gather = dict(staged=0, tile_w=32, rows=16, threads=256, smem_bytes=0)
     assert warp.tile_geometry(270, 480, 8, 8) == gather
     assert warp.tile_geometry(540, 960, 8, 8) == gather
+    assert warp.tile_geometry(1023, 1025, 8, 8) == gather
     staged = dict(staged=1, tile_w=128, rows=32, threads=256)
+    assert warp.tile_geometry(1024, 1024, 8, 8) == dict(staged, smem_bytes=49 * 152 * 4)
     assert warp.tile_geometry(1080, 1920, 8, 8) == dict(staged, smem_bytes=49 * 152 * 4)
     assert warp.tile_geometry(1080, 1920, 31, 31) == dict(staged, smem_bytes=95 * 192 * 4)
-    assert warp.tile_geometry(270, 480, 8, 8, staged=True) == dict(
-        staged=1, tile_w=64, rows=16, threads=256, smem_bytes=33 * 88 * 4)
-    assert warp.tile_geometry(1080, 1920, 8, 8, staged=False) == gather
     _build.launch_empty()
+    torch.cuda.synchronize()
+
+
+def test_warp_refuses_a_side_of_2_to_the_24(cuda):
+    # x + max_disp and y + max_disp_v must be exact floats: a side of 2**24
+    # is refused by the wrapper, and by the kernel's entry points before
+    # any launch.
+    shape = (warp.MAX_SIDE, 1)
+    img = torch.zeros(shape, device=cuda)
+    before = launch_counts()["warp_exact"]
+    with pytest.raises(ValueError, match="sides under"):
+        warp.warp_banded(img, img, img, 8, 8, "exact")
+    with pytest.raises(ValueError, match="sides under"):
+        warp_walk.warp_walk(img, img, img, 8, 8, "exact", walk_rows=16)
+    assert launch_counts()["warp_exact"] == before
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (img.data_ptr(),) * 4
+    for h, w in (shape, shape[::-1]):
+        assert lib.tpuflow_warp_banded(*ptrs, 1, h, w, 8, 8, 0, 1, stream) != 0
+        assert lib.tpuflow_warp_walk(*ptrs, 1, h, w, 8, 8, 0, 1, 16, stream) != 0
+    # A row of 2**24 - 1 pixels is taken.
+    assert lib.tpuflow_warp_banded(*ptrs, 1, 1, warp.MAX_SIDE - 1, 8, 8, 0, 1, stream) == 0
     torch.cuda.synchronize()
 
 
@@ -185,6 +225,14 @@ def test_warp_refuses_a_window_that_does_not_fit(cuda, monkeypatch):
     assert launch_counts()["warp_exact"] == before
     assert 48 * 1024 < warp.tile_geometry(*shape, 60, 40)["smem_bytes"] <= 232448
     got = warp.warp_banded(img, u, v, 60, 40, "exact")
+    assert torch.equal(got, warp.warp_banded_ref(img, u, v, 60, 40, "exact"))
+    # The walk's ring and flow at 300 px do not fit either; at 60, 40 they
+    # take more than 48 KB, and fit.
+    walks = warp_walk.launch_counts["warp_walk_ablation"]
+    with pytest.raises(RuntimeError, match="configuration"):
+        warp_walk.warp_walk(img, u, v, 300, 300, "exact", walk_rows=48)
+    assert warp_walk.launch_counts["warp_walk_ablation"] == walks
+    got = warp_walk.warp_walk(img, u, v, 60, 40, "exact", walk_rows=48)
     assert torch.equal(got, warp.warp_banded_ref(img, u, v, 60, 40, "exact"))
 
 

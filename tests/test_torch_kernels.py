@@ -27,6 +27,7 @@ from jax.experimental.pallas import tpu as pltpu
 from scipy.ndimage import gaussian_filter
 
 from tpuflow.kernels import pallas_lk, pallas_warp
+from tpuflow_torch.ablation import warp_walk
 from tpuflow_torch.kernels import launch_counts, lk, warp
 
 WARP_ATOL = 2 * float(np.spacing(np.float32(255.0)))
@@ -154,14 +155,19 @@ def test_cpu_tensors_run_plain_versions_and_count_no_launch(rng):
     assert launch_counts() == before
 
 
+# A plane under 2**20 pixels (the CUDA kernel gathers its corners) and one
+# at 2**20 (it stages the band).
 @pytest.mark.parametrize("staged", [False, True])
 def test_warp_block_choice_leaves_the_cpu_result_alone(rng, staged):
-    # Choosing the CUDA kernel's block is for measurement on the card; on
-    # the CPU the plain version runs whatever is chosen, and no launch is
-    # counted.
+    # The CUDA kernel chooses its block by plane size, and the walk
+    # ablation walks; on the CPU both run the plain version whatever the
+    # plane, and no launch is counted.
+    shape = (1024, 1024) if staged else (16, 24)
     before = launch_counts()
-    img = _t(np.round(rng.uniform(0, 255, (16, 24))))
-    u, v = _flow(rng, (16, 24))
-    want = warp.warp_banded(img, _t(u), _t(v), 8, 3)
-    assert torch.equal(warp.warp_banded(img, _t(u), _t(v), 8, 3, staged=staged), want)
-    assert launch_counts() == before
+    walks_before = dict(warp_walk.launch_counts)
+    img = _t(np.round(rng.uniform(0, 255, shape)))
+    u, v = _flow(rng, shape)
+    want = warp.warp_banded_ref(img, _t(u), _t(v), 8, 3)
+    assert torch.equal(warp.warp_banded(img, _t(u), _t(v), 8, 3), want)
+    assert torch.equal(warp_walk.warp_walk(img, _t(u), _t(v), 8, 3, "u8", walk_rows=32), want)
+    assert launch_counts() == before and warp_walk.launch_counts == walks_before

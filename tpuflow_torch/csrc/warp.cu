@@ -33,9 +33,7 @@
 //
 // Bound on this card: device memory. Each pixel reads u, v and its image
 // pixel once and writes one f32: 16 B a pixel, 0.0099 ms at 1080p at
-// 3.35 TB/s. The old body (one thread an output, 32x8 blocks) waited for
-// its flow, then for four scalar gathers behind it: two memory round trips
-// in a row on every output, and two waves of blocks at 540x960.
+// 3.35 TB/s.
 //
 // Design: one body, two ways to its corners, chosen by plane size.
 // - Large planes (>= 2^20 pixels: the 1080p level of K1 and K4) stage the
@@ -47,8 +45,7 @@
 //     1. issues 16-byte cp.async copies of that window into shared memory
 //        (4-byte ones where the width or the base is not 16-byte aligned),
 //        the zero-fill form for rows outside the image and columns at or
-//        past W, which is the corner test done once a staged pixel; the
-//        window's left edge is rounded down to a 16-byte chunk;
+//        past W, which is the corner test done once a staged pixel;
 //     2. then loads its u and v, so the flow's fetch overlaps the image's:
 //        one memory round trip, not two;
 //     3. decodes each staged pixel once in shared memory (K1 (float)(int)a,
@@ -58,28 +55,26 @@
 //        consecutive shared-memory banks), every corner from the tile.
 //   Shared memory: (32 + 2*mdv + 1) x pitch(128, md) floats: 29,792 B at
 //   md = mdv = 8, 72,960 B at 31. A window that does not fit the card is
-//   refused before launch. The halo (1.82x the tile at md = mdv = 8) is
-//   read from L2, where neighbouring windows overlap.
+//   refused before launch.
 // - Smaller planes (the coarse levels: K2, and K4 there) read each corner
 //   through L1 after the flow, decoded where it is read, 2 outputs a thread
-//   in 32x16 blocks, so 540x960 is one wave of 1,020 blocks. Staged
-//   windows lose there (chip_smoke.py times both blocks at every level):
-//   with few blocks an SM, each block waits for its whole window at one barrier
-//   and then computes and stores in step, so reads, arithmetic and writes
-//   do not overlap, and the halo (2x-3x the tile at the block counts these
-//   planes need) costs more L2 traffic than L1 saves.
+//   in 32x16 blocks, so 540x960 is one wave of 1,020 blocks; every corner
+//   address is valid (rows clamped, then masked), so a thread's four
+//   corner loads are in flight at once. Staged tiles, and a block that
+//   walks down a strip with the band's rows in a ring (warp_walk.cu, the
+//   walk ablation), measured slower there (PERF.md): with the few blocks
+//   an SM such a plane gives, a block waits for its window at a barrier,
+//   and the halo at band 8 is 2-3 times the outputs.
 // With the flow clipped, the band clamps and the row rule change nothing
-// and are compiled out (kClamp).
+// and are compiled out (kClamp); that needs x + md and y + mdv to be exact
+// floats, so a plane's sides stay under 2^24.
 // A batch of planes is one launch, blockIdx.z the element (the TPU
 // kernel's flattened (batch * row tiles) grid); the geometry depends on
 // the plane alone, so an element equals its 2-D launch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "warp.cuh"
 
 namespace tpuflow_warp {
-
-constexpr int kMaxBatch = 65535;  // gridDim.z
 
 // A block's outputs, `tile_w` columns by `rows` rows, on `threads`
 // threads; `staged`: corners from the band staged in shared memory, else
@@ -91,71 +86,11 @@ struct Geometry {
   int threads;
 };
 
-// Staged columns left of the tile: md + 1, rounded up to a 16-byte chunk
-// (x_first is a multiple of the tile width, so the window starts on a chunk).
-__host__ __device__ constexpr int left_halo(int max_disp) { return (max_disp + 4) / 4 * 4; }
-
-// Staged row pitch in floats: the window's columns, a whole number of chunks.
-__host__ __device__ constexpr int pitch(int tile_w, int max_disp) {
-  return (left_halo(max_disp) + tile_w + max_disp + 1 + 3) / 4 * 4;
-}
-
-__host__ __device__ constexpr int staged_rows(int rows, int max_disp_v) {
-  return rows + 2 * max_disp_v + 1;
-}
-
-template <int kPacking>
-__device__ __forceinline__ float decode(float a) {
-  if (kPacking == 0) return a;
-  if (kPacking == 8) {
-    // astype(int32) truncation of the 8-bit gray level.
-    return (float)(int)a;
-  }
-  // Round-to-nearest 8.8 fixed point, low 16 bits of the packed word.
-  return (float)(((int)(a * 256.0f + 0.5f)) & 0xFFFF);
-}
-
-// Asynchronous copy global -> shared of N = 4 or 16 bytes, of which the
-// first `bytes` are read and the rest zero-filled.
-template <int N>
-__device__ __forceinline__ void cp_async(uint32_t dst, const float* src, int bytes) {
-  if constexpr (N == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(dst), "l"(src), "r"(bytes) : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(dst), "l"(src), "r"(bytes) : "memory");
-  }
-}
-
-// Copy the window into the tile, N bytes a copy, rows outside the image
-// and columns < 0 or >= width zero-filled (a chunk never straddles column
-// 0). Each thread steps through (row, chunk) pairs without a division.
-template <int N, int kThreads>
-__device__ __forceinline__ void stage(uint32_t tile_s, const float* img, int n_rows, int p,
-                                      int r_base, int c_base, int height, int width) {
-  constexpr int kFloats = N / 4;
-  const int chunks = p / kFloats;
-  const int step_r = kThreads / chunks, step_c = kThreads - step_r * chunks;
-  int tr = threadIdx.x / chunks, tc = threadIdx.x - tr * chunks;
-  for (; tr < n_rows; tr += step_r) {
-    const int r = r_base + tr, c = c_base + tc * kFloats;
-    const int bytes = r >= 0 && r < height && c >= 0 ? max(0, min(kFloats, width - c)) * 4 : 0;
-    cp_async<N>(tile_s + (uint32_t)(tr * p + tc * kFloats) * 4u,
-                bytes ? img + (size_t)r * width + c : img, bytes);
-    tc += step_c;
-    if (tc >= chunks) {
-      tc -= chunks;
-      ++tr;
-    }
-  }
-}
-
 template <int kPacking, bool kClamp, bool kStaged, int kTileW, int kRows, int kThreads>
 __global__ void __launch_bounds__(kThreads)
-warp_tile_kernel(const float* __restrict__ img, const float* __restrict__ fu,
-                 const float* __restrict__ fv, float* __restrict__ out, int height,
-                 int width, int max_disp, int max_disp_v, bool vec) {
+warp_tile_kernel(const float* __restrict__ image, const float* __restrict__ flow_u,
+                 const float* __restrict__ flow_v, float* __restrict__ out, int height,
+                 int width, int max_disp, int max_disp_v, int vec) {
   constexpr int kRowStep = kThreads / kTileW;  // rows a pass of the block
   constexpr int kPasses = kRows / kRowStep;    // outputs a thread
   static_assert(kThreads % kTileW == 0 && kRows % kRowStep == 0, "whole rows a pass");
@@ -164,24 +99,27 @@ warp_tile_kernel(const float* __restrict__ img, const float* __restrict__ fu,
   const int col = threadIdx.x % kTileW, row = threadIdx.x / kTileW;
   const int x_first = blockIdx.x * kTileW, y_first = blockIdx.y * kRows;
   const size_t plane = (size_t)blockIdx.z * height * width;
-  img += plane;
-  fu += plane;
-  fv += plane;
+  // The gathers address each load from an opaque plane base (one wide
+  // multiply-add a load; faster on the coarse planes); the staged tile
+  // measured no faster with it and keeps the compiler's addressing.
+  auto base = [&](const float* q) { return kStaged ? q + plane : plane_base(q, plane); };
+  const float* img = base(image);
+  const float* fu = base(flow_u);
+  const float* fv = base(flow_v);
   out += plane;
   const int p = pitch(kTileW, max_disp);
-  const int n_rows = staged_rows(kRows, max_disp_v);
+  const int n_rows = kRows + 2 * max_disp_v + 1;
   const int r_base = y_first - max_disp_v;           // image row of tile row 0
   const int c_base = x_first - left_halo(max_disp);  // image column of tile column 0
 
   // 1. The band's window, before any flow is read.
   if constexpr (kStaged) {
     const uint32_t tile_s = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
-    if (vec) {
-      stage<16, kThreads>(tile_s, img, n_rows, p, r_base, c_base, height, width);
-    } else {
-      stage<4, kThreads>(tile_s, img, n_rows, p, r_base, c_base, height, width);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    if (vec & kVecImage)
+      stage<16, kThreads>(tile_s, img, r_base, n_rows, 0, n_rows, p, c_base, height, width);
+    else
+      stage<4, kThreads>(tile_s, img, r_base, n_rows, 0, n_rows, p, c_base, height, width);
+    cp_async_commit();
   }
 
   // 2. The flow, in flight with the window (a plane holds < 2^31 pixels).
@@ -216,93 +154,52 @@ warp_tile_kernel(const float* __restrict__ img, const float* __restrict__ fu,
   if (x >= width) return;
 
   // 4. The outputs.
-  const float md = (float)max_disp;
-  const float mdv = (float)max_disp_v;
 #pragma unroll
   for (int k = 0; k < kPasses; ++k) {
     const int y = y_first + row + kRowStep * k;
     if (y >= height) break;
-    float uu = u[k], vv = v[k];
-    if (kClamp) {
-      uu = fminf(fmaxf(uu, -md), md);
-      vv = fminf(fmaxf(vv, -mdv), mdv);
-    }
-    const float xf = (float)x + uu;
-    const float yf = (float)y + vv;
-    const float x0f = floorf(xf);
-    const float y0f = floorf(yf);
-    const float fx = xf - x0f;
-    const float fy = yf - y0f;
-    const float fxc = 1.0f - fx;
-    const float fyc = 1.0f - fy;
-
-    // With the flow clipped, floor(xf) lies in [x - md, x + md] and
-    // floor(yf) - y in [-mdv, mdv] (x + md and y + mdv are exact floats,
-    // and rounding is monotonic), so the band clamps and the row rule
-    // change nothing and are left out.
-    const int ix0 = (int)x0f;
-    int x0 = kClamp ? ix0 : min(max(ix0, x - max_disp - 1), x + max_disp);
-    x0 = min(max(x0, 0), width - 1);
-    int x1 = x0 + 1;  // column width is staged as 0
-    if (kPacking == 0) {
-      x1 = kClamp ? ix0 + 1 : min(max(ix0 + 1, x - max_disp - 1), x + max_disp + 1);
-      x1 = min(max(x1, 0), width - 1);
-    }
-    const int f = (int)y0f - y;
-    const bool up_ok = kClamp || (f >= -max_disp_v && f <= max_disp_v + 1);
-    const bool low_ok = kClamp || (f >= -max_disp_v && f <= max_disp_v);
-
-    float up = 0.0f, low = 0.0f;
+    float res;
     if constexpr (kStaged) {
       // Image row y + f is tile row y - y_first + mdv + f: inside the
-      // window whenever the row rule lets that row count.
-      const float* row_y = tile + (y - y_first + max_disp_v) * p;
-      const int t0 = x0 - c_base, t1 = x1 - c_base;
-      if (up_ok) {
-        const float* r = row_y + f * p;
-        up = r[t0] * fxc + r[t1] * fx;
-      }
-      if (low_ok) {
-        const float* r = row_y + (f + 1) * p;
-        low = r[t0] * fxc + r[t1] * fx;
-      }
+      // window whenever the row rule lets that row count (a dropped row is
+      // read from the window's edge).
+      const int dy = y - y_first + max_disp_v;
+      res = warp_one<kPacking, kClamp>(
+          x, y, u[k], v[k], height, width, max_disp, max_disp_v,
+          [&](int f, int x0, int x1, float fxc, float fx) {
+            const int t = kClamp ? dy + f : min(max(dy + f, 0), n_rows - 1);
+            const float* r = tile + t * p;
+            return r[x0 - c_base] * fxc + r[x1 - c_base] * fx;
+          });
     } else {
-      // The staged window's zeros, tested where each corner is read.
-      auto corner = [&](int r, int c) {
-        return r < 0 || r >= height || c >= width ? 0.0f
-                                                  : decode<kPacking>(__ldg(img + r * width + c));
-      };
-      const int y0 = y + f;
-      if (up_ok) up = corner(y0, x0) * fxc + corner(y0, x1) * fx;
-      if (low_ok) low = corner(y0 + 1, x0) * fxc + corner(y0 + 1, x1) * fx;
+      res = warp_one<kPacking, kClamp>(
+          x, y, u[k], v[k], height, width, max_disp, max_disp_v,
+          [&](int f, int x0, int x1, float fxc, float fx) {
+            return gather_row<kPacking>(img, y + f, x0, x1, fxc, fx, height, width);
+          });
     }
-    float res = up * fyc + low * fy;
-    if (kPacking == 16) res = res * (1.0f / 256.0f);
-
-    const bool inside = xf >= 0.0f && xf <= (float)(width - 1) && yf >= 0.0f &&
-                        yf <= (float)(height - 1);
-    out[y * width + x] = inside ? res : 0.0f;
+    out[y * width + x] = res;
   }
 }
 
 // Planes of this many pixels and more stage the band in 128x32 tiles;
 // smaller ones read their corners through L1 in 32x16 blocks (see the
-// design note above). A small plane made to stage takes 64x16 tiles, the
-// staged tile that came closest to gathering there.
+// design note above).
 constexpr long kStagedMinPixels = 1L << 20;
 constexpr Geometry kStagedTile{true, 128, 32, 256};
-constexpr Geometry kStagedSmallTile{true, 64, 16, 256};
 constexpr Geometry kGatherTile{false, 32, 16, 256};
 
 // The block a plane gets, a function of the plane alone (so a batch
-// element equals its 2-D launch).
-inline Geometry geometry(int height, int width) {
-  return (long)height * width >= kStagedMinPixels ? kStagedTile : kGatherTile;
+// element equals its 2-D launch): by its size where staged < 0, else
+// staged (1) or gathering (0) whatever its size.
+inline Geometry geometry(int height, int width, int staged) {
+  if (staged < 0) staged = (long)height * width >= kStagedMinPixels;
+  return staged ? kStagedTile : kGatherTile;
 }
 
 inline size_t smem_bytes(const Geometry& g, int max_disp, int max_disp_v) {
   if (!g.staged) return 0;
-  return (size_t)staged_rows(g.rows, max_disp_v) * pitch(g.tile_w, max_disp) * sizeof(float);
+  return (size_t)(g.rows + 2 * max_disp_v + 1) * pitch(g.tile_w, max_disp) * sizeof(float);
 }
 
 struct Args {
@@ -311,24 +208,18 @@ struct Args {
   const float* v;
   float* out;
   int batch, height, width, max_disp, max_disp_v;
-  bool vec;
+  int vec;  // kVecImage | kVecFlow
 };
 
 template <int kPacking, bool kClamp, bool kStaged, int kTileW, int kRows, int kThreads>
-int launch(const Args& a, cudaStream_t s) {
-  const size_t smem = smem_bytes({kStaged, kTileW, kRows, kThreads}, a.max_disp, a.max_disp_v);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (smem > (size_t)optin) return (int)cudaErrorInvalidConfiguration;  // never launched
+static int launch(const Args& a, cudaStream_t s) {
+  static int opted[kMaxDevices] = {};
   auto kernel = warp_tile_kernel<kPacking, kClamp, kStaged, kTileW, kRows, kThreads>;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const size_t smem = smem_bytes({kStaged, kTileW, kRows, kThreads}, a.max_disp, a.max_disp_v);
+  const cudaError_t err = allow_smem(kernel, smem, opted);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.width + kTileW - 1) / kTileW, (a.height + kRows - 1) / kRows, a.batch);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;  // gridDim.y
   kernel<<<grid, kThreads, smem, s>>>(a.img, a.u, a.v, a.out, a.height, a.width, a.max_disp,
                                       a.max_disp_v, a.vec);
   return (int)cudaGetLastError();
@@ -336,17 +227,15 @@ int launch(const Args& a, cudaStream_t s) {
 
 template <int kPacking, bool kClamp>
 int launch_geometry(const Geometry& g, const Args& a, cudaStream_t s) {
-  if (!g.staged)
-    return launch<kPacking, kClamp, false, kGatherTile.tile_w, kGatherTile.rows,
-                  kGatherTile.threads>(a, s);
-  if (g.tile_w == kStagedTile.tile_w)
+  if (g.staged)
     return launch<kPacking, kClamp, true, kStagedTile.tile_w, kStagedTile.rows,
                   kStagedTile.threads>(a, s);
-  return launch<kPacking, kClamp, true, kStagedSmallTile.tile_w, kStagedSmallTile.rows,
-                kStagedSmallTile.threads>(a, s);
+  return launch<kPacking, kClamp, false, kGatherTile.tile_w, kGatherTile.rows,
+                kGatherTile.threads>(a, s);
 }
 
-int launch_any(const Geometry& g, int packing, bool clamp, const Args& a, cudaStream_t s) {
+inline int launch_any(const Geometry& g, int packing, bool clamp, const Args& a,
+                      cudaStream_t s) {
   if (packing == 0)
     return clamp ? launch_geometry<0, true>(g, a, s) : launch_geometry<0, false>(g, a, s);
   if (!clamp) return (int)cudaErrorInvalidValue;  // the packed variants clip the flow
@@ -361,45 +250,35 @@ __global__ void empty_kernel() {}
 
 using namespace tpuflow_warp;
 
-// The block a plane gets: by its size where staged < 0, else staged (1)
-// or gathering (0) whatever its size.
-inline Geometry choose(int height, int width, int staged) {
-  if (staged < 0) return geometry(height, width);
-  if (!staged) return kGatherTile;
-  return (long)height * width >= kStagedMinPixels ? kStagedTile : kStagedSmallTile;
-}
-
 // img, u, v and out each hold `batch` contiguous (height, width) planes;
-// `staged` as in choose().
+// the block is chosen by plane size where staged < 0, else staged (1) or
+// gathering (0) whatever the size (the same output bit for bit; for
+// measurement).
 extern "C" int tpuflow_warp_banded_as(const float* img, const float* u, const float* v,
                                       float* out, int batch, int height, int width,
                                       int max_disp, int max_disp_v, int packing,
                                       int clamp_flow, int staged, void* stream) {
-  if (batch < 1 || batch > kMaxBatch || height < 1 || width < 1 ||
-      (long)height * width >= (1L << 31) || max_disp < 0 || max_disp_v < 0)
+  if (!valid_plane(batch, height, width, max_disp, max_disp_v))
     return (int)cudaErrorInvalidValue;
   const Args a{img, u, v, out, batch, height, width, max_disp, max_disp_v,
-               width % 4 == 0 && reinterpret_cast<uintptr_t>(img) % 16 == 0};
-  return launch_any(choose(height, width, staged), packing, clamp_flow != 0, a,
+               copy_flags(img, u, v, width)};
+  return launch_any(geometry(height, width, staged), packing, clamp_flow != 0, a,
                     static_cast<cudaStream_t>(stream));
 }
 
 // The warp with the block its plane's size chooses.
-extern "C" int tpuflow_warp_banded(const float* img, const float* u,
-                                   const float* v, float* out, int batch,
-                                   int height, int width, int max_disp,
-                                   int max_disp_v, int packing, int clamp_flow,
-                                   void* stream) {
+extern "C" int tpuflow_warp_banded(const float* img, const float* u, const float* v, float* out,
+                                   int batch, int height, int width, int max_disp,
+                                   int max_disp_v, int packing, int clamp_flow, void* stream) {
   return tpuflow_warp_banded_as(img, u, v, out, batch, height, width, max_disp, max_disp_v,
                                 packing, clamp_flow, -1, stream);
 }
 
-// The block a plane gets (`staged` as above) and the shared memory it
-// stages at a band, into out[5]: staged (0 or 1), tile width, rows,
-// threads, bytes.
+// The block a plane gets and the shared memory it stages at a band, into
+// out[5]: staged (0 or 1), tile width, rows, threads, bytes.
 extern "C" void tpuflow_warp_geometry(int height, int width, int max_disp, int max_disp_v,
-                                      int staged, int* out) {
-  const Geometry g = choose(height, width, staged);
+                                      int* out) {
+  const Geometry g = geometry(height, width, -1);
   out[0] = g.staged;
   out[1] = g.tile_w;
   out[2] = g.rows;

@@ -1,0 +1,213 @@
+// The banded warp's parts, shared by its kernel (warp.cu) and the walk
+// ablation (warp_walk.cu): the corner decodes, the zero-filling cp.async
+// staging of the band's window, and one output in the Pallas kernel's f32
+// order. What the warp computes is set out in warp.cu.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tpuflow_warp {
+
+constexpr int kMaxBatch = 65535;   // gridDim.z
+constexpr int kMaxSide = 1 << 24;  // x + md, y + mdv exact as floats
+constexpr int kMaxDevices = 64;
+
+// Copy flags: 16-byte copies of the image (kVecImage) and of the flow
+// (kVecFlow), where the row width and the planes' bases allow them.
+constexpr int kVecImage = 1;
+constexpr int kVecFlow = 2;
+
+// Staged columns left of a block's first output column: md + 1, rounded up
+// to a 16-byte chunk (the first column is a multiple of the block width,
+// so the window starts on a chunk).
+__host__ __device__ constexpr int left_halo(int max_disp) { return (max_disp + 4) / 4 * 4; }
+
+// Staged row pitch in floats: the window's columns, a whole number of chunks.
+__host__ __device__ constexpr int pitch(int tile_w, int max_disp) {
+  return (left_halo(max_disp) + tile_w + max_disp + 1 + 3) / 4 * 4;
+}
+
+template <int kPacking>
+__device__ __forceinline__ float decode(float a) {
+  if (kPacking == 0) return a;
+  if (kPacking == 8) {
+    // astype(int32) truncation of the 8-bit gray level.
+    return (float)(int)a;
+  }
+  // Round-to-nearest 8.8 fixed point, low 16 bits of the packed word.
+  return (float)(((int)(a * 256.0f + 0.5f)) & 0xFFFF);
+}
+
+// `p` offset by a batch element's plane, opaque to the compiler, so that
+// each load addresses it with one 32-bit index (one wide multiply-add)
+// instead of re-adding the 64-bit plane offset.
+__device__ __forceinline__ const float* plane_base(const float* p, size_t offset) {
+  p += offset;
+  asm("" : "+l"(p));
+  return p;
+}
+
+// Asynchronous copy global -> shared of N = 4 or 16 bytes, of which the
+// first `bytes` are read and the rest zero-filled.
+template <int N>
+__device__ __forceinline__ void cp_async(uint32_t dst, const float* src, int bytes) {
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// fn(row, slot, column) for each (row, N-byte chunk) pair of rows [0, n)
+// of a `p`-float-wide window this thread takes, row i going to slot
+// slot0 + i (wrapping at `slots`); steps without a division.
+template <int N, int kThreads, class Fn>
+__device__ __forceinline__ void for_my_chunks(int n, int p, int slot0, int slots, Fn fn) {
+  constexpr int kFloats = N / 4;
+  const int chunks = p / kFloats;
+  const int step_r = kThreads / chunks, step_c = kThreads - step_r * chunks;
+  int tr = threadIdx.x / chunks, tc = threadIdx.x - tr * chunks;
+  for (; tr < n; tr += step_r) {
+    int slot = slot0 + tr;
+    if (slot >= slots) slot -= slots;
+    fn(tr, slot, tc * kFloats);
+    tc += step_c;
+    if (tc >= chunks) {
+      tc -= chunks;
+      ++tr;
+    }
+  }
+}
+
+// Copy rows [r0, r0 + n) of `src`, columns from c_base, p floats a row,
+// into shared memory at `dst` (slots as above); rows outside [0, height)
+// and columns < 0 or >= width are zero-filled (a chunk never straddles
+// column 0), which is the corner test done once a staged pixel.
+template <int N, int kThreads>
+__device__ __forceinline__ void stage(uint32_t dst, const float* src, int r0, int n, int slot0,
+                                      int slots, int p, int c_base, int height, int width) {
+  constexpr int kFloats = N / 4;
+  for_my_chunks<N, kThreads>(n, p, slot0, slots, [&](int tr, int slot, int t) {
+    const int r = r0 + tr, c = c_base + t;
+    const int bytes = r >= 0 && r < height && c >= 0 ? max(0, min(kFloats, width - c)) * 4 : 0;
+    cp_async<N>(dst + (uint32_t)(slot * p + t) * 4u, bytes ? src + r * width + c : src, bytes);
+  });
+}
+
+// One output, in the Pallas kernel's f32 order. `row_sample(f, x0, x1,
+// fxc, fx)` gives c0*fxc + c1*fx on image row y + f; it is called for every
+// f (a row the rule drops is read from a valid address and then dropped),
+// so that all four corners are in flight at once.
+template <int kPacking, bool kClamp, class RowSample>
+__device__ __forceinline__ float warp_one(int x, int y, float uu, float vv, int height, int width,
+                                          int max_disp, int max_disp_v, RowSample row_sample) {
+  if (kClamp) {
+    uu = fminf(fmaxf(uu, -(float)max_disp), (float)max_disp);
+    vv = fminf(fmaxf(vv, -(float)max_disp_v), (float)max_disp_v);
+  }
+  const float xf = (float)x + uu;
+  const float yf = (float)y + vv;
+  const float x0f = floorf(xf);
+  const float y0f = floorf(yf);
+  const float fx = xf - x0f;
+  const float fy = yf - y0f;
+  const float fxc = 1.0f - fx;
+  const float fyc = 1.0f - fy;
+
+  // With the flow clipped, floor(xf) lies in [x - md, x + md] and
+  // floor(yf) - y in [-mdv, mdv] (x + md and y + mdv are exact floats,
+  // and rounding is monotonic), so the band clamps and the row rule
+  // change nothing and are left out.
+  const int ix0 = (int)x0f;
+  int x0 = kClamp ? ix0 : min(max(ix0, x - max_disp - 1), x + max_disp);
+  x0 = min(max(x0, 0), width - 1);
+  int x1 = x0 + 1;  // column width reads 0
+  if (kPacking == 0) {
+    x1 = kClamp ? ix0 + 1 : min(max(ix0 + 1, x - max_disp - 1), x + max_disp + 1);
+    x1 = min(max(x1, 0), width - 1);
+  }
+  const int f = (int)y0f - y;
+  const bool up_ok = kClamp || (f >= -max_disp_v && f <= max_disp_v + 1);
+  const bool low_ok = kClamp || (f >= -max_disp_v && f <= max_disp_v);
+
+  const float s_up = row_sample(f, x0, x1, fxc, fx);
+  const float s_low = row_sample(f + 1, x0, x1, fxc, fx);
+  const float up = up_ok ? s_up : 0.0f;
+  const float low = low_ok ? s_low : 0.0f;
+  float res = up * fyc + low * fy;
+  if (kPacking == 16) res = res * (1.0f / 256.0f);
+
+  const bool inside = xf >= 0.0f && xf <= (float)(width - 1) && yf >= 0.0f &&
+                      yf <= (float)(height - 1);
+  return inside ? res : 0.0f;
+}
+
+// c0*fxc + c1*fx on image row r, each corner read through L1 and decoded
+// where it is read; a row outside the image and column `width` read 0 (the
+// staged window's zeros). Every address is valid, so both loads issue at
+// once.
+template <int kPacking>
+__device__ __forceinline__ float gather_row(const float* img, int r, int x0, int x1, float fxc,
+                                            float fx, int height, int width) {
+  const float* src = img + min(max(r, 0), height - 1) * width;
+  const float a = __ldg(src + x0), b = __ldg(src + min(x1, width - 1));
+  const bool row_in = r >= 0 && r < height;
+  const float c0 = row_in ? decode<kPacking>(a) : 0.0f;
+  const float c1 = row_in && x1 < width ? decode<kPacking>(b) : 0.0f;
+  return c0 * fxc + c1 * fx;
+}
+
+inline int copy_flags(const float* img, const float* u, const float* v, int width) {
+  auto aligned = [](const float* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
+  if (width % 4 != 0) return 0;
+  return (aligned(img) ? kVecImage : 0) | (aligned(u) && aligned(v) ? kVecFlow : 0);
+}
+
+inline bool valid_plane(int batch, int height, int width, int max_disp, int max_disp_v) {
+  return batch >= 1 && batch <= kMaxBatch && height >= 1 && width >= 1 && height < kMaxSide &&
+         width < kMaxSide && (long)height * width < (1L << 31) && max_disp >= 0 &&
+         max_disp_v >= 0;
+}
+
+// The card's shared memory a block (opt-in), read once a device. The
+// caches here and in each launch function have internal linkage (static),
+// so two builds of the library loaded in one process never share them.
+static int smem_optin(int dev) {
+  static int cache[kMaxDevices] = {};
+  if (dev < 0 || dev >= kMaxDevices) return 0;
+  if (cache[dev] == 0) {
+    int v = 0;
+    if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+      return 0;
+    cache[dev] = v;
+  }
+  return cache[dev];
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory: nothing to do
+// up to the default 48 KB; past it the card's limit is checked (a window
+// that does not fit is refused, never launched) and the kernel opts in
+// once a device and size (`opted`, one per kernel).
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t smem, int (&opted)[kMaxDevices]) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (smem > (size_t)smem_optin(dev)) return cudaErrorInvalidConfiguration;
+  if ((size_t)opted[dev] < smem) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    opted[dev] = (int)smem;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace tpuflow_warp

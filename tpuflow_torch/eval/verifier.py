@@ -125,6 +125,8 @@ def _make_runners(
     computed on ``device``: the card unless the caller names another (on
     the CPU the kernels' plain versions run); raises without a card."""
     dev = require_cuda() if device is None else torch.device(device)
+    if dev.type == "cuda":
+        require_cuda()
 
     def single(prev, curr):
         u, v = lucas_kanade_single_scale(
@@ -385,15 +387,6 @@ def save_results_json(results: List[Dict[str, Any]], output_path: Path) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _check_pattern_names(pattern_names: Optional[List[str]], suite: Dict[str, Any]) -> None:
-    unknown = [n for n in pattern_names or () if n not in suite]
-    if unknown:
-        raise SystemExit(
-            f"Unknown pattern(s): {', '.join(unknown)}. "
-            f"Available: {', '.join(sorted(suite))}"
-        )
-
-
 def run_suite(
     pattern_names: Optional[List[str]] = None,
     pyramid_config_name: str = "default",
@@ -406,7 +399,12 @@ def run_suite(
     """Run verification over the committed suite on ``device``: the card
     unless the caller names another; raises without a card."""
     suite = patterns_mod.load_suite()
-    _check_pattern_names(pattern_names, suite)
+    unknown = [n for n in pattern_names or () if n not in suite]
+    if unknown:
+        raise SystemExit(
+            f"Unknown pattern(s): {', '.join(unknown)}. "
+            f"Available: {', '.join(sorted(suite))}"
+        )
     names = pattern_names or list(suite)
 
     cfg = PYRAMID_CONFIGS[pyramid_config_name]
@@ -461,19 +459,17 @@ def main(argv: Optional[List[str]] = None) -> None:
             f"Available: {', '.join(sorted(PYRAMID_CONFIGS))}"
         )
 
-    # The arguments first: an unknown name exits 1 with its message on any
-    # machine, before the device is resolved.
-    _check_pattern_names(args.pattern, patterns_mod.load_suite())
-    device = require_cuda() if args.device == "cuda" else torch.device("cpu")
-    print(f"backend={args.backend} on {device}")
+    # run_suite checks the names before it resolves the device, so an
+    # unknown name exits 1 with its message on any machine.
     results = run_suite(
         pattern_names=args.pattern,
         pyramid_config_name=args.pyramid_config,
         backend=args.backend,
         gaussian_weights=args.gaussian_weights,
         dense_gt=args.dense_gt,
-        device=device,
+        device=args.device,
     )
+    print(f"backend={args.backend} on {args.device}")
 
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)

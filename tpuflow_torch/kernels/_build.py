@@ -42,9 +42,12 @@ _SIGNATURES = {
     # img, u, v, out, batch, height, width, max_disp, max_disp_v, packing,
     # clamp_flow, stream
     "tpuflow_warp_banded": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # as tpuflow_warp_banded, with staged (1), gathering (0) or by plane
-    # size (-1) before the stream
+    # as tpuflow_warp_banded, with the block forced before the stream:
+    # staged (1), gathering (0) or by plane size (-1); for measurement
     "tpuflow_warp_banded_as": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # as tpuflow_warp_banded, with the rows a walk takes before the stream
+    # (the walk ablation)
+    "tpuflow_warp_walk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # prev, warped, u, v, converged, u_out, v_out, part_du, part_dv,
     # batch, height, width, window, relaxed, det_threshold, max_disp,
     # max_disp_v, stream
@@ -135,7 +138,7 @@ def load() -> ctypes.CDLL:
     lib.tpuflow_lk_refine_blocks.restype = ctypes.c_int
     lib.tpuflow_lk_refine_mxu_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.tpuflow_lk_refine_mxu_blocks.restype = ctypes.c_int
-    lib.tpuflow_warp_geometry.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.tpuflow_warp_geometry.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     lib.tpuflow_warp_geometry.restype = None
     lib.tpuflow_empty.argtypes = [ctypes.c_void_p]
     lib.tpuflow_empty.restype = ctypes.c_int

@@ -44,21 +44,20 @@ _COUNTER = {"exact": "warp_exact", "u8": "warp_packed_u8", "u16": "warp_packed_u
 # Kernel launches per variant; incremented only where a kernel is launched.
 launch_counts = {name: 0 for name in _COUNTER.values()}
 
-# Widest band, either way (the TPU kernel's limit); where the CUDA kernel
-# stages the band, it takes at most 72,960 B of shared memory a block there.
+# Widest band, either way (the TPU kernel's limit).
 MAX_BAND = 31
+# The CUDA kernel's planes have sides under 2**24, where x + max_disp and
+# y + max_disp_v are exact floats.
+MAX_SIDE = 1 << 24
 
 
-def tile_geometry(height: int, width: int, max_disp: int, max_disp_v: int,
-                  staged: bool | None = None) -> dict:
-    """The CUDA kernel's block at a plane size and band (``staged`` as in
-    ``warp_banded``): whether it stages the band in shared memory, its
-    output columns and rows, its threads, and the bytes of shared memory it
-    stages."""
+def tile_geometry(height: int, width: int, max_disp: int, max_disp_v: int) -> dict:
+    """The CUDA kernel's block at a plane size and band: whether it stages
+    the band in shared memory, its output columns and rows, its threads,
+    and the bytes of shared memory it stages."""
     lib = _build.load()
     out = (ctypes.c_int * 5)()
-    lib.tpuflow_warp_geometry(height, width, max_disp, max_disp_v,
-                              -1 if staged is None else int(staged), out)
+    lib.tpuflow_warp_geometry(height, width, max_disp, max_disp_v, out)
     return dict(zip(("staged", "tile_w", "rows", "threads", "smem_bytes"), out))
 
 
@@ -137,27 +136,10 @@ def warp_banded_ref(
     return torch.where(inside, out, zero)
 
 
-def warp_banded(
-    image: torch.Tensor,
-    flow_u: torch.Tensor,
-    flow_v: torch.Tensor,
-    max_disp: int = 8,
-    max_disp_v: int | None = None,
-    packing: str = "u8",
-    clamp_flow: bool = True,
-    staged: bool | None = None,
-) -> torch.Tensor:
-    """Banded warp of an (H, W) plane or a (B, H, W) batch: the CUDA
-    kernel for a CUDA tensor, the plain version for a CPU tensor. Bands up
-    to ``MAX_BAND`` px (the TPU kernel's limit); the packed variants need
-    ``clamp_flow`` (pallas_warp.py:598-601). The kernel stages the band in
-    shared memory on planes of 2**20 pixels and more and gathers through L1
-    on smaller ones; ``staged`` forces one or the other (the same output
-    bit for bit; for measurement). It refuses, before it launches, a band
-    whose staged window exceeds the card's shared memory a block, and the
-    wrapper raises."""
-    if max_disp_v is None:
-        max_disp_v = max_disp
+def check_args(image: torch.Tensor, flow_u: torch.Tensor, flow_v: torch.Tensor,
+               max_disp: int, max_disp_v: int, packing: str, clamp_flow: bool) -> None:
+    """Raise unless the warp takes these arguments: on a CUDA tensor, the
+    kernel's (contiguous planes with sides under ``MAX_SIDE``)."""
     if packing not in PACKINGS:
         raise ValueError(f"packing must be one of {sorted(PACKINGS)}, got {packing!r}")
     if packing != "exact" and not clamp_flow:
@@ -174,12 +156,37 @@ def warp_banded(
         if t.device != image.device:
             raise ValueError("image and flow must lie on one device")
     if image.device.type == "cpu":
-        return warp_banded_ref(image, flow_u, flow_v, max_disp, max_disp_v, packing,
-                               clamp_flow)
+        return
     if image.device.type != "cuda":
         raise ValueError(f"unsupported device {image.device}")
     if not (image.is_contiguous() and flow_u.is_contiguous() and flow_v.is_contiguous()):
         raise ValueError("the CUDA warp needs contiguous tensors")
+    if max(image.shape[-2:]) >= MAX_SIDE:
+        raise ValueError(f"the CUDA warp takes planes with sides under {MAX_SIDE}")
+
+
+def warp_banded(
+    image: torch.Tensor,
+    flow_u: torch.Tensor,
+    flow_v: torch.Tensor,
+    max_disp: int = 8,
+    max_disp_v: int | None = None,
+    packing: str = "u8",
+    clamp_flow: bool = True,
+) -> torch.Tensor:
+    """Banded warp of an (H, W) plane or a (B, H, W) batch: the CUDA
+    kernel for a CUDA tensor, the plain version for a CPU tensor. Bands up
+    to ``MAX_BAND`` px (the TPU kernel's limit); the packed variants need
+    ``clamp_flow`` (pallas_warp.py:598-601). The kernel takes planes with
+    sides under ``MAX_SIDE``; it refuses, before it launches, a band whose
+    staged rows exceed the card's shared memory a block, and the wrapper
+    raises."""
+    if max_disp_v is None:
+        max_disp_v = max_disp
+    check_args(image, flow_u, flow_v, max_disp, max_disp_v, packing, clamp_flow)
+    if image.device.type == "cpu":
+        return warp_banded_ref(image, flow_u, flow_v, max_disp, max_disp_v, packing,
+                               clamp_flow)
 
     lib = _build.load()
     h, w = image.shape[-2:]
@@ -188,8 +195,7 @@ def warp_banded(
     stream = torch.cuda.current_stream(image.device).cuda_stream
     args = (image.data_ptr(), flow_u.data_ptr(), flow_v.data_ptr(), out.data_ptr(),
             batch, h, w, max_disp, max_disp_v, PACKINGS[packing], int(clamp_flow))
-    code = (lib.tpuflow_warp_banded(*args, stream) if staged is None
-            else lib.tpuflow_warp_banded_as(*args, int(staged), stream))
+    code = lib.tpuflow_warp_banded(*args, stream)
     name = _COUNTER[packing]
     _build.check(lib, code, name)
     launch_counts[name] += 1
