@@ -212,8 +212,8 @@ def check_warp(readings, name, curr, packing, max_disp, rng, dev):
     both bands 0 and 31; clamp_flow on (flows to 3 px past the band) and,
     for K4, off (40 px past it); the plane and a B=2 batch, each element
     also against its 2-D launch. Then its device time at band 8 beside the
-    plain version's, its bound and its block. Returns that flow and those
-    arguments."""
+    plain version's, its bound and its block. Returns that flow and the
+    warp's keyword arguments."""
     shape = tuple(curr.shape)
     pair = torch.stack([curr, curr.flip(0)])
     bands = [(max_disp, mdv) for mdv in WARP_BANDS] + [(0, 0), (MAX_BAND, MAX_BAND)]
@@ -222,24 +222,24 @@ def check_warp(readings, name, curr, packing, max_disp, rng, dev):
             reach = max(md, mdv) + (3 if clamp else 40)
             for img in (curr, pair):
                 flow = _flow(rng, tuple(img.shape), reach, dev)
-                wargs = (md, mdv, packing, clamp)
-                got = warp.warp_banded(img, *flow, *wargs)
+                wkw = dict(max_disp=md, clamp_flow=clamp, max_disp_v=mdv, packing=packing)
+                got = warp.warp_banded(img, *flow, **wkw)
                 torch.cuda.synchronize()
-                err = max_abs(got, warp.warp_banded_ref(img, *flow, *wargs))
+                err = max_abs(got, warp.warp_banded_ref(img, *flow, **wkw))
                 if err != 0.0:
                     raise AssertionError(f"{name} clamp_flow={clamp} bands ({md}, {mdv}) at "
                                          f"{tuple(img.shape)}: max |d| {err} != 0")
                 if img.ndim == 3:
-                    _equal_per_element(name, (got,), lambda i: (img[i], flow[0][i], flow[1][i],
-                                                                 *wargs), warp.warp_banded)
+                    _equal_per_element(name, (got,), lambda i: (img[i], flow[0][i], flow[1][i]),
+                                       warp.warp_banded, wkw)
     flow = _flow(rng, shape, 9.0, dev)
-    args = (curr, *flow, max_disp, 8, packing)
+    wkw = dict(max_disp=max_disp, clamp_flow=True, max_disp_v=8, packing=packing)
     # The kernel, its other block (forced) and the walk ablation at 16, 32
     # and 64 rows a walk, each bit-exact first, then timed on the same
     # inputs: the reason for the block each plane gets, measured in this run.
-    walk = warp_walk.measure(*args)
+    walk = warp_walk.measure(curr, *flow, max_disp, 8, packing)
     ms = walk["kernel_ms"]
-    plain_ms = device_ms(lambda: warp.warp_banded_ref(*args))
+    plain_ms = device_ms(lambda: warp.warp_banded_ref(curr, *flow, **wkw))
     geo = warp.tile_geometry(*shape, max_disp, 8)
     block = (f"staged {geo['tile_w']}x{geo['rows']} tiles, {geo['smem_bytes']} B of shared "
              "memory" if geo["staged"] else f"gathers in {geo['tile_w']}x{geo['rows']} blocks")
@@ -257,18 +257,19 @@ def check_warp(readings, name, curr, packing, max_disp, rng, dev):
         "walk_ms": {n: walk[f"walk_{n}_ms"] for n in warp_walk.WALKS},
         "launch_floor_ms": walk["launch_floor_ms"], **geo}
     _record(readings, name, ms, plain_ms, shape)
-    return flow, args
+    return flow, wkw
 
 
-def check_refine(readings, name, rargs_base, dev, shape, windows):
+def check_refine(readings, name, rargs_base, rkw, dev, shape, windows):
     """The refine kernel against its plain version, converged or not, at each
     window; returns the max |du|, |dv| and the sums' max relative error."""
     err = sums_rel = 0.0
     for window in windows:
         for frozen in (False, True):
             conv = torch.tensor(frozen, device=dev)
-            rargs = rargs_base(conv, window)
-            got, want = lk.lucas_kanade_refine(*rargs), lk.lucas_kanade_refine_ref(*rargs)
+            rargs = rargs_base(conv)
+            got = lk.lucas_kanade_refine(*rargs, window_size=window, **rkw)
+            want = lk.lucas_kanade_refine_ref(*rargs, window_size=window, **rkw)
             torch.cuda.synchronize()
             err = max(err, max_abs(got[0], want[0]), max_abs(got[1], want[1]))
             sums_rel = max(sums_rel, *(abs(float(g) - float(w)) / max(abs(float(w)), 1e-30)
@@ -292,19 +293,20 @@ def check_kernels(dev, a, b, rng):
         prev, curr = pyr_a[level], pyr_b[level]
         shape = tuple(prev.shape)
         packing = "u8" if level == cfg.levels - 1 else "u16"
-        flow, args = check_warp(readings, f"warp_packed_{packing}", curr, packing, cfg.max_disp,
-                                rng, dev)
-        warped = warp.warp_banded(*args)
+        flow, wkw = check_warp(readings, f"warp_packed_{packing}", curr, packing, cfg.max_disp,
+                               rng, dev)
+        warped = warp.warp_banded(curr, *flow, **wkw)
         # The window repair (3, 7) is checked once, at the finest level.
         windows = (3, 5, 7) if level == cfg.levels - 1 else (5,)
-        err, sums_rel = check_refine(
-            readings, "lk_refine",
-            lambda conv, w: (prev, warped, *flow, conv, w, cfg.det_threshold, 8.0, 3.0, True),
-            dev, shape, windows)
-        conv = torch.tensor(False, device=dev)
-        rargs = (prev, warped, *flow, conv, cfg.window_size, cfg.det_threshold, 8.0, 3.0, True)
-        ms = device_ms(lambda: lk.lucas_kanade_refine(*rargs))
-        plain_ms = device_ms(lambda: lk.lucas_kanade_refine_ref(*rargs))
+        rkw = dict(det_threshold=cfg.det_threshold, max_disp=8.0, max_disp_v=3.0,
+                   relaxed_order=True)
+        err, sums_rel = check_refine(readings, "lk_refine",
+                                     lambda conv: (prev, warped, *flow, conv), rkw, dev, shape,
+                                     windows)
+        rargs = (prev, warped, *flow, torch.tensor(False, device=dev))
+        rkw["window_size"] = cfg.window_size
+        ms = device_ms(lambda: lk.lucas_kanade_refine(*rargs, **rkw))
+        plain_ms = device_ms(lambda: lk.lucas_kanade_refine_ref(*rargs, **rkw))
         print(f"[kernels] lk_refine {shape[0]}x{shape[1]} windows {windows}: max |d| {err:.3g} "
               f"px, sums rel {sums_rel:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms; "
               f"{_bound_note('lk_refine', shape, ms)})")
@@ -317,17 +319,18 @@ def check_kernels(dev, a, b, rng):
     for level in reversed(range(cfg.levels)):
         prev, curr = pyr_a[level], pyr_b[level]
         shape = tuple(prev.shape)
-        flow, args = check_warp(readings, "warp_exact", curr, "exact", cfg.max_disp, rng, dev)
-        warped = warp.warp_banded(*args)
+        flow, wkw = check_warp(readings, "warp_exact", curr, "exact", cfg.max_disp, rng, dev)
+        warped = warp.warp_banded(curr, *flow, **wkw)
         windows = (3, 5, 7) if level == cfg.levels - 1 else (5,)
-        err, sums_rel = check_refine(
-            readings, "lk_refine_exact",
-            lambda conv, w: (prev, warped, *flow, conv, w, cfg.det_threshold, 8.0, 8.0, False),
-            dev, shape, windows)
-        conv = torch.tensor(False, device=dev)
-        rargs = (prev, warped, *flow, conv, cfg.window_size, cfg.det_threshold, 8.0, 8.0, False)
-        ms = device_ms(lambda: lk.lucas_kanade_refine(*rargs))
-        plain_ms = device_ms(lambda: lk.lucas_kanade_refine_ref(*rargs))
+        rkw = dict(det_threshold=cfg.det_threshold, max_disp=8.0, max_disp_v=8.0,
+                   relaxed_order=False)
+        err, sums_rel = check_refine(readings, "lk_refine_exact",
+                                     lambda conv: (prev, warped, *flow, conv), rkw, dev, shape,
+                                     windows)
+        rargs = (prev, warped, *flow, torch.tensor(False, device=dev))
+        rkw["window_size"] = cfg.window_size
+        ms = device_ms(lambda: lk.lucas_kanade_refine(*rargs, **rkw))
+        plain_ms = device_ms(lambda: lk.lucas_kanade_refine_ref(*rargs, **rkw))
         print(f"[kernels] lk_refine_exact {shape[0]}x{shape[1]} windows {windows}: max |d| "
               f"{err:.3g} px, sums rel {sums_rel:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms; "
               f"{_bound_note('lk_refine_exact', shape, ms)})")
@@ -344,17 +347,19 @@ def check_kernels(dev, a, b, rng):
         err = 0.0
         for relaxed in (False, True):
             for window, taps in ((3, False), (5, False), (7, False), (5, True)):
-                fargs = (a, b, window, 1e-4, taps, 1.0, conf, relaxed)
-                got, want = lk.lucas_kanade_fused(*fargs), lk.lucas_kanade_fused_ref(*fargs)
+                fkw = dict(window_size=window, gaussian_weights=taps, return_confidence=conf,
+                           relaxed_order=relaxed)
+                got = lk.lucas_kanade_fused(a, b, **fkw)
+                want = lk.lucas_kanade_fused_ref(a, b, **fkw)
                 torch.cuda.synchronize()
                 err = max(err, *(max_abs(g, w) for g, w in zip(got, want)))
                 if err != 0.0:
                     raise AssertionError(f"{name} window {window} taps={taps} "
                                          f"relaxed={relaxed}: max |d| {err}")
         readings[name]["max_abs_err"] = err
-        fargs = (a, b, 5, 1e-4, False, 1.0, conf, False)
-        ms = device_ms(lambda: lk.lucas_kanade_fused(*fargs))
-        plain_ms = device_ms(lambda: lk.lucas_kanade_fused_ref(*fargs))
+        fkw = dict(window_size=5, return_confidence=conf)
+        ms = device_ms(lambda: lk.lucas_kanade_fused(a, b, **fkw))
+        plain_ms = device_ms(lambda: lk.lucas_kanade_fused_ref(a, b, **fkw))
         print(f"[kernels] {name} {shape[0]}x{shape[1]}: exact and relaxed, windows 3/5/7, "
               f"taps at 5: max |d| {err:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms; "
               f"{_bound_note(name, shape, ms)})")
@@ -366,10 +371,12 @@ def check_kernels(dev, a, b, rng):
     return readings
 
 
-def _equal_per_element(name, got, args_of, fn):
-    """Each batch element of a kernel's outputs equals its 2-D launch."""
+def _equal_per_element(name, got, args_of, fn, kw):
+    """Each batch element of a kernel's outputs equals its 2-D launch, the
+    positional arguments of element b from ``args_of(b)``, the keywords
+    ``kw``."""
     for b in range(got[0].shape[0]):
-        single = fn(*args_of(b))
+        single = fn(*args_of(b), **kw)
         single = single if isinstance(single, tuple) else (single,)
         for g, w in zip(got, single):
             if not torch.equal(g[b], w):
@@ -387,21 +394,22 @@ def check_batched(dev, a, b, rng, readings):
     cfg = PYRAMID_CONFIGS["production"]
     coarse = torch.stack([torch_ref.build_gaussian_pyramid(f, 2, cfg.scale_factor)[0]
                           for f in (a, b)])
-    cases = [("warp_packed_u8", pair, (8, 3, "u8", True)),
-             ("warp_packed_u16", coarse, (8, 3, "u16", True)),
-             ("warp_exact", pair, (8, 8, "exact", True)),
-             ("warp_exact", pair, (8, 3, "exact", False))]
-    for name, img, wargs in cases:
+    cases = [("warp_packed_u8", pair, dict(max_disp_v=3, packed_u8=True)),
+             ("warp_packed_u16", coarse, dict(max_disp_v=3, packed_u16=True)),
+             ("warp_exact", pair, dict(max_disp_v=8)),
+             ("warp_exact", pair, dict(max_disp_v=3, clamp_flow=False))]
+    for name, img, wkw in cases:
+        wkw = dict(max_disp=8, clamp_flow=True) | wkw
         flow = [torch.from_numpy(rng.uniform(-12, 12, img.shape).astype(np.float32)).to(dev)
                 for _ in range(2)]
-        got = warp.warp_banded(img, *flow, *wargs)
+        got = warp.warp_banded(img, *flow, **wkw)
         torch.cuda.synchronize()
-        err = max_abs(got, warp.warp_banded_ref(img, *flow, *wargs))
+        err = max_abs(got, warp.warp_banded_ref(img, *flow, **wkw))
         if err != 0.0:
-            raise AssertionError(f"batched {name} {wargs}: max |d| {err} != 0")
-        _equal_per_element(name, (got,), lambda i: (img[i], flow[0][i], flow[1][i], *wargs),
-                           warp.warp_banded)
-    ms = device_ms(lambda: warp.warp_banded(pair, *flow, *cases[-1][2]))
+            raise AssertionError(f"batched {name} {wkw}: max |d| {err} != 0")
+        _equal_per_element(name, (got,), lambda i: (img[i], flow[0][i], flow[1][i]),
+                           warp.warp_banded, wkw)
+    ms = device_ms(lambda: warp.warp_banded(pair, *flow, **wkw))
     print(f"[kernels] batched warps, B=2: u8 and exact at {shape[1]}x{shape[2]}, u16 at "
           f"{coarse.shape[1]}x{coarse.shape[2]}: bit-exact, each element = its 2-D launch; "
           f"warp_exact B=2 {ms:.4f} ms")
@@ -411,9 +419,9 @@ def check_batched(dev, a, b, rng, readings):
     for relaxed, name in ((True, "lk_refine"), (False, "lk_refine_exact")):
         err = sums_rel = 0.0
         for window in (3, 5, 7):
-            rargs = (pair, swap, *flow, conv, window, 1e-4, 8.0, 3.0, relaxed)
-            got = lk.lucas_kanade_refine(*rargs)
-            want = lk.lucas_kanade_refine_ref(*rargs)
+            rkw = dict(window_size=window, max_disp=8.0, max_disp_v=3.0, relaxed_order=relaxed)
+            got = lk.lucas_kanade_refine(pair, swap, *flow, conv, **rkw)
+            want = lk.lucas_kanade_refine_ref(pair, swap, *flow, conv, **rkw)
             torch.cuda.synchronize()
             err = max(err, max_abs(got[0], want[0]), max_abs(got[1], want[1]))
             sums_rel = max(sums_rel, float(((got[2] - want[2]).abs() / want[2].abs()).max()),
@@ -422,9 +430,10 @@ def check_batched(dev, a, b, rng, readings):
                 raise AssertionError(f"batched {name} window {window}: max |d| {err}, "
                                      f"sums rel {sums_rel}")
             _equal_per_element(name, got, lambda i: (pair[i], swap[i], flow[0][i], flow[1][i],
-                                                     conv[i:i + 1], *rargs[5:]),
-                               lk.lucas_kanade_refine)
-        ms = device_ms(lambda: lk.lucas_kanade_refine(*rargs[:5], 5, *rargs[6:]))
+                                                     conv[i:i + 1]),
+                               lk.lucas_kanade_refine, rkw)
+        rkw["window_size"] = 5
+        ms = device_ms(lambda: lk.lucas_kanade_refine(pair, swap, *flow, conv, **rkw))
         readings[name]["batch2_ms"] = ms
         print(f"[kernels] batched {name}, B=2 at {shape[1]}x{shape[2]}, windows 3/5/7, one "
               f"element converged: max |d| {err:.3g} px, sums rel {sums_rel:.3g}, each element "
@@ -434,16 +443,17 @@ def check_batched(dev, a, b, rng, readings):
         err = 0.0
         for relaxed in (False, True):
             for window, taps in ((3, False), (5, False), (7, False), (5, True)):
-                fargs = (pair, swap, window, 1e-4, taps, 1.0, conf, relaxed)
-                got = lk.lucas_kanade_fused(*fargs)
-                want = lk.lucas_kanade_fused_ref(*fargs)
+                fkw = dict(window_size=window, gaussian_weights=taps, return_confidence=conf,
+                           relaxed_order=relaxed)
+                got = lk.lucas_kanade_fused(pair, swap, **fkw)
+                want = lk.lucas_kanade_fused_ref(pair, swap, **fkw)
                 torch.cuda.synchronize()
                 err = max(err, *(max_abs(g, w) for g, w in zip(got, want)))
                 if err != 0.0:
                     raise AssertionError(f"batched {name} window {window} taps={taps} "
                                          f"relaxed={relaxed}: max |d| {err}")
-                _equal_per_element(name, got, lambda i: (pair[i], swap[i], *fargs[2:]),
-                                   lk.lucas_kanade_fused)
+                _equal_per_element(name, got, lambda i: (pair[i], swap[i]),
+                                   lk.lucas_kanade_fused, fkw)
         print(f"[kernels] batched {name}, B=2 at {shape[1]}x{shape[2]}, exact and relaxed, "
               f"windows 3/5/7, taps at 5: max |d| {err:.3g}, each element = its 2-D launch")
 
@@ -491,15 +501,15 @@ def check_mxu(dev, a, b, rng, readings):
         for frames, batch, p, c, flow, conv in inputs:
             for relaxed in (False, True):
                 for window in (3, 5, 7):
+                    kw = dict(window_size=window, relaxed_order=relaxed, window_mxu=True)
                     if name == "lk_refine_mxu":
-                        args = (p, c, *flow, conv, window, 1e-4, 8.0, 3.0, relaxed, True)
-                        got = lk.lucas_kanade_refine(*args)
-                        want = lk.lucas_kanade_refine_ref(*args)
+                        kw.update(max_disp=8.0, max_disp_v=3.0)
+                        got = lk.lucas_kanade_refine(p, c, *flow, conv, **kw)
+                        want = lk.lucas_kanade_refine_ref(p, c, *flow, conv, **kw)
                     else:
-                        args = (p, c, window, 1e-4, False, 1.0, name == "lk_fused_conf_mxu",
-                                relaxed, True)
-                        got = lk.lucas_kanade_fused(*args)
-                        want = lk.lucas_kanade_fused_ref(*args)
+                        kw["return_confidence"] = name == "lk_fused_conf_mxu"
+                        got = lk.lucas_kanade_fused(p, c, **kw)
+                        want = lk.lucas_kanade_fused_ref(p, c, **kw)
                     torch.cuda.synchronize()
                     try:
                         err, drel, srel = _mxu_errors(got, want, window)
@@ -546,19 +556,19 @@ def check_mxu(dev, a, b, rng, readings):
     # in exact order (K6), the refine in relaxed order (K3).
     conv = torch.tensor(False, device=dev)
     pairs = {
-        "lk_fused_mxu": ((a, b, 5, 1e-4, False, 1.0, False, False, True),
-                         lk.lucas_kanade_fused, lk.lucas_kanade_fused_ref, "lk_fused"),
-        "lk_fused_conf_mxu": ((a, b, 5, 1e-4, False, 1.0, True, False, True),
-                              lk.lucas_kanade_fused, lk.lucas_kanade_fused_ref, "lk_fused_conf"),
-        "lk_refine_mxu": ((a, b, *flow1, conv, 5, 1e-4, 8.0, 3.0, True, True),
+        "lk_fused_mxu": ((a, b), {}, lk.lucas_kanade_fused, lk.lucas_kanade_fused_ref,
+                         "lk_fused"),
+        "lk_fused_conf_mxu": ((a, b), dict(return_confidence=True), lk.lucas_kanade_fused,
+                              lk.lucas_kanade_fused_ref, "lk_fused_conf"),
+        "lk_refine_mxu": ((a, b, *flow1, conv), dict(max_disp_v=3.0, relaxed_order=True),
                           lk.lucas_kanade_refine, lk.lucas_kanade_refine_ref, "lk_refine"),
     }
-    for name, (args, fn, ref, shift_name) in pairs.items():
-        shift_args = args[:-1] + (False,)
-        shift_ms = device_ms(lambda: fn(*shift_args))
-        ms = device_ms(lambda: fn(*args))
-        plain_ms = device_ms(lambda: ref(*args))
-        again_shift = device_ms(lambda: fn(*shift_args))
+    for name, (args, kw, fn, ref, shift_name) in pairs.items():
+        kw = dict(kw, window_size=5)
+        shift_ms = device_ms(lambda: fn(*args, **kw))
+        ms = device_ms(lambda: fn(*args, **kw, window_mxu=True))
+        plain_ms = device_ms(lambda: ref(*args, **kw, window_mxu=True))
+        again_shift = device_ms(lambda: fn(*args, **kw))
         readings[name].update(ms=ms, plain_ms=plain_ms, shape=[HEIGHT, WIDTH],
                               beside={shift_name: [shift_ms, again_shift]})
         print(f"[kernels] {name} 1080x1920 window 5: {ms:.4f} ms (plain {plain_ms:.4f} ms; "
@@ -759,8 +769,8 @@ def check_mxu_path(a, b):
     conv = torch.zeros(2, dtype=torch.bool, device=a.device)
 
     def run():
-        refine = lk.lucas_kanade_refine(pair, swap, zeros, zeros, conv, 5, 1e-4, 8.0, 3.0,
-                                        True, window_mxu=True)
+        refine = lk.lucas_kanade_refine(pair, swap, zeros, zeros, conv, max_disp_v=3.0,
+                                        relaxed_order=True, window_mxu=True)
         fused = lk.lucas_kanade_fused(pair, swap, window_mxu=True)
         conf = lk.lucas_kanade_fused(pair, swap, return_confidence=True, window_mxu=True)
         return refine, fused, conf

@@ -97,11 +97,11 @@ def test_batched_warp_matches_pallas(rng, packing, clamp_flow):
             clamp_flow=clamp_flow, max_disp_v=3, packed_u8=packing == "u8",
             packed_u16=packing == "u16",
         )
-    args = (8, 3, packing, clamp_flow)
-    got = warp.warp_banded(_t(img), _t(u), _t(v), *args)
+    kw = dict(max_disp_v=3, packing=packing, clamp_flow=clamp_flow)
+    got = warp.warp_banded(_t(img), _t(u), _t(v), 8, **kw)
     assert got.shape == (B, *SHAPE)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=WARP_ATOL)
-    _each_equal([got], lambda b: [warp.warp_banded(_t(img[b]), _t(u[b]), _t(v[b]), *args)])
+    _each_equal([got], lambda b: [warp.warp_banded(_t(img[b]), _t(u[b]), _t(v[b]), 8, **kw)])
 
 
 def _refine_inputs(rng):
@@ -125,9 +125,9 @@ def _pallas_refine(prev, warped, u, v, window, relaxed):
 def test_batched_refine_matches_pallas(rng, window, relaxed):
     prev, warped, u, v = _refine_inputs(rng)
     want = _pallas_refine(prev, warped, u, v, window, relaxed)
-    args = (window, 1e-4, 8.0, 3.0, relaxed)
+    kw = dict(window_size=window, max_disp=8.0, max_disp_v=3.0, relaxed_order=relaxed)
     got = lk.lucas_kanade_refine(_t(prev), _t(warped), _t(u), _t(v),
-                                 torch.from_numpy(CONVERGED), *args)
+                                 torch.from_numpy(CONVERGED), **kw)
     assert got[2].shape == got[3].shape == (B,)
     for g, w in zip(got[:2], want[:2]):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=_flow_atol(window))
@@ -138,7 +138,7 @@ def test_batched_refine_matches_pallas(rng, window, relaxed):
     np.testing.assert_array_equal(got[1][0].numpy(), np.clip(v[0], -3, 3))
     assert not torch.equal(got[0][1], torch.from_numpy(np.clip(u[1], -8, 8)))
     _each_equal(got, lambda b: lk.lucas_kanade_refine(
-        _t(prev[b]), _t(warped[b]), _t(u[b]), _t(v[b]), torch.tensor(CONVERGED[b]), *args))
+        _t(prev[b]), _t(warped[b]), _t(u[b]), _t(v[b]), torch.tensor(CONVERGED[b]), **kw))
 
 
 FUSED_CASES = [(3, False), (5, False), (7, False), (5, True)]
@@ -202,16 +202,17 @@ def test_wsum_mxu_batch_element_equals_its_plane(rng, window, batch):
 def test_mxu_refine_plain_matches_pallas_without_flag(rng, window, relaxed):
     prev, warped, u, v = _refine_inputs(rng)
     want = _pallas_refine(prev, warped, u, v, window, relaxed)
-    args = (window, 1e-4, 8.0, 3.0, relaxed, True)
+    kw = dict(window_size=window, max_disp=8.0, max_disp_v=3.0, relaxed_order=relaxed,
+              window_mxu=True)
     got = lk.lucas_kanade_refine(_t(prev), _t(warped), _t(u), _t(v),
-                                 torch.from_numpy(CONVERGED), *args)
+                                 torch.from_numpy(CONVERGED), **kw)
     for g, w in zip(got[:2], want[:2]):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
                                    atol=_mxu_flow_atol(window))
     for g, w in zip(got[2:], want[2:]):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5)
     _each_equal(got, lambda b: lk.lucas_kanade_refine(
-        _t(prev[b]), _t(warped[b]), _t(u[b]), _t(v[b]), torch.tensor(CONVERGED[b]), *args))
+        _t(prev[b]), _t(warped[b]), _t(u[b]), _t(v[b]), torch.tensor(CONVERGED[b]), **kw))
 
 
 @pytest.mark.parametrize("window", [3, 5, 7])
@@ -279,18 +280,18 @@ def test_batched_wrappers_check_inputs():
     with pytest.raises(ValueError):
         lk.lucas_kanade_fused(z[:0], z[:0])
     with pytest.raises(ValueError):
-        warp.warp_banded(z[None], z[None], z[None])
+        warp.warp_banded(z[None], z[None], z[None], packing="u8", clamp_flow=True)
     with pytest.raises(ValueError):
-        warp.warp_banded(z[:0], z[:0], z[:0])
+        warp.warp_banded(z[:0], z[:0], z[:0], packing="u8", clamp_flow=True)
     with pytest.raises(ValueError):
-        warp.warp_banded(z, z[0], z[0])
+        warp.warp_banded(z, z[0], z[0], packing="u8", clamp_flow=True)
 
 
 def test_cpu_batches_run_plain_versions_and_count_no_launch(rng):
     before = launch_counts()
     img = _t(np.round(rng.uniform(0, 255, (2, 16, 24))))
     conv = torch.tensor([False, True])
-    warp.warp_banded(img, img * 0, img * 0)
+    warp.warp_banded(img, img * 0, img * 0, packing="u8", clamp_flow=True)
     for mxu in (False, True):
         lk.lucas_kanade_refine(img, img, img * 0, img * 0, conv, window_mxu=mxu)
         lk.lucas_kanade_fused(img, img, return_confidence=True, window_mxu=mxu)

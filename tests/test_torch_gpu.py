@@ -63,8 +63,9 @@ def test_warp_kernel_bit_exact(cuda, shape, packing, band):
         img = img.round()
     u, v = _rand(rng, shape, -9, 9, cuda), _rand(rng, shape, -9, 9, cuda)
     before = launch_counts()[_WARP_COUNTER[packing]]
-    got = warp.warp_banded(img, u, v, 8, band, packing)
-    want = warp.warp_banded_ref(img, u, v, 8, band, packing)
+    kw = dict(clamp_flow=True, max_disp_v=band, packing=packing)
+    got = warp.warp_banded(img, u, v, 8, **kw)
+    want = warp.warp_banded_ref(img, u, v, 8, **kw)
     torch.cuda.synchronize()
     assert launch_counts()[_WARP_COUNTER[packing]] == before + 1
     assert torch.equal(got, want)
@@ -86,9 +87,12 @@ _TILE_BANDS = [(0, 0), (8, 3), (0, 31), (31, 0), (31, 31)]
 
 def _warp_as(block, *args):
     """The warp with its CUDA block: by plane size (None), forced staged
-    (True) or gathering (False), or the walk ablation ("walk16", "walk48")."""
+    (True) or gathering (False), or the walk ablation ("walk16", "walk48");
+    ``args`` are (image, u, v, max_disp, max_disp_v, packing, clamp_flow)."""
     if block is None:
-        return warp.warp_banded(*args)
+        img, u, v, md, mdv, packing, clamp = args
+        return warp.warp_banded(img, u, v, md, clamp_flow=clamp, max_disp_v=mdv,
+                                packing=packing)
     if block in (False, True):
         return warp_walk.warp_block(*args, staged=block)
     return warp_walk.warp_walk(*args, walk_rows=int(block[4:]))
@@ -111,7 +115,8 @@ def test_warp_tile_edges_and_bands_bit_exact(cuda, shape, packing, staged):
     for md, mdv in _TILE_BANDS:
         u, v = _rand(rng, shape, -md - 3, md + 3, cuda), _rand(rng, shape, -mdv - 3, mdv + 3, cuda)
         got = _warp_as(staged, img, u, v, md, mdv, packing, True)
-        want = warp.warp_banded_ref(img, u, v, md, mdv, packing)
+        want = warp.warp_banded_ref(img, u, v, md, clamp_flow=True, max_disp_v=mdv,
+                                    packing=packing)
         torch.cuda.synchronize()
         assert torch.equal(got, want), (md, mdv)
 
@@ -127,7 +132,8 @@ def test_exact_warp_far_outside_the_band_unclamped(cuda, shape, staged):
         reach = max(md, mdv) + 40
         u, v = _rand(rng, shape, -reach, reach, cuda), _rand(rng, shape, -reach, reach, cuda)
         got = _warp_as(staged, img, u, v, md, mdv, "exact", False)
-        want = warp.warp_banded_ref(img, u, v, md, mdv, "exact", clamp_flow=False)
+        want = warp.warp_banded_ref(img, u, v, md, max_disp_v=mdv, packing="exact",
+                                    clamp_flow=False)
         torch.cuda.synchronize()
         assert torch.equal(got, want), (md, mdv)
 
@@ -149,7 +155,9 @@ def test_warp_unaligned_base_bit_exact(cuda, packing, staged):
     assert img.data_ptr() % 16 != 0 and warp.tile_geometry(*shape, 8, 8)["staged"]
     for md, mdv in _TILE_BANDS:
         got = _warp_as(staged, img, u, v, md, mdv, packing, True)
-        assert torch.equal(got, warp.warp_banded_ref(img, u, v, md, mdv, packing)), (md, mdv)
+        want = warp.warp_banded_ref(img, u, v, md, clamp_flow=True, max_disp_v=mdv,
+                                    packing=packing)
+        assert torch.equal(got, want), (md, mdv)
 
 
 @pytest.mark.parametrize("shape", [(3, 1, 1), (2, 33, 257), (3, 545, 130), (2, 270, 480),
@@ -164,11 +172,11 @@ def test_batched_warp_tiles_per_element(cuda, shape, packing, clamp):
     for md, mdv in [(0, 0), (8, 3), (31, 31)]:
         reach = max(md, mdv) + (3 if clamp else 40)
         u, v = _rand(rng, shape, -reach, reach, cuda), _rand(rng, shape, -reach, reach, cuda)
-        args = (md, mdv, packing, clamp)
-        got = warp.warp_banded(img, u, v, *args)
-        assert torch.equal(got, warp.warp_banded_ref(img, u, v, *args)), (md, mdv)
+        kw = dict(clamp_flow=clamp, max_disp_v=mdv, packing=packing)
+        got = warp.warp_banded(img, u, v, md, **kw)
+        assert torch.equal(got, warp.warp_banded_ref(img, u, v, md, **kw)), (md, mdv)
         for b in range(shape[0]):
-            assert torch.equal(got[b], warp.warp_banded(img[b], u[b], v[b], *args)), (md, mdv, b)
+            assert torch.equal(got[b], warp.warp_banded(img[b], u[b], v[b], md, **kw)), (md, mdv, b)
 
 
 def test_warp_geometry_by_plane_size(cuda):
@@ -194,7 +202,7 @@ def test_warp_refuses_a_side_of_2_to_the_24(cuda):
     img = torch.zeros(shape, device=cuda)
     before = launch_counts()["warp_exact"]
     with pytest.raises(ValueError, match="sides under"):
-        warp.warp_banded(img, img, img, 8, 8, "exact")
+        warp.warp_banded(img, img, img, 8, clamp_flow=True, max_disp_v=8, packing="exact")
     with pytest.raises(ValueError, match="sides under"):
         warp_walk.warp_walk(img, img, img, 8, 8, "exact", walk_rows=16)
     assert launch_counts()["warp_exact"] == before
@@ -221,11 +229,12 @@ def test_warp_refuses_a_window_that_does_not_fit(cuda, monkeypatch):
     assert warp.tile_geometry(*shape, 300, 300)["smem_bytes"] > 232448
     before = launch_counts()["warp_exact"]
     with pytest.raises(RuntimeError, match="configuration"):
-        warp.warp_banded(img, u, v, 300, 300, "exact")
+        warp.warp_banded(img, u, v, 300, clamp_flow=True, max_disp_v=300, packing="exact")
     assert launch_counts()["warp_exact"] == before
     assert 48 * 1024 < warp.tile_geometry(*shape, 60, 40)["smem_bytes"] <= 232448
-    got = warp.warp_banded(img, u, v, 60, 40, "exact")
-    assert torch.equal(got, warp.warp_banded_ref(img, u, v, 60, 40, "exact"))
+    kw = dict(clamp_flow=True, max_disp_v=40, packing="exact")
+    got = warp.warp_banded(img, u, v, 60, **kw)
+    assert torch.equal(got, warp.warp_banded_ref(img, u, v, 60, **kw))
     # The walk's ring and flow at 300 px do not fit either; at 60, 40 they
     # take more than 48 KB, and fit.
     walks = warp_walk.launch_counts["warp_walk_ablation"]
@@ -233,7 +242,7 @@ def test_warp_refuses_a_window_that_does_not_fit(cuda, monkeypatch):
         warp_walk.warp_walk(img, u, v, 300, 300, "exact", walk_rows=48)
     assert warp_walk.launch_counts["warp_walk_ablation"] == walks
     got = warp_walk.warp_walk(img, u, v, 60, 40, "exact", walk_rows=48)
-    assert torch.equal(got, warp.warp_banded_ref(img, u, v, 60, 40, "exact"))
+    assert torch.equal(got, warp.warp_banded_ref(img, u, v, 60, **kw))
 
 
 @pytest.mark.parametrize("shape", [(37, 61), (64, 200), (1, 1)])
@@ -242,8 +251,9 @@ def test_exact_warp_kernel_unclamped_bit_exact(cuda, shape, band):
     rng = np.random.default_rng(band)
     img = _rand(rng, shape, 0, 255, cuda)
     u, v = _rand(rng, shape, -12, 12, cuda), _rand(rng, shape, -12, 12, cuda)
-    got = warp.warp_banded(img, u, v, 8, band, "exact", clamp_flow=False)
-    want = warp.warp_banded_ref(img, u, v, 8, band, "exact", clamp_flow=False)
+    kw = dict(clamp_flow=False, max_disp_v=band, packing="exact")
+    got = warp.warp_banded(img, u, v, 8, **kw)
+    want = warp.warp_banded_ref(img, u, v, 8, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
@@ -264,11 +274,12 @@ def test_refine_kernel_matches_plain(cuda, shape, converged, window, relaxed):
     warped = prev.roll(1, dims=1) + _rand(rng, shape, -1, 1, cuda)
     u, v = _rand(rng, shape, -9, 9, cuda), _rand(rng, shape, -9, 9, cuda)
     conv = torch.tensor(converged, device=cuda)
-    args = (prev, warped, u, v, conv, window, 1e-4, 8.0, 3.0, relaxed)
+    args = (prev, warped, u, v, conv, window, 1e-4, 8.0)
+    kw = dict(max_disp_v=3.0, relaxed_order=relaxed)
     name = "lk_refine" if relaxed else "lk_refine_exact"
     before = launch_counts()[name]
-    got = lk.lucas_kanade_refine(*args)
-    want = lk.lucas_kanade_refine_ref(*args)
+    got = lk.lucas_kanade_refine(*args, **kw)
+    want = lk.lucas_kanade_refine_ref(*args, **kw)
     torch.cuda.synchronize()
     assert launch_counts()[name] == before + 1
     for g, w in zip(got[:2], want[:2]):
@@ -285,11 +296,11 @@ def test_fused_kernel_matches_plain(cuda, shape, window, taps, relaxed, confiden
     rng = np.random.default_rng(shape[1])
     prev = _rand(rng, shape, 0, 255, cuda)
     curr = prev.roll(1, dims=1) + _rand(rng, shape, -1, 1, cuda)
-    args = (prev, curr, window, 1e-4, taps, 1.0, confidence, relaxed)
+    kw = dict(gaussian_weights=taps, return_confidence=confidence, relaxed_order=relaxed)
     name = "lk_fused_conf" if confidence else "lk_fused"
     before = launch_counts()[name]
-    got = lk.lucas_kanade_fused(*args)
-    want = lk.lucas_kanade_fused_ref(*args)
+    got = lk.lucas_kanade_fused(prev, curr, window, **kw)
+    want = lk.lucas_kanade_fused_ref(prev, curr, window, **kw)
     torch.cuda.synchronize()
     assert launch_counts()[name] == before + 1
     assert len(got) == len(want)
@@ -309,15 +320,18 @@ def test_walk_border_and_interior_blocks_bit_exact(cuda, shape, window, relaxed)
     prev, curr = _smooth(rng, shape, cuda)
     u, v = _rand(rng, shape, -9, 9, cuda), _rand(rng, shape, -9, 9, cuda)
     conv = torch.tensor(False, device=cuda)
-    rargs = (prev, curr, u, v, conv, window, 1e-4, 8.0, 3.0, relaxed)
-    got, want = lk.lucas_kanade_refine(*rargs), lk.lucas_kanade_refine_ref(*rargs)
+    rargs = (prev, curr, u, v, conv, window)
+    rkw = dict(max_disp_v=3.0, relaxed_order=relaxed)
+    got = lk.lucas_kanade_refine(*rargs, **rkw)
+    want = lk.lucas_kanade_refine_ref(*rargs, **rkw)
     for g, w in zip(got[:2], want[:2]):
         assert torch.equal(g, w)
     for g, w in zip(got[2:], want[2:]):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
     for taps in (False, True):
-        fargs = (prev, curr, window, 1e-4, taps, 1.0, True, relaxed)
-        got, want = lk.lucas_kanade_fused(*fargs), lk.lucas_kanade_fused_ref(*fargs)
+        fkw = dict(gaussian_weights=taps, return_confidence=True, relaxed_order=relaxed)
+        got = lk.lucas_kanade_fused(prev, curr, window, **fkw)
+        want = lk.lucas_kanade_fused_ref(prev, curr, window, **fkw)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
 
@@ -325,7 +339,7 @@ def test_walk_border_and_interior_blocks_bit_exact(cuda, shape, window, relaxed)
 def test_wrappers_reject_non_contiguous(cuda):
     z = torch.zeros(16, 32, device=cuda).t()
     with pytest.raises(ValueError):
-        warp.warp_banded(z, z, z)
+        warp.warp_banded(z, z, z, packing="u8", clamp_flow=True)
     with pytest.raises(ValueError):
         lk.lucas_kanade_refine(z, z, z, z, torch.tensor(False, device=cuda))
     with pytest.raises(ValueError):
@@ -376,11 +390,11 @@ def test_batched_warp_kernel_bit_exact_per_element(cuda, packing, clamp):
     if packing == "u8":
         img = img.round()
     u, v = _rand(rng, shape, -12, 12, cuda), _rand(rng, shape, -12, 12, cuda)
-    args = (8, 3, packing, clamp)
-    got = warp.warp_banded(img, u, v, *args)
-    assert torch.equal(got, warp.warp_banded_ref(img, u, v, *args))
+    kw = dict(clamp_flow=clamp, max_disp_v=3, packing=packing)
+    got = warp.warp_banded(img, u, v, 8, **kw)
+    assert torch.equal(got, warp.warp_banded_ref(img, u, v, 8, **kw))
     for b in range(2):
-        assert torch.equal(got[b], warp.warp_banded(img[b], u[b], v[b], *args))
+        assert torch.equal(got[b], warp.warp_banded(img[b], u[b], v[b], 8, **kw))
 
 
 @pytest.mark.parametrize("window", [3, 5, 7])
@@ -391,11 +405,11 @@ def test_batched_refine_kernel_per_element(cuda, window, relaxed, mxu):
     prev, warped = _smooth(rng, (2, 52, 200), cuda)
     u, v = _rand(rng, prev.shape, -9, 9, cuda), _rand(rng, prev.shape, -9, 9, cuda)
     conv = torch.tensor([True, False], device=cuda)
-    args = (window, 1e-4, 8.0, 3.0, relaxed, mxu)
+    kw = dict(window_size=window, max_disp_v=3.0, relaxed_order=relaxed, window_mxu=mxu)
     name = "lk_refine_mxu" if mxu else "lk_refine" if relaxed else "lk_refine_exact"
     before = launch_counts()[name]
-    got = lk.lucas_kanade_refine(prev, warped, u, v, conv, *args)
-    want = lk.lucas_kanade_refine_ref(prev, warped, u, v, conv, *args)
+    got = lk.lucas_kanade_refine(prev, warped, u, v, conv, **kw)
+    want = lk.lucas_kanade_refine_ref(prev, warped, u, v, conv, **kw)
     torch.cuda.synchronize()
     assert launch_counts()[name] == before + 1
     assert got[2].shape == got[3].shape == (2,)
@@ -406,7 +420,7 @@ def test_batched_refine_kernel_per_element(cuda, window, relaxed, mxu):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
     assert torch.equal(got[0][0], u[0].clamp(-8, 8))
     for b in range(2):
-        single = lk.lucas_kanade_refine(prev[b], warped[b], u[b], v[b], conv[b:b + 1], *args)
+        single = lk.lucas_kanade_refine(prev[b], warped[b], u[b], v[b], conv[b:b + 1], **kw)
         for g, s in zip(got, single):
             assert torch.equal(g[b], s)
 

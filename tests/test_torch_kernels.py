@@ -61,19 +61,21 @@ def test_warp_plain_matches_pallas(rng, band, frames):
             clamp_flow=True, max_disp_v=band, packed_u8=packing == "u8",
             packed_u16=packing == "u16",
         )
-    got = warp.warp_banded(_t(img), _t(u), _t(v), max_disp=8, max_disp_v=band, packing=packing)
+    got = warp.warp_banded(_t(img), _t(u), _t(v), max_disp=8, clamp_flow=True, max_disp_v=band,
+                           packing=packing)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=WARP_ATOL)
 
 
 def test_warp_plain_zero_flow_and_edges(rng):
     img = np.round(rng.uniform(0, 255, (24, 40))).astype(np.float32)
     z = np.zeros_like(img)
-    np.testing.assert_array_equal(warp.warp_banded(_t(img), _t(z), _t(z)).numpy(), img)
-    got = warp.warp_banded(_t(img + 0.3), _t(z), _t(z), packing="u16").numpy()
+    np.testing.assert_array_equal(
+        warp.warp_banded(_t(img), _t(z), _t(z), packing="u8", clamp_flow=True).numpy(), img)
+    got = warp.warp_banded(_t(img + 0.3), _t(z), _t(z), packing="u16", clamp_flow=True).numpy()
     np.testing.assert_allclose(got, np.floor((img + 0.3) * 256.0 + 0.5) / 256.0, atol=1e-5)
     # A sample beyond the last column reads 0; one exactly on it does not.
     u = np.full_like(img, 0.5)
-    out = warp.warp_banded(_t(img), _t(u), _t(z)).numpy()
+    out = warp.warp_banded(_t(img), _t(u), _t(z), packing="u8", clamp_flow=True).numpy()
     assert np.all(out[:, -1] == 0.0) and np.all(out[:, -2] != 0.0)
 
 
@@ -145,7 +147,7 @@ def test_refine_wrapper_checks_inputs():
 def test_cpu_tensors_run_plain_versions_and_count_no_launch(rng):
     before = launch_counts()
     img = _t(np.round(rng.uniform(0, 255, (16, 24))))
-    warp.warp_banded(img, img * 0, img * 0)
+    warp.warp_banded(img, img * 0, img * 0, packing="u8", clamp_flow=True)
     for relaxed in (False, True):
         lk.lucas_kanade_refine(img, img, img * 0, img * 0, torch.tensor(False),
                                relaxed_order=relaxed)
@@ -167,7 +169,8 @@ def test_warp_block_choice_leaves_the_cpu_result_alone(rng, staged):
     walks_before = dict(warp_walk.launch_counts)
     img = _t(np.round(rng.uniform(0, 255, shape)))
     u, v = _flow(rng, shape)
-    want = warp.warp_banded_ref(img, _t(u), _t(v), 8, 3)
-    assert torch.equal(warp.warp_banded(img, _t(u), _t(v), 8, 3), want)
+    kw = dict(max_disp_v=3, packing="u8", clamp_flow=True)
+    want = warp.warp_banded_ref(img, _t(u), _t(v), 8, **kw)
+    assert torch.equal(warp.warp_banded(img, _t(u), _t(v), 8, **kw), want)
     assert torch.equal(warp_walk.warp_walk(img, _t(u), _t(v), 8, 3, "u8", walk_rows=32), want)
     assert launch_counts() == before and warp_walk.launch_counts == walks_before

@@ -68,7 +68,8 @@ def test_exact_warp_plain_matches_pallas(rng, band, clamp_flow):
             jnp.asarray(img), jnp.asarray(u), jnp.asarray(v), max_disp=8,
             clamp_flow=clamp_flow, max_disp_v=band,
         )
-    got = warp.warp_banded(_t(img), _t(u), _t(v), 8, band, "exact", clamp_flow)
+    got = warp.warp_banded(_t(img), _t(u), _t(v), 8, max_disp_v=band, packing="exact",
+                           clamp_flow=clamp_flow)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=WARP_ATOL)
 
 
@@ -80,7 +81,8 @@ def test_exact_warp_row_rule_beyond_the_band(rng):
     z = torch.zeros(40, 64)
     for vv, expect in [(4.25, "upper"), (5.25, "zero"), (-3.75, "zero"),
                        (3.25, "full"), (-2.75, "full")]:
-        out = warp.warp_banded(_t(img), z, z + vv, 3, 3, "exact", clamp_flow=False).numpy()
+        out = warp.warp_banded(_t(img), z, z + vv, 3, max_disp_v=3, packing="exact",
+                               clamp_flow=False).numpy()
         y0 = 10 + int(np.floor(vv))
         fy = vv - np.floor(vv)
         row = out[10, 5:-5]

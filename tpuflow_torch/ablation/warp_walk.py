@@ -49,8 +49,8 @@ def warp_walk(image: torch.Tensor, flow_u: torch.Tensor, flow_v: torch.Tensor,
     if walk_rows < STEP or walk_rows % STEP:
         raise ValueError(f"walk_rows must be a positive multiple of {STEP}")
     if image.device.type == "cpu":
-        return warp.warp_banded_ref(image, flow_u, flow_v, max_disp, max_disp_v, packing,
-                                    clamp_flow)
+        return warp.warp_banded_ref(image, flow_u, flow_v, max_disp, clamp_flow=clamp_flow,
+                                    max_disp_v=max_disp_v, packing=packing)
     lib = _build.load()
     h, w = image.shape[-2:]
     out = torch.empty_like(image)
@@ -93,9 +93,10 @@ def measure(image: torch.Tensor, flow_u: torch.Tensor, flow_v: torch.Tensor,
     from tpuflow_torch.eval.timing import device_ms
 
     args = (image, flow_u, flow_v, max_disp, max_disp_v, packing, True)
-    want = warp.warp_banded_ref(*args)
+    kw = dict(clamp_flow=True, max_disp_v=max_disp_v, packing=packing)
+    want = warp.warp_banded_ref(image, flow_u, flow_v, max_disp, **kw)
     geo = warp.tile_geometry(*image.shape[-2:], max_disp, max_disp_v)
-    runs = {"kernel": lambda: warp.warp_banded(*args),
+    runs = {"kernel": lambda: warp.warp_banded(image, flow_u, flow_v, max_disp, **kw),
             "other_block": lambda: warp_block(*args, staged=not geo["staged"])}
     for walk in WALKS:
         runs[f"walk_{walk}"] = lambda walk=walk: warp_walk(*args, walk_rows=walk)

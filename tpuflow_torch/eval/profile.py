@@ -123,7 +123,8 @@ def profile_pipeline(height: int = 1080, width: int = 1920, config: str = "defau
     curr_u8 = torch.floor(curr)
 
     def banded(image, packing):
-        return lambda: warp.warp_banded(image, u0, u0, cfg.max_disp, mdv, packing, True)
+        return lambda: warp.warp_banded(image, u0, u0, cfg.max_disp, clamp_flow=True,
+                                        max_disp_v=mdv, packing=packing)
 
     stages = [
         ("fused LK (cuda)",

@@ -82,7 +82,7 @@ def _refine_level(
     while rounds < cfg.iterations:
         if backend == "cuda":
             warped = warp.warp_banded(
-                img_curr, u, v, max_disp=cfg.max_disp, max_disp_v=mdv,
+                img_curr, u, v, max_disp=cfg.max_disp, clamp_flow=True, max_disp_v=mdv,
                 packing=_warp_packing(cfg, finest),
             )
             u, v, sdu, sdv = lk.lucas_kanade_refine(

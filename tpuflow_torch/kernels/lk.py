@@ -20,10 +20,11 @@ both f32 orders and for windows 3, 5 and 7:
   JAX package honours the flag only on its batched route; here it holds
   for (H, W) planes too.
 
-Each takes one (H, W) plane or a (B, H, W) batch (the TPU kernels'
-batched entries, ``_refine_batched`` and ``_fused_batched``). A batch is
-one kernel launch; each element is computed exactly as the same plane
-alone. For a batch the refine's ``converged`` is a (B,) bool tensor and its
+Both take the reference's parameters, in its order and with its defaults;
+``tile_rows`` is accepted and ignored (the TPU's tiling). Each takes one
+(H, W) plane or a (B, H, W) batch (the TPU kernels' batched entries,
+``_refine_batched`` and ``_fused_batched``). A batch is one kernel launch;
+each element is computed exactly as the same plane alone. For a batch the refine's ``converged`` is a (B,) bool tensor and its
 sums are (B,) tensors, one per element.
 
 The CUDA kernels are ``csrc/lk_refine.cu`` and ``csrc/lk_fused.cu`` (one
@@ -234,6 +235,7 @@ def lucas_kanade_refine_ref(
     window_size: int = 5,
     det_threshold: float = 1e-4,
     max_disp: float = 8.0,
+    tile_rows: int | None = None,
     max_disp_v: float | None = None,
     relaxed_order: bool = False,
     window_mxu: bool = False,
@@ -291,6 +293,7 @@ def lucas_kanade_refine(
     window_size: int = 5,
     det_threshold: float = 1e-4,
     max_disp: float = 8.0,
+    tile_rows: int | None = None,
     max_disp_v: float | None = None,
     relaxed_order: bool = False,
     window_mxu: bool = False,
@@ -311,10 +314,11 @@ def lucas_kanade_refine(
     if (frame_prev.ndim == 3 and converged.shape != (batch,)) or converged.numel() != batch:
         raise ValueError("converged must hold one flag per plane: (B,) for a batch")
     dev = _device_of((*planes, converged))
-    args = (window_size, det_threshold, float(max_disp), float(max_disp_v), relaxed_order,
-            window_mxu)
     if dev.type == "cpu":
-        return lucas_kanade_refine_ref(frame_prev, warped, flow_u, flow_v, converged, *args)
+        return lucas_kanade_refine_ref(
+            frame_prev, warped, flow_u, flow_v, converged, window_size, det_threshold,
+            float(max_disp), max_disp_v=float(max_disp_v), relaxed_order=relaxed_order,
+            window_mxu=window_mxu)
 
     lib = _build.load()
     h, w = frame_prev.shape[-2:]
@@ -351,6 +355,7 @@ def lucas_kanade_fused_ref(
     frame_curr: torch.Tensor,
     window_size: int = 5,
     det_threshold: float = 1e-4,
+    tile_rows: int | None = None,
     gaussian_weights: bool = False,
     weight_sigma: float = 1.0,
     return_confidence: bool = False,
@@ -372,6 +377,7 @@ def lucas_kanade_fused(
     frame_curr: torch.Tensor,
     window_size: int = 5,
     det_threshold: float = 1e-4,
+    tile_rows: int | None = None,
     gaussian_weights: bool = False,
     weight_sigma: float = 1.0,
     return_confidence: bool = False,
@@ -385,10 +391,12 @@ def lucas_kanade_fused(
     _check_window(window_size)
     _check_planes((frame_prev, frame_curr), "frames")
     dev = _device_of((frame_prev, frame_curr))
-    args = (window_size, det_threshold, gaussian_weights, weight_sigma, return_confidence,
-            relaxed_order, window_mxu)
     if dev.type == "cpu":
-        return lucas_kanade_fused_ref(frame_prev, frame_curr, *args)
+        return lucas_kanade_fused_ref(
+            frame_prev, frame_curr, window_size, det_threshold,
+            gaussian_weights=gaussian_weights, weight_sigma=weight_sigma,
+            return_confidence=return_confidence, relaxed_order=relaxed_order,
+            window_mxu=window_mxu)
 
     lib = _build.load()
     h, w = frame_prev.shape[-2:]

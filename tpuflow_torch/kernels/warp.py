@@ -27,6 +27,13 @@ the vertical lerp.
 Frames come as one (H, W) plane or a (B, H, W) batch (the TPU kernel's
 batched entry, ``_warp_batched``); a batch is one kernel launch and each
 element is warped exactly as the same plane alone.
+
+``warp_banded`` and ``warp_banded_ref`` take ``warp_image_banded``'s
+parameters, in its order and with its defaults (the exact warp, flow not
+clamped): ``packed_u8`` / ``packed_u16`` choose the packing, and
+``tile_rows`` is accepted and ignored (the TPU's tiling). The keyword-only
+``packing`` names the packing instead; given with a packed flag that
+disagrees, it raises.
 """
 
 from __future__ import annotations
@@ -70,17 +77,35 @@ def _decode(image: torch.Tensor, packing: str) -> torch.Tensor:
     return q.to(torch.float32)
 
 
+def resolve_packing(packed_u8: bool, packed_u16: bool, packing: str | None) -> str:
+    """The packing named by the reference's flags or by ``packing``;
+    raises if both flags are set or ``packing`` disagrees with a flag."""
+    if packed_u8 and packed_u16:
+        raise ValueError("pick one packing: packed_u8 or packed_u16")
+    flagged = "u8" if packed_u8 else "u16" if packed_u16 else None
+    if packing is None:
+        return flagged or "exact"
+    if flagged is not None and flagged != packing:
+        raise ValueError(f"packing={packing!r} disagrees with packed_{flagged}=True")
+    return packing
+
+
 def warp_banded_ref(
     image: torch.Tensor,
     flow_u: torch.Tensor,
     flow_v: torch.Tensor,
     max_disp: int = 8,
+    tile_rows: int | None = None,
+    clamp_flow: bool = False,
     max_disp_v: int | None = None,
-    packing: str = "u8",
-    clamp_flow: bool = True,
+    packed_u8: bool = False,
+    packed_u16: bool = False,
+    *,
+    packing: str | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the banded warp kernel, for (H, W) planes
     or (B, H, W) batches."""
+    packing = resolve_packing(packed_u8, packed_u16, packing)
     if max_disp_v is None:
         max_disp_v = max_disp
     h, w = image.shape[-2:]
@@ -170,9 +195,13 @@ def warp_banded(
     flow_u: torch.Tensor,
     flow_v: torch.Tensor,
     max_disp: int = 8,
+    tile_rows: int | None = None,
+    clamp_flow: bool = False,
     max_disp_v: int | None = None,
-    packing: str = "u8",
-    clamp_flow: bool = True,
+    packed_u8: bool = False,
+    packed_u16: bool = False,
+    *,
+    packing: str | None = None,
 ) -> torch.Tensor:
     """Banded warp of an (H, W) plane or a (B, H, W) batch: the CUDA
     kernel for a CUDA tensor, the plain version for a CPU tensor. Bands up
@@ -181,12 +210,13 @@ def warp_banded(
     sides under ``MAX_SIDE``; it refuses, before it launches, a band whose
     staged rows exceed the card's shared memory a block, and the wrapper
     raises."""
+    packing = resolve_packing(packed_u8, packed_u16, packing)
     if max_disp_v is None:
         max_disp_v = max_disp
     check_args(image, flow_u, flow_v, max_disp, max_disp_v, packing, clamp_flow)
     if image.device.type == "cpu":
-        return warp_banded_ref(image, flow_u, flow_v, max_disp, max_disp_v, packing,
-                               clamp_flow)
+        return warp_banded_ref(image, flow_u, flow_v, max_disp, clamp_flow=clamp_flow,
+                               max_disp_v=max_disp_v, packing=packing)
 
     lib = _build.load()
     h, w = image.shape[-2:]
