@@ -26,7 +26,8 @@ failure raises and the script exits non-zero):
    of two 1080p planes (each element against the plain version and
    against the kernel's 2-D launch); K10 at
    windows 3/5/7, exact and relaxed Sobel, on a plane and a batch of two,
-   timed beside K6 and K3; K8 in its four kinds and K9 in both modes;
+   timed at each window beside K6, K7 and K3, with the mma.sync count of
+   a call from its grid; K8 in its four kinds and K9 in both modes;
 4. main paths: each path run with the launch counts reset just before and
    read just after; the two streams (16 frames each) also run through the
    plain versions on the card and are compared frame by frame; the
@@ -59,8 +60,10 @@ floor in (0, 1e-3) px.
 Each kernel's time is printed beside its bound (``eval/bounds.py``: the
 bytes one call must move over the card's 3.35 TB/s) and its share of it;
 the build prints ptxas's registers, spills and shared memory of the LK
-column-walk kernels and of each banded-warp instantiation. It prints one JSON object of the kernels' readings on
-the line before the last (time, plain version's time, bytes, bound,
+column-walk kernels, of each banded-warp instantiation and of each K10
+instantiation, and the HMMA instructions in each K10 instantiation. It
+prints one JSON object of the kernels' readings on the line before the
+last (time, plain version's time, bytes, bound,
 share, launches on the main path and per stream frame, and a one-call
 PyTorch yardstick's time where one exists, else null with the reason),
 and ``{"ok": true, "device": {...}}`` as the last line. Frames are
@@ -157,6 +160,8 @@ PATH_KERNELS = {
 # 6.1e-5; window 7: 1.3e-5 against 2.5e-5), which check_mxu re-checks. So
 # each limit is about twice the plain version's own error against f64.
 MXU_ATOL = {3: 2e-3, 5: 2e-4, 7: 5e-5}
+MMA_FLOP = 2 * 16 * 8 * 8  # one m16n8k8 mma.sync
+TF32_FLOPS = 495e12  # the H100 SXM's dense TF32 tensor-core rate (NVIDIA's data sheet)
 DET_RTOL = 2e-6  # of the plane's largest |det|
 # The warps' vertical bands (the adaptive ladder's 2/3/8, none, the widest).
 WARP_BANDS = (0, 2, 3, 8, 31)
@@ -552,8 +557,9 @@ def check_mxu(dev, a, b, rng, readings):
                   f"{label} " + " / ".join(f"{errs[label, w]:.3g}" for w in (3, 5, 7))
                   for label in ("K10", "plain", "K6")) + " px")
 
-    # Device time at window 5 beside the shift-sum kernels: the fused solve
-    # in exact order (K6), the refine in relaxed order (K3).
+    # Device time at windows 3/5/7 beside the shift-sum kernels (the fused
+    # solve in exact order, K6 and K7; the refine in relaxed order, K3) and
+    # the plain version; window 5 is the kernel's reading.
     conv = torch.tensor(False, device=dev)
     pairs = {
         "lk_fused_mxu": ((a, b), {}, lk.lucas_kanade_fused, lk.lucas_kanade_fused_ref,
@@ -563,17 +569,26 @@ def check_mxu(dev, a, b, rng, readings):
         "lk_refine_mxu": ((a, b, *flow1, conv), dict(max_disp_v=3.0, relaxed_order=True),
                           lk.lucas_kanade_refine, lk.lucas_kanade_refine_ref, "lk_refine"),
     }
+    mma = _build.load().tpuflow_lk_mxu_mma(HEIGHT, WIDTH)
     for name, (args, kw, fn, ref, shift_name) in pairs.items():
-        kw = dict(kw, window_size=5)
-        shift_ms = device_ms(lambda: fn(*args, **kw))
-        ms = device_ms(lambda: fn(*args, **kw, window_mxu=True))
-        plain_ms = device_ms(lambda: ref(*args, **kw, window_mxu=True))
-        again_shift = device_ms(lambda: fn(*args, **kw))
-        readings[name].update(ms=ms, plain_ms=plain_ms, shape=[HEIGHT, WIDTH],
-                              beside={shift_name: [shift_ms, again_shift]})
-        print(f"[kernels] {name} 1080x1920 window 5: {ms:.4f} ms (plain {plain_ms:.4f} ms; "
-              f"{_bound_note(name, (HEIGHT, WIDTH), ms)}); {shift_name} in the same call "
-              f"{shift_ms:.4f} and {again_shift:.4f} ms")
+        by_window = {}
+        for window in (3, 5, 7):
+            wkw = dict(kw, window_size=window)
+            shift_ms = device_ms(lambda: fn(*args, **wkw))
+            ms = device_ms(lambda: fn(*args, **wkw, window_mxu=True))
+            plain_ms = device_ms(lambda: ref(*args, **wkw, window_mxu=True))
+            again_shift = device_ms(lambda: fn(*args, **wkw))
+            by_window[window] = dict(ms=ms, plain_ms=plain_ms, beside={shift_name: [shift_ms,
+                                                                             again_shift]})
+            print(f"[kernels] {name} 1080x1920 window {window}: {ms:.4f} ms (plain "
+                  f"{plain_ms:.4f} ms; {_bound_note(name, (HEIGHT, WIDTH), ms)}); {shift_name} "
+                  f"in the same call {shift_ms:.4f} and {again_shift:.4f} ms")
+        readings[name].update(shape=[HEIGHT, WIDTH], mma=mma, by_window=by_window,
+                              **{k: by_window[5][k] for k in ("ms", "plain_ms", "beside")})
+    flop = mma * MMA_FLOP
+    print(f"[kernels] K10 issues {mma} mma.sync m16n8k8 a 1080x1920 call at every window "
+          f"(from its grid), {flop / 1e9:.2f} GFLOP: {flop / TF32_FLOPS * 1e3:.4f} ms at the "
+          f"card's {TF32_FLOPS / 1e12:.0f} TFLOP/s dense TF32")
 
 
 def shift_adds_conv(a: torch.Tensor, kind: str):
@@ -877,6 +892,8 @@ def profile_stream(a, b, config: str) -> None:
 
 _WALK_NAMES = {(0, 1): "K3", (0, 0): "K5", (1, 0): "K6", (1, 1): "K6 relaxed",
                (2, 0): "K7", (2, 1): "K7 relaxed"}
+_MXU_NAMES = {0: "refine", 1: "fused", 2: "|det|"}
+_MXU_ENTRY = r"\S*lk_mxu_kernelILi(\d)ELb(\d)ELi(\d)E"
 _WARP_NAMES = {(8, 1): "K1", (16, 1): "K2", (0, 1): "K4", (0, 0): "K4 unclamped"}
 
 
@@ -911,6 +928,31 @@ def walk_ptxas(log: str) -> dict[int, list[str]]:
         name = _WALK_NAMES[mode, relaxed] + (" taps" if taps else "")
         out.setdefault(window, []).append(f"{name} {regs} regs/{spill} B spilled/{smem} B smem")
     return out
+
+
+def mxu_ptxas(log: str) -> dict[int, list[str]]:
+    """ptxas's registers and spill stores of each K10 instantiation, by
+    window, and its shared memory a block (static and dynamic)."""
+    smem = _build.load().tpuflow_lk_mxu_smem
+    out: dict[int, list[str]] = {}
+    for (window, relaxed, mode), regs, spill, static in ptxas_usage(log, _MXU_ENTRY):
+        out.setdefault(window, []).append(
+            f"{_MXU_NAMES[mode]}{' relaxed' if relaxed else ''} {regs} regs/{spill} B spilled/"
+            f"{static + smem(window)} B smem")
+    return out
+
+
+def mxu_hmma(sass: str) -> dict[str, int]:
+    """HMMA instructions in each K10 instantiation's SASS (cuobjdump)."""
+    counts: dict[str, int] = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if re.search(_MXU_ENTRY, m.group(1)) else None
+        elif name and "HMMA" in line:
+            counts[name] = counts.get(name, 0) + 1
+    return counts
 
 
 def warp_ptxas(log: str) -> list[str]:
@@ -958,12 +1000,16 @@ def main() -> None:
     for window, entries in sorted(walk_ptxas(_build.build_log).items()):
         print(f"[build] LK column walk, window {window}: " + "; ".join(sorted(entries)))
     print("[build] banded warp: " + "; ".join(sorted(warp_ptxas(_build.build_log))))
+    for window, entries in sorted(mxu_ptxas(_build.build_log).items()):
+        print(f"[build] K10 window {window}: " + "; ".join(sorted(entries)))
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path())],
                               capture_output=True, text=True, check=True, timeout=120).stdout
+        per = mxu_hmma(sass)
         print(f"[build] tensor-core mma (HMMA) instructions in the library: "
-              f"{sass.count('HMMA')}")
+              f"{sass.count('HMMA')}; in each of the {len(per)} K10 instantiations "
+              f"{min(per.values(), default=0)}-{max(per.values(), default=0)}")
     except (OSError, subprocess.SubprocessError) as exc:
         print(f"[build] tensor-core mma count not taken: {exc}")
 

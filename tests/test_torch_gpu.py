@@ -465,6 +465,75 @@ def test_mxu_fused_kernel_on_planes(cuda, window, relaxed):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-4 if window == 3 else 1e-5)
 
 
+# K10's block (csrc/lk_mxu.cu) is 64x64 outputs, 8 warps of 16 rows by 32
+# columns, each walking its strip one 8-column tile at a time. Planes
+# smaller than a block down to 1x1, one row and one column, widths that end
+# mid tile (69, 203) and mid strip (100), a height that ends mid strip (72),
+# several blocks with ragged edges, and a batch of two.
+_MXU_SHAPES = [(1, 1), (1, 200), (200, 1), (37, 61), (72, 69), (64, 100), (130, 203),
+               (2, 130, 203)]
+# u, v on float frames, px by window: chip_smoke.MXU_ATOL. The batch's
+# frames hold weakly conditioned windows where the plain version's own f32
+# rounding shows: the kernel's earlier body (every intermediate in shared
+# memory) and this one both read 3.4e-4 / 3.4e-5 px there at windows 3 / 5
+# on an H100, above the 1e-4 / 1e-5 px that the other K10 tests' frames
+# meet.
+_MXU_FLOAT_ATOL = {3: 2e-3, 5: 2e-4, 7: 5e-5}
+
+
+@pytest.mark.parametrize("shape", _MXU_SHAPES)
+@pytest.mark.parametrize("window", [3, 5, 7])
+@pytest.mark.parametrize("relaxed", [False, True])
+@pytest.mark.parametrize("mode", ["refine", "refine_frozen", "fused", "fused_det"])
+def test_mxu_kernel_blocks_and_strips(cuda, shape, window, relaxed, mode):
+    # On 8-bit frames the window sums are exact in any order: max |d| 0.
+    # On float frames u, v within _MXU_FLOAT_ATOL, |det| within 2e-6 of
+    # the plane's largest, sums to rtol 1e-5. A
+    # frozen refine passes the clipped flow through; a batch element equals
+    # its 2-D launch.
+    rng = np.random.default_rng(window * 100 + shape[-1])
+    smooth = _smooth(rng, shape, cuda)
+    u, v = _rand(rng, shape, -9, 9, cuda), _rand(rng, shape, -9, 9, cuda)
+    batch = shape[0] if len(shape) == 3 else 0
+    frozen = mode == "refine_frozen"
+    conv = (torch.tensor([frozen] + [False] * (batch - 1), device=cuda) if batch
+            else torch.tensor(frozen, device=cuda))
+    refine = mode.startswith("refine")
+    kw = dict(window_size=window, relaxed_order=relaxed, window_mxu=True)
+    if refine:
+        kw.update(max_disp_v=3.0)
+        kernel, plain, name = lk.lucas_kanade_refine, lk.lucas_kanade_refine_ref, "lk_refine_mxu"
+    else:
+        kw.update(return_confidence=mode == "fused_det")
+        kernel, plain = lk.lucas_kanade_fused, lk.lucas_kanade_fused_ref
+        name = "lk_fused_conf_mxu" if mode == "fused_det" else "lk_fused_mxu"
+
+    def call(fn, p, c, uu, vv, cv):
+        return fn(p, c, uu, vv, cv, **kw) if refine else fn(p, c, **kw)
+
+    for frames, (p, c) in (("8-bit", tuple(f.round() for f in smooth)), ("float", smooth)):
+        before = launch_counts()[name]
+        got, want = call(kernel, p, c, u, v, conv), call(plain, p, c, u, v, conv)
+        torch.cuda.synchronize()
+        assert launch_counts()[name] == before + 1
+        atol = 0.0 if frames == "8-bit" else _MXU_FLOAT_ATOL[window]
+        for g, w in zip(got[:2], want[:2]):
+            torch.testing.assert_close(g, w, rtol=0, atol=atol)
+        if mode == "fused_det":
+            det_atol = 0.0 if frames == "8-bit" else 2e-6 * float(want[2].max())
+            torch.testing.assert_close(got[2], want[2], rtol=0, atol=det_atol)
+        if refine:
+            for g, w in zip(got[2:], want[2:]):
+                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+        if frozen:
+            first = (lambda t: t[0]) if batch else (lambda t: t)
+            assert torch.equal(first(got[0]), first(u).clamp(-8, 8))
+        for b in range(batch):
+            single = call(kernel, p[b], c[b], u[b], v[b], conv[b:b + 1])
+            for g, s1 in zip(got, single):
+                assert torch.equal(g[b], s1)
+
+
 @pytest.mark.parametrize("kind", shift_ablation.KINDS)
 def test_shift_ablation_kernel_bit_exact(cuda, kind):
     a = shift_ablation.make_input(cuda)

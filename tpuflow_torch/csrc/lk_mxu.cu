@@ -8,27 +8,17 @@
 // Sobel form follows `relaxed`; the window is uniform (Gaussian taps take
 // precedence over window_mxu, so the wrapper launches lk_fused.cu's
 // kernel for them). What is computed, and the solve and epilogue, are
-// lk_tile.cuh's; only the window sums differ. Bound, unlike K3/K6: shared
-// memory, not DRAM; the question this kernel answers is whether mma.sync
-// window sums beat shifted adds.
-//
-// Staged tile body. One block of 256 threads per 32x16 output tile; the
-// tile and its halo (Sobel 1 + window half, up to 4 px at window 7) of
-// both frames are staged once in shared memory, and every intermediate
-// plane (avg, it, ix, iy, the five row-summed products) stays there, never
-// in device memory: the mma operands are built from those planes. The
-// column walk of lk_tile.cuh keeps no plane in shared memory, so K10 keeps
-// this body of its own.
+// lk_tile.cuh's (`sobel()`, `solve_store()`); only the window sums differ.
 //
 // Window sums on the tensor cores. The TPU branch asked whether the matrix
 // unit beats shifted adds for the window sums; on Hopper the same question
-// is mma.sync against the shift tree. Each of the five planes P (gradient
-// region, kGH x kGW) is summed as two banded products per 32x16 tile, both
-// with m16n8k8 TF32 mma.sync:
-//   rows = Wv @ P, Wv the (16, kGH) band Wv[i][k] = (i <= k < i + w):
-//     M = 16, K = kGH <= 22 (3 k-steps), N = kGW <= 38 (5 n-tiles);
-//   sums = rows @ Wh, Wh the (kGW, 32) band Wh[k][j] = (j <= k < j + w):
-//     M = 16, K = kGW <= 38 (5 k-steps), N = 32 (4 n-tiles).
+// is mma.sync against the shift tree. Each of the five product planes P is
+// summed as two banded products, both with m16n8k8 TF32 mma.sync:
+//   rows = Wv @ P, Wv the (16, 16 + w - 1) band Wv[i][k] = (i <= k < i + w),
+//     3 k-steps at every window;
+//   sums = rows @ Wh, Wh the band Wh[k][j] = (j <= k < j + w): 8 output
+//     columns read 8 + w - 1 <= 14 row-sum columns, two k-steps, both
+//     with nonzero band entries (no mma multiplies an all-zero band).
 // The bands are generated in registers (0 or 1, exact in TF32). TF32
 // keeps 10 mantissa bits, so every data operand x is split into three
 // TF32 parts, hi = tf32(x), mid = tf32(x - hi), lo = x - hi - mid, whose
@@ -43,51 +33,102 @@
 // any. The products are exact; the sums still round otherwise than the
 // plain version's (torch.matmul in true f32), so K10 is held to it within
 // stated limits, not bit for bit.
+//
+// Sums in registers. The m16n8k8 accumulator of lane (g = lane / 4,
+// t = lane % 4) holds D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]; its
+// A operand holds A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]. Number the
+// horizontal product's k-slots so that slot t is row-sum column 2t and
+// slot t + 4 column 2t + 1 (the band's B fragment, generated in registers,
+// takes the same numbering): a vertical accumulator is then the horizontal
+// pass's A fragment register for register, and the horizontal result lands
+// on the same four pixels in every plane. So the row sums and the window
+// sums never leave the lane that forms them, and the solve runs on the
+// fragments.
+//
+// Block: 64x64 outputs, 8 warps; each warp owns a strip of 16 output rows
+// by 32 columns and walks across it one 8-column tile at a time: it loads
+// the next gradient tile's three planes once (two rows a k-step a lane),
+// then, plane by plane, forms that tile's vertical sums (the product split
+// once), runs the horizontal pass on the carried tile and the new one, and
+// keeps the new one; then it solves its four pixels and stores each row's
+// two as one float2 where the width is even. Plane by plane keeps one
+// plane's accumulators live at a time (all five at once spilled at the
+// 128 registers that two blocks an SM allow). Shared memory holds only the
+// staged avg and the three gradient planes (pitch 72 floats, 8 mod 32
+// banks, so a B fragment's four rows by eight columns load without bank
+// conflicts); the frames are first copied as they are by cp.async into
+// the gradient planes' space: 73.8-80.4 KB a block at windows 3-7, two
+// blocks an SM. A strip takes 5 vertical and 4 horizontal tiles, 345 mma
+// (15 a k-step: 5 planes x 3 parts).
+//
+// Bound: device memory (16-24 B a pixel, lk_tile.cuh). What this body
+// spends beyond it is on chip, in instructions: the three-way splits (six
+// operations each, 285 a lane a strip at window 5) are ~40% of a strip's,
+// the staging and the Sobel about a quarter of the time, the tensor pipe
+// about an eighth (PERF.md, measured on an H100).
+// Batches: blockIdx.z is the batch element; each element reads its own
+// planes and converged flag and writes its own block partials.
 
 #include "lk_tile.cuh"
+#include "warp.cuh"
 
 using namespace tpuflow_lk;
 
 namespace {
 
-constexpr int kTW = 32;  // output tile width
-constexpr int kTH = 16;  // output tile height
+constexpr int kTW = 64;  // output tile width
+constexpr int kTH = 64;  // output tile height
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kStripRows = 16;               // a warp's output rows
+constexpr int kStripCols = 32;               // and columns
+constexpr int kStripTiles = kStripCols / 8;  // 8-column output tiles a strip
+static_assert(kWarps * kStripRows * kStripCols == kTH * kTW, "warps tile the block");
+constexpr int kPitch = 72;  // gradient planes' row pitch in floats
+constexpr int kKT = 3;      // vertical k-steps: 16 + w - 1 <= 22 rows
 
-// Padded-frame read: symmetric by one pixel, zeros beyond.
-__device__ __forceinline__ float padded(const float* __restrict__ img, int r,
-                                        int c, int height, int width) {
-  if (r == -1) r = 0;
-  else if (r == height) r = height - 1;
-  if (c == -1) c = 0;
-  else if (c == width) c = width - 1;
-  if (r < 0 || r >= height || c < 0 || c >= width) return 0.0f;
-  return __ldg(img + (size_t)r * width + c);
-}
+// The block's shared memory at a window: the staged avg (kAH x kAW) and
+// the three gradient planes (kGH x kPitch).
+template <int kWindow>
+struct Tile {
+  static constexpr int kHalf = kWindow / 2;
+  static constexpr int kR = kHalf + 1;  // halo: Sobel 1 + window half
+  static constexpr int kAW = kTW + 2 * kR;
+  static constexpr int kAH = kTH + 2 * kR;
+  static constexpr int kGW = kTW + 2 * kHalf;  // gradient region
+  static constexpr int kGH = kTH + 2 * kHalf;
+  static constexpr int kPlane = kGH * kPitch;
+  // The raw frames are staged where ix and iy go (and past them).
+  static constexpr int kFloats =
+      kAH * kAW + (3 * kPlane > kPlane + 2 * kAH * kAW ? 3 * kPlane : kPlane + 2 * kAH * kAW);
+  static_assert(kGW <= kPitch, "gradient rows fit the pitch");
+  static_assert(kStripRows + kWindow - 1 <= 8 * kKT, "vertical k-steps cover the window");
+};
 
-// f32 -> TF32 (round to nearest, ties away), as a 32-bit operand.
+// f32 -> TF32, rounded to nearest with ties away from zero, as a 32-bit
+// operand: cvt.rna.tf32.f32's result for every finite x, in two integer
+// operations (ptxas emits four for the cvt, with a NaN test this data
+// never needs): half of the dropped 13 bits' place added to the magnitude,
+// then those bits cleared.
 __device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// Part 0 (hi), 1 (mid) or 2 (lo) of x's exact three-way TF32 split.
-__device__ __forceinline__ uint32_t tf32_part(float x, int part) {
+// x's exact three-way TF32 split: hi, mid, lo.
+__device__ __forceinline__ void tf32_split(float x, uint32_t (&p)[3]) {
   const float hi = __uint_as_float(to_tf32(x));
-  if (part == 0) return __float_as_uint(hi);
   const float r = x - hi;
   const float mid = __uint_as_float(to_tf32(r));
-  if (part == 1) return __float_as_uint(mid);
-  return __float_as_uint(r - mid);
+  p[0] = __float_as_uint(hi);
+  p[1] = __float_as_uint(mid);
+  p[2] = __float_as_uint(r - mid);
 }
 
 constexpr uint32_t kOne = 0x3f800000u;  // 1.0f, exact in TF32
 
-// d += a @ b, one m16n8k8 TF32 tile with an f32 accumulator. Fragments
-// (g = lane / 4, t = lane % 4): a0 = A[g][t], a1 = A[g+8][t],
-// a2 = A[g][t+4], a3 = A[g+8][t+4]; b0 = B[t][g], b1 = B[t+4][g];
+// d += a @ b, one m16n8k8 TF32 tile with an f32 accumulator. Fragments:
+// a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4];
+// b0 = B[t][g], b1 = B[t+4][g];
 // d0 = D[g][2t], d1 = D[g][2t+1], d2 = D[g+8][2t], d3 = D[g+8][2t+1].
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -98,137 +139,100 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Product plane q at gradient-region pixel (k, h).
-template <int kGH, int kGW>
-__device__ __forceinline__ float product(const float (&ix_s)[kGH][kGW],
-                                         const float (&iy_s)[kGH][kGW],
-                                         const float (&it_s)[kGH][kGW], int q,
-                                         int k, int h) {
-  const float gx = ix_s[k][h], gy = iy_s[k][h], gt = it_s[k][h];
-  return q == 0 ? gx * gx : q == 1 ? gy * gy : q == 2 ? gx * gy
-       : q == 3 ? gx * gt : gy * gt;
-}
-
-// d[part] += a @ b[part] for the three parts of a data operand b.
-__device__ __forceinline__ void mma_parts(float (&d)[3][4], const uint32_t (&a)[4],
-                                          const float (&b)[2]) {
-#pragma unroll
-  for (int part = 0; part < 3; ++part) {
-    const uint32_t bp[2] = {tf32_part(b[0], part), tf32_part(b[1], part)};
-    mma_tf32(d[part], a, bp);
-  }
-}
-
-// d[part] += a[part] @ b for the three parts of a data operand a.
-__device__ __forceinline__ void mma_parts(float (&d)[3][4], const float (&a)[4],
-                                          const uint32_t (&b)[2]) {
-#pragma unroll
-  for (int part = 0; part < 3; ++part) {
-    const uint32_t ap[4] = {tf32_part(a[0], part), tf32_part(a[1], part),
-                            tf32_part(a[2], part), tf32_part(a[3], part)};
-    mma_tf32(d[part], ap, b);
-  }
-}
-
 // The three parts' sums, element i: (lo + mid) + hi.
 __device__ __forceinline__ float combine(const float (&d)[3][4], int i) {
   return (d[2][i] + d[1][i]) + d[0][i];
 }
 
-// Vertical pass on the tensor cores: rows_s[q] = Wv @ P_q for the five
-// planes, one warp per (plane, 8-column tile).
-template <int kWindow, int kGH, int kGW>
-__device__ __forceinline__ void mxu_rows(const float (&ix_s)[kGH][kGW],
-                                         const float (&iy_s)[kGH][kGW],
-                                         const float (&it_s)[kGH][kGW],
-                                         float (&rows_s)[5][kTH][kGW]) {
-  constexpr int kNT = (kGW + 7) / 8;
-  constexpr int kKT = (kGH + 7) / 8;
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  for (int task = threadIdx.x / 32; task < 5 * kNT; task += kWarps) {
-    const int q = task / kNT, n0 = (task % kNT) * 8;
-    const int h = n0 + g;  // this lane's B column
-    float d[3][4] = {};
+// One gradient tile's three planes at this lane's B places: gradient rows
+// kt*8 + t (j = 0) and kt*8 + t + 4 (j = 1) of the strip, one column.
+struct Grads {
+  float x[kKT][2], y[kKT][2], t[kKT][2];
+};
+
+// Loads a tile's gradients, zero at rows past the window or columns past
+// the region (read at pixel 0 instead, so no lane branches). Rows kt*8 + 4
+// .. kt*8 + 7 lie past the window in every lane when kt*8 + 4 >= the
+// strip's rows (the last k-step at windows 3 and 5): not loaded at all.
+template <int kWindow>
+__device__ __forceinline__ void load_grads(const float* ix, const float* iy, const float* it,
+                                           int row0, int col, bool col_ok, Grads& gr) {
+  constexpr int kRows = kStripRows + kWindow - 1;  // gradient rows the strip reads
+  const int t = threadIdx.x % 4;
 #pragma unroll
-    for (int kt = 0; kt < kKT; ++kt) {
-      const int k0 = kt * 8 + t, k1 = k0 + 4;
-      const uint32_t a[4] = {
-          (k0 >= g && k0 < g + kWindow) ? kOne : 0u,
-          (k0 >= g + 8 && k0 < g + 8 + kWindow) ? kOne : 0u,
-          (k1 >= g && k1 < g + kWindow) ? kOne : 0u,
-          (k1 >= g + 8 && k1 < g + 8 + kWindow) ? kOne : 0u,
-      };
-      const float b[2] = {
-          (k0 < kGH && h < kGW) ? product(ix_s, iy_s, it_s, q, k0, h) : 0.0f,
-          (k1 < kGH && h < kGW) ? product(ix_s, iy_s, it_s, q, k1, h) : 0.0f,
-      };
-      mma_parts(d, a, b);
+  for (int kt = 0; kt < kKT; ++kt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int k = kt * 8 + 4 * j + t;
+      const bool valid = kt * 8 + 4 * j < kRows && col_ok && k < kRows;
+      const int at = valid ? (row0 + k) * kPitch + col : 0;
+      gr.x[kt][j] = valid ? ix[at] : 0.0f;
+      gr.y[kt][j] = valid ? iy[at] : 0.0f;
+      gr.t[kt][j] = valid ? it[at] : 0.0f;
     }
-    const int c = n0 + 2 * t;
-    if (c < kGW) {
-      rows_s[q][g][c] = combine(d, 0);
-      rows_s[q][g + 8][c] = combine(d, 2);
-    }
-    if (c + 1 < kGW) {
-      rows_s[q][g][c + 1] = combine(d, 1);
-      rows_s[q][g + 8][c + 1] = combine(d, 3);
-    }
-  }
 }
 
-// Horizontal pass on the tensor cores: sums_s[q] = rows_s[q] @ Wh, one
-// warp per (plane, 8-column output tile).
-template <int kWindow, int kGW>
-__device__ __forceinline__ void mxu_cols(const float (&rows_s)[5][kTH][kGW],
-                                         float (&sums_s)[5][kTH][kTW]) {
-  constexpr int kNT = kTW / 8;
-  constexpr int kKT = (kGW + 7) / 8;
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  for (int task = threadIdx.x / 32; task < 5 * kNT; task += kWarps) {
-    const int q = task / kNT, n0 = (task % kNT) * 8;
-    const int j = n0 + g;  // this lane's B column
-    float d[3][4] = {};
+// Product plane q (ix*ix, iy*iy, ix*iy, ix*it, iy*it) at one place.
+__device__ __forceinline__ float product(const Grads& gr, int q, int kt, int j) {
+  const float gx = gr.x[kt][j], gy = gr.y[kt][j], gt = gr.t[kt][j];
+  return q == 0 ? gx * gx : q == 1 ? gy * gy : q == 2 ? gx * gy : q == 3 ? gx * gt : gy * gt;
+}
+
+// Vertical pass of plane q on one gradient tile: v = (Wv @ P_q) as this
+// lane's accumulator fragment, the parts combined. `band` is Wv's A
+// fragment at each k-step.
+template <int kWindow>
+__device__ __forceinline__ void vertical(const Grads& gr, int q, const uint32_t (&band)[kKT][4],
+                                         float (&v)[4]) {
+  constexpr int kRows = kStripRows + kWindow - 1;
+  float d[3][4] = {};
 #pragma unroll
-    for (int kt = 0; kt < kKT; ++kt) {
-      const int k0 = kt * 8 + t, k1 = k0 + 4;
-      const float a[4] = {
-          k0 < kGW ? rows_s[q][g][k0] : 0.0f,
-          k0 < kGW ? rows_s[q][g + 8][k0] : 0.0f,
-          k1 < kGW ? rows_s[q][g][k1] : 0.0f,
-          k1 < kGW ? rows_s[q][g + 8][k1] : 0.0f,
-      };
-      const uint32_t b[2] = {
-          (k0 >= j && k0 < j + kWindow) ? kOne : 0u,
-          (k1 >= j && k1 < j + kWindow) ? kOne : 0u,
-      };
-      mma_parts(d, a, b);
+  for (int kt = 0; kt < kKT; ++kt) {
+    uint32_t b0[3], b1[3] = {0u, 0u, 0u};
+    tf32_split(product(gr, q, kt, 0), b0);
+    if (kt * 8 + 4 < kRows) tf32_split(product(gr, q, kt, 1), b1);
+#pragma unroll
+    for (int part = 0; part < 3; ++part) {
+      const uint32_t b[2] = {b0[part], b1[part]};
+      mma_tf32(d[part], band[kt], b);
     }
-    const int c = n0 + 2 * t;
-    sums_s[q][g][c] = combine(d, 0);
-    sums_s[q][g][c + 1] = combine(d, 1);
-    sums_s[q][g + 8][c] = combine(d, 2);
-    sums_s[q][g + 8][c + 1] = combine(d, 3);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = combine(d, i);
+}
+
+// d[part] += (the vertical fragment v, as an A fragment in the permuted
+// k-slots)[part] @ band for the three parts of v.
+__device__ __forceinline__ void horizontal_step(float (&d)[3][4], const float (&v)[4],
+                                                const uint32_t (&band)[2]) {
+  uint32_t a[4][3];
+  tf32_split(v[0], a[0]);  // A[g][slot t]       = rows[g][2t]
+  tf32_split(v[2], a[1]);  // A[g+8][slot t]     = rows[g+8][2t]
+  tf32_split(v[1], a[2]);  // A[g][slot t+4]     = rows[g][2t+1]
+  tf32_split(v[3], a[3]);  // A[g+8][slot t+4]   = rows[g+8][2t+1]
+#pragma unroll
+  for (int part = 0; part < 3; ++part) {
+    const uint32_t ap[4] = {a[0][part], a[1][part], a[2][part], a[3][part]};
+    mma_tf32(d[part], ap, band);
   }
 }
 
 template <int kWindow, bool kRelaxed, int kMode>
-__global__ void __launch_bounds__(kThreads) lk_mxu_kernel(const LkArgs args) {
+__global__ void __launch_bounds__(kThreads, 2) lk_mxu_kernel(const LkArgs args) {
   static_assert(kWindow == 3 || kWindow == 5 || kWindow == 7, "window 3/5/7");
-  constexpr int kHalf = kWindow / 2;
-  constexpr int kR = kHalf + 1;          // halo: Sobel 1 + window half
-  constexpr int kAW = kTW + 2 * kR;      // staged avg tile
-  constexpr int kAH = kTH + 2 * kR;
-  constexpr int kGW = kTW + 2 * kHalf;   // gradient region
-  constexpr int kGH = kTH + 2 * kHalf;
+  using T = Tile<kWindow>;
+  constexpr int kHalf = T::kHalf, kR = T::kR, kAW = T::kAW, kAH = T::kAH;
+  constexpr int kGW = T::kGW, kGH = T::kGH;
 
-  __shared__ float avg_s[kAH][kAW];
-  __shared__ float it_s[kGH][kGW];
-  __shared__ float ix_s[kGH][kGW];
-  __shared__ float iy_s[kGH][kGW];
-  __shared__ float rows_s[5][kTH][kGW];
-  __shared__ float sums_s[5][kTH][kTW];
-  __shared__ float red_u[kThreads];  // refine only
-  __shared__ float red_v[kThreads];
+  extern __shared__ float smem[];
+  float* avg_s = smem;                 // kAH x kAW
+  float* it_s = smem + kAH * kAW;      // kGH x kPitch each
+  float* ix_s = it_s + T::kPlane;
+  float* iy_s = ix_s + T::kPlane;
+  float* raw_p = ix_s;                 // kAH x kAW each, until the Sobel
+  float* raw_c = ix_s + kAH * kAW;
+  __shared__ float red_u[kWarps];  // refine only: one partial a warp
+  __shared__ float red_v[kWarps];
 
   const int height = args.height, width = args.width;
   const int tid = threadIdx.x;
@@ -239,13 +243,38 @@ __global__ void __launch_bounds__(kThreads) lk_mxu_kernel(const LkArgs args) {
   const float* curr = args.curr + plane;
 
   // Stage the padded tile: avg over the whole halo, it over the gradient
-  // region. avg_s[r][c] is image pixel (r0 + r - kR, c0 + c - kR).
-  for (int k = tid; k < kAH * kAW; k += kThreads) {
-    const int r = k / kAW, c = k % kAW;
-    const float p = padded(prev, r0 + r - kR, c0 + c - kR, height, width);
-    const float q = padded(curr, r0 + r - kR, c0 + c - kR, height, width);
-    avg_s[r][c] = (p + q) * 0.5f;
-    if (r >= 1 && r < kAH - 1 && c >= 1 && c < kAW - 1) it_s[r - 1][c - 1] = p - q;
+  // region. avg_s[r][c] is image pixel (r0 + r - kR, c0 + c - kR), read
+  // from the frames padded symmetric by one pixel and with zeros beyond.
+  // The two frames are first copied as they are by 4-byte cp.async (zero
+  // filled beyond the frame) into the space the gradient planes take
+  // later, every copy in flight at once: each thread takes one or two
+  // columns, its padded source column worked out once, and every
+  // kStageRows-th row of them. Then avg and it are formed from the copies.
+  constexpr int kStageRows = kThreads / 64;
+  for (int c = tid % 64; c < kAW; c += 64) {
+    int xs = c0 + c - kR;
+    xs = xs == -1 ? 0 : xs == width ? width - 1 : xs;
+    const bool x_ok = xs >= 0 && xs < width;
+    for (int r = tid / 64; r < kAH; r += kStageRows) {
+      int ys = r0 + r - kR;
+      ys = ys == -1 ? 0 : ys == height ? height - 1 : ys;
+      const bool ok = x_ok && ys >= 0 && ys < height;
+      const size_t o = ok ? (size_t)ys * width + xs : 0;
+      const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(raw_p + r * kAW + c));
+      cp_async4(dst, prev + o, ok);
+      cp_async4(dst + kAH * kAW * sizeof(float), curr + o, ok);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int c = tid % 64; c < kAW; c += 64) {
+    const bool it_col = c >= 1 && c < kAW - 1;
+    for (int r = tid / 64; r < kAH; r += kStageRows) {
+      const float p = raw_p[r * kAW + c], q = raw_c[r * kAW + c];
+      avg_s[r * kAW + c] = (p + q) * 0.5f;
+      if (it_col && r >= 1 && r < kAH - 1) it_s[(r - 1) * kPitch + c - 1] = p - q;
+    }
   }
   __syncthreads();
 
@@ -254,62 +283,157 @@ __global__ void __launch_bounds__(kThreads) lk_mxu_kernel(const LkArgs args) {
   // walk's sobel() (lk_tile.cuh), so both kernels share one order.
   for (int k = tid; k < kGH * kGW; k += kThreads) {
     const int g = k / kGW, h = k % kGW;
-    sobel<kRelaxed>(avg_s[g][h], avg_s[g + 1][h], avg_s[g + 2][h], avg_s[g][h + 1],
-                    avg_s[g + 2][h + 1], avg_s[g][h + 2], avg_s[g + 1][h + 2],
-                    avg_s[g + 2][h + 2], ix_s[g][h], iy_s[g][h]);
+    const float* a = avg_s + g * kAW + h;
+    sobel<kRelaxed>(a[0], a[kAW], a[2 * kAW], a[1], a[2 * kAW + 1], a[2], a[kAW + 2],
+                    a[2 * kAW + 2], ix_s[g * kPitch + h], iy_s[g * kPitch + h]);
   }
   __syncthreads();
 
-  // Both window passes as banded products on the tensor cores.
-  mxu_rows<kWindow>(ix_s, iy_s, it_s, rows_s);
-  __syncthreads();
-  mxu_cols<kWindow>(rows_s, sums_s);
-  __syncthreads();
+  // Each warp's strip: output rows row0 .. row0 + 15 and columns col0 ..
+  // col0 + 31 of the block; gradient rows row0 .. and columns col0 .. (the
+  // gradient region starts kHalf before the first output).
+  const int lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int row0 = (tid / 32) / 2 * kStripRows;
+  const int col0 = (tid / 32) % 2 * kStripCols;
 
-  // The solve and the mode's epilogue.
+  // The bands depend only on the lane and the k-step. Vertical: Wv's A
+  // fragment (output row i reads gradient rows i .. i + w - 1);
+  // horizontal: Wh's B fragment in the permuted k-slots (slot t is tile
+  // column 2t, slot t + 4 column 2t + 1), k-step 0 the tile's own row-sum
+  // columns, k-step 1 the next tile's.
+  uint32_t vband[kKT][4];
+#pragma unroll
+  for (int kt = 0; kt < kKT; ++kt) {
+    const int k0 = kt * 8 + t, k1 = k0 + 4;
+    vband[kt][0] = (unsigned)(k0 - g) < (unsigned)kWindow ? kOne : 0u;
+    vband[kt][1] = (unsigned)(k0 - g - 8) < (unsigned)kWindow ? kOne : 0u;
+    vband[kt][2] = (unsigned)(k1 - g) < (unsigned)kWindow ? kOne : 0u;
+    vband[kt][3] = (unsigned)(k1 - g - 8) < (unsigned)kWindow ? kOne : 0u;
+  }
+  uint32_t hband[2][2];
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    const int k0 = ks * 8 + 2 * t, k1 = k0 + 1;
+    hband[ks][0] = (unsigned)(k0 - g) < (unsigned)kWindow ? kOne : 0u;
+    hband[ks][1] = (unsigned)(k1 - g) < (unsigned)kWindow ? kOne : 0u;
+  }
+
   bool frozen = false;
   if constexpr (kMode == kRefine) frozen = args.converged[blockIdx.z] != 0;
   float acc_u = 0.0f, acc_v = 0.0f;
-  for (int k = tid; k < kTH * kTW; k += kThreads) {
-    const int i = k / kTW, j = k % kTW;
-    const int y = r0 + i, x = c0 + j;
-    if (y >= height || x >= width) continue;
-    float s[5];
+
+  // v[q]: the current tile's vertical sums of plane q.
+  float v[5][4];
+  Grads gr;
+  load_grads<kWindow>(ix_s, iy_s, it_s, row0, col0 + g, col0 + g < kGW, gr);
 #pragma unroll
-    for (int q = 0; q < 5; ++q) s[q] = sums_s[q][i][j];
-    const size_t o = plane + (size_t)y * width + x;
-    float u_in = 0.0f, v_in = 0.0f;
-    if constexpr (kMode == kRefine) {
-      u_in = args.u_in[o];
-      v_in = args.v_in[o];
+  for (int q = 0; q < 5; ++q) vertical<kWindow>(gr, q, vband, v[q]);
+#pragma unroll
+  for (int m = 0; m < kStripTiles; ++m) {
+    const int col = col0 + 8 * (m + 1) + g;
+    load_grads<kWindow>(ix_s, iy_s, it_s, row0, col, col < kGW, gr);
+    // Plane by plane: the next tile's vertical sums, then the horizontal
+    // pass on both tiles, which leaves this lane's four pixels of output
+    // tile m in the accumulator's places.
+    float s[5][4];
+#pragma unroll
+    for (int q = 0; q < 5; ++q) {
+      float next[4];
+      vertical<kWindow>(gr, q, vband, next);
+      float d[3][4] = {};
+      horizontal_step(d, v[q], hband[0]);
+      horizontal_step(d, next, hband[1]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[q][i] = combine(d, i);
+        v[q][i] = next[i];
+      }
     }
-    solve_store<kHalf, kMode>(args, s, y, x, true, frozen, u_in, v_in, args.u_out + o,
-                              args.v_out + o, args.det_out + o, acc_u, acc_v);
+
+    // The solve and the mode's epilogue on this lane's four pixels (rows
+    // y0 and y0 + 8, columns x and x + 1, x even), into registers; then
+    // each row's two outputs are stored as one aligned float2 where the
+    // width is even (a warp's store then fills whole 32-byte sectors),
+    // else one by one.
+    const int y0 = r0 + row0 + g;
+    const int x = c0 + col0 + 8 * m + 2 * t;
+    float u_out[4], v_out[4], det_out[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int y = y0 + (i >= 2 ? 8 : 0), xi = x + (i & 1);
+      const bool inside = y < height && xi < width;
+      const float sums[5] = {s[0][i], s[1][i], s[2][i], s[3][i], s[4][i]};
+      float u_in = 0.0f, v_in = 0.0f;
+      if constexpr (kMode == kRefine) {
+        if (inside) {
+          u_in = args.u_in[plane + (size_t)y * width + xi];
+          v_in = args.v_in[plane + (size_t)y * width + xi];
+        }
+      }
+      solve_store<kHalf, kMode>(args, sums, y, xi, inside, frozen, u_in, v_in, &u_out[i],
+                                &v_out[i], &det_out[i], acc_u, acc_v);
+    }
+    const bool pairs = (width & 1) == 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int y = y0 + 8 * h;
+      if (y >= height || x >= width) continue;
+      const size_t o = plane + (size_t)y * width + x;
+      if (pairs) {
+        *reinterpret_cast<float2*>(args.u_out + o) = make_float2(u_out[2 * h], u_out[2 * h + 1]);
+        *reinterpret_cast<float2*>(args.v_out + o) = make_float2(v_out[2 * h], v_out[2 * h + 1]);
+        if constexpr (kMode == kFusedDet)
+          *reinterpret_cast<float2*>(args.det_out + o) =
+              make_float2(det_out[2 * h], det_out[2 * h + 1]);
+      } else {
+        args.u_out[o] = u_out[2 * h];
+        args.v_out[o] = v_out[2 * h];
+        if constexpr (kMode == kFusedDet) args.det_out[o] = det_out[2 * h];
+        if (x + 1 < width) {
+          args.u_out[o + 1] = u_out[2 * h + 1];
+          args.v_out[o + 1] = v_out[2 * h + 1];
+          if constexpr (kMode == kFusedDet) args.det_out[o + 1] = det_out[2 * h + 1];
+        }
+      }
+    }
   }
 
   if constexpr (kMode == kRefine) {
-    red_u[tid] = acc_u;
-    red_v[tid] = acc_v;
-    __syncthreads();
-    for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-      if (tid < stride) {
-        red_u[tid] += red_u[tid + stride];
-        red_v[tid] += red_v[tid + stride];
-      }
-      __syncthreads();
+    // A fixed order, so the early exit is reproducible: a shuffle tree in
+    // each warp, then the warps' partials in turn.
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      acc_u += __shfl_xor_sync(0xffffffffu, acc_u, off);
+      acc_v += __shfl_xor_sync(0xffffffffu, acc_v, off);
     }
+    if (lane == 0) {
+      red_u[tid / 32] = acc_u;
+      red_v[tid / 32] = acc_v;
+    }
+    __syncthreads();
     if (tid == 0) {
+      float su = red_u[0], sv = red_v[0];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) {
+        su += red_u[w];
+        sv += red_v[w];
+      }
       const int b = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-      args.part_du[b] = red_u[0];
-      args.part_dv[b] = red_v[0];
+      args.part_du[b] = su;
+      args.part_dv[b] = sv;
     }
   }
 }
 
 template <int kWindow, bool kRelaxed, int kMode>
 int launch_mxu(const LkArgs& args, int batch, cudaStream_t stream) {
+  static int opted[tpuflow_warp::kMaxDevices] = {};
+  const auto kernel = lk_mxu_kernel<kWindow, kRelaxed, kMode>;
+  const size_t smem = Tile<kWindow>::kFloats * sizeof(float);
+  const cudaError_t err = tpuflow_warp::allow_smem(kernel, smem, opted);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((args.width + kTW - 1) / kTW, (args.height + kTH - 1) / kTH, batch);
-  lk_mxu_kernel<kWindow, kRelaxed, kMode><<<grid, kThreads, 0, stream>>>(args);
+  kernel<<<grid, kThreads, smem, stream>>>(args);
   return (int)cudaGetLastError();
 }
 
@@ -331,6 +455,25 @@ int launch_mxu_window(int window, const LkArgs& args, int batch, cudaStream_t st
 // refine (part_du and part_dv hold batch times as many).
 extern "C" int tpuflow_lk_refine_mxu_blocks(int height, int width) {
   return ((width + kTW - 1) / kTW) * ((height + kTH - 1) / kTH);
+}
+
+// The mma.sync one batch element of a window_mxu call issues: each warp's
+// strip takes kStripTiles + 1 vertical tiles of kKT k-steps and
+// kStripTiles horizontal tiles of 2, each k-step 5 planes x 3 parts.
+extern "C" long long tpuflow_lk_mxu_mma(int height, int width) {
+  const long long per_strip = 15LL * ((kStripTiles + 1) * kKT + 2 * kStripTiles);
+  return per_strip * kWarps * tpuflow_lk_refine_mxu_blocks(height, width);
+}
+
+// Bytes of dynamic shared memory a block takes at a window (0 for a window
+// the kernel is not built for).
+extern "C" int tpuflow_lk_mxu_smem(int window) {
+  switch (window) {
+    case 3: return Tile<3>::kFloats * (int)sizeof(float);
+    case 5: return Tile<5>::kFloats * (int)sizeof(float);
+    case 7: return Tile<7>::kFloats * (int)sizeof(float);
+    default: return 0;
+  }
 }
 
 // Same arguments as tpuflow_lk_refine (lk_refine.cu).

@@ -43,8 +43,8 @@
 // |det|; at 1080p 0.0149, 0.0099 and 0.0124 ms at 3.35 TB/s. The ~100 f32
 // operations a pixel take a third of that at the card's f32 rate. What a
 // design must avoid is on chip: staging whole tiles in shared memory and
-// re-reading them per window tap (K10's body, lk_mxu.cu) spends ~130
-// shared-memory words an output.
+// re-reading them per window tap spends ~130 shared-memory words an
+// output.
 //
 // Design: a column walk. Each warp walks down a strip of 32 frame columns,
 // one column a lane, and each lane keeps its column's state in registers:

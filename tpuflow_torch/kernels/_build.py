@@ -138,6 +138,10 @@ def load() -> ctypes.CDLL:
     lib.tpuflow_lk_refine_blocks.restype = ctypes.c_int
     lib.tpuflow_lk_refine_mxu_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.tpuflow_lk_refine_mxu_blocks.restype = ctypes.c_int
+    lib.tpuflow_lk_mxu_mma.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.tpuflow_lk_mxu_mma.restype = ctypes.c_longlong
+    lib.tpuflow_lk_mxu_smem.argtypes = [ctypes.c_int]
+    lib.tpuflow_lk_mxu_smem.restype = ctypes.c_int
     lib.tpuflow_warp_geometry.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     lib.tpuflow_warp_geometry.restype = None
     lib.tpuflow_empty.argtypes = [ctypes.c_void_p]

@@ -24,12 +24,14 @@ Both take the reference's parameters, in its order and with its defaults;
 ``tile_rows`` is accepted and ignored (the TPU's tiling). Each takes one
 (H, W) plane or a (B, H, W) batch (the TPU kernels' batched entries,
 ``_refine_batched`` and ``_fused_batched``). A batch is one kernel launch;
-each element is computed exactly as the same plane alone. For a batch the refine's ``converged`` is a (B,) bool tensor and its
-sums are (B,) tensors, one per element.
+each element is computed exactly as the same plane alone. For a batch the
+refine's ``converged`` is a (B,) bool tensor and its sums are (B,)
+tensors, one per element.
 
 The CUDA kernels are ``csrc/lk_refine.cu`` and ``csrc/lk_fused.cu`` (one
 column-walk kernel, ``csrc/lk_tile.cuh``), and ``csrc/lk_mxu.cu`` for
-``window_mxu`` (a staged tile kernel of its own). ``lucas_kanade_refine_ref`` and
+``window_mxu`` (a tile kernel of its own that keeps the window sums in
+``mma.sync`` fragments). ``lucas_kanade_refine_ref`` and
 ``lucas_kanade_fused_ref`` are the same functions in plain PyTorch, in the
 Pallas kernel's f32 expression order with its reciprocal-form solve (the
 ``window_mxu`` sums as ``torch.matmul`` in true f32), and are what the
