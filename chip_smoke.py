@@ -27,7 +27,9 @@ failure raises and the script exits non-zero):
    against the kernel's 2-D launch); K10 at
    windows 3/5/7, exact and relaxed Sobel, on a plane and a batch of two,
    timed at each window beside K6, K7 and K3, with the mma.sync count of
-   a call from its grid; K8 in its four kinds and K9 in both modes;
+   a call from its grid; K8 in its four kinds and K9 in both modes, each
+   timed beside an empty kernel's launch floor read in the same phase
+   (their bounds lie below one launch), with the time above the floor;
 4. main paths: each path run with the launch counts reset just before and
    read just after; the two streams (16 frames each) also run through the
    plain versions on the card and are compared frame by frame; the
@@ -50,9 +52,10 @@ launch; K10
 torch.matmul) u, v within 2e-3 / 2e-4 / 5e-5 px at windows 3 / 5 / 7
 (widened, with the readings and the reason, at MXU_ATOL), and no further
 from an f64 solve than its plain version, |det| within 2e-6 of the
-plane's largest, sums to rtol 1e-5; K8 and K9
-bit-exact; each stream: the same rounds per level on every frame, max
-|du|, |dv| <= 1e-3 px, mean EPE < 0.5 px against the 2 px shift; the gate:
+plane's largest, sums to rtol 1e-5; K8 (also on a 2^+-20-spread input)
+and K9 (also with offsets in +-200) bit-exact; each stream: the same
+rounds per level on every frame, max |du|, |dv| <= 1e-3 px, mean EPE <
+0.5 px against the 2 px shift; the gate:
 every pattern within 10%, no_motion exactly 0 in both modes for the
 configs without packed-u16 warps, and the production configs' no_motion
 floor in (0, 1e-3) px.
@@ -61,7 +64,9 @@ Each kernel's time is printed beside its bound (``eval/bounds.py``: the
 bytes one call must move over the card's 3.35 TB/s) and its share of it;
 the build prints ptxas's registers, spills and shared memory of the LK
 column-walk kernels, of each banded-warp instantiation and of each K10
-instantiation, and the HMMA instructions in each K10 instantiation. It
+instantiation, the HMMA instructions in each K10 instantiation, the
+ablation instantiations' registers, spills and shared memory, their
+shared loads (LDS) a thread and K9's select instructions a pixel. It
 prints one JSON object of the kernels' readings on the line before the
 last (time, plain version's time, bytes, bound,
 share, launches on the main path and per stream frame, and a one-call
@@ -605,17 +610,41 @@ def shift_adds_conv(a: torch.Tensor, kind: str):
     return lambda: torch.nn.functional.conv2d(x, weight)[0, 0]
 
 
+def _ratio(a: float, b: float) -> float:
+    """a / b of two times above the launch floor; nan where b is not above it."""
+    return a / b if b > 0 else float("nan")
+
+
+def _above_floor(ms: float, floor_ms: float, bound_ms: float) -> str:
+    return (f"{ms:.5f} ms, {ms - floor_ms:.5f} above the floor, {100 * bound_ms / ms:.1f}% of "
+            f"its bound {bound_ms:.5f}")
+
+
 def check_ablations(dev, readings):
     """Phase 3, K8 and K9: every kind and mode bit-exact against the plain
-    versions, with device times of kernel and plain; K8's also beside one
-    correlation call that computes the same sums."""
+    versions (K8 also on an input where another add order rounds
+    otherwise, K9 also with offsets far past the band), then each timed
+    beside the plain version and an empty kernel's launch floor read in this
+    phase, with the time above the floor and the share of the bound; K8's
+    aligned kind also beside one correlation call that computes the same
+    sums."""
     a = shift_ablation.make_input(dev)
+    spread = shift_ablation.make_input(dev, 1, spread=True)
     for kind in shift_ablation.KINDS:
-        got, want = shift_ablation.shift_adds(a, kind), shift_ablation.shift_adds_ref(a, kind)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"shift_ablation {kind}: max |d| {max_abs(got, want)} != 0")
-    ms = device_ms(lambda: shift_ablation.shift_adds(a, "aligned"), reps=200)
+        for inp in (a, spread):
+            got = shift_ablation.shift_adds(inp, kind)
+            want = shift_ablation.shift_adds_ref(inp, kind)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"shift_ablation {kind}: max |d| {max_abs(got, want)} != 0")
+    floor_ms = device_ms(_build.launch_empty, reps=200)
+    out = (shift_ablation.OUT_R, shift_ablation.OUT_C)
+    by_kind = {}
+    for kind in shift_ablation.KINDS:
+        ms = device_ms(lambda kind=kind: shift_ablation.shift_adds(a, kind), reps=200)
+        bound_ms = bounds.bound_ms("shift_ablation", 1, *out, kind)
+        by_kind[kind] = {"ms": ms, "above_floor_ms": ms - floor_ms, "bound_ms": bound_ms}
+        print(f"[kernels] shift_ablation {kind}: {_above_floor(ms, floor_ms, bound_ms)}")
     plain_ms = device_ms(lambda: shift_ablation.shift_adds_ref(a, "aligned"))
     ops.pin_f32_matmul()
     conv = shift_adds_conv(a, "aligned")
@@ -623,37 +652,52 @@ def check_ablations(dev, readings):
     if conv_err > 1e-4:
         raise AssertionError(f"shift_ablation's correlation differs by {conv_err}")
     library_ms = device_ms(conv)
-    out = (shift_ablation.OUT_R, shift_ablation.OUT_C)
+    base = by_kind["aligned"]
+    ratios = {f"{kind}_over_aligned": (r["ms"] / base["ms"],
+                                       _ratio(r["above_floor_ms"], base["above_floor_ms"]))
+              for kind, r in by_kind.items() if kind != "aligned"}
     readings["shift_ablation"].update(
-        ms=ms, plain_ms=plain_ms, shape=list(a.shape), library_ms=library_ms,
+        ms=base["ms"], plain_ms=plain_ms, shape=list(a.shape), library_ms=library_ms,
         library="torch.nn.functional.conv2d, cuDNN, TF32 off, the slices' offsets as a "
-                "sparse (121, 897) weight")
-    print(f"[kernels] shift_ablation {tuple(a.shape)} -> {out}: bit-exact in all four kinds; "
-          f"aligned {ms:.4f} ms (plain {plain_ms:.4f} ms; {_bound_note('shift_ablation', out, ms)}"
-          f"); one F.conv2d {library_ms:.4f} ms (max |d| {conv_err:.3g})")
+                "sparse (121, 897) weight", launch_floor_ms=floor_ms, by_kind=by_kind)
+    print(f"[kernels] shift_ablation {tuple(a.shape)} -> {out}: bit-exact in all four kinds "
+          f"(uniform and 2^+-20-spread inputs); aligned {base['ms']:.5f} ms (plain "
+          f"{plain_ms:.4f} ms; {_bound_note('shift_ablation', out, base['ms'])}); launch floor "
+          f"{floor_ms:.5f} ms; one F.conv2d {library_ms:.4f} ms (max |d| {conv_err:.3g}); "
+          "ratios to aligned, raw / above the floor: "
+          + ", ".join(f"{k} {raw:.3f} / {above:.3f}" for k, (raw, above) in ratios.items()))
 
     x, off = warp_mxu_ablation.make_inputs(dev)
+    far = torch.from_numpy(np.random.default_rng(2).integers(
+        -200, 201, tuple(off.shape)).astype(np.int32)).to(dev)
+    floor_ms = device_ms(_build.launch_empty, reps=200)
     times = {}
     for mode in warp_mxu_ablation.MODES:
-        got = warp_mxu_ablation.candidate_accumulate(x, off, mode)
-        want = warp_mxu_ablation.candidate_accumulate_ref(x, off, mode)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"warp_mxu_ablation {mode}: max |d| {max_abs(got, want)} != 0")
+        for offs in (off, far):
+            got = warp_mxu_ablation.candidate_accumulate(x, offs, mode)
+            want = warp_mxu_ablation.candidate_accumulate_ref(x, offs, mode)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"warp_mxu_ablation {mode}: max |d| {max_abs(got, want)} != 0")
         times[mode] = (
             device_ms(lambda mode=mode: warp_mxu_ablation.candidate_accumulate(x, off, mode),
-                    reps=200),
+                      reps=200),
             device_ms(lambda mode=mode: warp_mxu_ablation.candidate_accumulate_ref(x, off, mode)))
+        bound_ms = bounds.bound_ms("warp_mxu_ablation", 1, *off.shape, mode)
+        note = _above_floor(times[mode][0], floor_ms, bound_ms)
+        print(f"[kernels] warp_mxu_ablation {mode}: {note} (plain {times[mode][1]:.4f} ms)")
     shifts_bound_ms = bounds.bound_ms("warp_mxu_ablation", 1, *off.shape, "shifts")
     readings["warp_mxu_ablation"].update(ms=times["gather"][0], plain_ms=times["gather"][1],
                                          shifts_ms=times["shifts"][0],
                                          shifts_plain_ms=times["shifts"][1],
-                                         shifts_bound_ms=shifts_bound_ms, shape=list(off.shape))
-    print(f"[kernels] warp_mxu_ablation {tuple(off.shape)}: bit-exact in both modes; gather "
-          f"{times['gather'][0]:.4f} ms (plain {times['gather'][1]:.4f}; "
-          f"{_bound_note('warp_mxu_ablation', tuple(off.shape), times['gather'][0])}), shifts "
-          f"{times['shifts'][0]:.4f} ms (plain {times['shifts'][1]:.4f}; bound "
-          f"{shifts_bound_ms:.5f} ms, {100 * shifts_bound_ms / times['shifts'][0]:.1f}% of it)")
+                                         shifts_bound_ms=shifts_bound_ms, shape=list(off.shape),
+                                         launch_floor_ms=floor_ms)
+    above = {mode: t[0] - floor_ms for mode, t in times.items()}
+    print(f"[kernels] warp_mxu_ablation {tuple(off.shape)}: bit-exact in both modes (offsets "
+          f"in +-{warp_mxu_ablation.MAXD} and in +-200); launch floor {floor_ms:.5f} ms; "
+          f"shifts / gather {times['shifts'][0] / times['gather'][0]:.3f} raw, "
+          f"{_ratio(above['shifts'], above['gather']):.3f} above the floor")
 
 
 @contextmanager
@@ -955,6 +999,51 @@ def mxu_hmma(sass: str) -> dict[str, int]:
     return counts
 
 
+_ABLATION_ENTRIES = {
+    "K8": (r"_ZN16tpuflow_ablation21shift_ablation_kernelILi(\d)E", shift_ablation.KINDS),
+    "K9": (r"_ZN16tpuflow_ablation27warp_gather_ablation_kernelILi(\d)E",
+           warp_mxu_ablation.MODES),
+}
+
+
+def ablation_ptxas(log: str) -> list[str]:
+    """ptxas's registers, spill stores and shared memory of each K8 kind's
+    and each K9 mode's instantiation."""
+    return [f"{k} {names[i]} {regs} regs/{spill} B spilled/{smem} B smem"
+            for k, (entry, names) in _ABLATION_ENTRIES.items()
+            for (i,), regs, spill, smem in ptxas_usage(log, entry)]
+
+
+def ablation_sass(sass: str) -> list[str]:
+    """Shared-memory loads (LDS) of each ablation instantiation's SASS, and
+    the select instructions (SEL, FSEL) of K9's: a thread's counts, and for
+    K9 shifts a pixel's (4 a thread)."""
+    counts: dict[tuple[str, int], dict[str, int]] = {}
+    key = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            key = next(((k, int(h.group(1))) for k, (entry, _) in _ABLATION_ENTRIES.items()
+                        if (h := re.match(entry, m.group(1)))), None)
+            continue
+        op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if key and op and "@!PT" not in line:  # @!PT: padding that never issues
+            c = counts.setdefault(key, {"LDS": 0, "SEL": 0})
+            name = op.group(1)
+            c["LDS"] += name == "LDS"
+            c["SEL"] += name in ("SEL", "FSEL")
+    out = []
+    for (k, i), c in sorted(counts.items()):
+        names = _ABLATION_ENTRIES[k][1]
+        line = f"{k} {names[i]} {c['LDS']} LDS"
+        if k == "K9":
+            line += f", {c['SEL']} SEL/FSEL"
+        if (k, names[i]) == ("K9", "shifts"):
+            line += f" a thread ({c['SEL'] / 4:g} selects a pixel; the chains as written: 360)"
+        out.append(line if line.endswith(")") else line + " a thread")
+    return out
+
+
 def warp_ptxas(log: str) -> list[str]:
     """ptxas's registers and spill stores of each warp instantiation, the
     walk ablation's included (their shared memory is dynamic, sized by the
@@ -1002,6 +1091,7 @@ def main() -> None:
     print("[build] banded warp: " + "; ".join(sorted(warp_ptxas(_build.build_log))))
     for window, entries in sorted(mxu_ptxas(_build.build_log).items()):
         print(f"[build] K10 window {window}: " + "; ".join(sorted(entries)))
+    print("[build] ablations: " + "; ".join(ablation_ptxas(_build.build_log)))
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path())],
@@ -1010,6 +1100,7 @@ def main() -> None:
         print(f"[build] tensor-core mma (HMMA) instructions in the library: "
               f"{sass.count('HMMA')}; in each of the {len(per)} K10 instantiations "
               f"{min(per.values(), default=0)}-{max(per.values(), default=0)}")
+        print("[build] ablation SASS: " + "; ".join(ablation_sass(sass)))
     except (OSError, subprocess.SubprocessError) as exc:
         print(f"[build] tensor-core mma count not taken: {exc}")
 

@@ -5,9 +5,12 @@ are not a package; they are imported by file path and stay unedited.
 - K8 (``shift_ablation.shift_adds``): against ``make_fn(kind)(a, 1)``, which
   returns the kernel's out[0, 0] * 1e-20, exactly, and against slice-adds
   built in numpy from the script's ``_offsets``, exactly, for all four
-  kinds (there are only adds, in one order).
+  kinds (there are only adds, in one order); and against the Pallas
+  kernel's whole output exactly on signed values spread over 2^-20..2^20,
+  where the same slices added in another order differ on most outputs.
 - K9 (``warp_mxu_ablation.candidate_accumulate``): against ``_build(mode, 8,
-  256)`` in both modes, within one ulp of the largest |acc|. XLA:CPU contracts
+  256)`` in both modes, and at (rows, wp) = (1, 128), (3, 128) and (5,
+  384), within one ulp of the largest |acc|. XLA:CPU contracts
   ``acc + g * c`` into an FMA where the port rounds the product and the add
   separately, as the CUDA kernel does under ``-fmad=false`` (measured 4.9e-4,
   one ulp at |acc| < 8192, on 29% of pixels in gather mode and 32% in
@@ -70,6 +73,33 @@ def test_shift_adds_plain_matches_pallas(rng, tpu_shift, kind):
     np.testing.assert_array_equal(got, want)
 
 
+def _pallas_shift_kernel(tpu_shift, kind):
+    """``make_fn(kind)``'s pallas_call itself, whose (64, 1024) output the
+    timing loop reduces to one element; taken from the loop's closure, so
+    it must be built in interpret mode."""
+    loop = tpu_shift.make_fn(kind).__wrapped__
+    return dict(zip(loop.__code__.co_freevars, loop.__closure__))["call"].cell_contents
+
+
+@pytest.mark.parametrize("kind", shift_ablation.KINDS)
+def test_shift_adds_plain_matches_pallas_on_order_sensitive_input(tpu_shift, kind):
+    a = shift_ablation.make_input(torch.device("cpu"), 3, spread=True)
+    got = shift_ablation.shift_adds(a, kind)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(_pallas_shift_kernel(tpu_shift, kind)(jnp.asarray(a.numpy())))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # The input tells the order apart: column slices before row slices
+    # round otherwise on most outputs.
+    r, c = shift_ablation.offsets(kind)
+    n_r, n_c = shift_ablation.OUT_R, shift_ablation.OUT_C
+    swapped = a[r[0] : r[0] + n_r, c[0] : c[0] + n_c]
+    for i in range(1, len(c)):
+        swapped = swapped + a[r[0] : r[0] + n_r, c[i] : c[i] + n_c]
+    for i in range(1, len(r)):
+        swapped = swapped + a[r[i] : r[i] + n_r, c[0] : c[0] + n_c]
+    assert float((swapped != got).float().mean()) > 0.5
+
+
 def test_warp_gather_constants_match_the_script(tpu_warp):
     assert warp_mxu_ablation.ITERS == tpu_warp.ITERS
     assert warp_mxu_ablation.MAXD == tpu_warp.MAXD
@@ -87,6 +117,23 @@ def test_warp_gather_plain_matches_pallas(tpu_warp, mode):
     assert (got != want).any()  # the FMA contraction is real, so the limit is needed
 
 
+@pytest.mark.parametrize("mode", warp_mxu_ablation.MODES)
+@pytest.mark.parametrize("rows,wp", [(1, 128), (3, 128), (5, 384)])
+def test_warp_gather_plain_matches_pallas_at_odd_shapes(tpu_warp, mode, rows, wp):
+    x, off = warp_mxu_ablation.make_inputs(torch.device("cpu"), rows, wp, seed=rows)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(tpu_warp._build(mode, rows, wp)(
+            jnp.asarray(x.numpy()[None]), jnp.asarray(off.numpy()[None])))[0]
+    got = warp_mxu_ablation.candidate_accumulate(x, off, mode).numpy()
+    # One ulp in the binade of the script's sums ([4096, 8192): 18 steps of
+    # at most 255 x 1.17), the limit the (8, 256) case reads off its plane.
+    # A small plane's largest |acc| may sit a binade lower, where the FMA
+    # contraction's 4.9e-4 is two of that plane's ulps.
+    atol = float(np.spacing(np.float32(4096.0)))
+    assert np.abs(want).max() < 8192.0
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+
 def test_ablation_wrappers_check_inputs_and_count_no_cpu_launch():
     before = (dict(shift_ablation.launch_counts), dict(warp_mxu_ablation.launch_counts))
     a = shift_ablation.make_input(torch.device("cpu"))
@@ -102,6 +149,8 @@ def test_ablation_wrappers_check_inputs_and_count_no_cpu_launch():
         warp_mxu_ablation.candidate_accumulate(x[:, :300], off, "gather")
     with pytest.raises(TypeError):
         warp_mxu_ablation.candidate_accumulate(x, off.to(torch.int64), "gather")
+    with pytest.raises(ValueError):  # no rows: the kernel takes rows >= 1
+        warp_mxu_ablation.candidate_accumulate(x[:0], off[:0], "gather")
     warp_mxu_ablation.candidate_accumulate(x, off, "shifts")
     assert (shift_ablation.launch_counts, warp_mxu_ablation.launch_counts) == before
 

@@ -24,7 +24,12 @@ plane, and within the limits above of the plain version. The window_mxu kernels
 (K10), whose tensor-core sums round otherwise than the plain version's
 torch.matmul: u, v within 1e-4 px at window 3 and 1e-5 px at 5 and 7,
 |det| within 2e-6 of the plane's largest, sums to rtol 1e-5. The ablation
-microkernels (K8, K9) bit-exact.
+microkernels (K8, K9) bit-exact: K8 in every kind, also on signed inputs
+spread over 2^-20..2^20 where another add order rounds otherwise; K9 in
+both modes at the script's shape, at planes of 1, 3, 5 and 6 rows (the
+block's 4-row tile ragged) and 1 to 15 column blocks, with offsets in
++-8 and in +-200 (the gather's clip, no select matching); each call one
+launch; the C entry points refuse what no instantiation covers.
 """
 
 import numpy as np
@@ -554,3 +559,53 @@ def test_warp_gather_ablation_kernel_bit_exact(cuda, mode):
     torch.cuda.synchronize()
     assert warp_mxu_ablation.launch_counts["warp_mxu_ablation"] == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("kind", shift_ablation.KINDS)
+def test_shift_ablation_kernel_bit_exact_on_order_sensitive_input(cuda, kind, seed):
+    a = shift_ablation.make_input(cuda, seed, spread=True)
+    before = shift_ablation.launch_counts["shift_ablation"]
+    got = shift_ablation.shift_adds(a, kind)
+    want = shift_ablation.shift_adds_ref(a, kind)
+    torch.cuda.synchronize()
+    assert shift_ablation.launch_counts["shift_ablation"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("reach", [warp_mxu_ablation.MAXD, 200])
+@pytest.mark.parametrize("rows,wp", [(1, 128), (3, 128), (5, 384), (6, 256), (1, 1920)])
+@pytest.mark.parametrize("mode", warp_mxu_ablation.MODES)
+def test_warp_gather_ablation_kernel_edges_and_far_offsets(cuda, mode, rows, wp, reach):
+    rng = np.random.default_rng(rows * wp + reach)
+    x = torch.from_numpy(rng.uniform(0, 255, (rows, wp + 256)).astype(np.float32)).to(cuda)
+    off = torch.from_numpy(rng.integers(-reach, reach + 1, (rows, wp)).astype(np.int32)).to(cuda)
+    before = warp_mxu_ablation.launch_counts["warp_mxu_ablation"]
+    got = warp_mxu_ablation.candidate_accumulate(x, off, mode)
+    want = warp_mxu_ablation.candidate_accumulate_ref(x, off, mode)
+    torch.cuda.synchronize()
+    assert warp_mxu_ablation.launch_counts["warp_mxu_ablation"] == before + 1
+    assert torch.equal(got, want)
+
+
+def test_ablation_entry_points_refuse_uncovered_arguments(cuda):
+    import ctypes
+
+    lib = _build.load()
+    a = shift_ablation.make_input(cuda)
+    out = torch.empty((shift_ablation.OUT_R, shift_ablation.OUT_C), device=cuda)
+    r, c = shift_ablation.offsets("aligned")
+    ints = ctypes.c_int * shift_ablation.N_SHIFTS
+    stream = torch.cuda.current_stream().cuda_stream
+    for rr, cc, n in ((r, c, shift_ablation.N_SHIFTS), ([r[0] + 1, *r[1:]], c, 16), (r, c, 15)):
+        code = lib.tpuflow_shift_ablation(a.data_ptr(), out.data_ptr(), shift_ablation.COLS,
+                                          shift_ablation.OUT_R, shift_ablation.OUT_C, n,
+                                          ints(*rr), ints(*cc), stream)
+        assert (code == 0) == (rr is r and n == shift_ablation.N_SHIFTS)
+    x, off = warp_mxu_ablation.make_inputs(cuda, 2, 256)
+    res = torch.empty((2, 256), device=cuda)
+    for rows, wp, mode in ((2, 256, 0), (2, 200, 0), (0, 256, 1), (2, 256, 2)):
+        code = lib.tpuflow_warp_gather_ablation(x.data_ptr(), off.data_ptr(), res.data_ptr(),
+                                                rows, wp, mode, stream)
+        assert (code == 0) == ((rows, wp, mode) == (2, 256, 0))
+    torch.cuda.synchronize()

@@ -10,17 +10,20 @@ four offset sets of ``offsets`` (aligned, misaligned, rows_only,
 cols_only). ``shift_adds_ref`` is the same in torch slices, bit-exact:
 there are only adds, in the same order.
 
-What the ratio measures is set by the kernel's loads. One thread computes
-one output and reads its 31 terms with plain read-only global loads
-(``__ldg``, through L1); nothing is staged in shared memory. A warp reads
-32 consecutive floats of one row: 4 sectors of one 128-B line when the
-column offset is a multiple of 32 floats (every "aligned" offset is a
-multiple of 128), 5 sectors over two lines otherwise. Row offsets never
-misalign a load (rows start 8 KB apart), so on the card ``rows_only``
-should cost what ``aligned`` does and ``cols_only`` what ``misaligned``
-does. The 2 MB input stays in L2, and per block mostly in L1, so the
-ratio reads L1 sector and line traffic, not the TPU's sublane and lane
-shifts.
+What the ratio measures is set by the kernel's fetches. A block owns a
+32x16 output tile and fetches, once, the distinct ranges its 31 slices
+read: the row strip (rows r0..r15 + 31 of its columns) staged in shared
+memory, and the column terms, staged as one window where neighbouring
+columns share them (offsets 1..16) and loaded by each thread into its own
+registers where no other thread reads them (the 128-column offsets). Each
+thread sums two outputs of one column, spaced by the kind's row step so
+that one staged row serves both. A row offset only sets how tall the
+strip is; a column offset's alignment only how wide a 16-byte-aligned
+range is (16 columns for multiples of 4, up to 20 otherwise). On the card
+the kinds differ by the bytes a block fetches and the shared loads a
+thread makes, not by the TPU's sublane and lane shifts; and since the
+call's bound (0.37 us) lies below one kernel launch, each time reads
+mostly the launch floor (``chip_smoke.py`` prints both).
 
 ``main()`` prints each kind's device time per call (CUDA events around
 back-to-back launches behind a GPU spin, ``eval.timing.device_ms``) and the
@@ -80,28 +83,43 @@ def shift_adds_ref(a: torch.Tensor, kind: str) -> torch.Tensor:
 
 def shift_adds(a: torch.Tensor, kind: str) -> torch.Tensor:
     """The CUDA kernel for a CUDA tensor, the plain version for a CPU one."""
-    r, c = offsets(kind)
+    offsets(kind)  # raises on an unknown kind
     if a.shape != (ROWS, COLS) or a.dtype != torch.float32:
         raise ValueError(f"a must be a ({ROWS}, {COLS}) float32 tensor")
     if a.device.type == "cpu":
         return shift_adds_ref(a, kind)
     if a.device.type != "cuda" or not a.is_contiguous():
         raise ValueError("the CUDA kernel needs a contiguous CUDA tensor")
-    lib = _build.load()
+    out = _launch(_build.load(), a, kind)
+    launch_counts["shift_ablation"] += 1
+    return out
+
+
+def _launch(lib, a: torch.Tensor, kind: str) -> torch.Tensor:
+    """One launch of ``lib``'s ``tpuflow_shift_ablation`` on a checked
+    (256, 2048) CUDA tensor (not counted: ``shift_adds`` counts its own)."""
+    r, c = offsets(kind)
     out = torch.empty((OUT_R, OUT_C), dtype=torch.float32, device=a.device)
     ints = ctypes.c_int * N_SHIFTS
     code = lib.tpuflow_shift_ablation(
         a.data_ptr(), out.data_ptr(), COLS, OUT_R, OUT_C, N_SHIFTS, ints(*r), ints(*c),
         torch.cuda.current_stream(a.device).cuda_stream,
     )
-    _build.check(lib, code, "shift_ablation")
-    launch_counts["shift_ablation"] += 1
+    _build.check(_build.load(), code, "shift_ablation")
     return out
 
 
-def make_input(device: torch.device, seed: int = 0) -> torch.Tensor:
+def make_input(device: torch.device, seed: int = 0, spread: bool = False) -> torch.Tensor:
+    """The script's input, uniform in [0, 1), from a numpy seed; with
+    ``spread``, signed values whose magnitudes spread over 2^-20 .. 2^20,
+    on which a sum taken in another order rounds differently."""
     rng = np.random.default_rng(seed)
-    return torch.from_numpy(rng.uniform(0.0, 1.0, (ROWS, COLS)).astype(np.float32)).to(device)
+    if spread:
+        a = rng.uniform(1.0, 2.0, (ROWS, COLS)) * np.exp2(rng.integers(-20, 21, (ROWS, COLS)))
+        a *= rng.choice([-1.0, 1.0], (ROWS, COLS))
+    else:
+        a = rng.uniform(0.0, 1.0, (ROWS, COLS))
+    return torch.from_numpy(a.astype(np.float32)).to(device)
 
 
 def measure(a: torch.Tensor) -> dict:

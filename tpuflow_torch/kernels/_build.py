@@ -65,9 +65,8 @@ _SIGNATURES = {
     # a, out, in_cols, out_rows, out_cols, n_shifts, row offsets (host
     # i32[n_shifts]), column offsets (host i32[n_shifts]), stream
     "tpuflow_shift_ablation": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
-    # x, off, out, rows, wp, mode, iters, maxd, coefficients (host
-    # f32[iters]), stream
-    "tpuflow_warp_gather_ablation": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    # x, off, out, rows, wp, mode, stream
+    "tpuflow_warp_gather_ablation": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -108,27 +107,8 @@ def load() -> ctypes.CDLL:
     path = library_path()
     if not path.exists():
         t0 = time.perf_counter()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
-        tag = f"{path.stem}.{os.getpid()}"
-        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
-        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                for src, obj in zip(_sources(), objs)]
-        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                  text=True) for cmd in cmds]
-        logs = [proc.communicate()[0] for proc in procs]  # waits for every one
-        for cmd, proc, log in zip(cmds, procs, logs):
-            _check_nvcc(cmd, proc.returncode, log)
-        tmp = BUILD_DIR / f"{tag}.tmp"
-        link_cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
-        link = subprocess.run(link_cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True)
-        _check_nvcc(link_cmd, link.returncode, link.stdout)
-        for obj in objs:
-            obj.unlink()
-        os.replace(tmp, path)
+        build_log = build(_sources(), path)
         build_seconds = time.perf_counter() - t0
-        build_log = "".join(logs)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -150,6 +130,30 @@ def load() -> ctypes.CDLL:
     lib.tpuflow_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+def build(sources: list[Path], path: Path) -> str:
+    """Compile ``sources`` (one nvcc each, all started together) and link
+    them into the shared library ``path``; returns ptxas's report."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [path.parent / f"{tag}.{src.stem}.o" for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]  # waits for every one
+    for cmd, proc, log in zip(cmds, procs, logs):
+        _check_nvcc(cmd, proc.returncode, log)
+    tmp = path.parent / f"{tag}.tmp"
+    link_cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    link = subprocess.run(link_cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    _check_nvcc(link_cmd, link.returncode, link.stdout)
+    for obj in objs:
+        obj.unlink()
+    os.replace(tmp, path)
+    return "".join(logs)
 
 
 def _check_nvcc(cmd: list[str], code: int, log: str) -> None:
