@@ -687,17 +687,24 @@ def check_ablations(dev, readings):
         bound_ms = bounds.bound_ms("warp_mxu_ablation", 1, *off.shape, mode)
         note = _above_floor(times[mode][0], floor_ms, bound_ms)
         print(f"[kernels] warp_mxu_ablation {mode}: {note} (plain {times[mode][1]:.4f} ms)")
+    # With every offset 0 a warp's gathers of one step read 32 consecutive
+    # words: no bank conflicts, against the random offsets' ones.
+    zero = torch.zeros_like(off)
+    gather_zero_ms = device_ms(
+        lambda: warp_mxu_ablation.candidate_accumulate(x, zero, "gather"), reps=200)
     shifts_bound_ms = bounds.bound_ms("warp_mxu_ablation", 1, *off.shape, "shifts")
     readings["warp_mxu_ablation"].update(ms=times["gather"][0], plain_ms=times["gather"][1],
                                          shifts_ms=times["shifts"][0],
                                          shifts_plain_ms=times["shifts"][1],
                                          shifts_bound_ms=shifts_bound_ms, shape=list(off.shape),
-                                         launch_floor_ms=floor_ms)
+                                         launch_floor_ms=floor_ms,
+                                         gather_zero_offsets_ms=gather_zero_ms)
     above = {mode: t[0] - floor_ms for mode, t in times.items()}
     print(f"[kernels] warp_mxu_ablation {tuple(off.shape)}: bit-exact in both modes (offsets "
           f"in +-{warp_mxu_ablation.MAXD} and in +-200); launch floor {floor_ms:.5f} ms; "
           f"shifts / gather {times['shifts'][0] / times['gather'][0]:.3f} raw, "
-          f"{_ratio(above['shifts'], above['gather']):.3f} above the floor")
+          f"{_ratio(above['shifts'], above['gather']):.3f} above the floor; gather with every "
+          f"offset 0 (no bank conflicts) {gather_zero_ms:.5f} ms")
 
 
 @contextmanager
