@@ -53,12 +53,13 @@ def main() -> None:
         line.strip() for line in log.splitlines() if "registers" in line or "spill" in line))
     a = shift_ablation.make_input(dev)
     x, off = warp_mxu_ablation.make_inputs(dev)
+    # name -> (one launch of a library's body, the plain version's result)
     cases = {f"K8 {kind}": (lambda lib, kind=kind: shift_ablation._launch(lib, a, kind),
                             shift_ablation.shift_adds_ref(a, kind))
              for kind in shift_ablation.KINDS}
-    cases.update({f"K9 {mode}": (
-        lambda lib, mode=mode: warp_mxu_ablation._launch(lib, x, off, mode),
-        warp_mxu_ablation.candidate_accumulate_ref(x, off, mode)) for mode in warp_mxu_ablation.MODES})
+    for mode in warp_mxu_ablation.MODES:
+        cases[f"K9 {mode}"] = (lambda lib, mode=mode: warp_mxu_ablation._launch(lib, x, off, mode),
+                               warp_mxu_ablation.candidate_accumulate_ref(x, off, mode))
     for name, (run, want) in cases.items():
         for label, lib in (("this", this), ("other", other)):
             if not torch.equal(run(lib), want):

@@ -32,9 +32,11 @@
 // for the 1-row ones), so that a staged row serves several of them: term
 // (q, k) reads strip row q * step + r_k, and equal rows are one shared-
 // memory load. Row pitches put the warp's two thread rows 16 banks apart.
-// The adds stay in the plain version's order, so every kind is bit-exact
-// against shift_adds_ref. Bound: the wave's one L2 round trip, then a
-// few dozen shared loads and 60 dependent adds a thread.
+// A thread's outputs lie in one column, so its stores are scalar; a warp
+// still writes whole 64-byte row segments. The adds stay in the plain
+// version's order, so every kind is bit-exact against shift_adds_ref.
+// Bound: the wave's one L2 round trip, then a few dozen shared loads and
+// 60 dependent adds a thread.
 //
 // K9, warp-gather ablation: replaces
 // scripts/warp_mxu_ablation.py::_build's kernel (pallas_call at :91, body
