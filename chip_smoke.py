@@ -38,7 +38,20 @@ failure raises and the script exits non-zero):
    ``production`` report;
 5. gate: the 13-pattern suite through both LK modes for each config with a
    committed Pallas baseline, within 10% of it (provenance guard included);
-6. profile: device time by kernel and the device's busy share over 4 frames
+6. vo: the visual-odometry path (``tpuflow_torch.vo``): a 1080p
+   ``OdometrySession`` on the same a/b frames, grid step 16 (8,040 track
+   slots), 16 frames through ``process_frames``, ``production`` (K1, K2,
+   K3) and ``default`` with the forward-backward check (K4, K5): the front
+   end's ms a frame (median and spread of 3 runs), tracks alive, launches,
+   host reads a frame (the flow's counted reads and, under torch's sync
+   debug mode, every other synchronizing operation of the step: none),
+   ``solve(ba_iterations=8)`` twice, a torch.profiler pass of 4 frames and
+   the masked reseed's cost; the ``default`` session again through the
+   plain versions; then the trajectory gate, ``strafe_x``, ``dolly_z`` and
+   ``arc_yaw`` at 320x240 under ``backend="cuda"``, against the TPU's
+   ``vo_pallas_baseline.json`` (the reference's cross-platform rule) and
+   the card's ``tpuflow_torch/eval/data/vo_cuda_baseline.json`` (10%);
+7. profile: device time by kernel and the device's busy share over 4 frames
    of each stream (torch.profiler).
 
 Limits on the card: the warps (K1, K2, K4) bit-exact against their plain
@@ -58,7 +71,11 @@ rounds per level on every frame, max |du|, |dv| <= 1e-3 px, mean EPE <
 0.5 px against the 2 px shift; the gate:
 every pattern within 10%, no_motion exactly 0 in both modes for the
 configs without packed-u16 warps, and the production configs' no_motion
-floor in (0, 1e-3) px.
+floor in (0, 1e-3) px; VO: the step's own synchronizing operations 0, at
+least half the track slots alive, two solves bit-identical with a mean
+reprojection error under 1 px, the plain-version session's alive flags,
+ids and counters identical and its live tracks within 1e-3 px, every
+sequence inside the absolute bounds and both baselines' rules, TF32 off.
 
 Each kernel's time is printed beside its bound (``eval/bounds.py``: the
 bytes one call must move over the card's 3.35 TB/s) and its share of it;
@@ -85,7 +102,9 @@ import re
 import shutil
 import subprocess
 import time
+import warnings
 from contextlib import contextmanager
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -95,10 +114,12 @@ from scipy.ndimage import shift as nd_shift
 from tpuflow_torch import PYRAMID_CONFIGS, lucas_kanade_pyramidal_step, lucas_kanade_single_scale
 from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation, warp_walk
 from tpuflow_torch.core import ops
-from tpuflow_torch.eval import bounds, profile, verifier
+from tpuflow_torch.eval import bounds, profile, verifier, vo_verifier
 from tpuflow_torch.eval.timing import card_label, device_ms
 from tpuflow_torch.flow import pyramidal
 from tpuflow_torch.kernels import _build, lk, torch_ref, warp
+from tpuflow_torch.vo import tracking
+from tpuflow_torch.vo.pipeline import OdometrySession
 
 HEIGHT, WIDTH = 1080, 1920
 N_FRAMES = 16
@@ -152,7 +173,18 @@ PATH_KERNELS = {
     "batched kernel API, window_mxu": {"lk_refine_mxu", "lk_fused_mxu", "lk_fused_conf_mxu"},
     "shift ablation": {"shift_ablation"},
     "warp gather ablation": {"warp_mxu_ablation"},
+    "vo production": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
+    "vo default": {"warp_exact", "lk_refine_exact"},
+    "vo gate": {"warp_exact", "lk_refine_exact"},
 }
+# The VO sessions at 1080p: grid step 16 (8,040 track slots), N_FRAMES
+# frames through process_frames after start; `default` with the
+# forward-backward check (a backward flow each frame).
+VO_SESSIONS = {"production": None, "default": 1.0}
+VO_GRID = 16
+VO_RUNS = 3
+VO_BA_ITERATIONS = 8
+
 # K10's tensor-core sums against the plain version's torch.matmul, u, v in
 # px by window. The first limits asked, 1e-4 / 1e-5 / 1e-5, hold on the
 # 8-bit frames (max |d| 0) and in tests/test_torch_gpu.py, but not on the
@@ -773,6 +805,7 @@ def check_stream(a, b, config: str):
     epe = mean_epe(flows)
     # Two more timed runs: the host clock spreads from run to run.
     again = [N_FRAMES / run_stream(a, b, config)[2] for _ in range(2)]
+    median_ms = 1000 * float(np.median([seconds / N_FRAMES, *(1 / f for f in again)]))
     print(f"[main] {N_FRAMES} frames {HEIGHT}x{WIDTH} {config}: "
           f"{N_FRAMES / seconds:.2f} frames/s ({1000 * seconds / N_FRAMES:.3f} ms/frame; "
           f"then {again[0]:.2f} and {again[1]:.2f} frames/s), launches {counts}, "
@@ -798,7 +831,7 @@ def check_stream(a, b, config: str):
                              f"> {STREAM_ATOL}")
     if epe > 0.5:
         raise AssertionError(f"{config}: mean EPE {epe} px against the known {SHIFT_PX} px shift")
-    return counts
+    return counts, median_ms
 
 
 def check_single_scale(a, b, confidence: bool):
@@ -922,16 +955,183 @@ def run_gate():
                                  "outside (0, 1e-3) px")
 
 
-def profile_stream(a, b, config: str) -> None:
-    """Device time by kernel and the device's busy share over a 4-frame
-    stream (torch.profiler)."""
+def vo_chunk(a, b):
+    """The session's frames after the first (a): b, a, b, ... on the card."""
+    return torch.stack([b if i % 2 == 0 else a for i in range(N_FRAMES)])
+
+
+def vo_session(a, chunk, config: str):
+    """A 1080p OdometrySession on the card: start on a, then the chunk
+    through process_frames. Returns it and the chunk's seconds (host clock
+    to a synchronize)."""
+    fx = fy = 0.8 * WIDTH
+    sess = OdometrySession((fx, fy, WIDTH / 2.0, HEIGHT / 2.0), grid_step=VO_GRID,
+                           backend="cuda", pyramid_config=config,
+                           fb_check_threshold=VO_SESSIONS[config], device=a.device)
+    sess.start(a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.process_frames(chunk)
+    torch.cuda.synchronize()
+    return sess, time.perf_counter() - t0
+
+
+def host_syncs(fn):
+    """Run fn under torch's sync debug mode; return its result and the
+    synchronizing operations it made, as 'file:line' of the Python line."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                 if "synchroniz" in str(w.message)]
+
+
+def _records(sess):
+    return sess.obs_uv, sess.obs_lm, sess.obs_valid, sess.n_landmarks
+
+
+def check_vo_session(a, b, chunk, config: str):
+    """Phase 6, one 1080p session: its launches, host reads and time a frame,
+    then solve(ba_iterations=8) twice (identical bits) and, for `default`,
+    the same session through the plain versions."""
+    vo_session(a, chunk, config)  # warm-up
+    pyramidal.counters.reset()
+    ((sess, _), syncs), counts = counted(
+        f"vo {config}", lambda: host_syncs(lambda: vo_session(a, chunk, config)))
+    reads = (pyramidal.counters.convergence_reads, pyramidal.counters.band_reads)
+    flow_reads = sum(reads)
+    own = len(syncs) - flow_reads
+    seconds = sorted(vo_session(a, chunk, config)[1] for _ in range(VO_RUNS))
+    ms = [1000 * s / N_FRAMES for s in seconds]
+    alive = int(sess._dev.alive.sum())
+    print(f"[vo] {config} session {HEIGHT}x{WIDTH}, grid {VO_GRID} "
+          f"({sess._dev.alive.numel()} slots), {N_FRAMES} frames through process_frames"
+          f"{', fb check 1.0 px' if VO_SESSIONS[config] else ''}: front end "
+          f"{ms[1]:.3f} ms/frame median of {VO_RUNS} (spread {ms[0]:.3f}-{ms[-1]:.3f}), "
+          f"tracks alive {alive}, landmarks {sess.n_landmarks}, launches {counts}, host reads "
+          f"a frame: flow {flow_reads / N_FRAMES:.2f} (convergence {reads[0]}, band "
+          f"{reads[1]}), "
+          f"the step's own {own / N_FRAMES:.2f}")
+    if own != 0:
+        raise AssertionError(f"vo {config}: {own} synchronizing operations besides the flow's "
+                             f"{flow_reads} reads: {sorted(set(syncs))}")
+    if alive < 0.5 * sess._dev.alive.numel():
+        raise AssertionError(f"vo {config}: only {alive} tracks alive")
+
+    results, solve_s = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results.append(sess.solve(ba_iterations=VO_BA_ITERATIONS))
+        solve_s.append(time.perf_counter() - t0)
+    r0, r1 = results
+    same = all(np.array_equal(getattr(r0, f), getattr(r1, f))
+               for f in ("poses_r", "poses_t", "landmarks"))
+    finite = all(np.isfinite(getattr(r0, f)).all() for f in ("poses_r", "poses_t", "landmarks"))
+    print(f"[vo] {config} solve(ba_iterations={VO_BA_ITERATIONS}) over {len(sess.keyframes)} "
+          f"keyframes, {sum(int(v.sum()) for v in sess.obs_valid)} valid observations: "
+          f"{solve_s[0]:.3f} s, then {solve_s[1]:.3f} s; mean reprojection error "
+          f"{r0.mean_reprojection_error:.4f} px; two solves {'bit-identical' if same else 'DIFFER'}")
+    if not (same and finite and r0.mean_reprojection_error < 1.0):
+        raise AssertionError(f"vo {config} solve: identical {same}, finite {finite}, mean "
+                             f"reprojection error {r0.mean_reprojection_error}")
+
+    if VO_SESSIONS[config] is not None:
+        before = launch_counts()
+        with plain_versions():
+            plain, plain_s = vo_session(a, chunk, config)
+        if launch_counts() != before:
+            raise AssertionError("the plain VO session launched a kernel")
+        uv, lm, ok, n_lm = _records(sess)
+        puv, plm, pok, pn_lm = _records(plain)
+        ids = all(np.array_equal(x, y) for x, y in zip(lm + ok, plm + pok)) and n_lm == pn_lm
+        xy = max(float(np.abs(x - y)[v].max(initial=0.0)) for x, y, v in zip(uv, puv, ok))
+        print(f"[vo] {config} session through the plain versions on the card: "
+              f"{1000 * plain_s / N_FRAMES:.3f} ms/frame; alive, ids and counters "
+              f"{'identical' if ids else 'DIFFER'}; max |dxy| of live tracks {xy:.3g} px "
+              f"(limit {STREAM_ATOL}, the stream's)")
+        if not ids or xy > STREAM_ATOL:
+            raise AssertionError(f"vo {config}: plain session differs (ids {ids}, xy {xy})")
+    return ms[1]
+
+
+def time_vo_reseed(a):
+    """Phase 6: the masked reseed's cost at 1080p, the Shi-Tomasi grid seed
+    that every step computes: device time (CUDA events) and the host clock
+    of one call to a synchronize."""
+    margin = VO_GRID - 3  # any margin: the same passes
+    ms = device_ms(lambda: tracking.seed_grid(a, VO_GRID, margin=margin))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        tracking.seed_grid(a, VO_GRID, margin=margin)
+    torch.cuda.synchronize()
+    host_ms = 1000 * (time.perf_counter() - t0) / 20
+    print(f"[vo] masked reseed at {HEIGHT}x{WIDTH} (tracking.seed_grid, every step): device "
+          f"{ms:.4f} ms, host clock {host_ms:.4f} ms a call")
+
+
+def profiled(run):
+    """Run ``run`` (it returns its seconds) once to warm up, then under
+    torch.profiler; return the seconds and the device's events by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run_stream(a, b, config, 2)
+    run()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, seconds = run_stream(a, b, config, 4)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        seconds = run()
+    return seconds, [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def profile_vo(a, chunk, config: str) -> None:
+    """Phase 6: device time by kernel and the device's busy share over 4
+    frames of a VO session (torch.profiler)."""
+    seconds, kernels = profiled(lambda: vo_session(a, chunk[:4], config)[1])
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    calls = sum(e.count for e in kernels)
+    print(f"[vo] profile {config} session, 4 frames under the profiler: wall "
+          f"{1000 * seconds / 4:.3f} ms/frame, device busy {busy_us / 4000:.3f} ms/frame "
+          f"({100 * busy_us / 1e6 / seconds:.1f}%), {calls / 4:.0f} device calls a frame")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"[vo] profile {e.self_device_time_total / 4:9.1f} us {e.count / 4:7.1f} calls  "
+              f"{e.key[:80]}")
+
+
+def run_vo_gate(dev):
+    """Phase 6, the trajectory gate: the incremental sequences at 320x240
+    under backend="cuda", against the TPU's committed fast-path baseline
+    (cross-platform rule, absolute bounds) and, where committed, the card's
+    own (10%, dust floor)."""
+    t0 = time.perf_counter()
+    results, counts = counted("vo gate", lambda: vo_verifier.run_suite(
+        backend="cuda", verbose=False, device=dev))
+    for r in results:
+        m = r["metrics"]
+        print(f"[vo] gate {r['sequence']}: ate_rmse {m['ate_rmse']:.5f} rpe_trans "
+              f"{m['rpe_trans']:.5f} rpe_rot {m['rpe_rot_deg']:.4f} deg scale {m['scale']:.3f} "
+              f"reprojection {m['mean_reprojection_error']:.3f} px tracks {r['track_count']}")
+    baselines = [vo_verifier.VO_PALLAS_BASELINE]
+    if vo_verifier.VO_CUDA_BASELINE.exists():
+        baselines.append(vo_verifier.VO_CUDA_BASELINE)
+    for path in baselines:
+        thr, floor = vo_verifier.default_threshold("cuda", "gpu", path)
+        ok = vo_verifier.gate(results, path, "cuda", "gpu")
+        print(f"[vo] gate against {path.name}: threshold {thr}% floors {floor}: "
+              f"{'PASS' if ok else 'FAIL'}, launches {counts}")
+        if not ok:
+            raise AssertionError(f"vo gate: regression against {path.name}")
+    print(f"[vo] gate: {len(results)} sequences in {time.perf_counter() - t0:.2f} s")
+    print(json.dumps({"vo_gate": results}))
+
+
+def profile_stream(a, b, config: str) -> None:
+    """Device time by kernel and the device's busy share over a 4-frame
+    stream (torch.profiler)."""
+    seconds, kernels = profiled(lambda: run_stream(a, b, config, 4)[2])
     busy_us = sum(e.self_device_time_total for e in kernels)
     print(f"[profile] {config}, 4 frames under the profiler: wall "
           f"{1000 * seconds / 4:.3f} ms/frame, device busy {busy_us / 4000:.3f} ms/frame "
@@ -1119,8 +1319,10 @@ def main() -> None:
 
     # 4. main paths
     counts = {}
-    counts.update(check_stream(a, b, "production"))
-    counts.update(check_stream(a, b, "default"))
+    stream_ms = {}
+    for config in ("production", "default"):
+        path_counts, stream_ms[config] = check_stream(a, b, config)
+        counts.update(path_counts)
     stream_counts = dict(counts)  # the two streams' kernels, N_FRAMES frames each
     counts.update(check_single_scale(a, b, confidence=False))
     counts.update(check_single_scale(a, b, confidence=True))
@@ -1136,7 +1338,22 @@ def main() -> None:
     # 5. gate
     run_gate()
 
-    # 6. profile
+    # 6. vo
+    t0 = time.perf_counter()
+    chunk = vo_chunk(a, b)
+    for config in VO_SESSIONS:
+        vo_ms = check_vo_session(a, b, chunk, config)
+        print(f"[vo] {config}: front end {vo_ms:.3f} ms/frame against the flow stream's "
+              f"{stream_ms[config]:.3f} ms/frame (phase 4)")
+        profile_vo(a, chunk, config)
+    time_vo_reseed(a)
+    del chunk
+    run_vo_gate(dev)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 was enabled on the VO path")
+    print(f"[vo] phase took {time.perf_counter() - t0:.1f} s")
+
+    # 7. profile
     profile_stream(a, b, "production")
     profile_stream(a, b, "default")
 

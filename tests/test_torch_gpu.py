@@ -29,7 +29,13 @@ spread over 2^-20..2^20 where another add order rounds otherwise; K9 in
 both modes at the script's shape, at planes of 1, 3, 5 and 6 rows (the
 block's 4-row tile ragged) and 1 to 15 column blocks, with offsets in
 +-8 and in +-200 (the gather's clip, no select matching); each call one
-launch; the C entry points refuse what no instantiation covers.
+launch; the C entry points refuse what no instantiation covers. The VO
+session (``tpuflow_torch.vo``) at 240x320 on the kernels against the same
+session on the plain versions: alive, ids and counters identical, live
+track positions within 1e-3 px; its front-end step makes no synchronizing
+operation besides the flow's counted reads; two bundle-adjustment solves
+of one problem give the same bits, and the sorted segment sums agree with
+``index_add_`` to 1e-5 relative.
 """
 
 import numpy as np
@@ -41,6 +47,8 @@ from tpuflow_torch import PYRAMID_CONFIGS, lucas_kanade_pyramidal_step
 from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation, warp_walk
 from tpuflow_torch.flow import pyramidal
 from tpuflow_torch.kernels import _build, launch_counts, lk, torch_ref, warp
+from tpuflow_torch.vo import ba, device_loop, se3
+from tpuflow_torch.vo.pipeline import OdometrySession
 
 pytestmark = pytest.mark.gpu
 
@@ -609,3 +617,109 @@ def test_ablation_entry_points_refuse_uncovered_arguments(cuda):
                                                 rows, wp, mode, stream)
         assert (code == 0) == ((rows, wp, mode) == (2, 256, 0))
     torch.cuda.synchronize()
+
+
+VO_KERNELS = {"production": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
+              "default": {"warp_exact", "lk_refine_exact"}}
+
+
+def _vo_frames(n, shape=(240, 320)):
+    rng = np.random.default_rng(5)
+    a = np.round(gaussian_filter(rng.uniform(0, 255, shape), 2.0)).astype(np.float32)
+    return np.stack([a if i % 2 == 0 else np.roll(a, 2, axis=1) for i in range(n)])
+
+
+@pytest.mark.parametrize("config", ["production", "default"])
+def test_vo_session_matches_plain_versions(cuda, monkeypatch, config):
+    frames = _vo_frames(5)
+
+    def session():
+        sess = OdometrySession((240.0, 240.0, 160.0, 120.0), backend="cuda",
+                               pyramid_config=config, device=cuda,
+                               fb_check_threshold=1.0 if config == "default" else None)
+        sess.process_frames(frames)
+        return sess
+
+    before = launch_counts()
+    kernels = session()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert {k for k in after if after[k] > before[k]} == VO_KERNELS[config]
+    monkeypatch.setattr(warp, "warp_banded", warp.warp_banded_ref)
+    monkeypatch.setattr(lk, "lucas_kanade_refine", lk.lucas_kanade_refine_ref)
+    plain = session()
+    assert kernels.n_landmarks == plain.n_landmarks
+    for uv, puv, ids, pids, ok, pok in zip(kernels.obs_uv, plain.obs_uv, kernels.obs_lm,
+                                           plain.obs_lm, kernels.obs_valid, plain.obs_valid):
+        np.testing.assert_array_equal(ids, pids)
+        np.testing.assert_array_equal(ok, pok)
+        np.testing.assert_allclose(uv[ok], puv[ok], rtol=0, atol=1e-3)
+    assert kernels.track_loss_frames == plain.track_loss_frames
+
+
+def test_vo_step_makes_no_host_read_of_its_own(cuda):
+    import warnings
+
+    frames = torch.from_numpy(_vo_frames(3)).to(cuda)
+    fe = device_loop.FrontEnd(backend="cuda", fb_check_threshold=1.0,
+                              config=PYRAMID_CONFIGS["default"])
+    state, _ = fe.init(frames[0])
+    state, _ = fe.step(state, frames[1])  # warm-up: operator blocks, pad indices
+    pyramidal.counters.reset()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fe.step(state, frames[2])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    reads = pyramidal.counters.convergence_reads + pyramidal.counters.band_reads
+    assert reads > 0 and len(syncs) == reads, [f"{w.filename}:{w.lineno}" for w in syncs]
+
+
+def _ba_problem(dev, k=6, m=500, seed=11):
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-2, 2, m), rng.uniform(-1.5, 1.5, m), rng.uniform(4, 8, m)],
+                   axis=1).astype(np.float32)
+    xi = np.zeros((k, 6), np.float32)
+    xi[:, 0] = 0.3 * np.arange(k)
+    xi[:, 4] = 0.02 * np.arange(k)
+    gt_r, gt_t = se3.se3_exp(torch.from_numpy(xi))
+    intr = torch.tensor([500.0, 500.0, 320.0, 240.0])
+    cam = np.repeat(np.arange(k), m)
+    lm = np.tile(np.arange(m), k)
+    uv = ba.project(gt_r[cam], gt_t[cam], torch.from_numpy(pts)[lm], intr).numpy()
+    uv += rng.normal(0, 0.5, uv.shape).astype(np.float32)
+    noise = rng.normal(0, 0.05, (k, 6)).astype(np.float32)
+    noise[:2] = 0.0
+    r0, t0 = se3.retract(gt_r, gt_t, torch.from_numpy(noise))
+    return ba.BAProblem(
+        poses_r=r0.to(dev), poses_t=t0.to(dev),
+        landmarks=torch.from_numpy(pts + rng.normal(0, 0.05, pts.shape).astype(np.float32)).to(dev),
+        obs_uv=torch.from_numpy(uv).to(dev), obs_cam=torch.from_numpy(cam).to(dev),
+        obs_lm=torch.from_numpy(lm).to(dev), obs_valid=torch.ones(k * m, dtype=torch.bool,
+                                                                   device=dev),
+        intrinsics=intr.to(dev),
+    )
+
+
+def test_ba_solve_repeats_its_bits(cuda):
+    p = _ba_problem(cuda)
+    first = ba.solve(p, iterations=8, fixed_cams=(0, 1))
+    again = ba.solve(p, iterations=8, fixed_cams=(0, 1))
+    for f in ("poses_r", "poses_t", "landmarks"):
+        assert torch.equal(getattr(first, f), getattr(again, f))
+    assert float(ba.reprojection_errors(first).mean()) < 1.0
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_segment_sum_repeats_its_bits_and_sums(cuda):
+    rng = np.random.default_rng(2)
+    keys = torch.from_numpy(rng.integers(0, 300, 100_000)).to(cuda)
+    vals = torch.from_numpy(rng.normal(size=(100_000, 6, 3)).astype(np.float32)).to(cuda)
+    got = ba.segment_sum(vals, keys, 300)
+    assert torch.equal(got, ba.segment_sum(vals, keys, 300))
+    want = torch.zeros(300, 6, 3, dtype=torch.float64, device=cuda).index_add_(
+        0, keys, vals.double())
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-4)

@@ -10,13 +10,20 @@ The PyTorch counterpart of ``tpuflow`` (JAX), module for module:
 - ``tpuflow_torch.flow``     single-scale and pyramidal flow:
                              ``backend="torch"`` (parity) and
                              ``backend="cuda"`` (fast path).
+- ``tpuflow_torch.vo``       incremental visual odometry: tracking, the
+                             front end on the device, bundle adjustment,
+                             essential-matrix initialization and
+                             ``OdometrySession`` / ``run_odometry``.
 - ``tpuflow_torch.eval``     the 13-pattern verifier and its CLI
                              (``python -m tpuflow_torch.eval.verifier``),
+                             the VO trajectory verifier
+                             (``python -m tpuflow_torch.eval.vo_verifier``)
                              and the stage profiler
                              (``python -m tpuflow_torch.eval.profile``).
 - ``tpuflow_torch.ablation`` the two measurement microkernels (K8, K9).
-- ``tpuflow_torch.convert``  configs and pyramids carried over from
-                             ``tpuflow``.
+- ``tpuflow_torch.convert``  configs, pyramids and VO state (front-end
+                             state, bundle-adjustment problems) carried
+                             over from ``tpuflow``.
 
 Importing the package neither imports ``jax`` nor builds a kernel: the
 CUDA library is compiled by ``nvcc`` at the first kernel launch.

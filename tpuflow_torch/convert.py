@@ -4,7 +4,9 @@ The flow system has no learned weights; what crosses over is a
 ``PyramidConfig`` and the pyramid a stream carries from one frame to the
 next. With both, a stream started in ``tpuflow`` continues here:
 ``np.asarray`` each level of ``tpuflow``'s ``build_gaussian_pyramid`` and
-hand the list to ``pyramid_from_numpy``.
+hand the list to ``pyramid_from_numpy``. A VO session's front-end state
+(``front_end_state_from_reference``) and a bundle-adjustment problem
+(``ba_problem_from_reference``) cross over the same way, field by field.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from tpuflow_torch.core.config import PyramidConfig
-from tpuflow_torch.eval.timing import require_cuda
+from tpuflow_torch.eval.timing import resolve_device
 
 _FIELDS = tuple(f.name for f in dataclasses.fields(PyramidConfig))
 
@@ -45,7 +47,7 @@ def pyramid_from_numpy(
     """A pyramid carry from (H, W) arrays ordered coarse first: float32,
     contiguous, on ``device``: the card unless the caller names another;
     raises without a card."""
-    device = require_cuda() if device is None else torch.device(device)
+    device = resolve_device(device)
     out = []
     for i, level in enumerate(levels):
         a = np.asarray(level)
@@ -55,3 +57,39 @@ def pyramid_from_numpy(
             raise ValueError("levels must be ordered coarse first")
         out.append(torch.from_numpy(np.array(a, np.float32)).to(device))
     return out
+
+
+def _tensor(a, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    return torch.from_numpy(np.array(np.asarray(a), copy=True)).to(device=device, dtype=dtype)
+
+
+def front_end_state_from_reference(arrays: Any, device: torch.device | str | None = None):
+    """``vo.device_loop.FrontEndState`` from a ``tpuflow`` ``FrontEndState``
+    whose fields are given as arrays (``np.asarray`` each, the pyramid carry
+    a sequence of levels, coarse first), or any object or mapping with those
+    fields, on ``device``: the card unless the caller names another."""
+    from tpuflow_torch.vo.device_loop import FrontEndState
+
+    device = resolve_device(device)
+    fields = FrontEndState._fields
+    get = arrays.__getitem__ if isinstance(arrays, Mapping) else (lambda f: getattr(arrays, f))
+    dtypes = {"xy": torch.float32, "start_xy": torch.float32, "alive": torch.bool,
+              "tracking_lost": torch.bool}
+    values = {
+        f: _tensor(get(f), device, dtypes.get(f, torch.int32)) for f in fields if f != "carry"
+    }
+    return FrontEndState(carry=tuple(pyramid_from_numpy(get("carry"), device)), **values)
+
+
+def ba_problem_from_reference(arrays: Any, device: torch.device | str | None = None):
+    """``vo.ba.BAProblem`` from a ``tpuflow`` ``BAProblem`` whose fields are
+    given as arrays (or any object or mapping with those fields), on
+    ``device``: the card unless the caller names another."""
+    from tpuflow_torch.vo.ba import BAProblem
+
+    device = resolve_device(device)
+    get = arrays.__getitem__ if isinstance(arrays, Mapping) else (lambda f: getattr(arrays, f))
+    dtypes = {"obs_cam": torch.int64, "obs_lm": torch.int64, "obs_valid": torch.bool}
+    return BAProblem(
+        **{f: _tensor(get(f), device, dtypes.get(f, torch.float32)) for f in BAProblem._fields}
+    )

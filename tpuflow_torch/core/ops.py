@@ -53,15 +53,20 @@ def _corr1d_valid(x: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _symmetric_index(n: int, pad: int, device: torch.device) -> torch.Tensor:
+    """The gather index of a symmetric pad, on ``device``. Memoised: a copy
+    to the card waits for its queue, and the VO step pads every frame."""
+    return torch.from_numpy(np.pad(np.arange(n), pad, mode="symmetric")).to(device)
+
+
 def _pad_symmetric(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
     """``np.pad(x, ((ph, ph), (pw, pw)), mode="symmetric")`` (edge included)."""
     h, w = x.shape
     if ph:
-        rows = np.pad(np.arange(h), ph, mode="symmetric")
-        x = x[torch.from_numpy(rows).to(x.device)]
+        x = x[_symmetric_index(h, ph, x.device)]
     if pw:
-        cols = np.pad(np.arange(w), pw, mode="symmetric")
-        x = x[:, torch.from_numpy(cols).to(x.device)]
+        x = x[:, _symmetric_index(w, pw, x.device)]
     return x
 
 

@@ -136,3 +136,17 @@ def load_suite(path: Path = SUITE_FIXTURE) -> Dict[str, Dict[str, Any]]:
             }
             for name, params in TEST_PATTERNS.items()
         }
+
+
+def load_base_texture(width: int = 320, height: int = 240) -> np.ndarray:
+    """The suite's uint8 base frame, ``tpuflow.eval.patterns.
+    load_base_texture(320, 240)`` (the mountain texture, bilinear-resized
+    by PIL), from the committed fixture: the one size it holds."""
+    with np.load(SUITE_FIXTURE) as data:
+        base = data["base"]
+    if base.shape != (height, width):
+        raise ValueError(
+            f"the fixture holds the {base.shape[1]}x{base.shape[0]} base frame, "
+            f"not {width}x{height}"
+        )
+    return base

@@ -39,7 +39,7 @@ import torch
 
 from tpuflow_torch.core import ops
 from tpuflow_torch.core.config import PYRAMID_CONFIGS, PyramidConfig
-from tpuflow_torch.eval.timing import card_label, device_ms, require_cuda
+from tpuflow_torch.eval.timing import card_label, device_ms, require_cuda, resolve_device
 from tpuflow_torch.flow import pyramidal
 from tpuflow_torch.kernels import lk, torch_ref, warp
 
@@ -55,7 +55,7 @@ def natural_pair(dx: float = 2.0, device: torch.device | str | None = None):
     """The natural 1080p frame and the same frame shifted ``dx`` px right
     (bilinear, gray 128 fill), as ``tpuflow.eval.profile._natural_pair``,
     on ``device``: the card unless the caller names another."""
-    dev = require_cuda() if device is None else torch.device(device)
+    dev = resolve_device(device)
     f0 = torch.from_numpy(np.load(NATURAL)["frame"].astype(np.float32)).to(dev)
     h, w = f0.shape
     yy = torch.arange(h, dtype=torch.float32, device=f0.device)[:, None].expand(h, w)
@@ -106,7 +106,7 @@ def profile_pipeline(height: int = 1080, width: int = 1920, config: str = "defau
                      device: torch.device | str | None = None) -> list[dict]:
     """Measure each stage at (height, width) under a named config; returns
     the report rows."""
-    dev = require_cuda() if device is None else torch.device(device)
+    dev = resolve_device(device)
     on_card = dev.type == "cuda"
     cfg = PYRAMID_CONFIGS[config]
     h, w = height, width

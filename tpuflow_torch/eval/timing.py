@@ -5,7 +5,9 @@ stage profiler and the ablations.
 back-to-back calls that queue behind a GPU spin, so the host's launch
 overhead does not show in the reading. ``card_label`` is the card's name
 and power limit as ``nvidia-smi`` gives them; every time this package
-prints carries it.
+prints carries it. ``resolve_device`` gives every entry point its device:
+the card unless the caller names another, and an error where there is no
+card, never a quiet fall back to the CPU.
 """
 
 from __future__ import annotations
@@ -56,3 +58,12 @@ def require_cuda() -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this runs on a GPU unless the CPU is asked for")
     return torch.device("cuda", 0)
+
+
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """The card unless the caller names another device; raises where a
+    card is asked for, or defaulted to, and there is none."""
+    dev = require_cuda() if device is None else torch.device(device)
+    if dev.type == "cuda":
+        require_cuda()
+    return dev

@@ -37,7 +37,7 @@ import torch
 from tpuflow_torch.core.config import PYRAMID_CONFIGS, PyramidConfig
 from tpuflow_torch.eval import patterns as patterns_mod
 from tpuflow_torch.eval.metrics import compute_all_metrics, compute_all_metrics_dense
-from tpuflow_torch.eval.timing import require_cuda
+from tpuflow_torch.eval.timing import resolve_device
 from tpuflow_torch.flow import lucas_kanade_pyramidal, lucas_kanade_single_scale
 
 BASELINE_DIR = Path(__file__).resolve().parents[2] / "tpuflow" / "eval" / "data"
@@ -124,9 +124,7 @@ def _make_runners(
     """Single-scale and pyramidal runners: numpy frames in, numpy flow out,
     computed on ``device``: the card unless the caller names another (on
     the CPU the kernels' plain versions run); raises without a card."""
-    dev = require_cuda() if device is None else torch.device(device)
-    if dev.type == "cuda":
-        require_cuda()
+    dev = resolve_device(device)
 
     def single(prev, curr):
         u, v = lucas_kanade_single_scale(
