@@ -47,8 +47,19 @@ failure raises and the script exits non-zero):
    debug mode, every other synchronizing operation of the step: none),
    ``solve(ba_iterations=8)`` twice, a torch.profiler pass of 4 frames and
    the masked reseed's cost; the ``default`` session again through the
-   plain versions; then the trajectory gate, ``strafe_x``, ``dolly_z`` and
-   ``arc_yaw`` at 320x240 under ``backend="cuda"``, against the TPU's
+   plain versions; ``run_odometry_chunked`` on ``square_loop`` (17 frames)
+   rendered at 1080p on the smoke's texture (fx = fy = 1800, depth 5),
+   chunks of 6 under ``production`` (K1, K2, K3) with loop closure (loop
+   edges under ``default``: K4, K5), twice: its seconds, each chunk's
+   (flow + BA), the loop pairs and measured loop edges, the pose graph's
+   nodes, edges and solve seconds, ATE and RPE against the truth; a
+   1080p ``production`` session through 8 frames, ``compact(keep_last=4)``,
+   ``checkpoint.save`` / ``load`` (seconds, bytes on disk), 8 more frames
+   and ``solve(8)``, against the same session never interrupted;
+   ``imu.preintegrate`` over ``swing_imu``'s 751 samples with and without
+   bias Jacobians and ``vi_graph.solve_vi`` over its 16 keyframes, each
+   beside the same call on the CPU; then the trajectory gate, all five
+   sequences at 320x240 under ``backend="cuda"``, against the TPU's
    ``vo_pallas_baseline.json`` (the reference's cross-platform rule) and
    the card's ``tpuflow_torch/eval/data/vo_cuda_baseline.json`` (10%);
 7. profile: device time by kernel and the device's busy share over 4 frames
@@ -74,8 +85,13 @@ configs without packed-u16 warps, and the production configs' no_motion
 floor in (0, 1e-3) px; VO: the step's own synchronizing operations 0, at
 least half the track slots alive, two solves bit-identical with a mean
 reprojection error under 1 px, the plain-version session's alive flags,
-ids and counters identical and its live tracks within 1e-3 px, every
-sequence inside the absolute bounds and both baselines' rules, TF32 off.
+ids and counters identical and its live tracks within 1e-3 px; the
+chunked square loop finite, with at least one measured loop edge and two
+runs bit-identical; the resumed session's poses, landmarks, keyframes and
+track table bit-identical; preintegration within 5e-6 of the CPU's and
+solve_vi within 1e-5 (poses, velocities; scale 1e-5 relative, RMS 1e-7),
+the limits of tests/test_torch_vo_graph.py; every sequence inside the
+absolute bounds and both baselines' rules, TF32 off.
 
 Each kernel's time is printed beside its bound (``eval/bounds.py``: the
 bytes one call must move over the card's 3.35 TB/s) and its share of it;
@@ -101,6 +117,7 @@ import json
 import re
 import shutil
 import subprocess
+import tempfile
 import time
 import warnings
 from contextlib import contextmanager
@@ -118,7 +135,8 @@ from tpuflow_torch.eval import bounds, profile, verifier, vo_verifier
 from tpuflow_torch.eval.timing import card_label, device_ms
 from tpuflow_torch.flow import pyramidal
 from tpuflow_torch.kernels import _build, lk, torch_ref, warp
-from tpuflow_torch.vo import tracking
+from tpuflow_torch.eval.vo_metrics import trajectory_metrics
+from tpuflow_torch.vo import checkpoint, imu, loop_closure, pipeline, pose_graph, tracking, vi_graph
 from tpuflow_torch.vo.pipeline import OdometrySession
 
 HEIGHT, WIDTH = 1080, 1920
@@ -176,6 +194,9 @@ PATH_KERNELS = {
     "vo production": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
     "vo default": {"warp_exact", "lk_refine_exact"},
     "vo gate": {"warp_exact", "lk_refine_exact"},
+    # Chunks under `production` (K1-K3), loop edges under `default` (K4, K5).
+    "vo chunked": {"warp_packed_u8", "warp_packed_u16", "lk_refine", "warp_exact",
+                   "lk_refine_exact"},
 }
 # The VO sessions at 1080p: grid step 16 (8,040 track slots), N_FRAMES
 # frames through process_frames after start; `default` with the
@@ -184,6 +205,17 @@ VO_SESSIONS = {"production": None, "default": 1.0}
 VO_GRID = 16
 VO_RUNS = 3
 VO_BA_ITERATIONS = 8
+# The chunked square loop at 1080p: the gate's 320-px field of view scaled
+# (fx = 300 * 1920 / 320), the plane at depth 5, the smoke's texture.
+VO_1080_INTR = (1800.0, 1800.0, WIDTH / 2.0, HEIGHT / 2.0)
+VO_DEPTH = 5.0
+VO_CHUNK_SIZE = 6
+# The limits of tests/test_torch_vo_graph.py (the port against JAX on the
+# CPU), here the card against the CPU: preintegration 5e-6 a field;
+# solve_vi poses and velocities 1e-5, scale 1e-5 relative, residual RMS
+# 1e-7.
+IMU_ATOL = 5e-6
+VI_ATOL = {"poses_r": 1e-5, "poses_t": 1e-5, "velocities": 1e-5}
 
 # K10's tensor-core sums against the plain version's torch.matmul, u, v in
 # px by window. The first limits asked, 1e-4 / 1e-5 / 1e-5, hold on the
@@ -1101,9 +1133,195 @@ def profile_vo(a, chunk, config: str) -> None:
               f"{e.key[:80]}")
 
 
+def render_square_1080p(texture: np.ndarray):
+    """square_loop (17 frames) at 1080x1920 on the smoke's texture, rounded
+    to the 8-bit gray levels the production config reads. Returns the
+    frames and the ground-truth poses."""
+    gt_r, gt_t = vo_verifier.SEQUENCES["square_loop"](vo_verifier.SEQUENCE_LENGTHS["square_loop"])
+    frames = vo_verifier.render_sequence(gt_r, gt_t, WIDTH, HEIGHT, VO_DEPTH, base=texture,
+                                         intr=VO_1080_INTR)
+    return [np.round(f).astype(np.float32) for f in frames], gt_r, gt_t
+
+
+@contextmanager
+def chunked_probes(log):
+    """Time each chunk (flow + BA) and the pose-graph solve, and count loop
+    pairs and measured loop edges, by wrapping the functions
+    run_odometry_chunked calls; each timed call ends in a synchronize."""
+    saved = (pipeline.run_odometry, loop_closure.detect_loops, loop_closure.loop_edge,
+             pose_graph.solve)
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            log[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def detect(*a, **k):
+        log["pairs"] = saved[1](*a, **k)
+        return log["pairs"]
+
+    def edge(*a, **k):
+        out = saved[2](*a, **k)
+        log["measured"] += out is not None
+        return out
+
+    def solve(g, *a, **k):
+        log["graph"] = (g.poses_r.shape[0], g.edge_i.shape[0])
+        return timed("solve_s", saved[3])(g, *a, **k)
+
+    pipeline.run_odometry = timed("chunk_s", saved[0])
+    loop_closure.detect_loops, loop_closure.loop_edge, pose_graph.solve = detect, edge, solve
+    try:
+        yield log
+    finally:
+        (pipeline.run_odometry, loop_closure.detect_loops, loop_closure.loop_edge,
+         pose_graph.solve) = saved
+
+
+def run_chunked_1080p(frames):
+    log = {"chunk_s": [], "solve_s": [], "pairs": [], "measured": 0, "graph": None}
+    with chunked_probes(log):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipeline.run_odometry_chunked(
+            frames, VO_1080_INTR, chunk_size=VO_CHUNK_SIZE, init_depth=VO_DEPTH,
+            grid_step=VO_GRID, backend="cuda", pyramid_config="production", loop_closure=True,
+        )
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, log
+
+
+def check_vo_chunked(frames, gt_r, gt_t):
+    """Phase 6: run_odometry_chunked on the 1080p square loop, twice, with
+    loop closure: the chunks' and the pose graph's times, the loops, the
+    trajectory against the truth, launches K1-K5, two runs bit-identical."""
+    (res, seconds, log), counts = counted("vo chunked", lambda: run_chunked_1080p(frames))
+    again, seconds2, log2 = run_chunked_1080p(frames)
+    same = all(np.array_equal(getattr(res, f), getattr(again, f))
+               for f in ("poses_r", "poses_t", "landmarks")) \
+        and res.keyframe_indices == again.keyframe_indices
+    finite = all(np.isfinite(getattr(res, f)).all() for f in ("poses_r", "poses_t"))
+    kf = res.keyframe_indices
+    m = trajectory_metrics(res.poses_r, res.poses_t, gt_r[kf], gt_t[kf])
+    nodes, edges = log["graph"]
+
+    def ms(values):
+        return ", ".join(f"{1000 * v:.1f}" for v in values)
+
+    print(f"[vo] chunked square loop {HEIGHT}x{WIDTH}, {len(frames)} frames, chunk "
+          f"{VO_CHUNK_SIZE}, production, grid {VO_GRID}, loop closure: {seconds:.3f} s, then "
+          f"{seconds2:.3f} s; chunks (flow + BA) {ms(log['chunk_s'])} ms, then "
+          f"{ms(log2['chunk_s'])} ms; loop pairs detected "
+          f"{[(i, j) for i, j, _ in log['pairs']]}, loop edges measured {log['measured']}; "
+          f"pose graph {nodes} nodes, {edges} edges, solve {ms(log['solve_s'])} ms, then "
+          f"{ms(log2['solve_s'])} ms; ATE {m['ate_rmse']:.5f} RPE {m['rpe_trans']:.5f} / "
+          f"{m['rpe_rot_deg']:.4f} deg (scale {m['scale']:.3f}); launches {counts}; two runs "
+          f"{'bit-identical' if same else 'DIFFER'}")
+    if not (same and finite and log["measured"] >= 1):
+        raise AssertionError(f"vo chunked: identical {same}, finite {finite}, loop edges "
+                             f"{log['measured']}")
+
+
+def check_vo_resume(frames):
+    """Phase 6: a 1080p production session, 8 frames, compact(keep_last=4),
+    checkpoint.save, load, 8 more frames, solve(8), against the same
+    session never interrupted: bit-identical."""
+    def session():
+        return OdometrySession(VO_1080_INTR, grid_step=VO_GRID, init_depth=VO_DEPTH,
+                               backend="cuda", pyramid_config="production")
+
+    straight, first = session(), session()
+    for f in frames[:8]:
+        straight.process_frame(f)
+        first.process_frame(f)
+    straight.compact(keep_last=4)
+    first.compact(keep_last=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save(first, tmp)
+        save_s = time.perf_counter() - t0
+        size = sum(p.stat().st_size for p in Path(tmp).iterdir())
+        t0 = time.perf_counter()
+        resumed = checkpoint.load(tmp)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    for f in frames[8:16]:
+        straight.process_frame(f)
+        resumed.process_frame(f)
+    a, b = straight.solve(VO_BA_ITERATIONS), resumed.solve(VO_BA_ITERATIONS)
+    same = (a.keyframe_indices == b.keyframe_indices
+            and all(np.array_equal(getattr(a, f), getattr(b, f))
+                    for f in ("poses_r", "poses_t", "landmarks"))
+            and all(torch.equal(getattr(straight._dev, f), getattr(resumed._dev, f))
+                    for f in ("xy", "start_xy", "age", "alive", "track_lm", "n_landmarks")))
+    print(f"[vo] 1080p production session: 8 frames, compact(keep_last=4), save "
+          f"{1000 * save_s:.1f} ms, {size} bytes on disk, load {1000 * load_s:.1f} ms, 8 more "
+          f"frames, solve({VO_BA_ITERATIONS}) over {len(a.keyframe_indices)} keyframes "
+          f"({len(straight.frozen_kf)} frozen): poses, landmarks, keyframes and track table "
+          f"{'bit-identical' if same else 'DIFFER'} against the uninterrupted session")
+    if not same:
+        raise AssertionError("vo resume: the resumed session differs")
+
+
+def _host_seconds(fn, runs: int = 3):
+    """Median host-clock seconds of fn() to a synchronize, and its result."""
+    times, out = [], None
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)), out
+
+
+def check_vo_imu():
+    """Phase 6: preintegration of swing_imu's samples and solve_vi on the
+    card, each beside the same call on the CPU (the CPU tests' limits)."""
+    n = vo_verifier.SEQUENCE_LENGTHS["swing_imu"]
+    ts, gyro, accel, frame_times = vo_verifier._imu_swing(n)
+    dts = np.append(np.diff(ts), np.median(np.diff(ts)))
+    for jac in (False, True):
+        sec, got = _host_seconds(lambda: imu.preintegrate(gyro, accel, dts, bias_jacobians=jac))
+        cpu_sec, want = _host_seconds(lambda: imu.preintegrate(
+            gyro, accel, dts, bias_jacobians=jac, device="cpu"), runs=1)
+        err = max(float((a.cpu() - b).abs().max()) for a, b in zip(got, want)
+                  if isinstance(b, torch.Tensor))
+        print(f"[vo] imu.preintegrate, {len(ts)} samples, bias_jacobians={jac}: card "
+              f"{1000 * sec:.1f} ms ({1e6 * sec / len(ts):.1f} us a sample), CPU "
+              f"{1000 * cpu_sec:.1f} ms; max |card - CPU| {err:.3g} (limit {IMU_ATOL})")
+        if not err <= IMU_ATOL:
+            raise AssertionError(f"imu.preintegrate differs from the CPU by {err}")
+    # The swing as an up-to-scale vision trajectory (scale 2.5), increments
+    # between its keyframes, gravity known.
+    gt_r, gt_t = vo_verifier.SEQUENCES["swing_imu"](n)
+    incs = imu.preintegrate_segments(ts, gyro, accel, frame_times)
+    cpu_incs = imu.preintegrate_segments(ts, gyro, accel, frame_times, device="cpu")
+    sec, got = _host_seconds(lambda: vi_graph.solve_vi(gt_r, gt_t / 2.5, incs,
+                                                      vo_verifier.GRAVITY_W))
+    cpu_sec, want = _host_seconds(lambda: vi_graph.solve_vi(
+        gt_r, gt_t / 2.5, cpu_incs, vo_verifier.GRAVITY_W, device="cpu"), runs=1)
+    errs = {f: float(np.abs(getattr(got, f) - getattr(want, f)).max()) for f in VI_ATOL}
+    scale_err = abs(got.scale - want.scale) / want.scale
+    rms_err = abs(got.residual_rms - want.residual_rms)
+    print(f"[vo] vi_graph.solve_vi, {n} keyframes, 12 iterations: card {1000 * sec:.1f} ms, "
+          f"CPU {1000 * cpu_sec:.1f} ms; scale {got.scale:.4f} (truth 2.5), residual rms "
+          f"{got.residual_rms:.3g}; max |card - CPU| " + ", ".join(
+              f"{f} {e:.3g}" for f, e in errs.items())
+          + f", scale {scale_err:.3g} relative, rms {rms_err:.3g}")
+    if any(errs[f] > VI_ATOL[f] for f in VI_ATOL) or scale_err > 1e-5 or rms_err > 1e-7:
+        raise AssertionError(f"solve_vi differs from the CPU: {errs}, {scale_err}, {rms_err}")
+
+
 def run_vo_gate(dev):
-    """Phase 6, the trajectory gate: the incremental sequences at 320x240
-    under backend="cuda", against the TPU's committed fast-path baseline
+    """Phase 6, the trajectory gate: the five sequences at 320x240 under
+    backend="cuda", against the TPU's committed fast-path baseline
     (cross-platform rule, absolute bounds) and, where committed, the card's
     own (10%, dust floor)."""
     t0 = time.perf_counter()
@@ -1113,7 +1331,8 @@ def run_vo_gate(dev):
         m = r["metrics"]
         print(f"[vo] gate {r['sequence']}: ate_rmse {m['ate_rmse']:.5f} rpe_trans "
               f"{m['rpe_trans']:.5f} rpe_rot {m['rpe_rot_deg']:.4f} deg scale {m['scale']:.3f} "
-              f"reprojection {m['mean_reprojection_error']:.3f} px tracks {r['track_count']}")
+              f"reprojection {m['mean_reprojection_error']:.3f} px tracks {r['track_count']} "
+              f"metric {m['metric_poses']}")
     baselines = [vo_verifier.VO_PALLAS_BASELINE]
     if vo_verifier.VO_CUDA_BASELINE.exists():
         baselines.append(vo_verifier.VO_CUDA_BASELINE)
@@ -1348,6 +1567,13 @@ def main() -> None:
         profile_vo(a, chunk, config)
     time_vo_reseed(a)
     del chunk
+    t1 = time.perf_counter()
+    square, gt_r, gt_t = render_square_1080p(fa)
+    print(f"[vo] rendered square_loop at {HEIGHT}x{WIDTH} in {time.perf_counter() - t1:.1f} s")
+    check_vo_chunked(square, gt_r, gt_t)
+    check_vo_resume(square)
+    del square
+    check_vo_imu()
     run_vo_gate(dev)
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise AssertionError("TF32 was enabled on the VO path")

@@ -35,7 +35,9 @@ session on the plain versions: alive, ids and counters identical, live
 track positions within 1e-3 px; its front-end step makes no synchronizing
 operation besides the flow's counted reads; two bundle-adjustment solves
 of one problem give the same bits, and the sorted segment sums agree with
-``index_add_`` to 1e-5 relative.
+``index_add_`` to 1e-5 relative. Two pose-graph solves (17 nodes, loop
+and rotation-only edges) give the same bits and agree with the CPU's to
+1e-4; IMU preintegration on the card agrees with the CPU's to 5e-6.
 """
 
 import numpy as np
@@ -47,7 +49,7 @@ from tpuflow_torch import PYRAMID_CONFIGS, lucas_kanade_pyramidal_step
 from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation, warp_walk
 from tpuflow_torch.flow import pyramidal
 from tpuflow_torch.kernels import _build, launch_counts, lk, torch_ref, warp
-from tpuflow_torch.vo import ba, device_loop, se3
+from tpuflow_torch.vo import ba, device_loop, imu, pose_graph, se3
 from tpuflow_torch.vo.pipeline import OdometrySession
 
 pytestmark = pytest.mark.gpu
@@ -723,3 +725,57 @@ def test_segment_sum_repeats_its_bits_and_sums(cuda):
     want = torch.zeros(300, 6, 3, dtype=torch.float64, device=cuda).index_add_(
         0, keys, vals.double())
     torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-4)
+
+
+def _pose_graph(dev, k=17):
+    """A chain of k poses with noisy odometry edges, two loop edges and a
+    rotation-only edge, started from the truth perturbed (node 0 exact)."""
+    rng = np.random.default_rng(3)
+    xi = rng.normal(0, 0.2, (k, 6)).astype(np.float32)
+    xi[0] = 0.0
+    gt_r, gt_t = se3.se3_exp(torch.from_numpy(xi))
+    pairs = [(i, i + 1) for i in range(k - 1)] + [(0, k - 1), (2, k - 3), (4, 5)]
+    ei = torch.tensor([i for i, _ in pairs])
+    ej = torch.tensor([j for _, j in pairs])
+    er, et = se3.compose(*se3.inverse(gt_r[ei], gt_t[ei]), gt_r[ej], gt_t[ej])
+    er, et = se3.retract(er, et, torch.from_numpy(
+        rng.normal(0, 0.01, (len(pairs), 6)).astype(np.float32)))
+    noise = rng.normal(0, 0.05, (k, 6)).astype(np.float32)
+    noise[0] = 0.0
+    r0, t0 = se3.retract(gt_r, gt_t, torch.from_numpy(noise))
+    mask = torch.ones(len(pairs), 6)
+    mask[-1, :3] = 0.0
+    g = pose_graph.PoseGraph(poses_r=r0, poses_t=t0, edge_i=ei, edge_j=ej, edge_r=er, edge_t=et,
+                             edge_valid=torch.ones(len(pairs), dtype=torch.bool),
+                             edge_weight=torch.from_numpy(
+                                 rng.uniform(0.5, 5.0, len(pairs)).astype(np.float32)),
+                             edge_mask=mask)
+    return pose_graph.to_device(g, dev)
+
+
+def test_pose_graph_solve_repeats_its_bits(cuda):
+    g = _pose_graph(cuda)
+    first = pose_graph.solve(g, iterations=15, device=cuda)
+    again = pose_graph.solve(g, iterations=15, device=cuda)
+    assert torch.equal(first.poses_r, again.poses_r) and torch.equal(first.poses_t, again.poses_t)
+    cpu = pose_graph.solve(g, iterations=15, device="cpu")
+    torch.testing.assert_close(first.poses_r.cpu(), cpu.poses_r, rtol=0, atol=1e-4)
+    torch.testing.assert_close(first.poses_t.cpu(), cpu.poses_t, rtol=0, atol=1e-4)
+    assert float(pose_graph.residuals(first).abs().max()) < 0.05
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_imu_preintegration_on_the_card_matches_the_cpu(cuda):
+    rng = np.random.default_rng(4)
+    gyro = rng.normal(scale=0.5, size=(200, 3)).astype(np.float32)
+    accel = rng.normal(scale=3.0, size=(200, 3)).astype(np.float32)
+    got = imu.preintegrate(gyro, accel, 0.005, bias_jacobians=True, device=cuda)
+    want = imu.preintegrate(gyro, accel, 0.005, bias_jacobians=True, device="cpu")
+    for a, b in zip(got, want):
+        if isinstance(b, torch.Tensor):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=5e-6)
+    times = np.arange(200) * 0.005
+    bounds = np.append(times[::50], 1.0)
+    incs = imu.preintegrate_segments(times, gyro, accel, bounds, device=cuda)
+    assert [inc.n_samples for inc in incs] == [50, 50, 50, 50]
+    assert not torch.backends.cuda.matmul.allow_tf32

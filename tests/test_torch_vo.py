@@ -584,12 +584,12 @@ def test_update_baseline_records_provenance(tmp_path, capsys):
 
 
 def test_unported_sequences_and_unknown_names():
-    with pytest.raises(NotImplementedError, match="run_odometry_chunked"):
-        vo_verifier.run_suite(["square_loop"], device="cpu")
-    with pytest.raises(NotImplementedError, match="vi_graph"):
-        vo_verifier.verify_sequence("swing_imu", device="cpu")
+    # Every sequence of the reference is ported now; an unknown name exits.
+    assert list(vo_verifier.SEQUENCES) == list(jverifier.SEQUENCES)
     with pytest.raises(SystemExit):
         vo_verifier.run_suite(["no_such"], device="cpu")
+    with pytest.raises(SystemExit):
+        vo_verifier.verify_sequence("no_such", device="cpu")
 
 
 def test_vo_entry_points_need_a_card_unless_the_cpu_is_asked_for(monkeypatch, tmp_path):

@@ -10,10 +10,16 @@ The PyTorch counterpart of ``tpuflow`` (JAX), module for module:
 - ``tpuflow_torch.flow``     single-scale and pyramidal flow:
                              ``backend="torch"`` (parity) and
                              ``backend="cuda"`` (fast path).
-- ``tpuflow_torch.vo``       incremental visual odometry: tracking, the
-                             front end on the device, bundle adjustment,
-                             essential-matrix initialization and
-                             ``OdometrySession`` / ``run_odometry``.
+- ``tpuflow_torch.vo``       visual odometry: tracking, the front end on
+                             the device, bundle adjustment, essential-matrix
+                             initialization, ``OdometrySession`` (with
+                             ``compact`` and checkpoint/resume),
+                             ``run_odometry``, the chunked pose-graph
+                             pipeline with loop closure, IMU and
+                             visual-inertial refinement, and the VO CLI
+                             (``python -m tpuflow_torch.vo``).
+- ``tpuflow_torch.io``       frame, IMU and video readers (numpy copies
+                             of ``tpuflow.io``'s).
 - ``tpuflow_torch.eval``     the 13-pattern verifier and its CLI
                              (``python -m tpuflow_torch.eval.verifier``),
                              the VO trajectory verifier
@@ -22,8 +28,9 @@ The PyTorch counterpart of ``tpuflow`` (JAX), module for module:
                              (``python -m tpuflow_torch.eval.profile``).
 - ``tpuflow_torch.ablation`` the two measurement microkernels (K8, K9).
 - ``tpuflow_torch.convert``  configs, pyramids and VO state (front-end
-                             state, bundle-adjustment problems) carried
-                             over from ``tpuflow``.
+                             state, bundle-adjustment problems, pose graphs,
+                             IMU increments, whole sessions) carried over
+                             from ``tpuflow``.
 
 Importing the package neither imports ``jax`` nor builds a kernel: the
 CUDA library is compiled by ``nvcc`` at the first kernel launch.

@@ -5,8 +5,12 @@ The flow system has no learned weights; what crosses over is a
 next. With both, a stream started in ``tpuflow`` continues here:
 ``np.asarray`` each level of ``tpuflow``'s ``build_gaussian_pyramid`` and
 hand the list to ``pyramid_from_numpy``. A VO session's front-end state
-(``front_end_state_from_reference``) and a bundle-adjustment problem
-(``ba_problem_from_reference``) cross over the same way, field by field.
+(``front_end_state_from_reference``), a bundle-adjustment problem
+(``ba_problem_from_reference``), a pose graph
+(``pose_graph_from_reference``) and an IMU increment
+(``imu_increment_from_reference``) cross over the same way, field by
+field; a whole session crosses over from its ``meta_dict()`` and
+``state_dict()`` (``session_from_reference``) and continues here.
 """
 
 from __future__ import annotations
@@ -72,7 +76,7 @@ def front_end_state_from_reference(arrays: Any, device: torch.device | str | Non
 
     device = resolve_device(device)
     fields = FrontEndState._fields
-    get = arrays.__getitem__ if isinstance(arrays, Mapping) else (lambda f: getattr(arrays, f))
+    get = _getter(arrays)
     dtypes = {"xy": torch.float32, "start_xy": torch.float32, "alive": torch.bool,
               "tracking_lost": torch.bool}
     values = {
@@ -88,8 +92,64 @@ def ba_problem_from_reference(arrays: Any, device: torch.device | str | None = N
     from tpuflow_torch.vo.ba import BAProblem
 
     device = resolve_device(device)
-    get = arrays.__getitem__ if isinstance(arrays, Mapping) else (lambda f: getattr(arrays, f))
+    get = _getter(arrays)
     dtypes = {"obs_cam": torch.int64, "obs_lm": torch.int64, "obs_valid": torch.bool}
     return BAProblem(
         **{f: _tensor(get(f), device, dtypes.get(f, torch.float32)) for f in BAProblem._fields}
     )
+
+
+def session_from_reference(meta: Mapping, state: Mapping, device: torch.device | str | None = None):
+    """``vo.pipeline.OdometrySession`` from a ``tpuflow`` session's
+    ``meta_dict()`` and ``state_dict()`` (arrays, or anything ``np.asarray``
+    takes), on ``device``: the card unless the caller names another. The
+    reference's backend names map to this package's (``jnp`` -> ``torch``,
+    ``pallas`` -> ``cuda``)."""
+    from tpuflow_torch.vo.pipeline import OdometrySession
+
+    return OdometrySession.from_state(
+        dict(meta), {k: np.asarray(v) for k, v in state.items()}, device=device
+    )
+
+
+def pose_graph_from_reference(arrays: Any, device: torch.device | str | None = None):
+    """``vo.pose_graph.PoseGraph`` from a ``tpuflow`` ``PoseGraph`` whose
+    fields are given as arrays (or any object or mapping with those fields;
+    ``edge_mask`` may be absent or None), on ``device``: the card unless the
+    caller names another."""
+    from tpuflow_torch.vo.pose_graph import PoseGraph
+
+    device = resolve_device(device)
+    get = _getter(arrays)
+    dtypes = {"edge_i": torch.int64, "edge_j": torch.int64, "edge_valid": torch.bool}
+    values = {f: _tensor(get(f), device, dtypes.get(f, torch.float32))
+              for f in PoseGraph._fields if f != "edge_mask"}
+    mask = get("edge_mask", None)
+    return PoseGraph(**values, edge_mask=None if mask is None
+                     else _tensor(mask, device, torch.float32))
+
+
+def imu_increment_from_reference(arrays: Any, device: torch.device | str | None = None):
+    """``vo.imu.ImuIncrement`` from a ``tpuflow`` ``ImuIncrement`` whose
+    fields are given as arrays (or any object or mapping with those fields;
+    the bias Jacobians may be absent or None), on ``device``: the card
+    unless the caller names another."""
+    from tpuflow_torch.vo.imu import ImuIncrement
+
+    device = resolve_device(device)
+    get = _getter(arrays)
+    values = {}
+    for f in ImuIncrement._fields:
+        v = get(f, None)
+        if f == "n_samples":
+            values[f] = int(0 if v is None else v)
+        elif v is not None:
+            values[f] = _tensor(v, device, torch.float32)
+    return ImuIncrement(**values)
+
+
+def _getter(arrays: Any):
+    """``get(field, *default)`` over a mapping or an object's attributes."""
+    if isinstance(arrays, Mapping):
+        return lambda f, *default: arrays.get(f, *default) if default else arrays[f]
+    return lambda f, *default: getattr(arrays, f, *default)

@@ -1,16 +1,17 @@
 """VO trajectory verification: synthetic sequences with analytic pose
 ground truth, ATE/RPE scoring, and the committed-baseline regression gate.
 
-The port of ``tpuflow.eval.vo_verifier`` for the incremental sequences
-``strafe_x``, ``dolly_z`` and ``arc_yaw``: a textured fronto-parallel
+The port of ``tpuflow.eval.vo_verifier``: a textured fronto-parallel
 plane at depth ``PLANE_DEPTH`` rendered under a known SE(3) trajectory
-through the planar homography ``H = K (R + t n^T / d) K^-1``, run through
-``vo.pipeline.run_odometry`` and scored against the truth. It imports
-neither JAX nor ``tpuflow``: the base texture comes from the suite fixture
+through the planar homography ``H = K (R + t n^T / d) K^-1`` and scored
+against the truth. ``strafe_x``, ``dolly_z`` and ``arc_yaw`` run the
+incremental session (``vo.pipeline.run_odometry``); ``square_loop`` runs
+the chunked pose-graph pipeline with loop closure, and ``swing_imu`` the
+chunked pipeline with exact synthetic IMU and the tight visual-inertial
+refinement, scored metric (``SEQUENCE_MODES``). It imports neither JAX nor
+``tpuflow``: the base texture comes from the suite fixture
 (``patterns.load_base_texture``) and the committed baselines are read as
-files. ``square_loop`` and ``swing_imu`` need the chunked and the
-visual-inertial pipelines, which are not ported yet; asking for them
-raises.
+files.
 
 The run goes to the card unless the caller asks for the CPU
 (``device="cpu"``, ``--device cpu``). Baselines record the backend in
@@ -42,7 +43,7 @@ import torch
 from tpuflow_torch.eval import patterns as patterns_mod
 from tpuflow_torch.eval.vo_metrics import trajectory_metrics
 from tpuflow_torch.eval.timing import resolve_device
-from tpuflow_torch.vo.pipeline import run_odometry
+from tpuflow_torch.vo.pipeline import run_odometry, run_odometry_chunked
 
 BASELINE_DIR = Path(__file__).resolve().parents[2] / "tpuflow" / "eval" / "data"
 VO_BASELINE = BASELINE_DIR / "vo_baseline.json"
@@ -97,16 +98,73 @@ def _poses_arc(n: int) -> Tuple[np.ndarray, np.ndarray]:
     )
 
 
+def _poses_square(n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """A closed square loop over the plane, 4 sides of (n - 1) // 4 steps
+    of 0.018, back to the start: the last frames revisit the first pose."""
+    side = max((n - 1) // 4, 1)
+    c = np.zeros(3)
+    centers = [c.copy()]
+    for d in ([0.018, 0, 0], [0, 0.018, 0], [-0.018, 0, 0], [0, -0.018, 0]):
+        for _ in range(side):
+            c = c + np.asarray(d, np.float64)
+            centers.append(c.copy())
+    return _poses(centers, [np.eye(3)] * len(centers))
+
+
+# The visual-inertial sequence: steady lateral drift plus a sinusoidal
+# swing. The swing gives the accelerometer the acceleration that scale and
+# gravity need; the drift keeps the velocity positive (pure oscillation is
+# a vision bundle-adjustment degeneracy on the planar scene). Closed forms
+# shared by the poses and the IMU samples.
+SWING_AMP, SWING_HZ, SWING_DRIFT, SWING_FRAME_RATE = 0.03, 0.5, 0.1, 4.0
+GRAVITY_W = np.array([0.0, 0.0, -9.81])
+
+
+def _swing_x(t: np.ndarray):
+    om = 2 * np.pi * SWING_HZ
+    return SWING_DRIFT * t + SWING_AMP * np.sin(om * t)
+
+
+def _poses_swing(n: int) -> Tuple[np.ndarray, np.ndarray]:
+    return _poses([[_swing_x(i / SWING_FRAME_RATE), 0.0, 0.0] for i in range(n)],
+                  [np.eye(3)] * n)
+
+
+def _imu_swing(n: int, rate_hz: float = 200.0):
+    """Exact IMU for the swing: zero gyro, specific force f = a_world - g
+    in the world-aligned body frame. Returns (times, gyro, accel,
+    frame_times)."""
+    om = 2 * np.pi * SWING_HZ
+    t_end = (n - 1) / SWING_FRAME_RATE
+    m = int(t_end * rate_hz) + 1
+    ts = np.arange(m) / rate_hz
+    ax = -SWING_AMP * om * om * np.sin(om * ts)
+    accel = np.stack([ax, np.zeros(m), np.full(m, -GRAVITY_W[2])], 1).astype(np.float32)
+    gyro = np.zeros((m, 3), np.float32)
+    frame_times = np.arange(n) / SWING_FRAME_RATE
+    return ts, gyro, accel, frame_times
+
+
 SEQUENCES = {
     "strafe_x": _poses_strafe,
     "dolly_z": _poses_dolly,
     "arc_yaw": _poses_arc,
+    "square_loop": _poses_square,
+    "swing_imu": _poses_swing,
 }
-# The reference's other sequences, and what they wait for.
-NOT_PORTED = {
-    "square_loop": "the chunked pipeline with loop closure (run_odometry_chunked)",
-    "swing_imu": "the visual-inertial pipeline (imu, vi_graph)",
+# The pipeline each sequence runs, where it is not the incremental
+# session: the square loop runs the chunked pose-graph pipeline with loop
+# closure (the revisit is the point); swing_imu the chunked pipeline with
+# exact IMU and the tight VI refinement, scored metric (SE(3) alignment
+# only, so a scale error shows in ATE). swing_imu's ATE is limited by the
+# vision on the planar scene, not by the IMU.
+SEQUENCE_MODES = {
+    "square_loop": "chunked_loop",
+    "swing_imu": "chunked_imu_tight",
 }
+# Fixed lengths where the geometry sets one (four full sides; full swing
+# periods); ``n_frames`` applies to the rest.
+SEQUENCE_LENGTHS = {"square_loop": 17, "swing_imu": 16}
 
 
 def intrinsics() -> Tuple[float, float, float, float]:
@@ -119,13 +177,22 @@ def render_sequence(
     width: int = WIDTH,
     height: int = HEIGHT,
     depth: float = PLANE_DEPTH,
+    *,
+    base: np.ndarray | None = None,
+    intr: Tuple[float, float, float, float] | None = None,
 ) -> List[np.ndarray]:
     """Each camera's view of the textured plane Z = ``depth``: the base
-    texture inverse-warped by H_{0->i}^-1, bilinear, edge-replicated."""
+    texture inverse-warped by H_{0->i}^-1, bilinear, edge-replicated.
+    ``base``: an (height, width) texture in place of the suite's 320x240
+    one; ``intr``: (fx, fy, cx, cy) in place of ``intrinsics()``."""
     from scipy.ndimage import map_coordinates
 
-    base = patterns_mod.load_base_texture(width, height).astype(np.float32)
-    fx, fy, cx, cy = intrinsics()
+    if base is None:
+        base = patterns_mod.load_base_texture(width, height)
+    base = np.asarray(base, np.float32)
+    if base.shape != (height, width):
+        raise ValueError(f"texture {base.shape} is not {(height, width)}")
+    fx, fy, cx, cy = intr if intr is not None else intrinsics()
     k_mat = np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
     k_inv = np.linalg.inv(k_mat)
     n_vec = np.array([0.0, 0.0, 1.0])
@@ -156,12 +223,6 @@ def render_sequence(
 
 
 def _check_names(names: List[str]) -> None:
-    waiting = [n for n in names if n in NOT_PORTED]
-    if waiting:
-        raise NotImplementedError(
-            "; ".join(f"{n} needs {NOT_PORTED[n]}" for n in waiting)
-            + ", which the next slice of the port brings (ROADMAP.md, queue 1 items 6-7)"
-        )
     unknown = [n for n in names if n not in SEQUENCES]
     if unknown:
         raise SystemExit(
@@ -179,26 +240,35 @@ def verify_sequence(
     pyramid_config: str = "default",
     device: torch.device | str | None = None,
 ) -> Dict[str, Any]:
-    """Render one sequence, run the incremental VO pipeline, score ATE/RPE."""
+    """Render one sequence, run its VO pipeline (``SEQUENCE_MODES``), score
+    ATE/RPE."""
     _check_names([name])
+    n_frames = SEQUENCE_LENGTHS.get(name, n_frames)
     gt_r, gt_t = SEQUENCES[name](n_frames)
     frames = render_sequence(gt_r, gt_t)
-    result = run_odometry(
-        frames,
-        intrinsics(),
-        init_depth=PLANE_DEPTH,
-        ba_iterations=ba_iterations,
-        backend=backend,
-        pyramid_config=pyramid_config,
-        device=device,
-    )
+    n_frames = len(frames)  # what was rendered
+    kw = dict(init_depth=PLANE_DEPTH, ba_iterations=ba_iterations, backend=backend,
+              pyramid_config=pyramid_config, device=device)
+    mode = SEQUENCE_MODES.get(name)
+    if mode == "chunked_loop":
+        result = run_odometry_chunked(frames, intrinsics(), chunk_size=6, loop_closure=True,
+                                      **kw)
+    elif mode == "chunked_imu_tight":
+        imu_t, imu_gyro, imu_accel, frame_times = _imu_swing(n_frames)
+        result = run_odometry_chunked(
+            frames, intrinsics(), chunk_size=6, imu=(imu_t, imu_gyro, imu_accel),
+            frame_times=frame_times, imu_tight=True, **kw,
+        )
+    else:
+        result = run_odometry(frames, intrinsics(), **kw)
     # Keyframe stride 1: keyframe poses line up with the truth's frames.
-    # Monocular trajectories: Sim(3) alignment (metric_poses False, the
-    # scoring regime the baselines record for these sequences).
+    # Metric (VI-refined) trajectories are scored with SE(3) alignment
+    # only: the recovered scale is part of what is graded.
     kf = result.keyframe_indices
-    metrics = trajectory_metrics(result.poses_r, result.poses_t, gt_r[kf], gt_t[kf])
+    metrics = trajectory_metrics(result.poses_r, result.poses_t, gt_r[kf], gt_t[kf],
+                                 with_scale=not result.metric_poses)
     metrics["mean_reprojection_error"] = float(result.mean_reprojection_error)
-    metrics["metric_poses"] = False
+    metrics["metric_poses"] = bool(result.metric_poses)
     if verbose:
         print(
             f"{name:12s} ate_rmse={metrics['ate_rmse']:.5f} "
@@ -210,7 +280,7 @@ def verify_sequence(
         )
     return {
         "sequence": name,
-        "n_frames": len(frames),
+        "n_frames": n_frames,
         "metrics": metrics,
         "track_count": int(result.track_count),
     }
@@ -225,8 +295,8 @@ def run_suite(
     pyramid_config: str = "default",
     device: torch.device | str | None = None,
 ) -> List[Dict[str, Any]]:
-    """Every incremental sequence (or those named) on ``device``: the card
-    unless the caller names another; raises without a card."""
+    """Every sequence (or those named) on ``device``: the card unless the
+    caller names another; raises without a card."""
     names = sequence_names or list(SEQUENCES)
     _check_names(names)
     dev = resolve_device(device)
@@ -414,7 +484,10 @@ def update_baseline(
     device_name: str | None = None,
 ) -> None:
     """Write the baseline, with the backend in the JAX package's names, the
-    platform and, on a card, its name."""
+    platform and, on a card, its name. Where the file holds a baseline of
+    the same backend, config and platform, its sequences that this run did
+    not cover stay as they are, entry for entry; otherwise it is
+    replaced."""
     data: Dict[str, Any] = {
         "version": "1.0",
         "timestamp": datetime.now(timezone.utc).isoformat(),
@@ -428,6 +501,10 @@ def update_baseline(
         data["platform"] = platform
     if device_name is not None:
         data["device"] = device_name
+    if baseline_path.exists():
+        old = json.loads(baseline_path.read_text())
+        if all(old.get(key) == data.get(key) for key in ("backend", "pyramid_config", "platform")):
+            data["sequences"] = {**old.get("sequences", {}), **data["sequences"]}
     baseline_path.parent.mkdir(parents=True, exist_ok=True)
     baseline_path.write_text(json.dumps(data, indent=2))
     print(f"VO baseline updated: {baseline_path}")
