@@ -62,7 +62,24 @@ failure raises and the script exits non-zero):
    sequences at 320x240 under ``backend="cuda"``, against the TPU's
    ``vo_pallas_baseline.json`` (the reference's cross-platform rule) and
    the card's ``tpuflow_torch/eval/data/vo_cuda_baseline.json`` (10%);
-7. profile: device time by kernel and the device's busy share over 4 frames
+7. cli: the user-facing modules. The 16 alternating frames written as
+   .bin files, through ``io.stream.FrameStream`` -> ``device_pairs`` (pinned
+   buffers, side-stream copies) -> ``flow.__main__.stream_flow`` under
+   ``production`` (K1, K2, K3) and ``default`` (K4, K5), bit for bit
+   against the same frames uploaded plainly, with ms a frame from host
+   files beside the same loop on frames already on the card (median and
+   spread of 3 runs); ``python -m tpuflow_torch.flow DIR --sequence
+   --pyramidal --pyramid-config production --backend cuda`` as a
+   subprocess, its mean magnitude equal to the in-process one; the S8.7
+   datapath (``kernels.fixed_point``) on the card bit-identical to the CPU
+   on the 1080p pair and the committed 320x240 natural pair, the RTL
+   testbench criteria, the int32 shift's wraps and its device time; the
+   flow CLI's pair modes (``--backend cuda`` single scale (K6) and
+   ``--pyramidal`` (K4, K5), ``--backend rtl``) on the committed suite's
+   translate_medium against the same runs on the CPU; the verifier's
+   ``--suite-dir``; the plots where matplotlib imports (else the skip is
+   printed); ``eval.profile_vo``'s six rows at 1080p ``production``;
+8. profile: device time by kernel and the device's busy share over 4 frames
    of each stream (torch.profiler).
 
 Limits on the card: the warps (K1, K2, K4) bit-exact against their plain
@@ -91,7 +108,11 @@ runs bit-identical; the resumed session's poses, landmarks, keyframes and
 track table bit-identical; preintegration within 5e-6 of the CPU's and
 solve_vi within 1e-5 (poses, velocities; scale 1e-5 relative, RMS 1e-7),
 the limits of tests/test_torch_vo_graph.py; every sequence inside the
-absolute bounds and both baselines' rules, TF32 off.
+absolute bounds and both baselines' rules, TF32 off; the CLI streams
+bit-identical to the plain upload, the S8.7 datapath and the ``rtl`` CLI
+run identical on the card and the CPU, the CLI's single scale within
+1.1e-5 px of the CPU run and its pyramidal run's mae_u, mae_v and EPE
+within 10% of the CPU run's (``CLI_SINGLE_ATOL``, ``CLI_PYRAMIDAL_RTOL``).
 
 Each kernel's time is printed beside its bound (``eval/bounds.py``: the
 bytes one call must move over the card's 3.35 TB/s) and its share of it;
@@ -113,10 +134,13 @@ fixture. Needs one CUDA device; fails without one. Run:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import re
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 import warnings
@@ -131,10 +155,16 @@ from scipy.ndimage import shift as nd_shift
 from tpuflow_torch import PYRAMID_CONFIGS, lucas_kanade_pyramidal_step, lucas_kanade_single_scale
 from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation, warp_walk
 from tpuflow_torch.core import ops
-from tpuflow_torch.eval import bounds, profile, verifier, vo_verifier
+from tpuflow_torch.eval import bounds, natural, patterns, profile, verifier, vo_verifier
+from tpuflow_torch.eval import profile_vo as vo_profiler
+from tpuflow_torch.eval.metrics import compute_all_metrics
 from tpuflow_torch.eval.timing import card_label, device_ms
 from tpuflow_torch.flow import pyramidal
-from tpuflow_torch.kernels import _build, lk, torch_ref, warp
+from tpuflow_torch.flow.__main__ import main as flow_cli
+from tpuflow_torch.flow.__main__ import mean_magnitude, stream_flow
+from tpuflow_torch.io.frames import load_flow_text, load_frame_bin, save_frame_bin
+from tpuflow_torch.io.stream import FrameStream, prefetch_to_device
+from tpuflow_torch.kernels import _build, fixed_point, lk, torch_ref, warp
 from tpuflow_torch.eval.vo_metrics import trajectory_metrics
 from tpuflow_torch.vo import checkpoint, imu, loop_closure, pipeline, pose_graph, tracking, vi_graph
 from tpuflow_torch.vo.pipeline import OdometrySession
@@ -197,7 +227,27 @@ PATH_KERNELS = {
     # Chunks under `production` (K1-K3), loop edges under `default` (K4, K5).
     "vo chunked": {"warp_packed_u8", "warp_packed_u16", "lk_refine", "warp_exact",
                    "lk_refine_exact"},
+    # The flow CLI's paths (phase 7): streams from .bin files, pair modes.
+    "cli production stream": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
+    "cli default stream": {"warp_exact", "lk_refine_exact"},
+    "cli single scale": {"lk_fused"},
+    "cli pyramidal": {"warp_exact", "lk_refine_exact"},
+    "cli rtl": set(),  # the S8.7 datapath is torch int32 ops, no kernel
+    "profile_vo": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
 }
+# Phase 7, the CLI pair modes on the card against --device cpu: the S8.7
+# mode identical; single scale (K6) within its CPU-test limit at window 5
+# (tests/test_torch_kernels.py, 1e-5 px) plus the dump's 6-decimal
+# rounding; pyramidal (K4/K5) with mae_u, mae_v and EPE against the known
+# 2 px within the 13-pattern gate's 10%. The pyramidal limit is the gate's
+# because the two runs build their pyramids with different GEMMs (cuBLAS,
+# the CPU's BLAS) and the solve amplifies those one-ulp differences at
+# weakly textured pixels: the first card run read p99.9 5.4e-3 px and max
+# 1.9e-2 px, above tests/test_torch_pyramidal.py's 2e-3, which holds
+# slices started from the same pyramids.
+CLI_SINGLE_ATOL = 1e-5 + 1e-6
+CLI_PYRAMIDAL_RTOL = 0.10
+CLI_RUNS = 3
 # The VO sessions at 1080p: grid step 16 (8,040 track slots), N_FRAMES
 # frames through process_frames after start; `default` with the
 # forward-backward check (a backward flow each frame).
@@ -1347,6 +1397,225 @@ def run_vo_gate(dev):
     print(json.dumps({"vo_gate": results}))
 
 
+def _spread(runs: list[float]) -> str:
+    return f"median {np.median(runs):.3f} ms/frame (runs {', '.join(f'{t:.3f}' for t in runs)})"
+
+
+def check_cli_streams(fa, fb, a, frame_dir: Path) -> None:
+    """Phase 7, step 1: the 16 alternating frames as .bin files through
+    FrameStream -> device_pairs -> stream_flow under `production` and
+    `default`, bit for bit against the same frames uploaded plainly; ms a
+    frame from host files beside the same loop on frames already on the
+    card; then the flow CLI's --sequence run as a subprocess."""
+    paths = [frame_dir / f"frame_{i:02d}.bin" for i in range(N_FRAMES)]
+    for i, path in enumerate(paths):
+        save_frame_bin(path, fa if i % 2 == 0 else fb)
+    dev = a.device
+    on_card = [torch.from_numpy(load_frame_bin(path, WIDTH, HEIGHT)).to(dev) for path in paths]
+    pairs = len(paths) - 1
+    in_process = {}
+    for config in ("production", "default"):
+        cfg = PYRAMID_CONFIGS[config]
+
+        def from_files():
+            return list(stream_flow(FrameStream(paths, WIDTH, HEIGHT), cfg, "cuda", dev))
+
+        def from_card():
+            carry = torch_ref.build_gaussian_pyramid(on_card[0], cfg.levels, cfg.scale_factor)
+            out = []
+            for frame in on_card[1:]:
+                u, v, carry = lucas_kanade_pyramidal_step(carry, frame, cfg, backend="cuda")
+                out.append((u, v))
+            return out
+
+        flows, counts = counted(f"cli {config} stream", from_files)
+        plain = from_card()
+        same = all(torch.equal(u, pu) and torch.equal(v, pv)
+                   for (u, v), (pu, pv) in zip(flows, plain))
+        if len(flows) != pairs or not same:
+            raise AssertionError(f"cli {config} stream: {len(flows)} pairs, bit-identical to "
+                                 f"the plain upload: {same}")
+        in_process[config] = mean_magnitude([torch.sqrt(u * u + v * v).mean() for u, v in flows])
+        timed = {}
+        for name, fn in (("host files", from_files), ("frames on the card", from_card)):
+            runs = []
+            for _ in range(CLI_RUNS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3 / pairs)
+            timed[name] = runs
+        print(f"[cli] {config} stream, {pairs} pairs {HEIGHT}x{WIDTH} (host clock to a "
+              f"synchronize, {CLI_RUNS} runs): from host files through FrameStream and the "
+              f"prefetching upload {_spread(timed['host files'])}; on frames already on the "
+              f"card {_spread(timed['frames on the card'])}; launches {counts}; bit-identical "
+              f"to the plain upload; mean magnitude {in_process[config]:.3f} px")
+
+    # Where the host-file stream's time goes: the read-ahead alone (read and
+    # widen to f32), then with the uploads (pinned copy, side-stream copy).
+    def read_only():
+        for _ in FrameStream(paths, WIDTH, HEIGHT):
+            pass
+
+    def read_upload():
+        for _ in prefetch_to_device(FrameStream(paths, WIDTH, HEIGHT), device=dev):
+            pass
+
+    parts = {}
+    for name, fn in (("read", read_only), ("read+upload", read_upload)):
+        runs = []
+        for _ in range(CLI_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3 / len(paths))
+        parts[name] = runs
+    print(f"[cli] the host-file stream without the flow, {len(paths)} frames: FrameStream "
+          f"alone {_spread(parts['read'])}; with prefetch_to_device "
+          f"{_spread(parts['read+upload'])}")
+
+    cmd = [sys.executable, "-m", "tpuflow_torch.flow", str(frame_dir), "--sequence",
+           "--pyramidal", "--pyramid-config", "production", "--backend", "cuda",
+           "--width", str(WIDTH), "--height", str(HEIGHT)]
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=Path(__file__).resolve().parent)
+    seconds = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise AssertionError(f"flow CLI exited {done.returncode}: {done.stderr[-2000:]}")
+    for line in done.stdout.splitlines():
+        print(f"[cli] python -m tpuflow_torch.flow: {line}")
+    printed = done.stdout.split("mean flow magnitude:")[1].split("px")[0].strip()
+    if printed != f"{in_process['production']:.3f}":
+        raise AssertionError(f"flow CLI's mean magnitude {printed} != the in-process "
+                             f"{in_process['production']:.3f}")
+    print(f"[cli] the CLI's --sequence run took {seconds:.1f} s (process start, library load, "
+          f"{pairs} pairs); its mean magnitude equals the in-process figure")
+
+
+def check_s87(fa, fb, dev) -> None:
+    """Phase 7, step 2: the S8.7 datapath on the card, bit-identical to the
+    CPU on the 1080p a/b pair and the committed 320x240 natural pair; the
+    RTL testbench criteria on the card; the int32 shift's wraps; its
+    device time at 1080p."""
+    n0, n1 = natural.committed_pair()
+    cases = {"1080p a/b": (fa.astype(np.uint8), fb.astype(np.uint8)), "natural 320x240": (n0, n1)}
+    for name, (f0, f1) in cases.items():
+        c0, c1 = torch.from_numpy(f0), torch.from_numpy(f1)
+        d0, d1 = c0.to(dev), c1.to(dev)
+        (u, v), counts = counted("cli rtl", lambda: fixed_point.lucas_kanade_s87(d0, d1))
+        cu, cv = fixed_point.lucas_kanade_s87(c0, c1)
+        box = fixed_point.box_downsample_2x(d0).cpu()
+        same = (torch.equal(u.cpu(), cu) and torch.equal(v.cpu(), cv)
+                and torch.equal(box, fixed_point.box_downsample_2x(c0)))
+        wraps = fixed_point.shift_wraps(d0, d1)
+        wu, wv = fixed_point.lucas_kanade_s87_widened(d0, d1)
+        widened = int(((wu != u) | (wv != v)).sum())
+        line = (f"[cli] S8.7 {name}: card == CPU bit for bit (flow and box downsample): {same}; "
+                f"int32 shift wraps at {wraps} pixels, an int64 shift would change "
+                f"{widened}; launches {counts}")
+        if name == "1080p a/b":
+            ms = device_ms(lambda: fixed_point.lucas_kanade_s87(d0, d1))
+            line += f"; {ms:.4f} ms a call (device time)"
+        else:
+            region = (slice(105, 135), slice(55, 85))
+            mean_u, mean_v = float(u[region].mean()), float(v[region].mean())
+            line += f"; testbench region mean u {mean_u:.4f} v {mean_v:.4f} px"
+            if not (np.hypot(mean_u, mean_v) >= 0.5 and abs(mean_v) < 0.5):
+                raise AssertionError(f"S8.7 on the card fails the RTL testbench criteria: "
+                                     f"mean u {mean_u}, v {mean_v}")
+        print(line)
+        if not same:
+            raise AssertionError(f"S8.7 {name}: the card differs from the CPU")
+
+
+def _run_cli(argv: list[str]) -> str:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        flow_cli(argv)
+    return out.getvalue()
+
+
+def check_cli_pairs(work: Path) -> None:
+    """Phase 7, step 3: the flow CLI's pair modes on the committed suite's
+    translate_medium (320x240), each beside the same run on the CPU."""
+    data = patterns.load_suite()["translate_medium"]
+    pattern_dir = work / "translate_medium"
+    pattern_dir.mkdir()
+    save_frame_bin(pattern_dir / "frame_00.bin", data["frame_prev"])
+    save_frame_bin(pattern_dir / "frame_01.bin", data["frame_curr"])
+    modes = {"cli single scale": ["--backend", "cuda"],
+             "cli pyramidal": ["--backend", "cuda", "--pyramidal"],
+             "cli rtl": ["--backend", "rtl"]}
+    for path, flags in modes.items():
+        dumps = {}
+        for device in ("cuda", "cpu"):
+            dumps[device] = work / f"{path.replace(' ', '_')}_{device}.txt"
+            argv = [str(pattern_dir), *flags, "--device", device, "--export", str(dumps[device])]
+            if device == "cuda":
+                out, counts = counted(path, lambda: _run_cli(argv))
+            else:
+                out = _run_cli(argv)
+        (u, v), (cu, cv) = (load_flow_text(dumps[d]) for d in ("cuda", "cpu"))
+        diff = np.maximum(np.abs(u - cu), np.abs(v - cv))
+        mean_u = float(out.split("mean_u")[1].split()[0])
+        mask = verifier.get_test_region_mask(u.shape, "translate_medium")
+        card, cpu = (compute_all_metrics(fu, fv, 2.0, 0.0, mask) for fu, fv in ((u, v), (cu, cv)))
+        change = max(abs(card[m] - cpu[m]) / cpu[m] for m in ("mae_u", "mae_v", "epe"))
+        print(f"[cli] python -m tpuflow_torch.flow {' '.join(flags)}: launches {counts}, "
+              f"region mean_u {mean_u:.4f} px (CPU run), card vs CPU max |d| {diff.max():.3g} "
+              f"p99.9 {np.percentile(diff, 99.9):.3g} px, mae_u/mae_v/epe "
+              f"{card['mae_u']:.5f}/{card['mae_v']:.5f}/{card['epe']:.5f} against the CPU's "
+              f"{cpu['mae_u']:.5f}/{cpu['mae_v']:.5f}/{cpu['epe']:.5f} ({100 * change:.3f}%)")
+        if path == "cli rtl" and diff.max() != 0.0:
+            raise AssertionError("the S8.7 CLI run differs between the card and the CPU")
+        if path == "cli single scale" and diff.max() > CLI_SINGLE_ATOL:
+            raise AssertionError(f"single-scale CLI card vs CPU {diff.max()} > {CLI_SINGLE_ATOL}")
+        if path == "cli pyramidal" and change > CLI_PYRAMIDAL_RTOL:
+            raise AssertionError(f"pyramidal CLI card vs CPU metrics differ by {change:.1%}")
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        verifier.main(["--suite-dir", str(work / "suite"), "--pattern", "translate_medium",
+                       "no_motion", "--backend", "cuda", "--no-visualizations",
+                       "--output-dir", str(work / "verify"), "--compare-baseline", "--baseline",
+                       str(verifier.BASELINE_DIR / verifier.PALLAS_BASELINES["default"])])
+    print(f"[cli] verifier --suite-dir (the committed suite written in the reference's layout) "
+          f"on the card: {out.getvalue().strip().splitlines()[-1]}")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as exc:
+        print(f"[cli] --plot and the verifier's plots not run: matplotlib does not import "
+              f"here ({exc})")
+        return
+    _run_cli([str(pattern_dir), "--backend", "cuda", "--device", "cuda", "--pyramidal",
+              "--plot", str(work / "quiver.png"), "--per-level-plots", str(work / "levels")])
+    with contextlib.redirect_stdout(io.StringIO()):
+        verifier.main(["--pattern", "translate_medium", "--backend", "cuda",
+                       "--output-dir", str(work / "plots")])
+    written = sorted(p.name for p in (work / "plots").rglob("*.png"))
+    print(f"[cli] --plot, --per-level-plots and the verifier's plots written: {written}")
+
+
+def check_cli(fa, fb, a, label: str) -> None:
+    """Phase 7: the user-facing CLIs and modules on the card."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tpuflow_cli_") as tmp:
+        work = Path(tmp)
+        (work / "frames").mkdir()
+        check_cli_streams(fa, fb, a, work / "frames")
+        check_s87(fa, fb, a.device)
+        check_cli_pairs(work)
+    rows, counts = counted("profile_vo", lambda: vo_profiler.profile_vo(
+        HEIGHT, WIDTH, "production", device=a.device))
+    print(f"[cli] profile_vo @ {WIDTH}x{HEIGHT} config=production on {label}: launches {counts}")
+    for line in vo_profiler.format_rows(rows):
+        print(f"[cli] {line}")
+    print(f"[cli] phase took {time.perf_counter() - t0:.1f} s")
+
+
 def profile_stream(a, b, config: str) -> None:
     """Device time by kernel and the device's busy share over a 4-frame
     stream (torch.profiler)."""
@@ -1579,7 +1848,10 @@ def main() -> None:
         raise AssertionError("TF32 was enabled on the VO path")
     print(f"[vo] phase took {time.perf_counter() - t0:.1f} s")
 
-    # 7. profile
+    # 7. cli
+    check_cli(fa, fb, a, smi)
+
+    # 8. profile
     profile_stream(a, b, "production")
     profile_stream(a, b, "default")
 

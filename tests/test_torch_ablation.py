@@ -31,6 +31,17 @@ from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation, warp_walk
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run the port on one CPU thread, as tests/test_torch_vo.py does, for
+    the module's fixtures and tests alike. Under the six-worker run each
+    small op's OpenMP region otherwise waits on busy cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _script(name):
     spec = importlib.util.spec_from_file_location(f"_tpu_{name}", SCRIPTS / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)

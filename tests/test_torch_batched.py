@@ -55,6 +55,17 @@ WARP_ATOL = 2 * float(np.spacing(np.float32(255.0)))
 CONVERGED = np.array([True, False, False])
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run the port on one CPU thread, as tests/test_torch_vo.py does, for
+    the module's fixtures and tests alike. Under the six-worker run each
+    small op's OpenMP region otherwise waits on busy cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a, np.float32))
 

@@ -7,11 +7,23 @@ reports. CPU only: nothing here times anything.
 """
 
 import pytest
+import torch
 
 import chip_smoke
 from tpuflow_torch.eval import bounds
 
 PIXELS_1080P = 1080 * 1920  # 2,073,600
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run the port on one CPU thread, as tests/test_torch_vo.py does, for
+    the module's fixtures and tests alike. Under the six-worker run each
+    small op's OpenMP region otherwise waits on busy cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_refine_at_1080p_moves_24_bytes_a_pixel():

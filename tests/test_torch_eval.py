@@ -28,6 +28,17 @@ from tpuflow_torch.eval import metrics, patterns, verifier
 NAMES = sorted(jpatterns.TEST_PATTERNS)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run the port on one CPU thread, as tests/test_torch_vo.py does, for
+    the module's fixtures and tests alike. Under the six-worker run each
+    small op's OpenMP region otherwise waits on busy cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def suite():
     return patterns.load_suite()
@@ -140,7 +151,8 @@ def test_cli_exit_codes(tmp_path, capsys):
     out = tmp_path / "out"
     base = tmp_path / "base.json"
     common = ["--pattern", "translate_medium", "no_motion", "--backend", "torch",
-              "--device", "cpu", "--output-dir", str(out), "--baseline", str(base)]
+              "--device", "cpu", "--no-visualizations", "--output-dir", str(out),
+              "--baseline", str(base)]
     assert _cli(["--pattern", "bogus", "--output-dir", str(out)]) == 1
     assert "Unknown pattern(s): bogus" in capsys.readouterr().out
     assert _cli(["--pyramid-config", "bogus", "--output-dir", str(out)]) == 1

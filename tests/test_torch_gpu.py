@@ -37,7 +37,8 @@ operation besides the flow's counted reads; two bundle-adjustment solves
 of one problem give the same bits, and the sorted segment sums agree with
 ``index_add_`` to 1e-5 relative. Two pose-graph solves (17 nodes, loop
 and rotation-only edges) give the same bits and agree with the CPU's to
-1e-4; IMU preintegration on the card agrees with the CPU's to 5e-6.
+1e-4; IMU preintegration on the card agrees with the CPU's to 5e-6. The
+S8.7 integer datapath on the card equals the CPU's bit for bit.
 """
 
 import numpy as np
@@ -779,3 +780,25 @@ def test_imu_preintegration_on_the_card_matches_the_cpu(cuda):
     incs = imu.preintegrate_segments(times, gyro, accel, bounds, device=cuda)
     assert [inc.n_samples for inc in incs] == [50, 50, 50, 50]
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_s87_on_the_card_matches_the_cpu(cuda):
+    # The S8.7 datapath is torch int32 ops: the card wraps as the CPU does,
+    # bit for bit, on the natural pair and a high-contrast pair where
+    # ``num << 7`` wraps, at windows 3/5/7; the box downsample too.
+    from tpuflow_torch.eval import natural
+    from tpuflow_torch.kernels import fixed_point
+
+    rng = np.random.default_rng(11)
+    g0 = rng.integers(0, 256, (96, 128), dtype=np.uint8)
+    g1 = np.roll(g0, 1, axis=1) ^ rng.integers(0, 64, (96, 128), dtype=np.uint8)
+    for f0, f1 in (natural.committed_pair(), (g0, g1)):
+        c0, c1 = torch.from_numpy(f0), torch.from_numpy(f1)
+        assert fixed_point.shift_wraps(c0, c1) > 0
+        for window in (3, 5, 7):
+            want = fixed_point.lucas_kanade_s87(c0, c1, window)
+            got = fixed_point.lucas_kanade_s87(c0.to(cuda), c1.to(cuda), window)
+            for g, w in zip(got, want):
+                assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+        assert torch.equal(fixed_point.box_downsample_2x(c0.to(cuda)).cpu(),
+                           fixed_point.box_downsample_2x(c0))

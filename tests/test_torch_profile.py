@@ -22,6 +22,17 @@ from tpuflow_torch.eval import profile
 SHAPE = (64, 200)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run the port on one CPU thread, as tests/test_torch_vo.py does, for
+    the module's fixtures and tests alike. Under the six-worker run each
+    small op's OpenMP region otherwise waits on busy cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_rows(monkeypatch, config, shape=SHAPE):
     monkeypatch.setattr(jax_profile, "_marginal_seconds", lambda *a, **k: 1e-3)
     monkeypatch.setattr(jax_profile, "_stream_marginal_seconds", lambda *a, **k: 1e-3)

@@ -41,6 +41,17 @@ CFG = PYRAMID_CONFIGS["production"]
 JAX_CFG = JAX_CONFIGS["production"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run the port on one CPU thread, as tests/test_torch_vo.py does, for
+    the module's fixtures and tests alike. Under the six-worker run each
+    small op's OpenMP region otherwise waits on busy cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_production():
     """The JAX fast path on prebuilt pyramids, jitted once for 320x240."""

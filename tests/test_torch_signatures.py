@@ -55,6 +55,17 @@ FORMS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run the port on one CPU thread, as tests/test_torch_vo.py does, for
+    the module's fixtures and tests alike. Under the six-worker run each
+    small op's OpenMP region otherwise waits on busy cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _params(fn):
     return [(p.name, p.default) for p in inspect.signature(fn).parameters.values()
             if p.kind is not p.KEYWORD_ONLY]

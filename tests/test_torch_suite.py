@@ -14,6 +14,7 @@ coarse warp quantizes to 1/256 gray, so identical frames read about
 """
 
 import pytest
+import torch
 
 from tpuflow.eval import patterns
 from tpuflow.eval import verifier as jverifier
@@ -21,6 +22,17 @@ from tpuflow_torch.eval import verifier
 
 CONFIGS = tuple(verifier.PALLAS_BASELINES)
 PACKED_U16 = ("production", "production_fullband")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run the port on one CPU thread, as tests/test_torch_vo.py does, for
+    the module's fixtures and tests alike. Under the six-worker run each
+    small op's OpenMP region otherwise waits on busy cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -4,12 +4,15 @@ kernels for NVIDIA Hopper.
 The PyTorch counterpart of ``tpuflow`` (JAX), module for module:
 
 - ``tpuflow_torch.core``     configs and the SciPy-parity numerics.
-- ``tpuflow_torch.kernels``  plain PyTorch reference functions, and the
+- ``tpuflow_torch.kernels``  plain PyTorch reference functions, the
                              CUDA kernels of the fast path with their plain
-                             versions (``csrc/`` holds the sources).
+                             versions (``csrc/`` holds the sources), and the
+                             S8.7 integer datapath (``fixed_point``).
 - ``tpuflow_torch.flow``     single-scale and pyramidal flow:
                              ``backend="torch"`` (parity) and
-                             ``backend="cuda"`` (fast path).
+                             ``backend="cuda"`` (fast path), and the flow
+                             CLI (``python -m tpuflow_torch.flow``: frame
+                             pairs, streams and the S8.7 ``rtl`` mode).
 - ``tpuflow_torch.vo``       visual odometry: tracking, the front end on
                              the device, bundle adjustment, essential-matrix
                              initialization, ``OdometrySession`` (with
@@ -18,14 +21,18 @@ The PyTorch counterpart of ``tpuflow`` (JAX), module for module:
                              pipeline with loop closure, IMU and
                              visual-inertial refinement, and the VO CLI
                              (``python -m tpuflow_torch.vo``).
-- ``tpuflow_torch.io``       frame, IMU and video readers (numpy copies
-                             of ``tpuflow.io``'s).
+- ``tpuflow_torch.io``       frame, IMU and video readers and the frame
+                             converter (numpy copies of ``tpuflow.io``'s),
+                             and the frame stream with its uploads to the
+                             card (``io.stream``).
 - ``tpuflow_torch.eval``     the 13-pattern verifier and its CLI
                              (``python -m tpuflow_torch.eval.verifier``),
                              the VO trajectory verifier
-                             (``python -m tpuflow_torch.eval.vo_verifier``)
-                             and the stage profiler
-                             (``python -m tpuflow_torch.eval.profile``).
+                             (``python -m tpuflow_torch.eval.vo_verifier``),
+                             the stage profilers (``eval.profile``,
+                             ``eval.profile_vo``), the natural-frame
+                             generator (``eval.natural``) and the plots
+                             (``eval.visualize``, matplotlib optional).
 - ``tpuflow_torch.ablation`` the two measurement microkernels (K8, K9).
 - ``tpuflow_torch.convert``  configs, pyramids and VO state (front-end
                              state, bundle-adjustment problems, pose graphs,

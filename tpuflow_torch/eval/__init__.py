@@ -1,5 +1,9 @@
-"""The 13-pattern verifier of the port: suite, metrics and regression gate,
-with no JAX, PIL or OpenCV (``python -m tpuflow_torch.eval.verifier``)."""
+"""Evaluation: the 13-pattern verifier (``python -m
+tpuflow_torch.eval.verifier``: suite, metrics, regression gate), the VO
+trajectory verifier, the stage profilers (``profile``, ``profile_vo``),
+the natural-frame generator (``natural``) and the plots (``visualize``).
+PIL, PyYAML and matplotlib are optional, imported only by the flags that
+need them."""
 
 from tpuflow_torch.eval.metrics import compute_all_metrics
 from tpuflow_torch.eval.patterns import TEST_PATTERNS, MotionParameters

@@ -7,11 +7,18 @@ committed fixture, ``data/suite_320x240.npz``: the 320x240 u8 base frame
 ``tpuflow.eval.patterns.generate_test_pattern`` (the reference suite's
 OpenCV affine warp of the mountain texture). A machine without PIL or
 OpenCV, such as the GPU host, reads the suite from it.
+
+``write_suite`` writes the fixture out in the reference generator's
+on-disk layout (``suite_index.json``, and per pattern ``frame_00/01.bin``,
+``frame_00/01.mem`` and ``metadata.json``), and ``load_test_pattern``
+reads one pattern of that layout, as ``tpuflow.eval.patterns`` does: the
+verifier's ``--suite-dir``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from pathlib import Path
 from typing import Any, Dict, Tuple
 
@@ -150,3 +157,62 @@ def load_base_texture(width: int = 320, height: int = 240) -> np.ndarray:
             f"not {width}x{height}"
         )
     return base
+
+
+def write_suite(output_dir: Path) -> Path:
+    """Write the committed suite in the layout of
+    ``tpuflow.eval.patterns.generate_full_suite``: every pattern's frames
+    as ``.bin`` (raw u8) and ``.mem`` (``$readmemh`` hex), its
+    ``metadata.json``, and the ``suite_index.json`` manifest. Returns the
+    suite directory."""
+    from tpuflow_torch.io.frames import save_frame_bin, save_frame_mem
+
+    out = Path(output_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with np.load(SUITE_FIXTURE) as data:
+        base = data["base"]
+        second = {name: data[name] for name in TEST_PATTERNS}
+    height, width = base.shape
+    for name, params in TEST_PATTERNS.items():
+        pattern_dir = out / name
+        pattern_dir.mkdir(parents=True, exist_ok=True)
+        pure = params.rotation == 0 and params.scale == 1.0
+        metadata = {
+            "pattern_name": name,
+            "description": params.description,
+            "resolution": {"width": width, "height": height},
+            "motion_parameters": params.to_dict(),
+            "expected_flow": {
+                "u_mean": params.dx if pure else "variable",
+                "v_mean": params.dy if pure else "variable",
+                "note": "For rotation/zoom, flow varies spatially. Use test regions.",
+            },
+        }
+        (pattern_dir / "metadata.json").write_text(json.dumps(metadata, indent=2))
+        for stem, frame in (("frame_00", base), ("frame_01", second[name])):
+            save_frame_bin(pattern_dir / f"{stem}.bin", frame)
+            save_frame_mem(pattern_dir / f"{stem}.mem", frame)
+    index = {
+        "suite_name": "Optical Flow Verification Suite",
+        "resolution": {"width": width, "height": height},
+        "num_patterns": len(TEST_PATTERNS),
+        "patterns": {n: p.to_dict() for n, p in TEST_PATTERNS.items()},
+    }
+    (out / "suite_index.json").write_text(json.dumps(index, indent=2))
+    return out
+
+
+def load_test_pattern(pattern_dir: Path) -> Dict[str, Any]:
+    """One pattern of a suite directory: float32 ``frame_prev`` /
+    ``frame_curr`` from the ``.bin`` frames and the ``metadata.json``."""
+    pattern_dir = Path(pattern_dir)
+    metadata = json.loads((pattern_dir / "metadata.json").read_text())
+    width = metadata["resolution"]["width"]
+    height = metadata["resolution"]["height"]
+    prev = np.fromfile(pattern_dir / "frame_00.bin", dtype=np.uint8)
+    curr = np.fromfile(pattern_dir / "frame_01.bin", dtype=np.uint8)
+    return {
+        "frame_prev": prev.reshape((height, width)).astype(np.float32),
+        "frame_curr": curr.reshape((height, width)).astype(np.float32),
+        "metadata": metadata,
+    }

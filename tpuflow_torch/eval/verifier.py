@@ -14,8 +14,16 @@ hand-written kernels, ``backend="torch"`` the parity path; a baseline's
 unless the caller asks for the CPU (``device="cpu"``, ``--device cpu``),
 where the kernels' plain versions run.
 
-Not carried over: ``--config YAML`` (no PyYAML on the GPU host) and the
-plots (no matplotlib).
+The reference's other flags are here too: ``--suite-dir DIR`` reads a
+suite in the reference generator's layout (``suite_index.json``, one
+directory a pattern), writing the committed suite there first where DIR
+has no index; ``--config YAML`` overrides thresholds, categories, the test
+region and named pyramid configs (``apply_config``; PyYAML, imported only
+then; the defaults are ``verification_config.yaml`` beside this file);
+without ``--no-visualizations`` the showcase patterns' plots and
+per-level snapshots are written under ``OUTPUT_DIR/plots`` where
+matplotlib imports, and their skip is printed where it does not (the GPU
+host has none).
 
 Run: ``python -m tpuflow_torch.eval.verifier --pyramid-config default
 --backend cuda --compare-baseline --baseline
@@ -83,12 +91,46 @@ PATTERN_CATEGORIES: Dict[str, str] = {
 CENTER_CROP = 80  # reference: verification_config.yaml:107
 BORDER = 10       # reference: optical_flow_verifier.py:135
 
+DEFAULT_CONFIG = Path(__file__).parent / "verification_config.yaml"
+# The patterns whose plots the CLI writes.
+SHOWCASE = ("translate_medium", "rotate_small", "translate_extreme")
+
+
+def apply_config(path) -> dict:
+    """Load a verifier YAML config and apply its overrides: thresholds,
+    pattern categories, the test region's crop and border, and named
+    pyramid configs (added, or replaced field by field from the named
+    config or ``default``). Returns the parsed dict (for
+    ``regression.threshold_percent``). Needs PyYAML."""
+    import dataclasses
+
+    try:
+        import yaml
+    except ImportError as exc:
+        raise ImportError("--config needs PyYAML, which is not installed") from exc
+
+    global CENTER_CROP, BORDER
+    cfg = yaml.safe_load(Path(path).read_text()) or {}
+    for cat, (p, w) in (cfg.get("thresholds") or {}).items():
+        THRESHOLDS[cat] = (float(p), float(w))
+    PATTERN_CATEGORIES.update(cfg.get("pattern_categories") or {})
+    region = cfg.get("test_region") or {}
+    CENTER_CROP = int(region.get("center_crop", CENTER_CROP))
+    BORDER = int(region.get("border", BORDER))
+    for name, pc in (cfg.get("pyramid_configs") or {}).items():
+        base = PYRAMID_CONFIGS.get(name, PYRAMID_CONFIGS["default"])
+        PYRAMID_CONFIGS[name] = dataclasses.replace(base, **pc)
+    return cfg
+
 
 def get_test_region_mask(
-    shape: Tuple[int, int], pattern_name: str, center_crop: int = CENTER_CROP
+    shape: Tuple[int, int], pattern_name: str, center_crop: Optional[int] = None
 ) -> np.ndarray:
-    """Mask of pixels to score: the central crop for rotation/zoom/combined
-    patterns, the frame less a 10 px border otherwise."""
+    """Mask of pixels to score: the central crop (``CENTER_CROP``) for
+    rotation/zoom/combined patterns, the frame less ``BORDER`` px
+    otherwise; ``--config`` can override both."""
+    if center_crop is None:
+        center_crop = CENTER_CROP
     height, width = shape
     mask = np.zeros((height, width), dtype=bool)
     varies = (
@@ -385,6 +427,38 @@ def save_results_json(results: List[Dict[str, Any]], output_path: Path) -> None:
 # ---------------------------------------------------------------------------
 
 
+def load_patterns(
+    suite_dir: Optional[Path] = None,
+    pattern_names: Optional[List[str]] = None,
+    verbose: bool = True,
+) -> Dict[str, Dict[str, Any]]:
+    """The patterns to verify, name -> frames and metadata: from the
+    committed suite, or from ``suite_dir`` in the reference generator's
+    layout (the committed suite is written there first where the
+    directory has no ``suite_index.json``). Unknown names exit 1."""
+    if suite_dir is None:
+        suite = patterns_mod.load_suite()
+        available = list(suite)
+    else:
+        suite_dir = Path(suite_dir)
+        if not (suite_dir / "suite_index.json").exists():
+            if verbose:
+                print(f"Writing the committed test suite -> {suite_dir}")
+            patterns_mod.write_suite(suite_dir)
+        index = json.loads((suite_dir / "suite_index.json").read_text())
+        available = list(index["patterns"])
+    unknown = [n for n in pattern_names or () if n not in available]
+    if unknown:
+        raise SystemExit(
+            f"Unknown pattern(s): {', '.join(unknown)}. "
+            f"Available: {', '.join(sorted(available))}"
+        )
+    names = pattern_names or available
+    if suite_dir is None:
+        return {name: suite[name] for name in names}
+    return {name: patterns_mod.load_test_pattern(suite_dir / name) for name in names}
+
+
 def run_suite(
     pattern_names: Optional[List[str]] = None,
     pyramid_config_name: str = "default",
@@ -393,37 +467,74 @@ def run_suite(
     gaussian_weights: bool = False,
     dense_gt: bool = False,
     device: torch.device | str | None = None,
+    suite_dir: Optional[Path] = None,
 ) -> List[Dict[str, Any]]:
-    """Run verification over the committed suite on ``device``: the card
-    unless the caller names another; raises without a card."""
-    suite = patterns_mod.load_suite()
-    unknown = [n for n in pattern_names or () if n not in suite]
-    if unknown:
-        raise SystemExit(
-            f"Unknown pattern(s): {', '.join(unknown)}. "
-            f"Available: {', '.join(sorted(suite))}"
-        )
-    names = pattern_names or list(suite)
-
+    """Run verification over the committed suite, or the suite in
+    ``suite_dir`` (see ``load_patterns``), on ``device``: the card unless
+    the caller names another; raises without a card."""
+    suite = load_patterns(suite_dir, pattern_names, verbose)
     cfg = PYRAMID_CONFIGS[pyramid_config_name]
     runners = _make_runners(cfg, backend, gaussian_weights, device)
     return [
         verify_pattern(
-            name, suite[name], runners, pyramid_config_name, verbose=verbose,
-            dense_gt=dense_gt,
+            name, data, runners, pyramid_config_name, verbose=verbose, dense_gt=dense_gt,
         )
-        for name in names
+        for name, data in suite.items()
     ]
+
+
+def save_plots(
+    results: List[Dict[str, Any]],
+    suite_dir: Optional[Path],
+    out_dir: Path,
+    pyramid_config: PyramidConfig,
+    backend: str,
+    device: torch.device | str | None,
+) -> bool:
+    """The showcase patterns' flow and error plots and per-level
+    snapshots under ``out_dir``. Where matplotlib does not import, prints
+    the skip and returns False."""
+    from tpuflow_torch.eval import visualize
+
+    try:
+        visualize._plt()
+    except ImportError as exc:
+        print(f"(visualizations skipped: {exc})")
+        return False
+    dev = resolve_device(device)
+    shown = [r for r in results if r["pattern_name"] in SHOWCASE]
+    suite = load_patterns(suite_dir, [r["pattern_name"] for r in shown], verbose=False)
+    for r in shown:
+        name = r["pattern_name"]
+        visualize.save_pattern_plots(r, out_dir)
+        data = suite[name]
+        # The per-level snapshots re-run the pyramidal solve, as the
+        # reference's do.
+        _, _, levels = lucas_kanade_pyramidal(
+            torch.from_numpy(data["frame_prev"]).to(dev),
+            torch.from_numpy(data["frame_curr"]).to(dev),
+            config=pyramid_config, backend=backend, return_levels=True,
+        )
+        visualize.save_pyramid_levels(
+            [(u.cpu().numpy(), v.cpu().numpy()) for u, v in levels], out_dir / name / "levels")
+    return True
 
 
 def main(argv: Optional[List[str]] = None) -> None:
     parser = argparse.ArgumentParser(
         description="Verify tpuflow_torch optical flow against the 13-pattern suite"
     )
+    parser.add_argument(
+        "--suite-dir", type=str, default=None,
+        help="a suite in the reference generator's layout (the committed suite "
+        "is written there first where it has no suite_index.json); default: "
+        "the committed suite",
+    )
     parser.add_argument("--pattern", type=str, nargs="+", default=None)
     parser.add_argument(
         "--pyramid-config", type=str, default="default",
-        help=f"named pyramid config ({', '.join(sorted(PYRAMID_CONFIGS))})",
+        help=f"named pyramid config (built-in: {', '.join(sorted(PYRAMID_CONFIGS))}; "
+        "--config can add more)",
     )
     parser.add_argument("--backend", type=str, default="torch", choices=["torch", "cuda"])
     parser.add_argument(
@@ -436,14 +547,22 @@ def main(argv: Optional[List[str]] = None) -> None:
         help="Gaussian window weighting for single scale (the committed "
         "baselines are unweighted)",
     )
+    parser.add_argument(
+        "--config", type=str, default=None, metavar="YAML",
+        help="verifier config overriding thresholds/categories/test region/pyramid "
+        f"configs (needs PyYAML; defaults shipped at {DEFAULT_CONFIG.name})",
+    )
     parser.add_argument("--compare-baseline", action="store_true")
     parser.add_argument("--update-baseline", action="store_true")
-    parser.add_argument("--regression-threshold", type=float, default=10.0)
+    parser.add_argument("--regression-threshold", type=float, default=None,
+                        help="percent (default: the config's, else 10)")
     parser.add_argument(
         "--baseline", type=str, default=str(REFERENCE_BASELINE),
         help="Baseline JSON (defaults to the reference repo's committed baseline)",
     )
     parser.add_argument("--output-dir", type=str, default="results")
+    parser.add_argument("--no-visualizations", action="store_true",
+                        help="skip the showcase plots (they need matplotlib)")
     parser.add_argument(
         "--dense-gt", action="store_true",
         help="add metrics against the exact per-pixel affine flow field "
@@ -451,6 +570,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     )
     args = parser.parse_args(argv)
 
+    file_cfg = apply_config(args.config) if args.config else {}
+    if args.regression_threshold is None:
+        args.regression_threshold = float(
+            (file_cfg.get("regression") or {}).get("threshold_percent", 10.0)
+        )
     if args.pyramid_config not in PYRAMID_CONFIGS:
         raise SystemExit(
             f"Unknown pyramid config '{args.pyramid_config}'. "
@@ -459,6 +583,7 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     # run_suite checks the names before it resolves the device, so an
     # unknown name exits 1 with its message on any machine.
+    suite_dir = Path(args.suite_dir) if args.suite_dir else None
     results = run_suite(
         pattern_names=args.pattern,
         pyramid_config_name=args.pyramid_config,
@@ -466,6 +591,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         gaussian_weights=args.gaussian_weights,
         dense_gt=args.dense_gt,
         device=args.device,
+        suite_dir=suite_dir,
     )
     print(f"backend={args.backend} on {args.device}")
 
@@ -475,6 +601,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     (out_dir / "verification_results.md").write_text(md)
     save_results_json(results, out_dir / "verification_results.json")
     print("\n" + md)
+
+    if not args.no_visualizations:
+        save_plots(results, suite_dir, out_dir / "plots", PYRAMID_CONFIGS[args.pyramid_config],
+                   args.backend, args.device)
 
     if args.update_baseline:
         update_baseline(results, Path(args.baseline), backend=args.backend)

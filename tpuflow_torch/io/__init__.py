@@ -1,7 +1,27 @@
 """Host-side IO, numpy only: frames and flow dumps in the reference's
-interchange formats (``frames``), IMU sample text (``imu``) and video
-decode (``video``, OpenCV imported when a video is opened).
+interchange formats (``frames``), IMU sample text (``imu``), video decode
+(``video``, OpenCV imported when a video is opened), ``.mem``/``.bin`` to
+PNG (``convert``, Pillow imported then), and the frame stream with its
+read-ahead thread and uploads to the card (``stream``).
 
 This package keeps its own copies of ``tpuflow.io``'s modules; it imports
 nothing of ``tpuflow`` (nor its optional native extension).
 """
+
+from tpuflow_torch.io.frames import (
+    load_flow_text,
+    load_frame_bin,
+    load_frame_mem,
+    save_flow_text,
+    save_frame_bin,
+    save_frame_mem,
+)
+
+__all__ = [
+    "load_frame_bin",
+    "save_frame_bin",
+    "load_frame_mem",
+    "save_frame_mem",
+    "load_flow_text",
+    "save_flow_text",
+]

@@ -4,11 +4,12 @@
 ``tpuflow.kernels.jnp_ref``). ``warp`` (K1, K2, K4) and ``lk`` (K3, K5, K6,
 K7, and K10 with ``window_mxu``) hold the hand-written CUDA kernels'
 wrappers, their plain PyTorch versions and their launch counters; each
-takes one (H, W) plane or a (B, H, W) batch. Nothing here builds or loads
-the CUDA library at import.
+takes one (H, W) plane or a (B, H, W) batch. ``fixed_point`` is the S8.7
+integer datapath as torch int32 ops (no kernel of its own). Nothing here
+builds or loads the CUDA library at import.
 """
 
-from tpuflow_torch.kernels import lk, warp
+from tpuflow_torch.kernels import fixed_point, lk, warp
 from tpuflow_torch.kernels.torch_ref import (
     build_gaussian_pyramid,
     compute_gradients,
