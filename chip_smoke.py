@@ -111,8 +111,9 @@ the limits of tests/test_torch_vo_graph.py; every sequence inside the
 absolute bounds and both baselines' rules, TF32 off; the CLI streams
 bit-identical to the plain upload, the S8.7 datapath and the ``rtl`` CLI
 run identical on the card and the CPU, the CLI's single scale within
-1.1e-5 px of the CPU run and its pyramidal run's mae_u, mae_v and EPE
-within 10% of the CPU run's (``CLI_SINGLE_ATOL``, ``CLI_PYRAMIDAL_RTOL``).
+1.1e-5 px of the CPU run and its pyramidal run within 0.05 px of it
+(p99.9 0.02 px), its mae_u, mae_v and EPE within 1e-3 relative
+(``CLI_SINGLE_ATOL``, ``CLI_PYRAMIDAL_*``).
 
 Each kernel's time is printed beside its bound (``eval/bounds.py``: the
 bytes one call must move over the card's 3.35 TB/s) and its share of it;
@@ -135,6 +136,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import io
 import json
 import re
@@ -238,15 +240,18 @@ PATH_KERNELS = {
 # Phase 7, the CLI pair modes on the card against --device cpu: the S8.7
 # mode identical; single scale (K6) within its CPU-test limit at window 5
 # (tests/test_torch_kernels.py, 1e-5 px) plus the dump's 6-decimal
-# rounding; pyramidal (K4/K5) with mae_u, mae_v and EPE against the known
-# 2 px within the 13-pattern gate's 10%. The pyramidal limit is the gate's
-# because the two runs build their pyramids with different GEMMs (cuBLAS,
-# the CPU's BLAS) and the solve amplifies those one-ulp differences at
-# weakly textured pixels: the first card run read p99.9 5.4e-3 px and max
-# 1.9e-2 px, above tests/test_torch_pyramidal.py's 2e-3, which holds
-# slices started from the same pyramids.
+# rounding. Pyramidal (K4/K5): the card and the CPU build their pyramids
+# with different GEMMs (cuBLAS, the CPU's BLAS), and the solve amplifies
+# those one-ulp differences at weakly textured pixels, so the limits are
+# set from the card's readings (NVIDIA H100 80GB HBM3, 700.00 W) with
+# headroom: max |d| 0.0186 px against 0.05, p99.9 0.0054 px against 0.02,
+# and mae_u, mae_v, EPE about 1e-5 apart relative against 1e-3.
+# tests/test_torch_pyramidal.py's 2e-3 holds slices started from the same
+# pyramids.
 CLI_SINGLE_ATOL = 1e-5 + 1e-6
-CLI_PYRAMIDAL_RTOL = 0.10
+CLI_PYRAMIDAL_MAX = 0.05
+CLI_PYRAMIDAL_P999 = 0.02
+CLI_PYRAMIDAL_RTOL = 1e-3
 CLI_RUNS = 3
 # The VO sessions at 1080p: grid step 16 (8,040 track slots), N_FRAMES
 # frames through process_frames after start; `default` with the
@@ -1500,6 +1505,12 @@ def check_s87(fa, fb, dev) -> None:
     CPU on the 1080p a/b pair and the committed 320x240 natural pair; the
     RTL testbench criteria on the card; the int32 shift's wraps; its
     device time at 1080p."""
+    # The int32 shift's wrap count and the int64 variant, from the tests'
+    # helper (tests/s87_witness.py), loaded by path.
+    spec = importlib.util.spec_from_file_location(
+        "s87_witness", Path(__file__).resolve().parent / "tests" / "s87_witness.py")
+    witness = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(witness)
     n0, n1 = natural.committed_pair()
     cases = {"1080p a/b": (fa.astype(np.uint8), fb.astype(np.uint8)), "natural 320x240": (n0, n1)}
     for name, (f0, f1) in cases.items():
@@ -1510,8 +1521,8 @@ def check_s87(fa, fb, dev) -> None:
         box = fixed_point.box_downsample_2x(d0).cpu()
         same = (torch.equal(u.cpu(), cu) and torch.equal(v.cpu(), cv)
                 and torch.equal(box, fixed_point.box_downsample_2x(c0)))
-        wraps = fixed_point.shift_wraps(d0, d1)
-        wu, wv = fixed_point.lucas_kanade_s87_widened(d0, d1)
+        wraps = witness.shift_wraps(d0, d1)
+        wu, wv = witness.lucas_kanade_s87_widened(d0, d1)
         widened = int(((wu != u) | (wv != v)).sum())
         line = (f"[cli] S8.7 {name}: card == CPU bit for bit (flow and box downsample): {same}; "
                 f"int32 shift wraps at {wraps} pixels, an int64 shift would change "
@@ -1568,13 +1579,18 @@ def check_cli_pairs(work: Path) -> None:
               f"region mean_u {mean_u:.4f} px (CPU run), card vs CPU max |d| {diff.max():.3g} "
               f"p99.9 {np.percentile(diff, 99.9):.3g} px, mae_u/mae_v/epe "
               f"{card['mae_u']:.5f}/{card['mae_v']:.5f}/{card['epe']:.5f} against the CPU's "
-              f"{cpu['mae_u']:.5f}/{cpu['mae_v']:.5f}/{cpu['epe']:.5f} ({100 * change:.3f}%)")
+              f"{cpu['mae_u']:.5f}/{cpu['mae_v']:.5f}/{cpu['epe']:.5f} ({change:.3g} apart)")
         if path == "cli rtl" and diff.max() != 0.0:
             raise AssertionError("the S8.7 CLI run differs between the card and the CPU")
         if path == "cli single scale" and diff.max() > CLI_SINGLE_ATOL:
             raise AssertionError(f"single-scale CLI card vs CPU {diff.max()} > {CLI_SINGLE_ATOL}")
-        if path == "cli pyramidal" and change > CLI_PYRAMIDAL_RTOL:
-            raise AssertionError(f"pyramidal CLI card vs CPU metrics differ by {change:.1%}")
+        if path == "cli pyramidal" and (diff.max() > CLI_PYRAMIDAL_MAX
+                                        or np.percentile(diff, 99.9) > CLI_PYRAMIDAL_P999
+                                        or change > CLI_PYRAMIDAL_RTOL):
+            raise AssertionError(f"pyramidal CLI card vs CPU: max |d| {diff.max()} (limit "
+                                 f"{CLI_PYRAMIDAL_MAX}), p99.9 {np.percentile(diff, 99.9)} "
+                                 f"(limit {CLI_PYRAMIDAL_P999}), metrics {change:.3g} apart "
+                                 f"(limit {CLI_PYRAMIDAL_RTOL})")
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):

@@ -6,7 +6,8 @@ Both compute in int32 with two's-complement wraparound: the reference's
 ``astype(jnp.int64)`` is int32 without ``jax_enable_x64``, so its
 ``num << 7`` wraps once ``|num| >= 2**24``. The high-contrast case is the
 witness: the wrap occurs there, the port equals the reference, and the
-same datapath widened to int64 does not. The cases of
+same datapath widened to int64 (``tests/s87_witness.py``) does not. The
+cases of
 ``tests/test_fixed_point.py`` are mirrored on the port with the same
 limits.
 """
@@ -17,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from s87_witness import lucas_kanade_s87_widened, shift_wraps
 from scipy.ndimage import gaussian_filter
 
 from tpuflow.eval import natural as jax_natural
@@ -90,14 +92,21 @@ def test_s87_matches_jax_where_the_int32_shift_wraps():
     f0 = rng.integers(0, 256, (48, 64), dtype=np.uint8)
     f1 = np.roll(f0, 1, axis=1) ^ rng.integers(0, 64, (48, 64), dtype=np.uint8)
     t0, t1 = torch.from_numpy(f0), torch.from_numpy(f1)
-    wraps = fixed_point.shift_wraps(t0, t1)
+    wraps = shift_wraps(t0, t1)
     assert wraps > 0
     got, want = _both(f0, f1)
     _assert_same(got, want)
     # Widened to int64, as the reference's docstring says, the result
     # differs from what the reference computes.
-    wide = [a.numpy() for a in fixed_point.lucas_kanade_s87_widened(t0, t1)]
+    wide = [a.numpy() for a in lucas_kanade_s87_widened(t0, t1)]
     assert any(np.any(w != j) for w, j in zip(wide, want))
+    # On a smooth pair nothing wraps, and the witness's own datapath then
+    # gives the shipped flow bit for bit.
+    g0 = gaussian_filter(rng.uniform(0, 255, (48, 64)), 2.0).astype(np.uint8)
+    s0, s1 = torch.from_numpy(g0), torch.from_numpy(np.roll(g0, 1, axis=1))
+    assert shift_wraps(s0, s1) == 0
+    for w, g in zip(lucas_kanade_s87_widened(s0, s1), fixed_point.lucas_kanade_s87(s0, s1)):
+        assert torch.equal(w, g)
 
 
 def test_s87_matches_jax_on_identical_and_quantization_frames(natural_pair):

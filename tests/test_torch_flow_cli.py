@@ -313,7 +313,8 @@ def test_config_yaml_matches_the_reference(tmp_path, fresh_globals, capsys):
         assert np.array_equal(verifier.get_test_region_mask((240, 320), name),
                               jax_verifier.get_test_region_mask((240, 320), name))
     assert verifier.classify_result(0.15, 0.0, "translate_small") == "Warning"
-    # The shipped copy of the defaults restores the reference values.
+    # The defaults, read from the JAX package's YAML by path, restore the
+    # reference values.
     verifier.apply_config(verifier.DEFAULT_CONFIG)
     assert verifier.THRESHOLDS["translation"] == (0.5, 2.0) and verifier.CENTER_CROP == 80
 

@@ -786,6 +786,8 @@ def test_s87_on_the_card_matches_the_cpu(cuda):
     # The S8.7 datapath is torch int32 ops: the card wraps as the CPU does,
     # bit for bit, on the natural pair and a high-contrast pair where
     # ``num << 7`` wraps, at windows 3/5/7; the box downsample too.
+    from s87_witness import shift_wraps
+
     from tpuflow_torch.eval import natural
     from tpuflow_torch.kernels import fixed_point
 
@@ -794,7 +796,7 @@ def test_s87_on_the_card_matches_the_cpu(cuda):
     g1 = np.roll(g0, 1, axis=1) ^ rng.integers(0, 64, (96, 128), dtype=np.uint8)
     for f0, f1 in (natural.committed_pair(), (g0, g1)):
         c0, c1 = torch.from_numpy(f0), torch.from_numpy(f1)
-        assert fixed_point.shift_wraps(c0, c1) > 0
+        assert shift_wraps(c0, c1) > 0
         for window in (3, 5, 7):
             want = fixed_point.lucas_kanade_s87(c0, c1, window)
             got = fixed_point.lucas_kanade_s87(c0.to(cuda), c1.to(cuda), window)

@@ -19,7 +19,9 @@ suite in the reference generator's layout (``suite_index.json``, one
 directory a pattern), writing the committed suite there first where DIR
 has no index; ``--config YAML`` overrides thresholds, categories, the test
 region and named pyramid configs (``apply_config``; PyYAML, imported only
-then; the defaults are ``verification_config.yaml`` beside this file);
+then; the defaults are the JAX package's
+``tpuflow/eval/verification_config.yaml``, read by path as the baselines
+are);
 without ``--no-visualizations`` the showcase patterns' plots and
 per-level snapshots are written under ``OUTPUT_DIR/plots`` where
 matplotlib imports, and their skip is printed where it does not (the GPU
@@ -91,7 +93,7 @@ PATTERN_CATEGORIES: Dict[str, str] = {
 CENTER_CROP = 80  # reference: verification_config.yaml:107
 BORDER = 10       # reference: optical_flow_verifier.py:135
 
-DEFAULT_CONFIG = Path(__file__).parent / "verification_config.yaml"
+DEFAULT_CONFIG = BASELINE_DIR.parent / "verification_config.yaml"
 # The patterns whose plots the CLI writes.
 SHOWCASE = ("translate_medium", "rotate_small", "translate_extreme")
 
@@ -550,7 +552,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument(
         "--config", type=str, default=None, metavar="YAML",
         help="verifier config overriding thresholds/categories/test region/pyramid "
-        f"configs (needs PyYAML; defaults shipped at {DEFAULT_CONFIG.name})",
+        "configs (needs PyYAML; defaults in tpuflow/eval/verification_config.yaml)",
     )
     parser.add_argument("--compare-baseline", action="store_true")
     parser.add_argument("--update-baseline", action="store_true")

@@ -67,16 +67,15 @@ def stream_flow(
     backend: str = "torch",
     device: torch.device | str | None = None,
     window_size: int = 5,
-    lookahead: int = 2,
 ) -> Iterator[tuple[torch.Tensor, torch.Tensor]]:
     """Yield each consecutive pair's (u, v) on ``device`` (the card unless
-    the caller names another). The frames are uploaded once each,
-    ``lookahead`` ahead (``io.stream.device_pairs``). With a pyramid
+    the caller names another). The frames are uploaded once each, two
+    ahead (``io.stream.device_pairs``). With a pyramid
     ``cfg``, each frame's Gaussian pyramid is built once and carried to
     the next pair (``lucas_kanade_pyramidal_step``); without one, single
     scale at ``window_size``."""
     carry = None
-    for prev, curr in device_pairs(frames, lookahead=lookahead, device=device):
+    for prev, curr in device_pairs(frames, lookahead=2, device=device):
         if cfg is None:
             yield lucas_kanade_single_scale(prev, curr, window_size, backend=backend)
             continue

@@ -41,8 +41,18 @@ def _trunc_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     return torch.sign(num) * torch.sign(den) * q
 
 
-def _sums(p: torch.Tensor, c: torch.Tensor, window_size: int):
-    """The datapath up to the solver: S32 det and numerators, int32."""
+def lucas_kanade_s87(
+    frame_prev_u8: torch.Tensor,
+    frame_curr_u8: torch.Tensor,
+    window_size: int = 5,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """RTL-datapath dense flow.
+
+    Inputs: (H, W) uint8 frames, on any device. Returns float32 (u, v) in
+    pixels (S8.7 codes divided by 128), on the frames' device.
+    """
+    p = frame_prev_u8.to(torch.int32)
+    c = frame_curr_u8.to(torch.int32)
     h, w = p.shape
     avg = (p + c) >> 1  # 9-bit integer average, floor
 
@@ -88,68 +98,18 @@ def _sums(p: torch.Tensor, c: torch.Tensor, window_size: int):
     det = s_xx * s_yy - s_xy * s_xy
     num_u = s_yy * s_xt - s_xy * s_yt
     num_v = s_xx * s_yt - s_xy * s_xt
+
     solvable = (det > DET_THRESHOLD) | (det < -DET_THRESHOLD)
-    return det, num_u, num_v, solvable
-
-
-def _solve(det, num_u, num_v, solvable, half: int):
-    """``(num << 7) / det`` truncated, clamped, gated and zero-bordered, in
-    the operands' integer type."""
     safe_det = torch.where(solvable, det, torch.ones_like(det))
-    fu = _trunc_div(num_u << FRAC_BITS, safe_det)
+    fu = _trunc_div(num_u << FRAC_BITS, safe_det)  # int32: wraps as the reference's
     fv = _trunc_div(num_v << FRAC_BITS, safe_det)
     fu = torch.where(solvable, fu.clamp(-FLOW_CLAMP, FLOW_CLAMP), 0)
     fv = torch.where(solvable, fv.clamp(-FLOW_CLAMP, FLOW_CLAMP), 0)
+
     pad = (half + 1,) * 4
     u = F.pad(fu.to(torch.float32) / (1 << FRAC_BITS), pad)
     v = F.pad(fv.to(torch.float32) / (1 << FRAC_BITS), pad)
     return u, v
-
-
-def lucas_kanade_s87(
-    frame_prev_u8: torch.Tensor,
-    frame_curr_u8: torch.Tensor,
-    window_size: int = 5,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """RTL-datapath dense flow.
-
-    Inputs: (H, W) uint8 frames, on any device. Returns float32 (u, v) in
-    pixels (S8.7 codes divided by 128), on the frames' device.
-    """
-    p = frame_prev_u8.to(torch.int32)
-    c = frame_curr_u8.to(torch.int32)
-    return _solve(*_sums(p, c, window_size), window_size // 2)
-
-
-def lucas_kanade_s87_widened(
-    frame_prev_u8: torch.Tensor,
-    frame_curr_u8: torch.Tensor,
-    window_size: int = 5,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """What the reference's docstring describes and its code does not
-    compute: ``num << 7`` and the division in int64. For tests and the
-    smoke only, as the witness that the int32 wrap changes the result."""
-    det, num_u, num_v, solvable = _sums(
-        frame_prev_u8.to(torch.int32), frame_curr_u8.to(torch.int32), window_size)
-    wide = (det.to(torch.int64), num_u.to(torch.int64), num_v.to(torch.int64))
-    return _solve(*wide, solvable, window_size // 2)
-
-
-def shift_wraps(
-    frame_prev_u8: torch.Tensor,
-    frame_curr_u8: torch.Tensor,
-    window_size: int = 5,
-) -> int:
-    """Solvable pixels where ``num_u << 7`` or ``num_v << 7`` wraps in
-    int32 (``|num| >= 2**24``)."""
-    _, num_u, num_v, solvable = _sums(
-        frame_prev_u8.to(torch.int32), frame_curr_u8.to(torch.int32), window_size)
-    lim = 1 << (31 - FRAC_BITS)
-
-    def out_of_range(n):
-        return (n < -lim) | (n >= lim)
-
-    return int((solvable & (out_of_range(num_u) | out_of_range(num_v))).sum())
 
 
 def box_downsample_2x(frame_u8: torch.Tensor) -> torch.Tensor:
