@@ -79,7 +79,22 @@ failure raises and the script exits non-zero):
    translate_medium against the same runs on the CPU; the verifier's
    ``--suite-dir``; the plots where matplotlib imports (else the skip is
    printed); ``eval.profile_vo``'s six rows at 1080p ``production``;
-8. profile: device time by kernel and the device's busy share over 4 frames
+8. mesh: the tiled flow of ``tpuflow_torch.sharding`` at 1080p under
+   ``production_fullband`` and ``default``: (a) NCCL at world size 1 in this
+   process, mesh 1x1x1, ``tiled_lucas_kanade_pyramidal`` against the
+   untiled ``rtl_clamp`` path and ``tiled_lucas_kanade_single_scale``
+   against ``lucas_kanade_single_scale(backend="torch")``; (b) 4 gloo ranks
+   as processes sharing the card (NCCL takes one rank per card) at meshes
+   1x2x2 and 1x4x1, each against the untiled card result, each kernel
+   launch on a tile (K1, K2, K4, K6, and K3 / K5 on 1x4x1's replicated
+   coarsest level) against its plain version on that tile, launches a
+   frame pair per rank, halo and gather bytes, and host-clock ms a frame
+   pair beside the untiled path's; (c) the mesh-tiled VO session (1x2x2,
+   ``default``, grid step 16, 8 frames) against the untiled session; (d)
+   ``ba.solve(8)`` over the ``[vo]`` phase's 1080p problem in 4
+   observation shards against the unsharded solve, twice; (e) NCCL with
+   one rank per card where the machine has two cards or more;
+9. profile: device time by kernel and the device's busy share over 4 frames
    of each stream (torch.profiler).
 
 Limits on the card: the warps (K1, K2, K4) bit-exact against their plain
@@ -113,7 +128,14 @@ bit-identical to the plain upload, the S8.7 datapath and the ``rtl`` CLI
 run identical on the card and the CPU, the CLI's single scale within
 1.1e-5 px of the CPU run and its pyramidal run within 0.05 px of it
 (p99.9 0.02 px), its mae_u, mae_v and EPE within 1e-3 relative
-(``CLI_SINGLE_ATOL``, ``CLI_PYRAMIDAL_*``).
+(``CLI_SINGLE_ATOL``, ``CLI_PYRAMIDAL_*``); the tiled flow within p99.9 2e-3
+px and max 0.05 px of the untiled card result and its mean EPE within 1e-3
+relative, tiled single scale within 1e-4 px, every tile-shape kernel launch
+bit-exact against its plain version, every rank holding the same result,
+the tiled VO session's alive flags identical on 99.9% of the slot records
+and its live tracks within 1e-3 px on 99.9% of them and 0.05 px on all,
+the sharded solve's mean reprojection error within 1e-4 px of the
+unsharded one's and two sharded solves bit-identical (``MESH_*``).
 
 Each kernel's time is printed beside its bound (``eval/bounds.py``: the
 bytes one call must move over the card's 3.35 TB/s) and its share of it;
@@ -136,6 +158,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import hashlib
 import importlib.util
 import io
 import json
@@ -151,6 +175,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 from scipy.ndimage import gaussian_filter
 from scipy.ndimage import shift as nd_shift
 
@@ -167,8 +193,11 @@ from tpuflow_torch.flow.__main__ import mean_magnitude, stream_flow
 from tpuflow_torch.io.frames import load_flow_text, load_frame_bin, save_frame_bin
 from tpuflow_torch.io.stream import FrameStream, prefetch_to_device
 from tpuflow_torch.kernels import _build, fixed_point, lk, torch_ref, warp
+from tpuflow_torch.sharding import (initialize_multihost, make_flow_mesh,
+                                    tiled_lucas_kanade_pyramidal, tiled_lucas_kanade_single_scale)
+from tpuflow_torch.sharding.mesh import counters as mesh_counters
 from tpuflow_torch.eval.vo_metrics import trajectory_metrics
-from tpuflow_torch.vo import checkpoint, imu, loop_closure, pipeline, pose_graph, tracking, vi_graph
+from tpuflow_torch.vo import ba, checkpoint, imu, loop_closure, pipeline, pose_graph, tracking, vi_graph
 from tpuflow_torch.vo.pipeline import OdometrySession
 
 HEIGHT, WIDTH = 1080, 1920
@@ -236,6 +265,20 @@ PATH_KERNELS = {
     "cli pyramidal": {"warp_exact", "lk_refine_exact"},
     "cli rtl": set(),  # the S8.7 datapath is torch int32 ops, no kernel
     "profile_vo": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
+    # Phase 8, the tiled paths, counted on each rank: every level tiled
+    # (K6 on each tile) except at 1x4x1, whose coarsest level runs
+    # replicated (K3 / K5); tiled single scale is plain torch ops.
+    "mesh 1x1x1 production_fullband": {"warp_packed_u8", "warp_packed_u16", "lk_fused"},
+    "mesh 1x1x1 default": {"warp_exact", "lk_fused"},
+    "mesh 1x1x1 single scale": set(),
+    "mesh 1x2x2 production_fullband": {"warp_packed_u8", "warp_packed_u16", "lk_fused"},
+    "mesh 1x2x2 default": {"warp_exact", "lk_fused"},
+    "mesh 1x1x2 production_fullband": {"warp_packed_u8", "warp_packed_u16", "lk_fused"},
+    "mesh 1x1x2 default": {"warp_exact", "lk_fused"},
+    "mesh 1x4x1 production_fullband": {"warp_packed_u8", "warp_packed_u16", "lk_fused",
+                                       "lk_refine"},
+    "mesh 1x4x1 default": {"warp_exact", "lk_fused", "lk_refine_exact"},
+    "mesh vo": {"warp_exact", "lk_fused"},
 }
 # Phase 7, the CLI pair modes on the card against --device cpu: the S8.7
 # mode identical; single scale (K6) within its CPU-test limit at window 5
@@ -287,6 +330,29 @@ MXU_ATOL = {3: 2e-3, 5: 2e-4, 7: 5e-5}
 MMA_FLOP = 2 * 16 * 8 * 8  # one m16n8k8 mma.sync
 TF32_FLOPS = 495e12  # the H100 SXM's dense TF32 tensor-core rate (NVIDIA's data sheet)
 DET_RTOL = 2e-6  # of the plane's largest |det|
+# Phase 8, the tiled flow over a process mesh at 1080p. The tiled and the
+# untiled card results build their pyramids from different GEMMs (per-rank
+# operator slices against banded blocks, divergence f) and the tiled levels
+# solve with K6 where the untiled path runs K3 / K5, so the pixel limits are
+# the port's own: p99.9 2e-3 px (a finest pyramid level between the
+# packages, ROADMAP.md section 3) and max 0.05 px (phase 7's card pyramidal
+# check); the mean EPE against the 2 px shift within 1e-3 relative. The
+# reference's tiled envelope, 1e-3 px (divergence g), is reported for
+# `default`. Tiled single scale: plain torch ops on both sides, 1e-4 px.
+# The sharded solve's mean reprojection error within 1e-4 px of the
+# unsharded one's.
+MESH_CONFIGS = ("production_fullband", "default")
+MESH_SHAPES = ((1, 2, 2), (1, 4, 1))
+MESH_RANKS = 4
+MESH_RUNS = 3
+MESH_VO_FRAMES = 8
+MESH_P999 = 2e-3
+MESH_MAX = 0.05
+MESH_EPE_RTOL = 1e-3
+MESH_ENVELOPE = 1e-3
+MESH_SINGLE_ATOL = 1e-4
+MESH_BA_ATOL = 1e-4
+MESH_WALL_S = 300.0  # each group of rank processes, start-up included
 # The warps' vertical bands (the adaptive ladder's 2/3/8, none, the widest).
 WARP_BANDS = (0, 2, 3, 8, 31)
 MAX_BAND = warp.MAX_BAND
@@ -1324,8 +1390,9 @@ def check_vo_resume(frames):
         raise AssertionError("vo resume: the resumed session differs")
 
 
-def _host_seconds(fn, runs: int = 3):
-    """Median host-clock seconds of fn() to a synchronize, and its result."""
+def _host_runs(fn, runs: int = 3):
+    """Host-clock seconds of each of ``runs`` calls of fn() to a
+    synchronize, and the last result."""
     times, out = [], None
     for _ in range(runs):
         torch.cuda.synchronize()
@@ -1333,6 +1400,12 @@ def _host_seconds(fn, runs: int = 3):
         out = fn()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    return times, out
+
+
+def _host_seconds(fn, runs: int = 3):
+    """Median host-clock seconds of fn() to a synchronize, and its result."""
+    times, out = _host_runs(fn, runs)
     return float(np.median(times)), out
 
 
@@ -1632,6 +1705,400 @@ def check_cli(fa, fb, a, label: str) -> None:
     print(f"[cli] phase took {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 8: the tiled flow over a process mesh ---------------------------------------------
+
+
+def _p999_max(got_u, got_v, want_u, want_v) -> tuple[float, float]:
+    """p99.9 and max of |d| over both flow planes."""
+    d = torch.cat([(got_u - want_u).abs().flatten(), (got_v - want_v).abs().flatten()])
+    return float(torch.quantile(d, 0.999)), float(d.max())
+
+
+def _digest(*arrays) -> str:
+    h = hashlib.sha256()
+    for x in arrays:
+        h.update(np.ascontiguousarray(x).tobytes())
+    return h.hexdigest()
+
+
+@contextmanager
+def checked_kernels(found: dict):
+    """Every kernel launch of the tiled path held against its plain version
+    on the same inputs, once per kernel and shape: ``found[name][shape]`` is
+    the max |d| (for the refine steps of u, v; their sums to SUM_RTOL)."""
+    saved = warp.warp_banded, lk.lucas_kanade_fused, lk.lucas_kanade_refine
+
+    def launch(kernel, image, *args, **kw):
+        """The kernel's output, its name, and whether its shape is unchecked."""
+        before = launch_counts()
+        out = kernel(image, *args, **kw)
+        name = next(n for n, c in launch_counts().items() if c != before.get(n, 0))
+        return out, name, tuple(image.shape) not in found.setdefault(name, {})
+
+    def warp_checked(image, *args, **kw):
+        out, name, new = launch(saved[0], image, *args, **kw)
+        if new:
+            found[name][tuple(image.shape)] = max_abs(out, warp.warp_banded_ref(image, *args, **kw))
+        return out
+
+    def fused_checked(prev, *args, **kw):
+        out, name, new = launch(saved[1], prev, *args, **kw)
+        if new:
+            want = lk.lucas_kanade_fused_ref(prev, *args, **kw)
+            found[name][tuple(prev.shape)] = max(max_abs(g, w) for g, w in zip(out, want))
+        return out
+
+    def refine_checked(prev, *args, **kw):
+        out, name, new = launch(saved[2], prev, *args, **kw)
+        if new:
+            want = lk.lucas_kanade_refine_ref(prev, *args, **kw)
+            err = max(max_abs(out[0], want[0]), max_abs(out[1], want[1]))
+            sums_ok = all(abs(float(g) - float(w)) <= SUM_RTOL * abs(float(w))
+                          for g, w in zip(out[2:], want[2:]))
+            found[name][tuple(prev.shape)] = err if sums_ok else float("inf")
+        return out
+
+    warp.warp_banded, lk.lucas_kanade_fused, lk.lucas_kanade_refine = (
+        warp_checked, fused_checked, refine_checked)
+    try:
+        yield
+    finally:
+        warp.warp_banded, lk.lucas_kanade_fused, lk.lucas_kanade_refine = saved
+
+
+def _mesh_name(shape) -> str:
+    return "x".join(map(str, shape))
+
+
+def _session_1080(a, config: str, mesh=None):
+    fx = fy = 0.8 * WIDTH
+    sess = OdometrySession((fx, fy, WIDTH / 2.0, HEIGHT / 2.0), grid_step=VO_GRID,
+                           backend="cuda", pyramid_config=config, mesh=mesh, device=a.device)
+    sess.start(a)
+    return sess
+
+
+def mesh_rank(rank: int, work: str, device: str) -> None:
+    """One of MESH_RANKS gloo ranks sharing the card (phase 8 b-d): the tiled
+    flow at each mesh and config, the mesh-tiled VO session and the
+    observation-sharded solve; results into ``work``."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    ops.pin_f32_matmul()
+    initialize_multihost(f"file://{work}/store", MESH_RANKS, rank, backend="gloo")
+    frames = np.load(f"{work}/frames.npz")
+    a, b = torch.from_numpy(frames["a"]).to(dev), torch.from_numpy(frames["b"]).to(dev)
+    report, arrays = {"flow": {}}, {}
+    found: dict = {}
+    vo_mesh = None
+    for shape in MESH_SHAPES:
+        mesh = make_flow_mesh(*shape, device=dev)
+        vo_mesh = vo_mesh or mesh
+        for config in MESH_CONFIGS:
+            cfg = PYRAMID_CONFIGS[config]
+            key = f"{_mesh_name(shape)} {config}"
+
+            def run():
+                return tiled_lucas_kanade_pyramidal(a[None], b[None], mesh, config=cfg,
+                                                    backend="cuda")
+
+            run()  # warm-up: operator slices, groups' buffers
+            mesh_counters.reset()
+            with checked_kernels(found):
+                (u, v), counts = counted(f"mesh {key}", run)
+            traffic = dataclasses.asdict(mesh_counters)
+            dist.barrier(mesh.group)
+            report["flow"][key] = {"launches": counts, "traffic": traffic, "ms": _host_ms(run)}
+            if rank == 0:
+                arrays[f"{key}/u"], arrays[f"{key}/v"] = u[0].cpu().numpy(), v[0].cpu().numpy()
+            report["flow"][key]["digest"] = _digest(u.cpu().numpy(), v.cpu().numpy())
+    report["kernels"] = {n: {"x".join(map(str, s)): e for s, e in shapes.items()}
+                         for n, shapes in found.items()}
+
+    # (c) the mesh-tiled VO session.
+    chunk = vo_chunk(a, b)[:MESH_VO_FRAMES]
+    sess = _session_1080(a, "default", vo_mesh)
+    dist.barrier(vo_mesh.group)
+    ms, counts = counted("mesh vo", lambda: _host_ms(lambda: sess.process_frames(chunk), 1))
+    report["vo_ms"] = ms[0] / MESH_VO_FRAMES
+    report["vo_launches"] = counts
+    report["vo_digest"] = _digest(np.stack(sess.obs_uv), np.stack(sess.obs_valid))
+    if rank == 0:
+        arrays["vo/uv"], arrays["vo/valid"] = np.stack(sess.obs_uv), np.stack(sess.obs_valid)
+
+    # (d) bundle adjustment over MESH_RANKS observation shards.
+    prob = np.load(f"{work}/ba.npz")
+    full = ba.BAProblem(**{f: torch.from_numpy(prob[f]).to(dev) for f in ba.BAProblem._fields})
+    n = full.obs_uv.shape[0]
+    lo, hi = rank * n // MESH_RANKS, (rank + 1) * n // MESH_RANKS
+    local = full._replace(obs_uv=full.obs_uv[lo:hi], obs_cam=full.obs_cam[lo:hi],
+                          obs_lm=full.obs_lm[lo:hi], obs_valid=full.obs_valid[lo:hi])
+    solves = []
+    dist.barrier(vo_mesh.group)
+    report["ba_s"] = _host_runs(lambda: solves.append(
+        ba.solve(local, iterations=VO_BA_ITERATIONS, axis_name=vo_mesh.group)), 2)[0]
+    report["ba_repeat"] = all(torch.equal(x, y) for x, y in zip(*solves))
+    if rank == 0:
+        for f in ("poses_r", "poses_t", "landmarks"):
+            arrays[f"ba/{f}"] = getattr(solves[0], f).cpu().numpy()
+    report["ba_digest"] = _digest(solves[0].poses_t.cpu().numpy())
+    dist.barrier()
+    np.savez(f"{work}/rank{rank}.npz", **arrays)
+    with open(f"{work}/rank{rank}.json", "w") as fh:
+        json.dump(report, fh)
+    dist.destroy_process_group()
+
+
+def nccl_rank(rank: int, world: int, work: str, shape) -> None:
+    """One rank per card over NCCL (phase 8 e): the tiled flow under each
+    config, its launches a frame pair and host-clock ms."""
+    initialize_multihost(f"file://{work}/store_nccl", world, rank, backend="nccl")
+    mesh = make_flow_mesh(*shape)
+    ops.pin_f32_matmul()
+    frames = np.load(f"{work}/frames.npz")
+    a, b = (torch.from_numpy(frames[k]).to(mesh.device) for k in ("a", "b"))
+    report, arrays = {}, {}
+    for config in MESH_CONFIGS:
+        cfg = PYRAMID_CONFIGS[config]
+
+        def run():
+            return tiled_lucas_kanade_pyramidal(a[None], b[None], mesh, config=cfg,
+                                                backend="cuda")
+
+        run()
+        mesh_counters.reset()
+        (u, v), counts = counted(f"mesh {_mesh_name(shape)} {config}", run)
+        traffic = dataclasses.asdict(mesh_counters)
+        dist.barrier(mesh.group)
+        report[config] = {"launches": counts, "traffic": traffic, "ms": _host_ms(run),
+                          "digest": _digest(u.cpu().numpy(), v.cpu().numpy())}
+        if rank == 0:
+            arrays[f"{config}/u"], arrays[f"{config}/v"] = u[0].cpu().numpy(), v[0].cpu().numpy()
+    dist.barrier()
+    np.savez(f"{work}/nccl{rank}.npz", **arrays)
+    with open(f"{work}/nccl{rank}.json", "w") as fh:
+        json.dump(report, fh)
+    dist.destroy_process_group()
+
+
+def check_nccl_across_cards(dev, work: str, untiled: dict) -> None:
+    """Phase 8 (e): NCCL with one rank per card, 1x2x2 on four cards or
+    more, else 1x1x2, against the untiled result of card 0."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"[mesh] nccl across cards: not run, {cards} card")
+        return
+    shape = (1, 2, 2) if cards >= 4 else (1, 1, 2)
+    world = shape[1] * shape[2]
+    t0 = time.perf_counter()
+    _spawn(nccl_rank, lambda r: (r, world, work, shape), world, "nccl ranks")
+    reports = [json.load(open(f"{work}/nccl{r}.json")) for r in range(world)]
+    got = np.load(f"{work}/nccl0.npz")
+    print(f"[mesh] (e) NCCL across {world} of {cards} cards, one rank each, mesh "
+          f"{_mesh_name(shape)}: ran in {time.perf_counter() - t0:.1f} s (start-up included)")
+    for config, rep0 in reports[0].items():
+        if any(r[config]["digest"] != rep0["digest"] for r in reports):
+            raise AssertionError(f"mesh nccl {config}: the ranks hold different flows")
+        u, v = (torch.from_numpy(got[f"{config}/{c}"]).to(dev) for c in "uv")
+        p999, mx = _p999_max(u, v, *untiled[config])
+        ms = sorted(rep0["ms"])
+        traffic = rep0["traffic"]
+        print(f"[mesh] (e) {_mesh_name(shape)} {config} over NCCL: {ms[len(ms) // 2]:.3f} ms a "
+              f"frame pair (host clock, median of {len(ms)}, spread {ms[0]:.3f}-{ms[-1]:.3f}); "
+              f"p99.9 |d| {p999:.3g} px, max {mx:.3g} px against the untiled card result "
+              f"(limits {MESH_P999}, {MESH_MAX}); rank 0 launches a pair {rep0['launches']}; halo "
+              f"{traffic['halo_bytes']} B in {traffic['halo_exchanges']} exchanges, gathers "
+              f"{traffic['gather_bytes']} B, {traffic['all_reduces']} sums")
+        if not (p999 <= MESH_P999 and mx <= MESH_MAX):
+            raise AssertionError(f"mesh nccl {config}: p99.9 {p999}, max {mx}")
+
+
+def _spawn(target, args_of, n: int, what: str) -> None:
+    """Start n processes of ``target`` and wait for all, each within the
+    phase's wall limit; any failure or hang fails the phase."""
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args_of(r)) for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MESH_WALL_S
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if hung or any(codes):
+        raise AssertionError(f"[mesh] {what}: exit codes {codes}, "
+                             f"{len(hung)} killed at the {MESH_WALL_S} s limit")
+
+
+def check_mesh(a, b, fa, fb, smi: str) -> dict:
+    """Phase 8 (a-e). Returns each kernel's launches a frame pair per rank on
+    each tiled path."""
+    t_phase = time.perf_counter()
+    dev = a.device
+    work = tempfile.mkdtemp(prefix="tpuflow_mesh_")
+    try:
+        return _check_mesh(a, b, fa, fb, smi, dev, work, t_phase)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _untiled(a, b, config):
+    cfg = PYRAMID_CONFIGS[config]
+    return pyramidal.lucas_kanade_pyramidal(a, b, config=cfg, backend="cuda", rtl_clamp=True)
+
+
+def _host_ms(fn, runs: int = MESH_RUNS) -> list[float]:
+    return [1000 * t for t in _host_runs(fn, runs)[0]]
+
+
+def _check_mesh(a, b, fa, fb, smi, dev, work, t_phase) -> dict:
+    np.savez(f"{work}/frames.npz", a=fa, b=fb)
+    tiled_launches: dict = {}
+    untiled = {c: _untiled(a, b, c) for c in MESH_CONFIGS}
+    untiled_ms = {c: _host_ms(lambda: _untiled(a, b, c)) for c in MESH_CONFIGS}
+    epe_untiled = {c: mean_epe([untiled[c]]) for c in MESH_CONFIGS}
+
+    # (a) NCCL at world size 1, mesh (1, 1, 1), in this process.
+    initialize_multihost(f"file://{work}/store_a", 1, 0, backend="nccl")
+    mesh = make_flow_mesh(1, 1, 1, device=dev)
+    for config in MESH_CONFIGS:
+        cfg = PYRAMID_CONFIGS[config]
+        tiled_lucas_kanade_pyramidal(a[None], b[None], mesh, config=cfg, backend="cuda")
+        (u, v), counts = counted(f"mesh 1x1x1 {config}", lambda: tiled_lucas_kanade_pyramidal(
+            a[None], b[None], mesh, config=cfg, backend="cuda"))
+        tiled_launches[f"1x1x1 {config}"] = counts
+        p999, mx = _p999_max(u[0], v[0], *untiled[config])
+        print(f"[mesh] (a) NCCL world 1, mesh 1x1x1, {config}: tiled against untiled "
+              f"(rtl_clamp, same card) p99.9 |d| {p999:.3g} px, max {mx:.3g} px (limits "
+              f"{MESH_P999}, {MESH_MAX}); launches {counts}")
+        if not (p999 <= MESH_P999 and mx <= MESH_MAX):
+            raise AssertionError(f"mesh 1x1x1 {config}: p99.9 {p999}, max {mx}")
+    (su, sv), counts = counted("mesh 1x1x1 single scale", lambda: tiled_lucas_kanade_single_scale(
+        a[None], b[None], mesh))
+    wu, wv = lucas_kanade_single_scale(a, b, backend="torch")
+    err = max(max_abs(su[0], wu), max_abs(sv[0], wv))
+    print(f"[mesh] (a) NCCL world 1, tiled single scale against lucas_kanade_single_scale("
+          f"backend='torch') on the card: max |d| {err:.3g} px (limit {MESH_SINGLE_ATOL}; "
+          f"plain torch ops on both sides, as the reference's tiled body is jnp)")
+    if err > MESH_SINGLE_ATOL:
+        raise AssertionError(f"mesh 1x1x1 single scale: max |d| {err}")
+    dist.destroy_process_group()
+
+    # (d)'s problem: the [vo] phase's 1080p production session, 17 keyframes.
+    captured = {}
+    solve = ba.solve
+
+    def capture(p, *args, **kw):
+        captured.setdefault("problem", p)
+        return solve(p, *args, **kw)
+
+    sess = _session_1080(a, "production")
+    sess.process_frames(vo_chunk(a, b))
+    ba.solve = capture
+    try:
+        sess.solve(ba_iterations=VO_BA_ITERATIONS)
+    finally:
+        ba.solve = solve
+    problem = captured["problem"]
+    np.savez(f"{work}/ba.npz", **{f: getattr(problem, f).cpu().numpy()
+                                 for f in ba.BAProblem._fields})
+    single = ba.solve(problem, iterations=VO_BA_ITERATIONS)
+    ref_sess = _session_1080(a, "default")
+    ref_vo_ms = _host_ms(lambda: ref_sess.process_frames(vo_chunk(a, b)[:MESH_VO_FRAMES]),
+                         1)[0] / MESH_VO_FRAMES
+    del sess
+
+    # (b)-(d): MESH_RANKS gloo ranks sharing the card.
+    t0 = time.perf_counter()
+    _spawn(mesh_rank, lambda r: (r, work, str(dev)), MESH_RANKS, "gloo ranks")
+    reports = [json.load(open(f"{work}/rank{r}.json")) for r in range(MESH_RANKS)]
+    got = np.load(f"{work}/rank0.npz")
+    print(f"[mesh] (b-d) {MESH_RANKS} gloo ranks on the one card ({smi}) ran in "
+          f"{time.perf_counter() - t0:.1f} s (start-up included). The {MESH_RANKS} ranks share "
+          f"one card and gloo stages every strip and sum through host memory: the ms below are "
+          f"no scaling figures")
+    for key, rep0 in reports[0]["flow"].items():
+        shape, config = key.split()
+        if any(r["flow"][key]["digest"] != rep0["digest"] for r in reports):
+            raise AssertionError(f"mesh {key}: the ranks hold different flows")
+        u, v = (torch.from_numpy(got[f"{key}/{c}"]).to(dev) for c in "uv")
+        p999, mx = _p999_max(u, v, *untiled[config])
+        epe = mean_epe([(u, v)])
+        rel = abs(epe - epe_untiled[config]) / epe_untiled[config]
+        ms = sorted(rep0["ms"])
+        tiled_launches[key] = rep0["launches"]
+        traffic = rep0["traffic"]
+        envelope = (f", reference envelope {MESH_ENVELOPE} px (divergence g) "
+                    f"{'held' if p999 <= MESH_ENVELOPE else 'exceeded'}"
+                    if config == "default" else "")
+        print(f"[mesh] (b) {key}: {ms[len(ms) // 2]:.3f} ms a frame pair (host clock, median of "
+              f"{MESH_RUNS}, spread {ms[0]:.3f}-{ms[-1]:.3f}) against the untiled path's "
+              f"{sorted(untiled_ms[config])[len(ms) // 2]:.3f} ms on the card alone; p99.9 |d| "
+              f"{p999:.3g} px, max {mx:.3g} px against the untiled card result (limits "
+              f"{MESH_P999}, {MESH_MAX}){envelope}; mean EPE {epe:.5f} against {epe_untiled[config]:.5f} "
+              f"px ({rel:.2e} relative, limit {MESH_EPE_RTOL}); rank 0 launches a pair "
+              f"{rep0['launches']}; halo {traffic['halo_bytes']} B in {traffic['halo_exchanges']} "
+              f"exchanges, gathers {traffic['gather_bytes']} B ({traffic['level_gathers']} "
+              f"level), {traffic['all_reduces']} sums")
+        if not (p999 <= MESH_P999 and mx <= MESH_MAX and rel <= MESH_EPE_RTOL):
+            raise AssertionError(f"mesh {key}: p99.9 {p999}, max {mx}, EPE {rel} relative")
+    for name, shapes in sorted(reports[0]["kernels"].items()):
+        worst = max(shapes.values())
+        print(f"[mesh] (b) {name} on tile shapes {sorted(shapes)}: max |d| against the plain "
+              f"version {worst:.3g}")
+        if worst != 0.0:
+            raise AssertionError(f"mesh: {name} differs from its plain version on a tile")
+    want = {"warp_packed_u8", "warp_packed_u16", "warp_exact", "lk_fused", "lk_refine",
+            "lk_refine_exact"}
+    if set(reports[0]["kernels"]) != want:
+        raise AssertionError(f"mesh: kernels checked on tiles {sorted(reports[0]['kernels'])}")
+
+    # (c) the VO session against the untiled one.
+    if any(r["vo_digest"] != reports[0]["vo_digest"] for r in reports):
+        raise AssertionError("mesh vo: the ranks hold different tracks")
+    if any(r["ba_digest"] != reports[0]["ba_digest"] for r in reports):
+        raise AssertionError("mesh: the ranks' sharded solves differ")
+    tiled_launches["1x2x2 vo default, a frame"] = {
+        k: n / MESH_VO_FRAMES for k, n in reports[0]["vo_launches"].items()}
+    ref_uv, ref_ok = np.stack(ref_sess.obs_uv), np.stack(ref_sess.obs_valid)
+    same = got["vo/valid"] == ref_ok
+    both = got["vo/valid"] & ref_ok
+    d = np.abs(got["vo/uv"] - ref_uv)[both].max(axis=1)
+    close = int((d <= 1e-3).sum())
+    print(f"[mesh] (c) VO session {HEIGHT}x{WIDTH} default, grid {VO_GRID}, {MESH_VO_FRAMES} "
+          f"frames on the 1x2x2 gloo mesh: {reports[0]['vo_ms']:.3f} ms/frame against the untiled "
+          f"session's {ref_vo_ms:.3f}; alive flags identical on {int(same.sum())} of {same.size} "
+          f"slot records; of {both.sum()} tracks alive in both, {close} within 1e-3 px, max "
+          f"{float(d.max(initial=0.0)):.3g} px")
+    if same.mean() < 0.999 or close < 0.999 * both.sum() or d.max(initial=0.0) > MESH_MAX:
+        raise AssertionError("mesh vo: the tiled session differs from the untiled one")
+
+    # (d) the sharded solve.
+    valid = problem.obs_valid
+    tiled = problem._replace(**{f: torch.from_numpy(got[f"ba/{f}"]).to(dev)
+                                for f in ("poses_r", "poses_t", "landmarks")})
+    e_t = float(ba.reprojection_errors(tiled)[valid].mean())
+    e_s = float(ba.reprojection_errors(single)[valid].mean())
+    repeat = all(r["ba_repeat"] for r in reports)
+    print(f"[mesh] (d) solve({VO_BA_ITERATIONS}) over {problem.obs_uv.shape[0]} observations in "
+          f"{MESH_RANKS} shards: {min(reports[0]['ba_s']):.3f} s, then {max(reports[0]['ba_s']):.3f} "
+          f"s; mean reprojection error {e_t:.6f} px against the unsharded {e_s:.6f} px "
+          f"(limit {MESH_BA_ATOL}); two sharded solves {'bit-identical' if repeat else 'DIFFER'}")
+    if abs(e_t - e_s) > MESH_BA_ATOL or not repeat:
+        raise AssertionError("mesh: the sharded solve differs")
+
+    # (e) NCCL, one rank per card.
+    check_nccl_across_cards(dev, work, untiled)
+    print(f"[mesh] phase took {time.perf_counter() - t_phase:.1f} s")
+    return tiled_launches
+
+
 def profile_stream(a, b, config: str) -> None:
     """Device time by kernel and the device's busy share over a 4-frame
     stream (torch.profiler)."""
@@ -1775,6 +2242,10 @@ def warp_ptxas(log: str) -> list[str]:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--nccl-only", action="store_true",
+                        help="after the build, run only phase 8 (e): the tiled flow over NCCL "
+                             "with one rank per card of this machine, against card 0's untiled "
+                             "result (a machine of two cards or more)")
     args = parser.parse_args()
 
     # 1. device
@@ -1818,6 +2289,14 @@ def main() -> None:
     # 3. kernels
     fa, fb = make_frames(args.seed)
     a, b = torch.from_numpy(fa).to(dev), torch.from_numpy(fb).to(dev)
+    if args.nccl_only:
+        work = tempfile.mkdtemp(prefix="tpuflow_mesh_")
+        try:
+            np.savez(f"{work}/frames.npz", a=fa, b=fb)
+            check_nccl_across_cards(dev, work, {c: _untiled(a, b, c) for c in MESH_CONFIGS})
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return
     rng = np.random.default_rng(args.seed + 1)
     readings = check_kernels(dev, a, b, rng)
 
@@ -1867,7 +2346,10 @@ def main() -> None:
     # 7. cli
     check_cli(fa, fb, a, smi)
 
-    # 8. profile
+    # 8. mesh
+    tiled_launches = check_mesh(a, b, fa, fb, smi)
+
+    # 9. profile
     profile_stream(a, b, "production")
     profile_stream(a, b, "default")
 
@@ -1880,6 +2362,8 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": counts[name], "launches_per_frame": stream_counts.get(name, 0) / N_FRAMES,
+            "tiled_launches_per_pair": {path: c[name] for path, c in tiled_launches.items()
+                                        if name in c},
             "library_ms": None, "library": NO_LIBRARY_CALL.get(name), **r,
             "bytes": bounds.call_bytes(name, *dims), "bound_ms": bound_ms,
             "bound_by": bound_by, "bound_share": bound_ms / r["ms"]})

@@ -320,8 +320,14 @@ def test_front_end_cache_and_unported_options():
     a = device_loop.get_front_end(16, 1, None, "torch", config=cfg)
     assert a is device_loop.get_front_end(16, 1, None, "torch", config=cfg)
     assert a is not device_loop.get_front_end(16, 2, None, "torch", config=cfg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        device_loop.get_front_end(16, 1, None, "torch", mesh=object())
+    # A mesh front end is never shared through the cache, and carries the
+    # raw frame (the tiled flow builds its own pyramids).
+    mesh = object()
+    tiled = device_loop.get_front_end(16, 1, None, "torch", mesh=mesh, config=cfg)
+    assert tiled.mesh is mesh and tiled is not device_loop.get_front_end(
+        16, 1, None, "torch", mesh=mesh, config=cfg)
+    frame = torch.zeros((32, 32))
+    assert len(tiled.carry_of_frame(frame)) == 1 and tiled.carry_of_frame(frame)[0] is frame
     with pytest.raises(TypeError, match="torch tensors"):
         a.init(np.zeros((32, 32), np.float32))
     with pytest.raises(ValueError, match="backend"):
@@ -374,8 +380,12 @@ def test_lm_solve_matches(ba_problem):
     e_got = float(ba.reprojection_errors(got).mean())
     e_want = float(jba.reprojection_errors(want).mean())
     assert abs(e_got - e_want) < 1e-5 and e_got < 0.6
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        ba.solve(tp, axis_name="obs")
+    # Observations "sharded" over a one-rank process group: the all-reduce
+    # is the identity, so the solve gives the same bits
+    # (tests/test_torch_vo_mesh.py holds four shards).
+    group = torch.distributed.ProcessGroupGloo(torch.distributed.HashStore(), 0, 1)
+    for a, b in zip(ba.solve(tp, iterations=8, axis_name=group), got):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -232,13 +232,16 @@ def test_tiled_sessions_raise(frames, tmp_path):
     for f in frames[:2]:
         sess.process_frame(f)
     checkpoint.save(sess, str(tmp_path / "ck"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    # The reference's guards: an untiled session does not resume with a
+    # mesh, nor a tiled one without (tests/test_torch_vo_mesh.py resumes
+    # a tiled session on its mesh).
+    with pytest.raises(ValueError, match="untiled"):
         checkpoint.load(str(tmp_path / "ck"), mesh=object(), device="cpu")
     meta = json.loads((tmp_path / "ck" / "meta.json").read_text())
     (tmp_path / "ck" / "meta.json").write_text(json.dumps(dict(meta, tiled=True)))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(ValueError, match="mesh-tiled"):
         checkpoint.load(str(tmp_path / "ck"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(ValueError, match="mesh-tiled"):
         OdometrySession.from_state(dict(meta, tiled=True), sess.state_dict(), device="cpu")
 
 

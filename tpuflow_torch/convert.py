@@ -99,16 +99,18 @@ def ba_problem_from_reference(arrays: Any, device: torch.device | str | None = N
     )
 
 
-def session_from_reference(meta: Mapping, state: Mapping, device: torch.device | str | None = None):
+def session_from_reference(meta: Mapping, state: Mapping, device: torch.device | str | None = None,
+                           mesh=None):
     """``vo.pipeline.OdometrySession`` from a ``tpuflow`` session's
     ``meta_dict()`` and ``state_dict()`` (arrays, or anything ``np.asarray``
     takes), on ``device``: the card unless the caller names another. The
     reference's backend names map to this package's (``jnp`` -> ``torch``,
-    ``pallas`` -> ``cuda``)."""
+    ``pallas`` -> ``cuda``). A mesh-tiled session (``"tiled": true``)
+    continues tiled over ``mesh``, a ``sharding.FlowMesh``, which it needs."""
     from tpuflow_torch.vo.pipeline import OdometrySession
 
     return OdometrySession.from_state(
-        dict(meta), {k: np.asarray(v) for k, v in state.items()}, device=device
+        dict(meta), {k: np.asarray(v) for k, v in state.items()}, mesh=mesh, device=device
     )
 
 

@@ -17,8 +17,12 @@ Counterpart of ``tpuflow.vo.ba``:
   exact elimination, solved densely after Jacobi scaling (6K x 6K for K
   keyframes).
 
-Observations sharded across devices (``axis_name``) are multi-GPU work,
-not ported yet.
+Observations may be sharded across processes: with ``axis_name`` set to a
+``torch.distributed`` process group, each rank holds its own shard of the
+observation table (and the same poses and landmarks), sums its shard's
+normal equations by the same fixed-order segment sums, and the partial
+sums are all-reduced over the group before the dense solve, which every
+rank then takes identically (the reference's ``psum`` over a mesh axis).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpuflow_torch.sharding.mesh import all_reduce_sum
 from tpuflow_torch.vo import se3
 from tpuflow_torch.vo._precision import pin_matmul_precision
 
@@ -41,14 +46,6 @@ class BAProblem(NamedTuple):
     obs_lm: torch.Tensor     # (N,) int landmark index
     obs_valid: torch.Tensor  # (N,) bool
     intrinsics: torch.Tensor  # (4,) = (fx, fy, cx, cy)
-
-
-def _no_axis(axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            "bundle adjustment over observations sharded across devices is "
-            "multi-GPU work, not ported yet (ROADMAP.md, queue 1 item 9)"
-        )
 
 
 def segment_sum(values: torch.Tensor, keys: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -133,17 +130,20 @@ def gauss_newton_step(
     p: BAProblem,
     damping: float = 1e-4,
     huber_delta: float = 4.0,
-    axis_name: str | None = None,
+    axis_name=None,
     num_cams: int | None = None,
     num_lms: int | None = None,
     fixed_cams: tuple[int, ...] = (0,),
 ) -> BAProblem:
     """One damped Gauss-Newton step with Schur-complement reduction.
 
+    ``axis_name``: None, or the ``torch.distributed`` process group over
+    whose ranks the observations are sharded; the partial normal-equation
+    blocks are then summed over the group before the solve.
+
     ``fixed_cams``: cameras pinned by exact elimination. Monocular BA has a
     7-DOF gauge (pose of one camera + global scale); pin two cameras, or
     one camera plus external scale, for a fully determined system."""
-    _no_axis(axis_name)
     k = num_cams or p.poses_r.shape[0]
     m = num_lms or p.landmarks.shape[0]
 
@@ -164,6 +164,9 @@ def gauss_newton_step(
     b_blocks = segment_sum(hpl_o, lm * k + cam, m * k).reshape(m, k, 6, 3)
     bp = segment_sum(bp_o, cam, k)
     bl = segment_sum(bl_o, lm, m)
+    if axis_name is not None:
+        hpp, hll, b_blocks, bp, bl = (
+            all_reduce_sum(t, axis_name) for t in (hpp, hll, b_blocks, bp, bl))
 
     hll = _damp(hll, damping)
     hpp = _damp(hpp, damping)
@@ -199,14 +202,17 @@ def gauss_newton_step(
     return p._replace(poses_r=new_r, poses_t=new_t, landmarks=p.landmarks + dxl)
 
 
-def _robust_cost(p: BAProblem, huber_delta: float) -> float:
+def _robust_cost(p: BAProblem, huber_delta: float, axis_name=None) -> float:
     """Huber-robustified total reprojection cost over valid observations
-    (one host read)."""
+    (one host read), summed over ``axis_name``'s ranks when it is set."""
     e = reprojection_errors(p)
     quad = 0.5 * e * e
     lin = huber_delta * (e - 0.5 * huber_delta)
     c = torch.where(e <= huber_delta, quad, lin)
-    return float(torch.where(p.obs_valid, c, 0.0).sum())
+    total = torch.where(p.obs_valid, c, 0.0).sum()
+    if axis_name is not None:
+        total = all_reduce_sum(total, axis_name)
+    return float(total)
 
 
 def solve(
@@ -214,7 +220,7 @@ def solve(
     iterations: int = 10,
     damping: float = 1e-4,
     huber_delta: float = 4.0,
-    axis_name: str | None = None,
+    axis_name=None,
     fixed_cams: tuple[int, ...] = (0,),
     adaptive: bool = True,
 ) -> BAProblem:
@@ -223,20 +229,22 @@ def solve(
     ``adaptive`` (the Levenberg-Marquardt schedule, driven from the host):
     a step that raises the robust cost is rejected and retried at 10x the
     damping; an accepted step divides it by 3. ``adaptive=False`` runs the
-    fixed-damping loop."""
-    _no_axis(axis_name)
+    fixed-damping loop. ``axis_name``: None, or the process group over
+    which the observations are sharded (``gauss_newton_step``); the robust
+    cost is then summed over the group too, so every rank accepts and
+    rejects the same steps."""
     if not adaptive:
         for _ in range(iterations):
             p = gauss_newton_step(p, damping=damping, huber_delta=huber_delta,
-                                  fixed_cams=fixed_cams)
+                                  axis_name=axis_name, fixed_cams=fixed_cams)
         return p
 
     lam = damping
-    cost = _robust_cost(p, huber_delta)
+    cost = _robust_cost(p, huber_delta, axis_name)
     for _ in range(iterations):
         trial = gauss_newton_step(p, damping=lam, huber_delta=huber_delta,
-                                  fixed_cams=fixed_cams)
-        trial_cost = _robust_cost(trial, huber_delta)
+                                  axis_name=axis_name, fixed_cams=fixed_cams)
+        trial_cost = _robust_cost(trial, huber_delta, axis_name)
         if trial_cost <= cost or not np.isfinite(cost):
             p, cost = trial, trial_cost
             lam = max(lam / 3.0, 1e-8)

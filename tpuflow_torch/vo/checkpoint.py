@@ -39,9 +39,10 @@ def save(session: OdometrySession, path: str) -> None:
 
 def load(path: str, mesh=None, *, device: torch.device | str | None = None) -> OdometrySession:
     """Restore a session written by :func:`save` on ``device``: the card
-    unless the caller names another; raises without a card. A ``mesh``, or
-    a checkpoint of a tiled session, raises: tiled flow is multi-GPU work,
-    not ported yet (ROADMAP.md, queue 1 item 9)."""
+    unless the caller names another; raises without a card. ``mesh``: the
+    ``sharding.FlowMesh`` of a tiled session, a runtime context that is not
+    serialized; a tiled checkpoint needs it and an untiled one refuses it
+    (``ValueError``)."""
     path = os.path.abspath(path)
     with open(os.path.join(path, META)) as f:
         meta = json.load(f)

@@ -22,7 +22,10 @@ would; those reads are its own and are counted in ``pyramidal.counters``.
 
 The previous frame is carried as its Gaussian pyramid, coarse to fine:
 each frame's pyramid is built once and serves as the current pair's
-"curr", the next pair's "prev" and the backward check's flow.
+"curr", the next pair's "prev" and the backward check's flow. With a
+``mesh`` the dense flow runs tiled over the mesh's ranks
+(``sharding.tiled_pyramidal``), which builds its pyramids from the raw
+frames itself, so the carry is the raw frame alone.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from tpuflow_torch.core.config import PyramidConfig
 from tpuflow_torch.flow.pyramidal import lucas_kanade_pyramidal_from_pyramids
 from tpuflow_torch.flow.single_scale import BACKENDS
 from tpuflow_torch.kernels import torch_ref
+from tpuflow_torch.sharding.tiled_pyramidal import tiled_lucas_kanade_pyramidal
 from tpuflow_torch.vo import tracking
 
 # Fixed capacity of the tracking-loss event log. Loss events are rare (one
@@ -46,7 +50,7 @@ LOSS_LOG_CAP = 64
 class FrontEndState(NamedTuple):
     """Device-resident tracking state."""
 
-    carry: tuple          # previous frame's pyramid, coarse to fine
+    carry: tuple          # previous frame's pyramid, coarse to fine (with a mesh: the frame)
     xy: torch.Tensor          # (N, 2) f32 current track positions
     start_xy: torch.Tensor    # (N, 2) f32 spawn positions
     age: torch.Tensor         # (N,) i32
@@ -80,6 +84,11 @@ def _check_frame(frame) -> torch.Tensor:
 class FrontEnd:
     """The init/step/chunk functions of one front-end configuration.
 
+    ``mesh``: an optional ``sharding.FlowMesh``; the front end's dense flow
+    then runs tiled over its ranks, with the fast path's saturation
+    (``rtl_clamp``). Every rank of the mesh runs the same front end on
+    the same frames.
+
     8-bit input contract: with ``config.warp_packed_u8`` (``production``)
     under ``backend="cuda"``, frames carry integer values in [0, 255].
     """
@@ -94,11 +103,6 @@ class FrontEnd:
         config: PyramidConfig | None = None,
         rtl_clamp: bool = False,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-tiled front end is multi-GPU work, not ported yet "
-                "(ROADMAP.md, queue 1 item 9)"
-            )
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         self.grid_step = int(grid_step)
@@ -107,6 +111,9 @@ class FrontEnd:
             None if fb_check_threshold is None else float(fb_check_threshold)
         )
         self.backend = backend
+        self.mesh = mesh
+        # The fast path's saturation for the untiled flow (the tiled flow
+        # always clamps): a mesh-tiled session's untiled counterpart.
         self.rtl_clamp = bool(rtl_clamp)
         self.config = config or PyramidConfig(levels=3, window_size=5, iterations=3)
         # The border stripe where the dense flow is unreliable (warp fill,
@@ -122,10 +129,18 @@ class FrontEnd:
         return 3 if for_cull else 0
 
     def carry_of_frame(self, frame: torch.Tensor) -> tuple:
+        if self.mesh is not None:
+            return (frame,)
         cfg = self.config
         return tuple(torch_ref.build_gaussian_pyramid(frame, cfg.levels, cfg.scale_factor))
 
     def _flow(self, carry_prev, carry_curr):
+        if self.mesh is not None:
+            u, v = tiled_lucas_kanade_pyramidal(
+                carry_prev[0][None], carry_curr[0][None], self.mesh,
+                config=self.config, backend=self.backend,
+            )
+            return u[0], v[0]
         return lucas_kanade_pyramidal_from_pyramids(
             carry_prev, carry_curr, self.config, backend=self.backend,
             rtl_clamp=self.rtl_clamp,
@@ -270,5 +285,9 @@ def get_front_end(
     config: PyramidConfig | None = None,
 ) -> FrontEnd:
     if mesh is not None:
-        return FrontEnd(mesh=mesh)  # raises: the tiled front end is not ported
+        # A mesh holds process groups: no sharing through the cache.
+        return FrontEnd(
+            grid_step=grid_step, keyframe_stride=keyframe_stride,
+            fb_check_threshold=fb_check_threshold, backend=backend, mesh=mesh, config=config,
+        )
     return _shared_front_end(grid_step, keyframe_stride, fb_check_threshold, backend, config)

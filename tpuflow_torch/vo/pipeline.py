@@ -74,8 +74,11 @@ class OdometrySession:
 
     ``backend``: ``"torch"`` (the reference's ``"jnp"``, parity) or
     ``"cuda"`` (its ``"pallas"``: the flow's kernels on a CUDA device,
-    their plain versions on the CPU). ``mesh`` (tiled multi-GPU flow)
-    raises: not ported yet (ROADMAP.md, queue 1 item 9).
+    their plain versions on the CPU). ``mesh``: an optional
+    ``sharding.FlowMesh``; the front end's dense flow then runs tiled over
+    its ranks with halo exchange (``sharding.tiled_pyramidal``), and every
+    rank runs the same session on the same frames. A runtime context, not
+    serialized: pass it again to ``from_state`` / ``checkpoint.load``.
     """
 
     def __init__(
@@ -96,6 +99,7 @@ class OdometrySession:
         self.grid_step = int(grid_step)
         self.init_depth = float(init_depth)
         self.backend = backend
+        self.mesh = mesh
         if pyramid_config not in PYRAMID_CONFIGS:
             raise ValueError(
                 f"unknown pyramid config {pyramid_config!r}; available: "
@@ -113,7 +117,7 @@ class OdometrySession:
             mesh=mesh,
             config=PYRAMID_CONFIGS[pyramid_config],
         )
-        self.device = resolve_device(device)
+        self.device = resolve_device(mesh.device if device is None and mesh is not None else device)
 
         self.frame_index = -1
         self.keyframes: list[int] = []
@@ -327,7 +331,7 @@ class OdometrySession:
     @property
     def _prev_frame(self) -> torch.Tensor | None:
         """The last processed frame: the finest level of the carried
-        pyramid."""
+        pyramid (with a mesh the carry is the frame itself)."""
         return None if self._dev is None else self._dev.carry[-1]
 
     # -- solve -------------------------------------------------------------
@@ -609,7 +613,7 @@ class OdometrySession:
             "init_depth": self.init_depth,
             "backend": self.backend,
             "fb_check_threshold": self.fb_check_threshold,
-            "tiled": False,
+            "tiled": self.mesh is not None,
             "pyramid_config": self.pyramid_config,
         }
 
@@ -628,12 +632,20 @@ class OdometrySession:
         end's flow carry is rebuilt from the saved previous frame, a pure
         function of it, so a resumed session continues bit-identically on
         ``device`` (the card unless the caller names another). A tiled
-        session, or a ``mesh``, raises: tiled flow is multi-GPU work, not
-        ported yet (ROADMAP.md, queue 1 item 9)."""
-        if mesh is not None or bool(meta.get("tiled", False)):
-            raise NotImplementedError(
-                "resuming a mesh-tiled session is multi-GPU work, not ported yet "
-                "(ROADMAP.md, queue 1 item 9)"
+        session resumes only with a ``mesh``, and an untiled one only
+        without: the two flows saturate differently, and switching on
+        resume would break the bit-identical resume (``ValueError``)."""
+        was_tiled = bool(meta.get("tiled", False))
+        if was_tiled and mesh is None:
+            raise ValueError(
+                "this session used mesh-tiled flow; pass the mesh to "
+                "from_state/checkpoint.load to resume (tiled flow's "
+                "saturation semantics differ from the untiled default)"
+            )
+        if not was_tiled and mesh is not None:
+            raise ValueError(
+                "this session used untiled flow; resuming with a mesh "
+                "would switch flow semantics mid-session"
             )
         sess = cls(
             intrinsics=meta["intrinsics"],
@@ -642,6 +654,7 @@ class OdometrySession:
             init_depth=meta["init_depth"],
             backend=PORT_BACKEND.get(meta["backend"], meta["backend"]),
             fb_check_threshold=meta.get("fb_check_threshold"),
+            mesh=mesh,
             pyramid_config=meta.get("pyramid_config", "default"),
             device=device,
         )
