@@ -88,9 +88,11 @@ failure raises and the script exits non-zero):
    1x2x2 and 1x4x1, each against the untiled card result, each kernel
    launch on a tile (K1, K2, K4, K6, and K3 / K5 on 1x4x1's replicated
    coarsest level) against its plain version on that tile, launches a
-   frame pair per rank, halo and gather bytes, and host-clock ms a frame
-   pair beside the untiled path's; (c) the mesh-tiled VO session (1x2x2,
-   ``default``, grid step 16, 8 frames) against the untiled session; (d)
+   frame pair per rank, halo and gather bytes, host-clock ms a frame pair
+   and each rank's device busy ms (torch.profiler, also on (a) and (e))
+   beside the untiled path's; (c) the mesh-tiled VO session (1x2x2,
+   ``default``, grid step 16, 8 frames) against an untiled ``rtl_clamp``
+   session; (d)
    ``ba.solve(8)`` over the ``[vo]`` phase's 1080p problem in 4
    observation shards against the unsharded solve, twice; (e) NCCL with
    one rank per card where the machine has two cards or more;
@@ -132,8 +134,8 @@ run identical on the card and the CPU, the CLI's single scale within
 px and max 0.05 px of the untiled card result and its mean EPE within 1e-3
 relative, tiled single scale within 1e-4 px, every tile-shape kernel launch
 bit-exact against its plain version, every rank holding the same result,
-the tiled VO session's alive flags identical on 99.9% of the slot records
-and its live tracks within 1e-3 px on 99.9% of them and 0.05 px on all,
+the tiled VO session's alive flags identical on 99.9% of the slot records,
+its landmark ids identical and its live tracks within 1e-3 px on 99.9% of them and 0.05 px on all,
 the sharded solve's mean reprojection error within 1e-4 px of the
 unsharded one's and two sharded solves bit-identical (``MESH_*``).
 
@@ -197,7 +199,8 @@ from tpuflow_torch.sharding import (initialize_multihost, make_flow_mesh,
                                     tiled_lucas_kanade_pyramidal, tiled_lucas_kanade_single_scale)
 from tpuflow_torch.sharding.mesh import counters as mesh_counters
 from tpuflow_torch.eval.vo_metrics import trajectory_metrics
-from tpuflow_torch.vo import ba, checkpoint, imu, loop_closure, pipeline, pose_graph, tracking, vi_graph
+from tpuflow_torch.vo import (ba, checkpoint, device_loop, imu, loop_closure, pipeline,
+                              pose_graph, tracking, vi_graph)
 from tpuflow_torch.vo.pipeline import OdometrySession
 
 HEIGHT, WIDTH = 1080, 1920
@@ -1240,6 +1243,23 @@ def profiled(run):
     return seconds, [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
+def busy_ms(run) -> tuple[float, ...]:
+    """One ``run()`` under torch.profiler: this process's device busy ms,
+    and the parts of it in the port's own kernels (namespaces
+    ``tpuflow_*``), in copies and fills (``Memcpy`` / ``Memset``) and in
+    NCCL's kernels (which hold the card while they wait for a peer)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return tuple(sum(e.self_device_time_total for e in events if part(e.key)) / 1000
+                 for part in (lambda k: True, lambda k: "tpuflow_" in k,
+                              lambda k: k.startswith("Mem"), lambda k: "nccl" in k.lower()))
+
+
 def profile_vo(a, chunk, config: str) -> None:
     """Phase 6: device time by kernel and the device's busy share over 4
     frames of a VO session (torch.profiler)."""
@@ -1770,10 +1790,16 @@ def _mesh_name(shape) -> str:
     return "x".join(map(str, shape))
 
 
-def _session_1080(a, config: str, mesh=None):
+def _session_1080(a, config: str, mesh=None, rtl_clamp: bool = False):
+    """A 1080p session started on ``a``. ``rtl_clamp`` gives an untiled
+    session the saturation of the tiled flow's, its counterpart."""
     fx = fy = 0.8 * WIDTH
     sess = OdometrySession((fx, fy, WIDTH / 2.0, HEIGHT / 2.0), grid_step=VO_GRID,
                            backend="cuda", pyramid_config=config, mesh=mesh, device=a.device)
+    if rtl_clamp:
+        sess._fe = device_loop.FrontEnd(grid_step=VO_GRID, keyframe_stride=sess.keyframe_stride,
+                                        backend="cuda", config=PYRAMID_CONFIGS[config],
+                                        rtl_clamp=True)
     sess.start(a)
     return sess
 
@@ -1809,7 +1835,8 @@ def mesh_rank(rank: int, work: str, device: str) -> None:
                 (u, v), counts = counted(f"mesh {key}", run)
             traffic = dataclasses.asdict(mesh_counters)
             dist.barrier(mesh.group)
-            report["flow"][key] = {"launches": counts, "traffic": traffic, "ms": _host_ms(run)}
+            report["flow"][key] = {"launches": counts, "traffic": traffic, "ms": _host_ms(run),
+                                   "device_ms": busy_ms(run)}
             if rank == 0:
                 arrays[f"{key}/u"], arrays[f"{key}/v"] = u[0].cpu().numpy(), v[0].cpu().numpy()
             report["flow"][key]["digest"] = _digest(u.cpu().numpy(), v.cpu().numpy())
@@ -1823,9 +1850,10 @@ def mesh_rank(rank: int, work: str, device: str) -> None:
     ms, counts = counted("mesh vo", lambda: _host_ms(lambda: sess.process_frames(chunk), 1))
     report["vo_ms"] = ms[0] / MESH_VO_FRAMES
     report["vo_launches"] = counts
-    report["vo_digest"] = _digest(np.stack(sess.obs_uv), np.stack(sess.obs_valid))
+    report["vo_digest"] = _digest(*(np.stack(x) for x in (sess.obs_uv, sess.obs_valid, sess.obs_lm)))
     if rank == 0:
-        arrays["vo/uv"], arrays["vo/valid"] = np.stack(sess.obs_uv), np.stack(sess.obs_valid)
+        arrays["vo/uv"], arrays["vo/valid"], arrays["vo/lm"] = (
+            np.stack(x) for x in (sess.obs_uv, sess.obs_valid, sess.obs_lm))
 
     # (d) bundle adjustment over MESH_RANKS observation shards.
     prob = np.load(f"{work}/ba.npz")
@@ -1872,6 +1900,7 @@ def nccl_rank(rank: int, world: int, work: str, shape) -> None:
         traffic = dataclasses.asdict(mesh_counters)
         dist.barrier(mesh.group)
         report[config] = {"launches": counts, "traffic": traffic, "ms": _host_ms(run),
+                          "device_ms": busy_ms(run),
                           "digest": _digest(u.cpu().numpy(), v.cpu().numpy())}
         if rank == 0:
             arrays[f"{config}/u"], arrays[f"{config}/v"] = u[0].cpu().numpy(), v[0].cpu().numpy()
@@ -1882,7 +1911,7 @@ def nccl_rank(rank: int, world: int, work: str, shape) -> None:
     dist.destroy_process_group()
 
 
-def check_nccl_across_cards(dev, work: str, untiled: dict) -> None:
+def check_nccl_across_cards(dev, work: str, untiled: dict, untiled_dev: dict) -> None:
     """Phase 8 (e): NCCL with one rank per card, 1x2x2 on four cards or
     more, else 1x1x2, against the untiled result of card 0."""
     cards = torch.cuda.device_count()
@@ -1909,9 +1938,22 @@ def check_nccl_across_cards(dev, work: str, untiled: dict) -> None:
               f"p99.9 |d| {p999:.3g} px, max {mx:.3g} px against the untiled card result "
               f"(limits {MESH_P999}, {MESH_MAX}); rank 0 launches a pair {rep0['launches']}; halo "
               f"{traffic['halo_bytes']} B in {traffic['halo_exchanges']} exchanges, gathers "
-              f"{traffic['gather_bytes']} B, {traffic['all_reduces']} sums")
+              f"{traffic['gather_bytes']} B, {traffic['all_reduces']} sums; "
+              f"{_device_note([r[config]['device_ms'] for r in reports], untiled_dev[config])}")
         if not (p999 <= MESH_P999 and mx <= MESH_MAX):
             raise AssertionError(f"mesh nccl {config}: p99.9 {p999}, max {mx}")
+
+
+def _device_note(per_rank: list, untiled) -> str:
+    """Each rank's device busy ms a frame pair, with its parts in the port's
+    kernels, in copies and in NCCL's kernels (torch.profiler, one run),
+    beside the untiled path's."""
+    def one(ms):
+        return f"{ms[0]:.3f} ({ms[1]:.3f}, {ms[2]:.3f}, {ms[3]:.3f})"
+
+    return (f"device busy ms a pair by rank (in the port's kernels, in copies, in NCCL) "
+            f"{', '.join(one(ms) for ms in per_rank)}, one profiled run each; "
+            f"untiled {one(untiled)}")
 
 
 def _spawn(target, args_of, n: int, what: str) -> None:
@@ -1962,6 +2004,7 @@ def _check_mesh(a, b, fa, fb, smi, dev, work, t_phase) -> dict:
     tiled_launches: dict = {}
     untiled = {c: _untiled(a, b, c) for c in MESH_CONFIGS}
     untiled_ms = {c: _host_ms(lambda: _untiled(a, b, c)) for c in MESH_CONFIGS}
+    untiled_dev = {c: busy_ms(lambda: _untiled(a, b, c)) for c in MESH_CONFIGS}
     epe_untiled = {c: mean_epe([untiled[c]]) for c in MESH_CONFIGS}
 
     # (a) NCCL at world size 1, mesh (1, 1, 1), in this process.
@@ -1974,9 +2017,12 @@ def _check_mesh(a, b, fa, fb, smi, dev, work, t_phase) -> dict:
             a[None], b[None], mesh, config=cfg, backend="cuda"))
         tiled_launches[f"1x1x1 {config}"] = counts
         p999, mx = _p999_max(u[0], v[0], *untiled[config])
+        dev_ms = busy_ms(lambda: tiled_lucas_kanade_pyramidal(
+            a[None], b[None], mesh, config=cfg, backend="cuda"))
         print(f"[mesh] (a) NCCL world 1, mesh 1x1x1, {config}: tiled against untiled "
               f"(rtl_clamp, same card) p99.9 |d| {p999:.3g} px, max {mx:.3g} px (limits "
-              f"{MESH_P999}, {MESH_MAX}); launches {counts}")
+              f"{MESH_P999}, {MESH_MAX}); launches {counts}; "
+              f"{_device_note([dev_ms], untiled_dev[config])}")
         if not (p999 <= MESH_P999 and mx <= MESH_MAX):
             raise AssertionError(f"mesh 1x1x1 {config}: p99.9 {p999}, max {mx}")
     (su, sv), counts = counted("mesh 1x1x1 single scale", lambda: tiled_lucas_kanade_single_scale(
@@ -2009,7 +2055,7 @@ def _check_mesh(a, b, fa, fb, smi, dev, work, t_phase) -> dict:
     np.savez(f"{work}/ba.npz", **{f: getattr(problem, f).cpu().numpy()
                                  for f in ba.BAProblem._fields})
     single = ba.solve(problem, iterations=VO_BA_ITERATIONS)
-    ref_sess = _session_1080(a, "default")
+    ref_sess = _session_1080(a, "default", rtl_clamp=True)
     ref_vo_ms = _host_ms(lambda: ref_sess.process_frames(vo_chunk(a, b)[:MESH_VO_FRAMES]),
                          1)[0] / MESH_VO_FRAMES
     del sess
@@ -2045,7 +2091,8 @@ def _check_mesh(a, b, fa, fb, smi, dev, work, t_phase) -> dict:
               f"px ({rel:.2e} relative, limit {MESH_EPE_RTOL}); rank 0 launches a pair "
               f"{rep0['launches']}; halo {traffic['halo_bytes']} B in {traffic['halo_exchanges']} "
               f"exchanges, gathers {traffic['gather_bytes']} B ({traffic['level_gathers']} "
-              f"level), {traffic['all_reduces']} sums")
+              f"level), {traffic['all_reduces']} sums; "
+              f"{_device_note([r['flow'][key]['device_ms'] for r in reports], untiled_dev[config])}")
         if not (p999 <= MESH_P999 and mx <= MESH_MAX and rel <= MESH_EPE_RTOL):
             raise AssertionError(f"mesh {key}: p99.9 {p999}, max {mx}, EPE {rel} relative")
     for name, shapes in sorted(reports[0]["kernels"].items()):
@@ -2069,14 +2116,17 @@ def _check_mesh(a, b, fa, fb, smi, dev, work, t_phase) -> dict:
     ref_uv, ref_ok = np.stack(ref_sess.obs_uv), np.stack(ref_sess.obs_valid)
     same = got["vo/valid"] == ref_ok
     both = got["vo/valid"] & ref_ok
+    same_lm = bool(np.array_equal(got["vo/lm"], np.stack(ref_sess.obs_lm)))
     d = np.abs(got["vo/uv"] - ref_uv)[both].max(axis=1)
     close = int((d <= 1e-3).sum())
     print(f"[mesh] (c) VO session {HEIGHT}x{WIDTH} default, grid {VO_GRID}, {MESH_VO_FRAMES} "
           f"frames on the 1x2x2 gloo mesh: {reports[0]['vo_ms']:.3f} ms/frame against the untiled "
-          f"session's {ref_vo_ms:.3f}; alive flags identical on {int(same.sum())} of {same.size} "
-          f"slot records; of {both.sum()} tracks alive in both, {close} within 1e-3 px, max "
+          f"rtl_clamp session's {ref_vo_ms:.3f}; alive flags identical on {int(same.sum())} of "
+          f"{same.size} slot records; landmark ids {'identical' if same_lm else 'DIFFER'}; of "
+          f"{both.sum()} tracks alive in both, {close} within 1e-3 px, max "
           f"{float(d.max(initial=0.0)):.3g} px")
-    if same.mean() < 0.999 or close < 0.999 * both.sum() or d.max(initial=0.0) > MESH_MAX:
+    if (same.mean() < 0.999 or not same_lm or close < 0.999 * both.sum()
+            or d.max(initial=0.0) > MESH_MAX):
         raise AssertionError("mesh vo: the tiled session differs from the untiled one")
 
     # (d) the sharded solve.
@@ -2094,7 +2144,7 @@ def _check_mesh(a, b, fa, fb, smi, dev, work, t_phase) -> dict:
         raise AssertionError("mesh: the sharded solve differs")
 
     # (e) NCCL, one rank per card.
-    check_nccl_across_cards(dev, work, untiled)
+    check_nccl_across_cards(dev, work, untiled, untiled_dev)
     print(f"[mesh] phase took {time.perf_counter() - t_phase:.1f} s")
     return tiled_launches
 
@@ -2242,10 +2292,6 @@ def warp_ptxas(log: str) -> list[str]:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--nccl-only", action="store_true",
-                        help="after the build, run only phase 8 (e): the tiled flow over NCCL "
-                             "with one rank per card of this machine, against card 0's untiled "
-                             "result (a machine of two cards or more)")
     args = parser.parse_args()
 
     # 1. device
@@ -2289,14 +2335,6 @@ def main() -> None:
     # 3. kernels
     fa, fb = make_frames(args.seed)
     a, b = torch.from_numpy(fa).to(dev), torch.from_numpy(fb).to(dev)
-    if args.nccl_only:
-        work = tempfile.mkdtemp(prefix="tpuflow_mesh_")
-        try:
-            np.savez(f"{work}/frames.npz", a=fa, b=fb)
-            check_nccl_across_cards(dev, work, {c: _untiled(a, b, c) for c in MESH_CONFIGS})
-        finally:
-            shutil.rmtree(work, ignore_errors=True)
-        return
     rng = np.random.default_rng(args.seed + 1)
     readings = check_kernels(dev, a, b, rng)
 

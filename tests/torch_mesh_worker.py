@@ -9,8 +9,10 @@ parallel test runs never collide), builds the ``TILING`` mesh
 comma-separated ``CASES`` on the arrays of ``INPUTS`` (.npz) and writes
 ``OUT/rank<RANK>.npz`` with every case's results under "case/key". A case
 that expects a refusal records it as a flag. Imports ``tpuflow_torch``
-only, never JAX. Every process group waits at most 60 s for a peer, so a
-rank that fails or hangs fails the others instead of stalling them.
+only, never JAX. Every process group waits at most ``mesh.TIMEOUT`` for
+a peer, and the harness (tests/mesh_harness.py) kills a run past its wall
+limit, so a rank that fails or hangs fails the test instead of stalling
+the suite.
 """
 
 from __future__ import annotations
@@ -18,7 +20,6 @@ from __future__ import annotations
 import json
 import sys
 import tempfile
-from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -34,7 +35,6 @@ from tpuflow_torch.sharding import (  # noqa: E402
 )
 from tpuflow_torch.sharding.mesh import counters  # noqa: E402
 
-TIMEOUT = timedelta(seconds=60)
 CASES = {}
 
 
@@ -244,7 +244,7 @@ def main(argv: list[str]) -> None:
     rank, world, store, tiling, cases, inputs, out = argv
     rank, world = int(rank), int(world)
     torch.set_num_threads(1)
-    joined = initialize_multihost(f"file://{store}", world, rank, backend="gloo", timeout=TIMEOUT)
+    joined = initialize_multihost(f"file://{store}", world, rank, backend="gloo")
     mesh = None
     if tiling != "none":
         mesh = make_flow_mesh(*(int(x) for x in tiling.split(",")), device="cpu")

@@ -165,14 +165,15 @@ def sharded_upsample_flow(
 
 
 @functools.lru_cache(maxsize=None)
-def _row_slices(n_src: int, n_dst: int, n_dev: int) -> np.ndarray:
-    """(n_dev, n_dst/n_dev, n_src) stacked row shards of the resample
-    matrix, to upsample a whole coarse field straight into tiles."""
-    m = ops._resample_matrix_np(n_src, n_dst)
+def _row_slice(n_src: int, n_dst: int, n_dev: int, idx: int, device: torch.device) -> torch.Tensor:
+    """Shard ``idx`` of ``n_dev`` row shards of the resample matrix, in f32
+    on ``device`` (memoised), to upsample a whole coarse field straight
+    into a tile."""
     if n_dst % n_dev:
         raise ValueError(f"{n_dst} rows must divide {n_dev} shards")
     mb = n_dst // n_dev
-    return np.stack([m[d * mb:(d + 1) * mb] for d in range(n_dev)])
+    m = ops._resample_matrix_np(n_src, n_dst)[idx * mb:(idx + 1) * mb]
+    return torch.from_numpy(np.ascontiguousarray(m, np.float32)).to(device)
 
 
 def replicated_to_sharded_upsample(
@@ -189,12 +190,8 @@ def replicated_to_sharded_upsample(
     ch, cw = u_full.shape
     th, tw = dst_shape
     _, iy, ix = mesh.coords
-
-    def on(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(u_full.device)
-
-    rows = on(_row_slices(ch, th, mesh.ty)[iy])
-    cols = on(_row_slices(cw, tw, mesh.tx)[ix])
+    rows = _row_slice(ch, th, mesh.ty, iy, u_full.device)
+    cols = _row_slice(cw, tw, mesh.tx, ix, u_full.device)
 
     def up(f):
         return _matmul(_matmul(rows, f), cols.T)

@@ -53,14 +53,10 @@ class Counters:
 counters = Counters()
 
 
-def _backend(group) -> str:
-    return (group or dist.group.WORLD).name()
-
-
 def through_host(group, t: torch.Tensor) -> bool:
     """Whether ``t`` goes through host memory to cross ``group``: gloo moves
     CPU tensors only."""
-    return t.is_cuda and _backend(group) == "gloo"
+    return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
@@ -82,6 +78,12 @@ def all_gather(t: torch.Tensor, group) -> list[torch.Tensor]:
     counters.gather_bytes += src.numel() * src.element_size()
     dist.all_gather(out, src, group=group)
     return [o.to(t.device) for o in out] if staged else out
+
+
+def assemble(tiles: list[torch.Tensor], ty: int, tx: int) -> torch.Tensor:
+    """The whole (..., H, W) image from its ``ty * tx`` tiles, row-major."""
+    rows = [torch.cat(tiles[iy * tx:(iy + 1) * tx], dim=-1) for iy in range(ty)]
+    return torch.cat(rows, dim=-2)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -123,9 +125,7 @@ class FlowMesh:
 
     def gather_spatial(self, tile: torch.Tensor) -> torch.Tensor:
         """The whole (..., H, W) image from every tile of this batch slice."""
-        tiles = all_gather(tile, self.spatial)
-        rows = [torch.cat(tiles[iy * self.tx:(iy + 1) * self.tx], dim=-1) for iy in range(self.ty)]
-        return torch.cat(rows, dim=-2)
+        return assemble(all_gather(tile, self.spatial), self.ty, self.tx)
 
 
 def _default_device(rank: int) -> torch.device:
@@ -156,29 +156,26 @@ def make_flow_mesh(
     ty: int = 1,
     tx: int = 1,
     *,
-    group=None,
     device: torch.device | str | None = None,
 ) -> FlowMesh:
-    """Build a ("batch", "ty", "tx") mesh from the ranks of ``group`` (the
-    world when None): the first ``batch * ty * tx`` ranks, row-major.
+    """Build a ("batch", "ty", "tx") mesh from the first ``batch * ty * tx``
+    ranks of the world, row-major.
 
-    Every rank of ``group`` must call this, with the same arguments: it
+    Every rank of the world must call this, with the same arguments: it
     creates the mesh's process groups (all ranks call ``dist.new_group``
     for every sub-group, in one order) and runs one collective on each
     group the rank belongs to, so that NCCL's communicators exist before
     the first halo exchange. ``device`` defaults to the card
     ``cuda:(LOCAL_RANK % device_count)``; without a card pass ``"cpu"``.
-    Raises ``ValueError`` when the group has fewer ranks than the mesh, or
+    Raises ``ValueError`` when the world has fewer ranks than the mesh, or
     when an NCCL mesh puts two ranks on one card."""
-    world = dist.get_process_group_ranks(group) if group is not None else list(
-        range(dist.get_world_size()))
+    world = list(range(dist.get_world_size()))
     n = batch * ty * tx
     if len(world) < n:
         raise ValueError(f"mesh ({batch}x{ty}x{tx}) needs {n} ranks, have {len(world)}")
     rank = dist.get_rank()
     dev = _default_device(rank) if device is None else torch.device(device)
-    backend = _backend(group)
-    if backend == "nccl":
+    if dist.get_backend() == "nccl":
         if dev.type != "cuda":
             raise ValueError("an NCCL mesh needs CUDA devices; use gloo on the CPU")
         torch.cuda.set_device(dev)
@@ -187,7 +184,7 @@ def make_flow_mesh(
         dist.all_gather_object(entries, (socket.gethostname(), dev.index), group=side)
         dist.destroy_process_group(side)
         check_one_rank_per_card(entries[:n])
-    ranks = tuple(sorted(world)[:n])
+    ranks = tuple(world[:n])
     mesh_group = dist.new_group(list(ranks), timeout=TIMEOUT)
     spatial = None
     for b in range(batch):
@@ -208,7 +205,6 @@ def initialize_multihost(
     process_id: int | None = None,
     *,
     backend: str = "nccl",
-    timeout: timedelta = TIMEOUT,
 ) -> bool:
     """Join the process group: call once per process before any collective.
 
@@ -235,6 +231,6 @@ def initialize_multihost(
         backend, init_method=init_method,
         world_size=-1 if num_processes is None else num_processes,
         rank=-1 if process_id is None else process_id,
-        timeout=timeout,
+        timeout=TIMEOUT,
     )
     return True

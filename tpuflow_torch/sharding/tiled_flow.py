@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from tpuflow_torch.sharding import halo as halo_mod
-from tpuflow_torch.sharding.mesh import FlowMesh, all_gather
+from tpuflow_torch.sharding.mesh import FlowMesh, all_gather, assemble
 
 HALO = 3  # Sobel (1) + window half (2) for the default 5x5 window
 
@@ -102,12 +102,8 @@ def gather_tiles(u: torch.Tensor, v: torch.Tensor, mesh: FlowMesh) -> tuple[torc
     (B / batch, th, tw) tiles."""
     parts = all_gather(torch.stack([u, v]), mesh.group)  # mesh order, row-major
     per_b = mesh.ty * mesh.tx
-    frames = []
-    for b in range(mesh.batch):
-        tiles = parts[b * per_b:(b + 1) * per_b]
-        rows = [torch.cat(tiles[iy * mesh.tx:(iy + 1) * mesh.tx], dim=-1) for iy in range(mesh.ty)]
-        frames.append(torch.cat(rows, dim=-2))
-    out = torch.cat(frames, dim=1)
+    out = torch.cat([assemble(parts[b * per_b:(b + 1) * per_b], mesh.ty, mesh.tx)
+                     for b in range(mesh.batch)], dim=1)
     return out[0], out[1]
 
 
