@@ -30,24 +30,42 @@ failure raises and the script exits non-zero):
    a call from its grid; K8 in its four kinds and K9 in both modes, each
    timed beside an empty kernel's launch floor read in the same phase
    (their bounds lie below one launch), with the time above the floor;
+   then K1-K5 as the device-controlled rounds launch them
+   (``warp.warp_round``, ``lk.refine_round``) at every level of both
+   pyramids: with the band index in device memory forced to each rung of
+   the ladder (2, 3, 8), both forms of the warp's band switch ((i) one
+   launch sized for the widest band, (ii) one launch per band) and the
+   refine bit-identical to the host-int band's calls and to the plain round
+   versions, skipped rounds leaving their outputs bit-identical, the
+   refine's in-kernel sums against torch.sum of its block partials and its
+   latch as torch reads those sums; each form timed beside its bound, the
+   reference-signature entry's time and the launch floor;
 4. main paths: each path run with the launch counts reset just before and
-   read just after; the two streams (16 frames each) also run through the
-   plain versions on the card and are compared frame by frame; the
-   window_mxu kernel API on a 1080p batch; the two ablations' own
-   measurements (their JSON and lines printed); the profiler's 1080p
-   ``production`` report;
+   read just after. Each stream (16 frames): an eager step under torch's
+   sync debug mode "error"; the eager device-control stream (no host
+   read); its refine rounds logged and checked; the same stream as one
+   CUDA graph replay a frame (``flow.GraphedStream``), bit-identical to
+   eager with the same rounds and launches; ms a frame eager and graphed
+   (host clock, median and spread of 3 runs) and the graphed replay's
+   device busy share; the plain versions' run on the card, frame by
+   frame, with the same rounds; the window_mxu kernel API on a 1080p
+   batch; the two ablations' own measurements (their JSON and lines
+   printed); the profiler's 1080p ``production`` report (its stream
+   graphed);
 5. gate: the 13-pattern suite through both LK modes for each config with a
    committed Pallas baseline, within 10% of it (provenance guard included);
 6. vo: the visual-odometry path (``tpuflow_torch.vo``): a 1080p
    ``OdometrySession`` on the same a/b frames, grid step 16 (8,040 track
-   slots), 16 frames through ``process_frames``, ``production`` (K1, K2,
-   K3) and ``default`` with the forward-backward check (K4, K5): the front
-   end's ms a frame (median and spread of 3 runs), tracks alive, launches,
-   host reads a frame (the flow's counted reads and, under torch's sync
-   debug mode, every other synchronizing operation of the step: none),
-   ``solve(ba_iterations=8)`` twice, a torch.profiler pass of 4 frames and
-   the masked reseed's cost; the ``default`` session again through the
-   plain versions; ``run_odometry_chunked`` on ``square_loop`` (17 frames)
+   slots), 16 frames through ``process_frames`` (each step one replay of
+   the captured step), ``production`` (K1, K2, K3) and ``default`` with
+   the forward-backward check (K4, K5): two eager steps under sync debug
+   "error"; the front end's ms a frame (median and spread of 3 runs),
+   tracks alive, launches, host reads (the flow's counted reads and, under
+   torch's sync debug mode, every synchronizing operation: none); the same
+   session stepped eagerly (``process_frame``), its ObsRecords
+   bit-identical and its ms a frame; ``solve(ba_iterations=8)`` twice, a
+   torch.profiler pass of 4 frames and the masked reseed's cost; the
+   ``default`` session again through the plain versions; ``run_odometry_chunked`` on ``square_loop`` (17 frames)
    rendered at 1080p on the smoke's texture (fx = fy = 1800, depth 5),
    chunks of 6 under ``production`` (K1, K2, K3) with loop closure (loop
    edges under ``default``: K4, K5), twice: its seconds, each chunk's
@@ -103,9 +121,15 @@ Limits on the card: the warps (K1, K2, K4) bit-exact against their plain
 versions at vertical bands 0/2/3/8/31 and at md = mdv = 0 and 31 (K4 with
 clamp_flow on and off), each batch element equal to its 2-D launch; the refine steps
 (K3, K5) u, v bit-identical (max |d| 0) and their sums to rtol 1e-5 (block
-partials summed in another order); the single-scale solves (K6, K7) u, v
+partials summed in another order); the rounds (K1-K5 under device
+control) bit-identical to the host-int band's calls and the plain round
+versions at each band and when skipped, the in-kernel sums within 1e-6
+relative of torch.sum of the same partials, the latch and round count as
+torch reads those sums, on every round of both streams too; the single-scale solves (K6, K7) u, v
 and |det| bit-identical; a batch element bit-identical to the kernel's 2-D
-launch; K10
+launch; each stream and VO step free of synchronizing operations and host
+reads, the graphed streams' flows and rounds and the graphed VO sessions'
+ObsRecords bit-identical to the eager steps'; K10
 (tensor-core sums, which round otherwise than the plain version's
 torch.matmul) u, v within 2e-3 / 2e-4 / 5e-5 px at windows 3 / 5 / 7
 (widened, with the readings and the reason, at MXU_ATOL), and no further
@@ -189,7 +213,7 @@ from tpuflow_torch.eval import bounds, natural, patterns, profile, verifier, vo_
 from tpuflow_torch.eval import profile_vo as vo_profiler
 from tpuflow_torch.eval.metrics import compute_all_metrics
 from tpuflow_torch.eval.timing import card_label, device_ms
-from tpuflow_torch.flow import pyramidal
+from tpuflow_torch.flow import GraphedStream, pyramidal
 from tpuflow_torch.flow.__main__ import main as flow_cli
 from tpuflow_torch.flow.__main__ import mean_magnitude, stream_flow
 from tpuflow_torch.io.frames import load_flow_text, load_frame_bin, save_frame_bin
@@ -208,6 +232,12 @@ N_FRAMES = 16
 SHIFT_PX = 2.0
 STREAM_ATOL = 1e-3
 SUM_RTOL = 1e-5
+# The refine round's in-kernel sums against torch.sum of the same block
+# partials: non-negative terms added in two fixed orders of depth ~12, so
+# each side within ~12 ulp (7e-7) of the exact sum.
+ROUND_SUM_RTOL = 1e-6
+LADDER = (2, 3, 8)  # production's adaptive band ladder
+STREAM_RUNS = 3
 WARP_CU = "tpuflow_torch/csrc/warp.cu"
 REFINE_CU = "tpuflow_torch/csrc/lk_refine.cu"
 FUSED_CU = "tpuflow_torch/csrc/lk_fused.cu"
@@ -250,6 +280,9 @@ NO_LIBRARY_CALL = {
 PATH_KERNELS = {
     "production stream": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
     "default stream": {"warp_exact", "lk_refine_exact"},
+    # The same streams, each step one CUDA graph replay (flow.graphed).
+    "production stream graphed": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
+    "default stream graphed": {"warp_exact", "lk_refine_exact"},
     "single scale": {"lk_fused"},
     "single scale + confidence": {"lk_fused_conf"},
     "batched kernel API, window_mxu": {"lk_refine_mxu", "lk_fused_mxu", "lk_fused_conf_mxu"},
@@ -479,6 +512,174 @@ def check_refine(readings, name, rargs_base, rkw, dev, shape, windows):
     return err, sums_rel
 
 
+def _band_indices(dev) -> list[torch.Tensor]:
+    return [torch.tensor(i, dtype=torch.int32, device=dev) for i in range(len(LADDER))]
+
+
+def check_round_warp(readings, name, curr, packing, max_disp, rng, dev, floor_ms):
+    """(c), (e): the warp as one round under device control (warp.warp_round)
+    at one pyramid level. For both forms of the band switch, (i) one launch
+    sized for the widest band and (ii) one launch per band, the band index
+    in device memory forced to each rung of LADDER is bit-identical to the
+    host-int band's warp_banded and to the plain round version, and a
+    skipped round leaves ``out`` bit-identical. Then device times: each
+    form at bands 8 and 2, a skipped round and the plain round version,
+    beside the reference-signature entry, the bound and the launch floor."""
+    shape = tuple(curr.shape)
+    u, v = _flow(rng, shape, 9.0, dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    idx = _band_indices(dev)
+    fill = _flow(rng, shape, 100.0, dev)[0]
+    for per_band in (False, True):
+        for i, band in enumerate(LADDER):
+            kw = dict(max_disp=max_disp, ladder=LADDER, band=idx[i], packing=packing,
+                      per_band=per_band)
+            got = warp.warp_round(curr, u, v, torch.empty_like(curr), zero, **kw)
+            want = warp.warp_banded(curr, u, v, max_disp=max_disp, clamp_flow=True,
+                                    max_disp_v=band, packing=packing)
+            plain = warp.warp_round_ref(curr, u, v, fill.clone(), zero, **kw)
+            skipped = warp.warp_round(curr, u, v, fill.clone(), one, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(got, plain)
+                    and torch.equal(skipped, fill)):
+                raise AssertionError(f"{name} round at {shape}, band {band}, per_band={per_band}: "
+                                     f"max |d| vs host-int band {max_abs(got, want)}, vs plain "
+                                     f"{max_abs(got, plain)}, skipped changed "
+                                     f"{max_abs(skipped, fill)}")
+    out = torch.empty_like(curr)
+
+    def rnd(per_band: bool, i: int, latch=zero):
+        return lambda: warp.warp_round(curr, u, v, out, latch, max_disp=max_disp, ladder=LADDER,
+                                       band=idx[i], packing=packing, per_band=per_band)
+
+    t = {f"{form}_{LADDER[i]}": device_ms(rnd(pb, i))
+         for form, pb in (("one", False), ("per_band", True)) for i in (2, 0)}
+    t["skipped"] = device_ms(rnd(warp.PER_BAND, 2, one))
+    entry_ms = device_ms(lambda: warp.warp_banded(curr, u, v, max_disp=max_disp, clamp_flow=True,
+                                                  max_disp_v=8, packing=packing))
+    plain_ms = device_ms(lambda: warp.warp_round_ref(curr, u, v, out, zero, max_disp=max_disp,
+                                                     ladder=LADDER, band=idx[2],
+                                                     packing=packing))
+    kept = "per_band" if warp.PER_BAND else "one"
+    ms = t[f"{kept}_8"]
+    print(f"[kernels] {name} round {shape[0]}x{shape[1]}: bit-exact to the host-int band and the "
+          f"plain round at bands {LADDER}, both forms, skipped rounds untouched; (i) one launch "
+          f"{t['one_8']:.4f} ms at band 8, {t['one_2']:.4f} at 2; (ii) a launch a band "
+          f"{t['per_band_8']:.4f} / {t['per_band_2']:.4f}; kept ({'ii' if warp.PER_BAND else 'i'})"
+          f" {ms:.4f} ms ({_bound_note(name, shape, ms)}); skipped {t['skipped']:.4f}; "
+          f"entry warp_banded {entry_ms:.4f}; plain round {plain_ms:.4f}; launch floor "
+          f"{floor_ms:.4f} ms")
+    readings[name]["by_shape"][f"{shape[0]}x{shape[1]}"].update(
+        round_ms=t, entry_ms=entry_ms, round_plain_ms=plain_ms)
+    if "round_ms" not in readings[name]:  # the largest shape, as _record
+        readings[name].update(round_ms=t, entry_ms=readings[name]["ms"], ms=ms,
+                              plain_ms=plain_ms)
+
+
+def check_round_refine(readings, name, prev, warped, flow, relaxed, dev, floor_ms):
+    """(c), (d), (e): the refine as one round under device control
+    (lk.refine_round) at one level: with the band index forced to each rung
+    of LADDER, u, v bit-identical to the host-int band's
+    lucas_kanade_refine and to the plain round version, the control rows
+    as the plain version leaves them, the sums within SUM_RTOL of the plain
+    version's and within ROUND_SUM_RTOL of torch.sum of the kernel's own
+    block partials, the latch as torch evaluates sdu / n_px < thr on those
+    sums (at thresholds either side of them); a skipped round passes u, v
+    through bit for bit with sums 0 and the control unchanged. Then device
+    times: a running round, a skipped one, the plain round, the entry."""
+    shape = tuple(prev.shape)
+    n_px = shape[0] * shape[1]
+    idx = _band_indices(dev)
+    kw0 = dict(ladder=tuple(map(float, LADDER)), window_size=5, det_threshold=1e-4,
+               max_disp=8.0, relaxed_order=relaxed)
+    parts = torch.empty((2, 1, lk.refine_blocks(*shape, 5)), device=dev)
+    worst_sum = 0.0
+    for i, band in enumerate(LADDER):
+        _, _, sdu, sdv = lk.lucas_kanade_refine(prev, warped, *flow,
+                                                torch.tensor(False, device=dev),
+                                                max_disp_v=float(band), relaxed_order=relaxed)
+        mean = max(float(sdu), float(sdv)) / n_px
+        for thr in (0.999 * mean, 1.001 * mean):
+            kw = dict(kw0, band=idx[i], convergence_threshold=thr)
+            ctrl = torch.zeros(3, dtype=torch.int32, device=dev)
+            ctrl_ref = ctrl.clone()
+            got = lk.refine_round(prev, warped, *flow, ctrl, parts=parts, **kw)
+            want = lk.refine_round_ref(prev, warped, *flow, ctrl_ref, **kw)
+            host = lk.lucas_kanade_refine(prev, warped, *flow, torch.tensor(False, device=dev),
+                                          max_disp_v=float(band), relaxed_order=relaxed)
+            torch.cuda.synchronize()
+            sums = [float(x) for x in got[2]]
+            part_sums = [float(x) for x in parts.sum(dim=(1, 2))]
+            latch = int(sums[0] / n_px < thr and sums[1] / n_px < thr)  # f64 here: margin 1e-3
+            rel = max(abs(g - w) / w for g, w in zip(sums, part_sums))
+            rel_plain = max(abs(g - float(w)) / float(w) for g, w in zip(sums, want[2]))
+            worst_sum = max(worst_sum, rel)
+            ok = (torch.equal(got[0], host[0]) and torch.equal(got[1], host[1])
+                  and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                  and torch.equal(ctrl, ctrl_ref) and ctrl.tolist() == [latch, 0, 1]
+                  and rel <= ROUND_SUM_RTOL and rel_plain <= SUM_RTOL)
+            if not ok:
+                raise AssertionError(f"{name} round at {shape}, band {band}, thr {thr}: u, v vs "
+                                     f"host-int band {max_abs(got[0], host[0])}, "
+                                     f"{max_abs(got[1], host[1])}; ctrl {ctrl.tolist()} vs "
+                                     f"plain {ctrl_ref.tolist()} (latch {latch}); sums rel "
+                                     f"{rel} vs partials, {rel_plain} vs plain")
+        skip = torch.tensor([1, 0, 0], dtype=torch.int32, device=dev)
+        got = lk.refine_round(prev, warped, *flow, skip, **dict(kw0, band=idx[i]))
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], flow[0]) and torch.equal(got[1], flow[1])
+                and not got[2].any() and skip.tolist() == [1, 0, 0]):
+            raise AssertionError(f"{name} skipped round at {shape}, band {band}: not a "
+                                 "pass-through")
+    readings[name]["max_round_sum_rel"] = max(readings[name].get("max_round_sum_rel", 0.0),
+                                              worst_sum)
+    running = torch.zeros(3, dtype=torch.int32, device=dev)
+    skipped = torch.tensor([1, 0, 0], dtype=torch.int32, device=dev)
+    # A threshold no sum meets keeps every timed round running.
+    kw = dict(kw0, band=idx[2], convergence_threshold=-1.0)
+    ms = device_ms(lambda: lk.refine_round(prev, warped, *flow, running, **kw))
+    skip_ms = device_ms(lambda: lk.refine_round(prev, warped, *flow, skipped, **kw))
+    plain_ms = device_ms(lambda: lk.refine_round_ref(prev, warped, *flow, running.clone(), **kw))
+    frozen = torch.tensor(False, device=dev)  # made once: a host copy would sync each call
+    entry_ms = device_ms(lambda: lk.lucas_kanade_refine(prev, warped, *flow, frozen,
+                                                        max_disp_v=8.0, relaxed_order=relaxed))
+    print(f"[kernels] {name} round {shape[0]}x{shape[1]}: bit-exact to the host-int band and "
+          f"the plain round at bands {LADDER}, latch and rounds as torch reads the sums, "
+          f"in-kernel sums within {worst_sum:.3g} of torch.sum of the partials, skipped rounds "
+          f"pass through; {ms:.4f} ms ({_bound_note(name, shape, ms)}); skipped {skip_ms:.4f}; "
+          f"entry lucas_kanade_refine + torch.sum {entry_ms:.4f}; plain round {plain_ms:.4f}; "
+          f"launch floor {floor_ms:.4f} ms")
+    by_shape = readings[name].setdefault("by_shape", {})
+    by_shape[f"{shape[0]}x{shape[1]}"] = {"ms": ms, "skipped_ms": skip_ms,
+                                          "entry_ms": entry_ms, "plain_ms": plain_ms}
+    if "entry_ms" not in readings[name]:  # the largest shape first
+        readings[name].update(entry_ms=readings[name]["ms"], ms=ms, plain_ms=plain_ms,
+                              skipped_ms=skip_ms, launch_floor_ms=floor_ms)
+
+
+def check_rounds(readings, dev, a, b, rng, floor_ms):
+    """Phase 3, the kernels as the device-controlled rounds launch them: K1,
+    K2, K3 at the production pyramid's levels, K4, K5 at the default
+    pyramid's, finest first."""
+    for config, refine in (("production", "lk_refine"), ("default", "lk_refine_exact")):
+        cfg = PYRAMID_CONFIGS[config]
+        pyr_a = torch_ref.build_gaussian_pyramid(a, cfg.levels, cfg.scale_factor)
+        pyr_b = torch_ref.build_gaussian_pyramid(b, cfg.levels, cfg.scale_factor)
+        for level in reversed(range(cfg.levels)):
+            finest = level == cfg.levels - 1
+            packing = pyramidal._warp_packing(cfg, finest)
+            name = {"u8": "warp_packed_u8", "u16": "warp_packed_u16", "exact": "warp_exact"}[
+                packing]
+            prev, curr = pyr_a[level], pyr_b[level]
+            check_round_warp(readings, name, curr, packing, cfg.max_disp, rng, dev, floor_ms)
+            flow = _flow(rng, tuple(prev.shape), 9.0, dev)
+            warped = warp.warp_banded(curr, *flow, max_disp=8, clamp_flow=True, max_disp_v=8,
+                                      packing=packing)
+            check_round_refine(readings, refine, prev, warped, flow, cfg.relaxed_order, dev,
+                               floor_ms)
+
+
 def check_kernels(dev, a, b, rng):
     """Phase 3: every kernel at the paths' shapes against its plain version."""
     readings = {name: {"max_abs_err": 0.0} for name in KERNELS}
@@ -538,6 +739,7 @@ def check_kernels(dev, a, b, rng):
           "(device_ms, as every time here); no kernel time can fall below it")
     for name in ("warp_packed_u8", "warp_packed_u16", "warp_exact"):
         readings[name]["launch_floor_ms"] = floor_ms
+    check_rounds(readings, dev, a, b, rng, floor_ms)
 
     # K6, K7 at 1080p: exact and relaxed, windows 3/5/7, taps at window 5.
     shape = tuple(a.shape)
@@ -895,20 +1097,33 @@ def check_ablations(dev, readings):
           f"offset 0 (no bank conflicts) {gather_zero_ms:.5f} ms")
 
 
+_WRAPPERS = ("warp_banded", "warp_round"), ("lucas_kanade_refine", "refine_round")
+
+
 @contextmanager
 def plain_versions():
-    """Swap each kernel wrapper for its plain PyTorch version."""
-    saved = warp.warp_banded, lk.lucas_kanade_refine
-    warp.warp_banded, lk.lucas_kanade_refine = warp.warp_banded_ref, lk.lucas_kanade_refine_ref
+    """Swap each kernel wrapper for its plain PyTorch version. The front
+    ends' captured VO steps are dropped before and after, so no graph of
+    the kernels is replayed in the swap and none of the plain versions is
+    kept."""
+    saved = [(mod, name, getattr(mod, name)) for mod, names in zip((warp, lk), _WRAPPERS)
+             for name in names]
+    device_loop._shared_front_end.cache_clear()
+    for mod, name, _ in saved:
+        setattr(mod, name, getattr(mod, name + "_ref"))
     try:
         yield
     finally:
-        warp.warp_banded, lk.lucas_kanade_refine = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        device_loop._shared_front_end.cache_clear()
 
 
 def run_stream(a, b, config: str, n_frames: int = N_FRAMES):
-    """Stream n frames (b, a, b, ...) through a config's fast path. Returns
-    the flows, the rounds per level of each frame and the seconds taken."""
+    """Stream n frames (b, a, b, ...) through a config's fast path, eager
+    (every launch from Python, no host read). Returns the flows, the rounds
+    per level of each frame (a (frames, levels) device tensor: the frames'
+    own control rows, read after the run) and the seconds taken."""
     cfg = PYRAMID_CONFIGS[config]
     carry = torch_ref.build_gaussian_pyramid(a, cfg.levels, cfg.scale_factor)
     flows, rounds = [], []
@@ -918,9 +1133,88 @@ def run_stream(a, b, config: str, n_frames: int = N_FRAMES):
         u, v, carry = lucas_kanade_pyramidal_step(carry, b if i % 2 == 0 else a, cfg,
                                                   backend="cuda")
         flows.append((u, v))
-        rounds.append(list(pyramidal.counters.level_iterations))
+        rounds.append(pyramidal.counters.level_rounds)
     torch.cuda.synchronize()
-    return flows, rounds, time.perf_counter() - t0
+    return flows, torch.stack(rounds), time.perf_counter() - t0
+
+
+def run_graphed(stream: GraphedStream, a, b, n_frames: int = N_FRAMES, rounds: bool = True):
+    """The same stream through a captured step (flow.graphed), the carry
+    reseeded with a's pyramid first: one graph replay a frame. Returns the
+    flows, the rounds per level of each frame (copied after each replay;
+    None with ``rounds=False``, as the timed runs do) and the seconds."""
+    cfg = stream.cfg
+    stream.reset(torch_ref.build_gaussian_pyramid(a, cfg.levels, cfg.scale_factor))
+    flows, counts = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_frames):
+        flows.append(stream.step(b if i % 2 == 0 else a))
+        if rounds:
+            counts.append(stream.level_rounds.clone())
+    torch.cuda.synchronize()
+    return flows, torch.stack(counts) if rounds else None, time.perf_counter() - t0
+
+
+@contextmanager
+def no_sync():
+    """torch's sync debug mode at "error": any synchronizing operation raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@contextmanager
+def logged_rounds(log: list):
+    """Record every refine round: its control before and after, its sums and
+    the kernel's block partials (all on the card; checked after the run)."""
+    real = lk.refine_round
+
+    def logged(prev, warped, u, v, ctrl, **kw):
+        parts = torch.empty((2, 1, lk.refine_blocks(*prev.shape, kw["window_size"])),
+                            device=prev.device)
+        before = ctrl.clone()
+        out = real(prev, warped, u, v, ctrl, parts=parts, **kw)
+        log.append((before, ctrl.clone(), out[2], parts, prev.numel(),
+                    kw["convergence_threshold"]))
+        return out
+
+    lk.refine_round = logged
+    try:
+        yield log
+    finally:
+        lk.refine_round = real
+
+
+def check_logged_rounds(config: str, log: list) -> float:
+    """(d): each round's in-kernel sums within ROUND_SUM_RTOL of torch.sum
+    of its block partials, and its latch and round count as torch reads
+    those sums (f32, as the reference's sdu / n_px < thr); a skipped round
+    leaves the control as it was with sums 0. Returns the worst relative
+    difference."""
+    worst, latched = 0.0, 0
+    for k, (before, after, sums, parts, n_px, thr) in enumerate(log):
+        ran = int(before[0]) == 0
+        if ran:
+            part = parts.sum(dim=(1, 2))
+            rel = float(((sums - part).abs() / part).max())
+            now = int(bool(((sums / n_px) < thr).all()))
+            latched += now
+            worst = max(worst, rel)
+            ok = rel <= ROUND_SUM_RTOL and after.tolist() == [
+                now, 0, int(before[2]) + 1]
+        else:
+            ok = torch.equal(after, before) and not sums.any()
+        if not ok:
+            raise AssertionError(f"{config} round {k}: control {before.tolist()} -> "
+                                 f"{after.tolist()}, sums {sums.tolist()}, partials "
+                                 f"{parts.sum(dim=(1, 2)).tolist()}")
+    print(f"[main] {config}: {len(log)} refine rounds logged, in-kernel sums within {worst:.3g} "
+          f"of torch.sum of their partials (limit {ROUND_SUM_RTOL}), latch as torch reads the "
+          f"sums on every round ({latched} latched)")
+    return worst
 
 
 def mean_epe(flows, margin: int = 32) -> float:
@@ -947,47 +1241,90 @@ def counted(path: str, fn):
     return out, counts
 
 
-def check_stream(a, b, config: str):
-    """Phase 4, one stream: kernels, then plain versions, frame by frame."""
+def check_stream(a, b, config: str, smi: str):
+    """Phase 4, one stream: (a) an eager step under sync debug "error"; the
+    eager device-control stream (counted: no host read, the path's
+    kernels); (d) its refine rounds logged; (b) the same stream graphed,
+    bit-identical to eager with the same rounds, and the plain versions'
+    run on the card with the same rounds, within STREAM_ATOL; (f) ms a
+    frame by host clock, eager and graphed, median and spread of
+    STREAM_RUNS runs, and the graphed replay's device busy share."""
+    cfg = PYRAMID_CONFIGS[config]
     run_stream(a, b, config, 2)  # warm-up: cuBLAS handles, operator blocks on the card
+    carry = torch_ref.build_gaussian_pyramid(a, cfg.levels, cfg.scale_factor)
+    torch.cuda.synchronize()
+    with no_sync():
+        lucas_kanade_pyramidal_step(carry, b, cfg, backend="cuda")
+    torch.cuda.synchronize()
+    print(f"[main] {config}: an eager step under torch's sync debug mode \"error\": no "
+          "synchronizing operation")
     pyramidal.counters.reset()
     (flows, rounds, seconds), counts = counted(f"{config} stream",
                                                lambda: run_stream(a, b, config))
     reads = (pyramidal.counters.convergence_reads, pyramidal.counters.band_reads)
+    if reads != (0, 0):
+        raise AssertionError(f"{config} stream read {reads} flags to the host")
     for u, v in flows:
         finite = bool(torch.isfinite(u).all()) and bool(torch.isfinite(v).all())
         if u.shape != (HEIGHT, WIDTH) or not finite:
             raise AssertionError(f"{config} stream gave non-finite or misshapen flow")
     epe = mean_epe(flows)
-    # Two more timed runs: the host clock spreads from run to run.
-    again = [N_FRAMES / run_stream(a, b, config)[2] for _ in range(2)]
-    median_ms = 1000 * float(np.median([seconds / N_FRAMES, *(1 / f for f in again)]))
-    print(f"[main] {N_FRAMES} frames {HEIGHT}x{WIDTH} {config}: "
-          f"{N_FRAMES / seconds:.2f} frames/s ({1000 * seconds / N_FRAMES:.3f} ms/frame; "
-          f"then {again[0]:.2f} and {again[1]:.2f} frames/s), launches {counts}, "
-          f"host reads convergence={reads[0]} band={reads[1]}, rounds per level "
-          f"(distinct over the frames) {sorted(set(map(tuple, rounds)))}, "
-          f"mean EPE {epe:.4f} px")
+    eager_ms = [1000 * seconds / N_FRAMES] + [1000 * run_stream(a, b, config)[2] / N_FRAMES
+                                              for _ in range(STREAM_RUNS - 1)]
+    rounds_seen = sorted(set(map(tuple, rounds.tolist())))
+    print(f"[main] {N_FRAMES} frames {HEIGHT}x{WIDTH} {config} eager: {_spread(eager_ms)}, "
+          f"launches {counts}, host reads convergence={reads[0]} band={reads[1]}, rounds per "
+          f"level (distinct over the frames) {rounds_seen}, mean EPE {epe:.4f} px ({smi})")
+    with logged_rounds([]) as log:
+        run_stream(a, b, config)
+    check_logged_rounds(config, log)
+    del log
+
+    t0 = time.perf_counter()
+    stream = GraphedStream(carry, cfg)
+    capture_s = time.perf_counter() - t0
+    (g_flows, g_rounds, _), g_counts = counted(f"{config} stream graphed",
+                                               lambda: run_graphed(stream, a, b))
+    same = all(torch.equal(u, gu) and torch.equal(v, gv)
+               for (u, v), (gu, gv) in zip(flows, g_flows))
+    if not same or not torch.equal(g_rounds, rounds) or g_counts != counts:
+        raise AssertionError(f"{config}: graphed stream bit-identical {same}, rounds "
+                             f"{sorted(set(map(tuple, g_rounds.tolist())))}, launches "
+                             f"{g_counts} against eager {counts}")
+    graphed_ms = [1000 * run_graphed(stream, a, b, rounds=False)[2] / N_FRAMES
+                  for _ in range(STREAM_RUNS)]
+    # The same N_FRAMES-frame run under torch.profiler: device busy ms a
+    # frame, against the unprofiled runs' host ms a frame.
+    busy = [t / N_FRAMES for t in busy_ms(lambda: run_graphed(stream, a, b, rounds=False))]
+    print(f"[main] {config} graphed (captured in {capture_s:.3f} s, {sum(stream.launches.values())}"
+          f" kernel launches a replay): {_spread(graphed_ms)}, flows bit-identical to eager, same "
+          f"rounds and launches; under torch.profiler {N_FRAMES} frames busy {busy[0]:.3f} "
+          f"ms/frame, {busy[1]:.3f} in the port's kernels, {busy[2]:.3f} in Memcpy/Memset: "
+          f"busy share {100 * busy[0] / float(np.median(graphed_ms)):.1f}% of the graphed host "
+          f"ms a frame ({smi})")
+    del stream
 
     before = launch_counts()
     with plain_versions():
         plain_flows, plain_rounds, plain_seconds = run_stream(a, b, config)
     if launch_counts() != before:
         raise AssertionError("the plain run launched a kernel")
-    if plain_rounds != rounds:
-        raise AssertionError(f"{config}: rounds per level differ: kernels {rounds}, "
-                             f"plain {plain_rounds}")
+    if not torch.equal(plain_rounds, rounds):
+        raise AssertionError(f"{config}: rounds per level differ: kernels "
+                             f"{rounds.tolist()}, plain {plain_rounds.tolist()}")
     diff = max(max(max_abs(u, pu), max_abs(v, pv))
                for (u, v), (pu, pv) in zip(flows, plain_flows))
     print(f"[main] {config} through the plain versions on the card: "
-          f"{N_FRAMES / plain_seconds:.2f} frames/s, same rounds on every frame, "
-          f"max |du|,|dv| vs kernels {diff:.3g} px, mean EPE {mean_epe(plain_flows):.4f} px")
+          f"{1000 * plain_seconds / N_FRAMES:.3f} ms/frame, same rounds on every frame, "
+          f"max |du|,|dv| vs kernels and graphed {diff:.3g} px, mean EPE "
+          f"{mean_epe(plain_flows):.4f} px")
     if diff > STREAM_ATOL:
         raise AssertionError(f"{config} stream differs from the plain path by {diff} px "
                              f"> {STREAM_ATOL}")
     if epe > 0.5:
         raise AssertionError(f"{config}: mean EPE {epe} px against the known {SHIFT_PX} px shift")
-    return counts, median_ms
+    counts.update(g_counts)
+    return counts, float(np.median(eager_ms)), float(np.median(graphed_ms))
 
 
 def check_single_scale(a, b, confidence: bool):
@@ -1116,10 +1453,11 @@ def vo_chunk(a, b):
     return torch.stack([b if i % 2 == 0 else a for i in range(N_FRAMES)])
 
 
-def vo_session(a, chunk, config: str):
+def vo_session(a, chunk, config: str, eager: bool = False):
     """A 1080p OdometrySession on the card: start on a, then the chunk
-    through process_frames. Returns it and the chunk's seconds (host clock
-    to a synchronize)."""
+    through process_frames (each step one replay of the captured step), or
+    with ``eager`` frame by frame through process_frame (each step eager).
+    Returns it and the chunk's seconds (host clock to a synchronize)."""
     fx = fy = 0.8 * WIDTH
     sess = OdometrySession((fx, fy, WIDTH / 2.0, HEIGHT / 2.0), grid_step=VO_GRID,
                            backend="cuda", pyramid_config=config,
@@ -1127,7 +1465,11 @@ def vo_session(a, chunk, config: str):
     sess.start(a)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sess.process_frames(chunk)
+    if eager:
+        for frame in chunk:
+            sess.process_frame(frame)
+    else:
+        sess.process_frames(chunk)
     torch.cuda.synchronize()
     return sess, time.perf_counter() - t0
 
@@ -1150,33 +1492,52 @@ def _records(sess):
     return sess.obs_uv, sess.obs_lm, sess.obs_valid, sess.n_landmarks
 
 
-def check_vo_session(a, b, chunk, config: str):
-    """Phase 6, one 1080p session: its launches, host reads and time a frame,
-    then solve(ba_iterations=8) twice (identical bits) and, for `default`,
-    the same session through the plain versions."""
-    vo_session(a, chunk, config)  # warm-up
+def check_vo_session(a, b, chunk, config: str, smi: str):
+    """Phase 6, one 1080p session: (a) two eager steps under sync debug
+    "error"; the graphed session's launches, host reads and time a frame;
+    (g) the same session stepped eagerly, its ObsRecords bit-identical to
+    the graphed ones, and its time a frame; then solve(ba_iterations=8)
+    twice (identical bits) and, for `default`, the same session through
+    the plain versions."""
+    vo_session(a, chunk, config)  # warm-up, and the step's capture
+    vo_session(a, chunk[:2], config, eager=True)
+    probe = vo_session(a, chunk[:0], config)[0]
+    torch.cuda.synchronize()
+    with no_sync():
+        probe.process_frame(chunk[0])
+        probe.process_frame(chunk[1])
+    torch.cuda.synchronize()
     pyramidal.counters.reset()
     ((sess, _), syncs), counts = counted(
         f"vo {config}", lambda: host_syncs(lambda: vo_session(a, chunk, config)))
     reads = (pyramidal.counters.convergence_reads, pyramidal.counters.band_reads)
-    flow_reads = sum(reads)
-    own = len(syncs) - flow_reads
     seconds = sorted(vo_session(a, chunk, config)[1] for _ in range(VO_RUNS))
     ms = [1000 * s / N_FRAMES for s in seconds]
     alive = int(sess._dev.alive.sum())
     print(f"[vo] {config} session {HEIGHT}x{WIDTH}, grid {VO_GRID} "
           f"({sess._dev.alive.numel()} slots), {N_FRAMES} frames through process_frames"
-          f"{', fb check 1.0 px' if VO_SESSIONS[config] else ''}: front end "
-          f"{ms[1]:.3f} ms/frame median of {VO_RUNS} (spread {ms[0]:.3f}-{ms[-1]:.3f}), "
-          f"tracks alive {alive}, landmarks {sess.n_landmarks}, launches {counts}, host reads "
-          f"a frame: flow {flow_reads / N_FRAMES:.2f} (convergence {reads[0]}, band "
-          f"{reads[1]}), "
-          f"the step's own {own / N_FRAMES:.2f}")
-    if own != 0:
-        raise AssertionError(f"vo {config}: {own} synchronizing operations besides the flow's "
-                             f"{flow_reads} reads: {sorted(set(syncs))}")
+          f"{', fb check 1.0 px' if VO_SESSIONS[config] else ''}, each step a graph replay: "
+          f"front end {_spread(ms)} ({smi}), tracks alive {alive}, landmarks "
+          f"{sess.n_landmarks}, launches {counts}, host reads convergence {reads[0]} band "
+          f"{reads[1]}, synchronizing operations {len(syncs)}; two eager steps under sync debug "
+          f"\"error\": none")
+    if syncs or sum(reads):
+        raise AssertionError(f"vo {config}: {len(syncs)} synchronizing operations "
+                             f"{sorted(set(syncs))}, flow reads {reads}")
     if alive < 0.5 * sess._dev.alive.numel():
         raise AssertionError(f"vo {config}: only {alive} tracks alive")
+
+    e_runs = [vo_session(a, chunk, config, eager=True) for _ in range(VO_RUNS)]
+    eager = e_runs[0][0]
+    e_ms = [1000 * s / N_FRAMES for _, s in e_runs]
+    got, want = _records(sess), _records(eager)
+    same = all(np.array_equal(x, y) for g, w in zip(got[:3], want[:3]) for x, y in zip(g, w)) \
+        and len(got[0]) == len(want[0]) and got[3] == want[3]
+    print(f"[vo] {config} the same session stepped eagerly (process_frame): {_spread(e_ms)}; "
+          f"{len(got[0])} ObsRecords {'bit-identical' if same else 'DIFFER'} to the graphed "
+          f"session's")
+    if not same:
+        raise AssertionError(f"vo {config}: graphed and eager ObsRecords differ")
 
     results, solve_s = [], []
     for _ in range(2):
@@ -1199,7 +1560,7 @@ def check_vo_session(a, b, chunk, config: str):
     if VO_SESSIONS[config] is not None:
         before = launch_counts()
         with plain_versions():
-            plain, plain_s = vo_session(a, chunk, config)
+            plain, plain_s = vo_session(a, chunk, config, eager=True)
         if launch_counts() != before:
             raise AssertionError("the plain VO session launched a kernel")
         uv, lm, ok, n_lm = _records(sess)
@@ -1212,7 +1573,7 @@ def check_vo_session(a, b, chunk, config: str):
               f"(limit {STREAM_ATOL}, the stream's)")
         if not ids or xy > STREAM_ATOL:
             raise AssertionError(f"vo {config}: plain session differs (ids {ids}, xy {xy})")
-    return ms[1]
+    return float(np.median(ms))
 
 
 def time_vo_reseed(a):
@@ -2056,8 +2417,9 @@ def _check_mesh(a, b, fa, fb, smi, dev, work, t_phase) -> dict:
                                  for f in ba.BAProblem._fields})
     single = ba.solve(problem, iterations=VO_BA_ITERATIONS)
     ref_sess = _session_1080(a, "default", rtl_clamp=True)
-    ref_vo_ms = _host_ms(lambda: ref_sess.process_frames(vo_chunk(a, b)[:MESH_VO_FRAMES]),
-                         1)[0] / MESH_VO_FRAMES
+    # Stepped eagerly, as the mesh-tiled session steps (no capture timed).
+    ref_vo_ms = _host_ms(lambda: [ref_sess.process_frame(f)
+                                  for f in vo_chunk(a, b)[:MESH_VO_FRAMES]], 1)[0] / MESH_VO_FRAMES
     del sess
 
     # (b)-(d): MESH_RANKS gloo ranks sharing the card.
@@ -2171,23 +2533,26 @@ _WARP_NAMES = {(8, 1): "K1", (16, 1): "K2", (0, 1): "K4", (0, 0): "K4 unclamped"
 
 def ptxas_usage(log: str, entry: str):
     """(template arguments, registers, spill-store bytes, static shared
-    memory bytes) of each kernel whose mangled name matches ``entry``, from
-    ptxas's report (``-Xptxas=-v``)."""
-    cur = spill = None
+    memory bytes, stack-frame bytes) of each kernel whose mangled name
+    matches ``entry``, from ptxas's report (``-Xptxas=-v``)."""
+    cur = spill = stack = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '" + entry, line)
         if m:
-            cur, spill = tuple(map(int, m.groups())), 0
+            cur, spill, stack = tuple(map(int, m.groups())), 0, 0
             continue
         if cur is None:
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = int(m.group(1))
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            stack = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             smem = re.search(r"(\d+) bytes smem", line)
-            yield cur, int(m.group(1)), spill, int(smem.group(1)) if smem else 0
+            yield cur, int(m.group(1)), spill, int(smem.group(1)) if smem else 0, stack
             cur = None
 
 
@@ -2195,10 +2560,11 @@ def walk_ptxas(log: str) -> dict[int, list[str]]:
     """ptxas's registers, spill stores and shared memory of each LK
     column-walk instantiation, by window."""
     out: dict[int, list[str]] = {}
-    for (window, relaxed, taps, mode), regs, spill, smem in ptxas_usage(
+    for (window, relaxed, taps, mode), regs, spill, smem, stack in ptxas_usage(
             log, r"_ZN10tpuflow_lk14lk_walk_kernelILi(\d)ELb(\d)ELi(\d)ELi(\d)E"):
         name = _WALK_NAMES[mode, relaxed] + (" taps" if taps else "")
-        out.setdefault(window, []).append(f"{name} {regs} regs/{spill} B spilled/{smem} B smem")
+        out.setdefault(window, []).append(
+            f"{name} {regs} regs/{spill} B spilled/{smem} B smem/{stack} B stack")
     return out
 
 
@@ -2207,7 +2573,7 @@ def mxu_ptxas(log: str) -> dict[int, list[str]]:
     window, and its shared memory a block (static and dynamic)."""
     smem = _build.load().tpuflow_lk_mxu_smem
     out: dict[int, list[str]] = {}
-    for (window, relaxed, mode), regs, spill, static in ptxas_usage(log, _MXU_ENTRY):
+    for (window, relaxed, mode), regs, spill, static, _ in ptxas_usage(log, _MXU_ENTRY):
         out.setdefault(window, []).append(
             f"{_MXU_NAMES[mode]}{' relaxed' if relaxed else ''} {regs} regs/{spill} B spilled/"
             f"{static + smem(window)} B smem")
@@ -2239,7 +2605,7 @@ def ablation_ptxas(log: str) -> list[str]:
     and each K9 mode's instantiation."""
     return [f"{k} {names[i]} {regs} regs/{spill} B spilled/{smem} B smem"
             for k, (entry, names) in _ABLATION_ENTRIES.items()
-            for (i,), regs, spill, smem in ptxas_usage(log, entry)]
+            for (i,), regs, spill, smem, _ in ptxas_usage(log, entry)]
 
 
 def ablation_sass(sass: str) -> list[str]:
@@ -2277,13 +2643,13 @@ def warp_ptxas(log: str) -> list[str]:
     walk ablation's included (their shared memory is dynamic, sized by the
     band: see the [kernels] lines)."""
     tiles = [f"{_WARP_NAMES[packing, clamp]} {'staged' if staged else 'gather'} {tw}x{rows} "
-             f"{threads} threads: {regs} regs/{spill} B spilled"
-             for (packing, clamp, staged, tw, rows, threads), regs, spill, _ in ptxas_usage(
+             f"{threads} threads: {regs} regs/{spill} B spilled/{stack} B stack"
+             for (packing, clamp, staged, tw, rows, threads), regs, spill, _, stack in ptxas_usage(
                  log, r"_ZN12tpuflow_warp16warp_tile_kernelILi(\d+)ELb(\d)ELb(\d)ELi(\d+)"
                       r"ELi(\d+)ELi(\d+)E")]
     walks = [f"{_WARP_NAMES[packing, clamp]} walk {tw}x{step} {threads} threads: {regs} regs/"
              f"{spill} B spilled"
-             for (packing, clamp, tw, step, threads), regs, spill, _ in ptxas_usage(
+             for (packing, clamp, tw, step, threads), regs, spill, _, _ in ptxas_usage(
                  log, r"_ZN12tpuflow_warp16warp_walk_kernelILi(\d+)ELb(\d)ELi(\d+)ELi(\d+)"
                       r"ELi(\d+)E")]
     return tiles + walks
@@ -2342,7 +2708,7 @@ def main() -> None:
     counts = {}
     stream_ms = {}
     for config in ("production", "default"):
-        path_counts, stream_ms[config] = check_stream(a, b, config)
+        path_counts, _, stream_ms[config] = check_stream(a, b, config, smi)
         counts.update(path_counts)
     stream_counts = dict(counts)  # the two streams' kernels, N_FRAMES frames each
     counts.update(check_single_scale(a, b, confidence=False))
@@ -2363,7 +2729,7 @@ def main() -> None:
     t0 = time.perf_counter()
     chunk = vo_chunk(a, b)
     for config in VO_SESSIONS:
-        vo_ms = check_vo_session(a, b, chunk, config)
+        vo_ms = check_vo_session(a, b, chunk, config, smi)
         print(f"[vo] {config}: front end {vo_ms:.3f} ms/frame against the flow stream's "
               f"{stream_ms[config]:.3f} ms/frame (phase 4)")
         profile_vo(a, chunk, config)

@@ -33,12 +33,20 @@ launch; the C entry points refuse what no instantiation covers. The VO
 session (``tpuflow_torch.vo``) at 240x320 on the kernels against the same
 session on the plain versions: alive, ids and counters identical, live
 track positions within 1e-3 px; its front-end step makes no synchronizing
-operation besides the flow's counted reads; two bundle-adjustment solves
+operation and no host read; two bundle-adjustment solves
 of one problem give the same bits, and the sorted segment sums agree with
 ``index_add_`` to 1e-5 relative. Two pose-graph solves (17 nodes, loop
 and rotation-only edges) give the same bits and agree with the CPU's to
 1e-4; IMU preintegration on the card agrees with the CPU's to 5e-6. The
-S8.7 integer datapath on the card equals the CPU's bit for bit.
+S8.7 integer datapath on the card equals the CPU's bit for bit. The main
+path under device control: the warp round (both band-switch forms) and
+the refine round bit-identical to their plain versions and to the
+host-int band's calls at each band index and when skipped (a skipped
+warp leaves ``out`` untouched, a skipped refine passes u, v through), the
+refine's in-kernel sums within 1e-6 relative of torch.sum of its block
+partials, each batch element latched alone; the graphed stream
+(``flow.GraphedStream``) and the VO front end's graphed ``scan_steps``
+bit-identical to the eager steps, with the eager step's launch counts.
 """
 
 import numpy as np
@@ -47,6 +55,7 @@ import torch
 from scipy.ndimage import gaussian_filter
 
 from tpuflow_torch import PYRAMID_CONFIGS, lucas_kanade_pyramidal_step
+from tpuflow_torch.flow import GraphedStream
 from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation, warp_walk
 from tpuflow_torch.flow import pyramidal
 from tpuflow_torch.kernels import _build, launch_counts, lk, torch_ref, warp
@@ -375,12 +384,12 @@ def test_short_stream_matches_plain_path(cuda, monkeypatch, config):
         out = []
         for frame in (b, a, b):
             u, v, carry = lucas_kanade_pyramidal_step(carry, frame, cfg, backend="cuda")
-            out.append((u, v, list(pyramidal.counters.level_iterations)))
+            out.append((u, v, pyramidal.counters.level_rounds.tolist()))
         return out
 
     kernels = stream()
-    monkeypatch.setattr(warp, "warp_banded", warp.warp_banded_ref)
-    monkeypatch.setattr(lk, "lucas_kanade_refine", lk.lucas_kanade_refine_ref)
+    monkeypatch.setattr(warp, "warp_round", warp.warp_round_ref)
+    monkeypatch.setattr(lk, "refine_round", lk.refine_round_ref)
     plain = stream()
     for (u, v, n), (pu, pv, pn) in zip(kernels, plain):
         assert n == pn
@@ -648,9 +657,11 @@ def test_vo_session_matches_plain_versions(cuda, monkeypatch, config):
     torch.cuda.synchronize()
     after = launch_counts()
     assert {k for k in after if after[k] > before[k]} == VO_KERNELS[config]
-    monkeypatch.setattr(warp, "warp_banded", warp.warp_banded_ref)
-    monkeypatch.setattr(lk, "lucas_kanade_refine", lk.lucas_kanade_refine_ref)
+    monkeypatch.setattr(warp, "warp_round", warp.warp_round_ref)
+    monkeypatch.setattr(lk, "refine_round", lk.refine_round_ref)
+    device_loop._shared_front_end.cache_clear()  # no graph captured on the kernels
     plain = session()
+    device_loop._shared_front_end.cache_clear()
     assert kernels.n_landmarks == plain.n_landmarks
     for uv, puv, ids, pids, ok, pok in zip(kernels.obs_uv, plain.obs_uv, kernels.obs_lm,
                                            plain.obs_lm, kernels.obs_valid, plain.obs_valid):
@@ -678,7 +689,7 @@ def test_vo_step_makes_no_host_read_of_its_own(cuda):
         torch.cuda.set_sync_debug_mode(0)
     syncs = [w for w in caught if "synchroniz" in str(w.message)]
     reads = pyramidal.counters.convergence_reads + pyramidal.counters.band_reads
-    assert reads > 0 and len(syncs) == reads, [f"{w.filename}:{w.lineno}" for w in syncs]
+    assert reads == 0 and not syncs, [f"{w.filename}:{w.lineno}" for w in syncs]
 
 
 def _ba_problem(dev, k=6, m=500, seed=11):
@@ -804,3 +815,136 @@ def test_s87_on_the_card_matches_the_cpu(cuda):
                 assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
         assert torch.equal(fixed_point.box_downsample_2x(c0.to(cuda)).cpu(),
                            fixed_point.box_downsample_2x(c0))
+
+
+# -- the main path under device control: the round kernels and the graphs --
+
+_ROUND_SHAPES = [(37, 61), (270, 480), (1025, 1024)]  # the last staged (>= 2^20 px)
+
+
+@pytest.mark.parametrize("shape", _ROUND_SHAPES)
+@pytest.mark.parametrize("packing", ["u8", "u16", "exact"])
+@pytest.mark.parametrize("per_band", [False, True])
+@pytest.mark.parametrize("index", [0, 1, 2, None])
+def test_warp_round_bit_exact_at_each_band_and_skipped(cuda, shape, packing, per_band, index):
+    rng = np.random.default_rng(17)
+    img = _rand(rng, shape, 0, 255, cuda).round()
+    u, v = _rand(rng, shape, -9, 9, cuda), _rand(rng, shape, -9, 9, cuda)
+    ladder = (2, 3, 8) if index is not None else (5,)
+    band = None if index is None else torch.tensor(index, dtype=torch.int32, device=cuda)
+    kw = dict(max_disp=8, ladder=ladder, band=band, packing=packing, per_band=per_band)
+    mdv = ladder[index or 0]
+    for latch in (0, 1):
+        flag = torch.tensor(latch, dtype=torch.int32, device=cuda)
+        fill = _rand(rng, shape, -1, 1, cuda)
+        before = launch_counts()[_WARP_COUNTER[packing]]
+        got = warp.warp_round(img, u, v, fill.clone(), flag, **kw)
+        launched = launch_counts()[_WARP_COUNTER[packing]] - before
+        want = warp.warp_round_ref(img, u, v, fill.clone(), flag, **kw)
+        torch.cuda.synchronize()
+        assert launched == (len(ladder) if per_band and band is not None else 1)
+        assert torch.equal(got, want)
+        if latch:
+            assert torch.equal(got, fill)
+        else:
+            assert torch.equal(got, warp.warp_banded(img, u, v, max_disp=8, clamp_flow=True,
+                                                     max_disp_v=mdv, packing=packing))
+
+
+@pytest.mark.parametrize("shape", [(17, 33), (270, 480), (1080, 1920)])
+@pytest.mark.parametrize("window", [3, 5, 7])
+@pytest.mark.parametrize("relaxed", [True, False])
+def test_refine_round_matches_plain_and_sums_its_partials(cuda, shape, window, relaxed):
+    rng = np.random.default_rng(window)
+    prev, warped = _smooth(rng, shape, cuda)
+    u, v = _rand(rng, shape, -5, 5, cuda), _rand(rng, shape, -5, 5, cuda)
+    ladder = (2.0, 3.0, 8.0)
+    band = torch.tensor(1, dtype=torch.int32, device=cuda)
+    kw = dict(ladder=ladder, band=band, window_size=window, relaxed_order=relaxed)
+    n_blocks = lk.refine_blocks(*shape, window)
+    for latch in (0, 1):
+        ctrl = torch.tensor([latch, 0, 0], dtype=torch.int32, device=cuda)
+        ctrl_ref = ctrl.clone()
+        parts = torch.zeros((2, 1, n_blocks), device=cuda)
+        got = lk.refine_round(prev, warped, u, v, ctrl, parts=parts, **kw)
+        want = lk.refine_round_ref(prev, warped, u, v, ctrl_ref, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+        assert torch.equal(ctrl, ctrl_ref)
+        if latch:
+            assert torch.equal(got[0], u) and torch.equal(got[1], v) and not got[2].any()
+        else:
+            torch.testing.assert_close(got[2], parts.sum(dim=(1, 2)), rtol=1e-6, atol=0)
+            fixed = lk.lucas_kanade_refine(prev, warped, u, v, torch.tensor(False, device=cuda),
+                                           window_size=window, max_disp_v=3.0,
+                                           relaxed_order=relaxed)
+            assert torch.equal(got[0], fixed[0]) and torch.equal(got[1], fixed[1])
+
+
+def test_refine_round_batch_latches_each_element(cuda):
+    rng = np.random.default_rng(4)
+    prev, warped = _smooth(rng, (2, 270, 480), cuda)
+    u, v = _rand(rng, prev.shape, -2, 2, cuda), _rand(rng, prev.shape, -2, 2, cuda)
+    ctrl = torch.tensor([[0, 1], [0, 0], [0, 0]], dtype=torch.int32, device=cuda)
+    ctrl_ref = ctrl.clone()
+    kw = dict(ladder=(8.0,), relaxed_order=True, convergence_threshold=10.0)
+    got = lk.refine_round(prev, warped, u, v, ctrl, **kw)
+    want = lk.refine_round_ref(prev, warped, u, v, ctrl_ref, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0][1], u[1]) and ctrl.tolist() == [[1, 1], [0, 0], [1, 0]]
+    assert torch.equal(ctrl, ctrl_ref)
+
+
+def _launches(fn):
+    before = launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@pytest.mark.parametrize("config", ["production", "default"])
+def test_graphed_stream_equals_the_eager_step(cuda, config):
+    cfg = PYRAMID_CONFIGS[config]
+    rng = np.random.default_rng(8)
+    a = np.round(gaussian_filter(rng.uniform(0, 255, (240, 320)), 2.0)).astype(np.float32)
+    a = torch.from_numpy(a).to(cuda)
+    frames = [a.roll(2, dims=1) if i % 2 == 0 else a for i in range(4)]
+    carry = torch_ref.build_gaussian_pyramid(a, cfg.levels, cfg.scale_factor)
+    eager = []
+    for frame in frames:
+        (u, v, carry), counts = _launches(
+            lambda: lucas_kanade_pyramidal_step(carry, frame, cfg, backend="cuda"))
+        eager.append((u, v, pyramidal.counters.level_rounds.tolist(), counts))
+    stream = GraphedStream(a, cfg)
+    assert stream.launches == eager[0][3]
+    for frame, (eu, ev, rounds, counts) in zip(frames, eager):
+        (u, v), replayed = _launches(lambda: stream.step(frame))
+        assert replayed == counts
+        assert torch.equal(u, eu) and torch.equal(v, ev)
+        assert stream.level_rounds.tolist() == rounds
+    with pytest.raises(ValueError):
+        stream.step(a.cpu())
+
+
+@pytest.mark.parametrize("config,fb", [("production", None), ("default", 1.0)])
+def test_vo_graphed_scan_equals_eager_steps(cuda, config, fb):
+    frames = torch.from_numpy(_vo_frames(5)).to(cuda)
+    fe = device_loop.FrontEnd(backend="cuda", fb_check_threshold=fb,
+                              config=PYRAMID_CONFIGS[config])
+    state0, _ = fe.init(frames[0])
+    state, records, eager_counts = state0, [], None
+    for frame in frames[1:]:
+        (state, obs), eager_counts = _launches(lambda: fe.step(state, frame))
+        records.append(obs)
+    assert fe.graphed(frames)
+    g_state, g_obs = fe.scan_steps(state0, frames[1:])
+    (g_state2, _), counts = _launches(lambda: fe.scan_steps(state0, frames[1:2]))
+    assert counts == eager_counts
+    for i, obs in enumerate(records):
+        for got, want in zip(g_obs, obs):
+            assert torch.equal(got[i], want)
+    for got, want in zip(device_loop._tensors(g_state), device_loop._tensors(state)):
+        assert torch.equal(got, want)

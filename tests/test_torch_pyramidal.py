@@ -92,7 +92,7 @@ def test_production_from_jax_pyramids_matches_pallas(jax_production, name):
     u, v, levels = pyramidal.lucas_kanade_pyramidal_from_pyramids(
         to_port(pyr_a), to_port(pyr_b), CFG, backend="cuda", return_levels=True
     )
-    iters = pyramidal.counters.level_iterations
+    iters = pyramidal.counters.level_rounds.tolist()
     print(f"{name}: port rounds per level {iters}")
     assert len(iters) == CFG.levels and all(1 <= n <= CFG.iterations for n in iters)
     assert u.shape == (240, 320) and torch.isfinite(u).all() and torch.isfinite(v).all()
@@ -199,9 +199,14 @@ def test_step_equals_pairwise_and_counts_host_reads():
     a, b = torch.from_numpy(f0), torch.from_numpy(f1)
     pyramidal.counters.reset()
     u1, v1 = pyramidal.lucas_kanade_pyramidal(a, b, config=CFG, backend="cuda")
+    # The fast path keeps its early exit and band on the device.
+    assert pyramidal.counters.convergence_reads == 0 and pyramidal.counters.band_reads == 0
+    assert all(1 <= n <= CFG.iterations for n in pyramidal.counters.level_rounds.tolist())
+    # The parity path with the clamp reads them to the host: one band read
+    # per level above the coarsest; one early-exit read per round that is
+    # not a level's last permitted one.
+    pyramidal.lucas_kanade_pyramidal(a, b, config=CFG, backend="torch", rtl_clamp=True)
     reads = pyramidal.counters.convergence_reads
-    # One band read per level above the coarsest; one early-exit read per
-    # round that is not a level's last permitted one.
     assert pyramidal.counters.band_reads == CFG.levels - 1
     assert reads == sum(min(n, CFG.iterations - 1) for n in pyramidal.counters.level_iterations)
     carry = torch_ref.build_gaussian_pyramid(a, CFG.levels, CFG.scale_factor)
@@ -230,7 +235,7 @@ def test_fast_path_configs_without_a_kernel_name_it(monkeypatch, name, kernel):
     f0, f1 = _pattern("translate_medium", 160, 120)
     a, b = torch.from_numpy(f0), torch.from_numpy(f1)
     calls = set()
-    plain_warp, plain_refine = warp.warp_banded, lk.lucas_kanade_refine
+    plain_warp, plain_refine = warp.warp_round, lk.refine_round
 
     def spy_warp(*args, **kw):
         calls.add("K4" if kw["packing"] == "exact" else "K1/K2")
@@ -240,8 +245,8 @@ def test_fast_path_configs_without_a_kernel_name_it(monkeypatch, name, kernel):
         calls.add("K3" if kw["relaxed_order"] else "K5")
         return plain_refine(*args, **kw)
 
-    monkeypatch.setattr(warp, "warp_banded", spy_warp)
-    monkeypatch.setattr(lk, "lucas_kanade_refine", spy_refine)
+    monkeypatch.setattr(warp, "warp_round", spy_warp)
+    monkeypatch.setattr(lk, "refine_round", spy_refine)
     u, v = pyramidal.lucas_kanade_pyramidal(a, b, config=cfg, backend="cuda")
     assert kernel in calls
     pu, pv = pyramidal.lucas_kanade_pyramidal(a, b, config=cfg, backend="torch", rtl_clamp=True)

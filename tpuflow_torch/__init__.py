@@ -10,7 +10,9 @@ The PyTorch counterpart of ``tpuflow`` (JAX), module for module:
                              S8.7 integer datapath (``fixed_point``).
 - ``tpuflow_torch.flow``     single-scale and pyramidal flow:
                              ``backend="torch"`` (parity) and
-                             ``backend="cuda"`` (fast path), and the flow
+                             ``backend="cuda"`` (fast path, no host
+                             read; ``GraphedStream`` replays its step as
+                             a CUDA graph on the card), and the flow
                              CLI (``python -m tpuflow_torch.flow``: frame
                              pairs, streams and the S8.7 ``rtl`` mode).
 - ``tpuflow_torch.vo``       visual odometry: tracking, the front end on

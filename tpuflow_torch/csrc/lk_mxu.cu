@@ -370,7 +370,8 @@ __global__ void __launch_bounds__(kThreads, 2) lk_mxu_kernel(const LkArgs args) 
           v_in = args.v_in[plane + (size_t)y * width + xi];
         }
       }
-      solve_store<kHalf, kMode>(args, sums, y, xi, inside, frozen, u_in, v_in, &u_out[i],
+      solve_store<kHalf, kMode>(args, sums, y, xi, inside, frozen, args.max_disp_v,
+                                u_in, v_in, &u_out[i],
                                 &v_out[i], &det_out[i], acc_u, acc_v);
     }
     const bool pairs = (width & 1) == 0;

@@ -11,6 +11,9 @@
 // each with its own converged flag. The wrapper adds each element's
 // per-block partials with torch.sum, as XLA adds the TPU kernel's per-tile
 // partials (pallas_lk.py:606-607). The window_mxu variant (K10) is in lk_mxu.cu.
+// tpuflow_lk_refine_round is the same kernel as one round of the pyramidal
+// driver under device control: the skip, the band and the sums, latch and
+// round count in the kernel (lk_tile.cuh).
 
 #include "lk_tile.cuh"
 
@@ -45,6 +48,44 @@ extern "C" int tpuflow_lk_refine(const float* prev, const float* warped,
   args.det_threshold = det_threshold;
   args.max_disp = max_disp;
   args.max_disp_v = max_disp_v;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (relaxed) return launch_window<true, kUniform, kRefine>(window, args, batch, s);
+  return launch_window<false, kUniform, kRefine>(window, args, batch, s);
+}
+
+// One round under device control. ctrl holds the int32 latch, ticket and
+// round count of each of the `batch` elements (3 x batch, the tickets 0
+// between launches); band (or null: ladder[0]) indexes the ladder of
+// vertical bands; sums receives (2, batch) sum|du|, sum|dv|.
+extern "C" int tpuflow_lk_refine_round(const float* prev, const float* warped,
+                                       const float* u_in, const float* v_in, int* ctrl,
+                                       const int* band, const float* ladder, int n_ladder,
+                                       float* u_out, float* v_out, float* part_du,
+                                       float* part_dv, float* sums, int batch, int height,
+                                       int width, int window, int relaxed, float det_threshold,
+                                       float max_disp, float thr, void* stream) {
+  if (n_ladder < 1 || n_ladder > kMaxLadder || (band == nullptr && n_ladder != 1))
+    return (int)cudaErrorInvalidValue;
+  LkArgs args{};
+  args.prev = prev;
+  args.curr = warped;
+  args.u_in = u_in;
+  args.v_in = v_in;
+  args.u_out = u_out;
+  args.v_out = v_out;
+  args.part_du = part_du;
+  args.part_dv = part_dv;
+  args.height = height;
+  args.width = width;
+  args.det_threshold = det_threshold;
+  args.max_disp = max_disp;
+  args.max_disp_v = ladder[0];
+  args.ctrl = ctrl;
+  args.band = band;
+  for (int i = 0; i < n_ladder; ++i) args.ladder[i] = ladder[i];
+  args.n_ladder = n_ladder;
+  args.sums = sums;
+  args.thr = thr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (relaxed) return launch_window<true, kUniform, kRefine>(window, args, batch, s);
   return launch_window<false, kUniform, kRefine>(window, args, batch, s);

@@ -82,6 +82,20 @@
 // Batches: blockIdx.z is the batch element (the TPU kernels' flattened
 // (batch * row tiles) grid); each element reads its own planes, its own
 // converged flag and writes its own block partials.
+// A round under device control (refine, `ctrl` set: the pyramidal
+// driver's round, in place of the reference's lax.while_loop body and
+// lax.switch operand, tpuflow/flow/pyramidal.py:39-132, :169-199):
+//   - each block reads its element's latch first; a set latch means the
+//     level converged before this round, and the block copies u_in, v_in
+//     to u_out, v_out bit for bit and returns (no re-clip: the
+//     reference's loop never runs such a round). Its sums are 0;
+//   - max_disp_v is ladder[*band], the index read from device memory;
+//   - the block that finishes an element's round last (a ticket counter
+//     in device memory) adds the element's block partials in a fixed
+//     order (each thread a strided run, then the block's butterfly and its
+//     warps in order), writes the two sums, ORs sdu / n_px < thr &
+//     sdv / n_px < thr (f32, as the reference) into the latch, counts the
+//     round and resets the ticket. No host read and no second launch.
 // Built with -fmad=false: no product is fused into an FMA, so each pixel
 // is bit-identical to the plain PyTorch version in kernels/lk.py.
 
@@ -100,6 +114,19 @@ enum Mode { kRefine = 0, kFused = 1, kFusedDet = 2 };
 struct Taps {
   float t[kMaxWindow];
 };
+
+// Longest band ladder a refine round takes.
+constexpr int kMaxLadder = 8;
+
+// ladder[i] with every index static: an index computed at run time into a
+// kernel parameter's array makes the compiler copy the whole struct to
+// local memory in every thread.
+__device__ __forceinline__ float ladder_at(const float (&ladder)[kMaxLadder], int i) {
+  float v = ladder[0];
+#pragma unroll
+  for (int k = 1; k < kMaxLadder; ++k) v = k == i ? ladder[k] : v;
+  return v;
+}
 
 // Every plane pointer is to the first of `batch` contiguous (height, width)
 // planes.
@@ -120,6 +147,14 @@ struct LkArgs {
   float max_disp;
   float max_disp_v;
   Taps taps;
+  // A refine round under device control (null: none): per element, an
+  // int32 latch, a ticket counter and a round count, each `batch` long.
+  int* ctrl;
+  const int* band;  // index into ladder (null: ladder[0])
+  float ladder[kMaxLadder];
+  int n_ladder;
+  float* sums;  // (2, batch): the element's sum|du|, then sum|dv|
+  float thr;    // convergence threshold on the mean |du|, |dv|
 };
 
 // Shift-tree run of N = 2^k taps: run<2N>(a) = run<N>(a) + run<N>(a + N).
@@ -178,9 +213,9 @@ __device__ __forceinline__ float window_sum(const float (&a)[W],
 template <int kHalf, int kMode>
 __device__ __forceinline__ void solve_store(const LkArgs& args, const float (&s)[5],
                                             int y, int x, bool store, bool frozen,
-                                            float u_in, float v_in, float* u_dst,
-                                            float* v_dst, float* det_dst, float& acc_u,
-                                            float& acc_v) {
+                                            float max_disp_v, float u_in, float v_in,
+                                            float* u_dst, float* v_dst, float* det_dst,
+                                            float& acc_u, float& acc_v) {
   const int height = args.height, width = args.width;
   const float s_xx = s[0], s_yy = s[1], s_xy = s[2];
   const float b0 = -s[3], b1 = -s[4];
@@ -196,7 +231,7 @@ __device__ __forceinline__ void solve_store(const LkArgs& args, const float (&s)
   }
   if constexpr (kMode == kRefine) {
     const float uc = fminf(fmaxf(u_in, -args.max_disp), args.max_disp);
-    const float vc = fminf(fmaxf(v_in, -args.max_disp_v), args.max_disp_v);
+    const float vc = fminf(fmaxf(v_in, -max_disp_v), max_disp_v);
     const float u_next = frozen ? uc : uc + du;
     const float v_next = frozen ? vc : vc + dv;
     if (store) {
@@ -222,6 +257,60 @@ constexpr int kLanes = 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kStripWarps = 4;                 // strips (warps) per block
 constexpr int kWalkThreads = kStripWarps * kLanes;
+
+// The end of a refine round under device control, called by every thread
+// of each block after the block's partials are written: the element's
+// last block sums its partials, latches, counts the round and resets the
+// ticket (see the note above). `red` is the block's [2][kStripWarps]
+// scratch, free again once thread 0 has written its partials.
+__device__ __forceinline__ void finish_round(const LkArgs& args,
+                                             float (&red)[2][kStripWarps]) {
+  __shared__ bool last;
+  const int z = blockIdx.z, batch = gridDim.z;
+  const int n_blocks = gridDim.x * gridDim.y;
+  unsigned* tickets = reinterpret_cast<unsigned*>(args.ctrl + batch);
+  if (threadIdx.x == 0) {
+    __threadfence();  // this block's partials before its ticket
+    last = atomicAdd(&tickets[z], 1u) == (unsigned)(n_blocks - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* pu = args.part_du + (size_t)z * n_blocks;
+  const float* pv = args.part_dv + (size_t)z * n_blocks;
+  float su = 0.0f, sv = 0.0f;
+  for (int i = threadIdx.x; i < n_blocks; i += kWalkThreads) {
+    su += __ldcg(pu + i);  // other SMs' writes: from L2, not a stale L1
+    sv += __ldcg(pv + i);
+  }
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+#pragma unroll
+  for (int m = kLanes / 2; m > 0; m >>= 1) {
+    su += __shfl_xor_sync(kFull, su, m);
+    sv += __shfl_xor_sync(kFull, sv, m);
+  }
+  if (lane == 0) {
+    red[0][warp] = su;
+    red[1][warp] = sv;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    su = red[0][0];
+    sv = red[1][0];
+#pragma unroll
+    for (int w = 1; w < kStripWarps; ++w) {
+      su += red[0][w];
+      sv += red[1][w];
+    }
+    args.sums[z] = su;
+    args.sums[batch + z] = sv;
+    const float n_px = (float)(args.height * args.width);
+    if (su / n_px < args.thr && sv / n_px < args.thr) args.ctrl[z] = 1;
+    args.ctrl[2 * batch + z] += 1;
+    tickets[z] = 0;
+  }
+}
+
 constexpr int kMaxRows = 32;                   // output rows per block, at most
 constexpr int kMinRows = 4;
 constexpr int kFillBlocks = 512;               // ~4 blocks an SM of the H100's 132
@@ -374,7 +463,45 @@ __global__ void __launch_bounds__(kWalkThreads, walk_min_blocks<kWindow>())
   };
 
   bool frozen = false;
-  if constexpr (kMode == kRefine) frozen = args.converged[blockIdx.z] != 0;
+  float max_disp_v = args.max_disp_v;
+  if constexpr (kMode == kRefine) {
+    if (args.ctrl != nullptr) {
+      // A round under device control: skipped after convergence (a copy),
+      // else never frozen; the band from the ladder.
+      if (args.ctrl[blockIdx.z] != 0) {
+        // The copy, kCopyRows rows of both planes in flight at a time.
+        constexpr int kCopyRows = 8;
+        if (out_lane) {
+          for (int y0 = 0; y0 < n_out; y0 += kCopyRows) {
+            float cu[kCopyRows], cv[kCopyRows];
+#pragma unroll
+            for (int k = 0; k < kCopyRows; ++k) {
+              const unsigned o = (unsigned)((r0 + min(y0 + k, n_out - 1)) * width);
+              cu[k] = __ldg(u_in_c + o);
+              cv[k] = __ldg(v_in_c + o);
+            }
+#pragma unroll
+            for (int k = 0; k < kCopyRows; ++k) {
+              if (y0 + k < n_out) {
+                const unsigned o = (unsigned)((r0 + y0 + k) * width);
+                u_out_c[o] = cu[k];
+                v_out_c[o] = cv[k];
+              }
+            }
+          }
+        }
+        if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
+          args.sums[blockIdx.z] = 0.0f;
+          args.sums[gridDim.z + blockIdx.z] = 0.0f;
+        }
+        return;
+      }
+      max_disp_v = ladder_at(args.ladder,
+                             args.band ? min(max(*args.band, 0), args.n_ladder - 1) : 0);
+    } else {
+      frozen = args.converged[blockIdx.z] != 0;
+    }
+  }
   float acc_u = 0.0f, acc_v = 0.0f;
 
   // Window sums and the solve of output row y (if in range) from gradient
@@ -395,8 +522,9 @@ __global__ void __launch_bounds__(kWalkThreads, walk_min_blocks<kWindow>())
       u_in = row[2 * kLanes];
       v_in = row[3 * kLanes];
     }
-    solve_store<kHalf, kMode>(args, s, r0 + y, xo, out_lane && y < n_out, frozen, u_in, v_in,
-                              u_out_c + o, v_out_c + o, det_out_c + o, acc_u, acc_v);
+    solve_store<kHalf, kMode>(args, s, r0 + y, xo, out_lane && y < n_out, frozen, max_disp_v,
+                              u_in, v_in, u_out_c + o, v_out_c + o, det_out_c + o, acc_u,
+                              acc_v);
   };
   auto products = [&](int g, float gx, float gy, float gt) {
     prod[0][g] = gx * gx;
@@ -477,6 +605,7 @@ __global__ void __launch_bounds__(kWalkThreads, walk_min_blocks<kWindow>())
       args.part_du[b] = su;
       args.part_dv[b] = sv;
     }
+    if (args.ctrl != nullptr) finish_round(args, red);
   }
 }
 

@@ -71,6 +71,23 @@
 // A batch of planes is one launch, blockIdx.z the element (the TPU
 // kernel's flattened (batch * row tiles) grid); the geometry depends on
 // the plane alone, so an element equals its 2-D launch.
+//
+// Device control (tpuflow_warp_round, the pyramidal driver's round): the
+// reference runs a level's rounds in a lax.while_loop and picks the band
+// by lax.switch, both on the device (tpuflow/flow/pyramidal.py:39-132,
+// :169-199). Here every round is launched, and each block first reads two
+// words of device memory: the element's converged latch (set: the round
+// is skipped, and the block returns before any load, leaving `out` as it
+// was) and the band index, which picks max_disp_v from the ladder passed
+// as launch arguments. Both are read before the band's window is staged,
+// since its rows depend on the band. Two forms of the switch:
+//   (i)  one launch, shared memory sized for the ladder's widest band and
+//        the window's rows from the band read (the grid does not depend on
+//        the band);
+//   (ii) one launch per candidate band, each sized for its own band, whose
+//        blocks return at once unless the index read is theirs: the
+//        switch's own form.
+// Either leaves every output bit as the host-int band's launch gives it.
 
 #include "warp.cuh"
 
@@ -90,11 +107,21 @@ template <int kPacking, bool kClamp, bool kStaged, int kTileW, int kRows, int kT
 __global__ void __launch_bounds__(kThreads)
 warp_tile_kernel(const float* __restrict__ image, const float* __restrict__ flow_u,
                  const float* __restrict__ flow_v, float* __restrict__ out, int height,
-                 int width, int max_disp, int max_disp_v, int vec) {
+                 int width, int max_disp, int mdv_arg, int vec, const Control ctl) {
   constexpr int kRowStep = kThreads / kTileW;  // rows a pass of the block
   constexpr int kPasses = kRows / kRowStep;    // outputs a thread
   static_assert(kThreads % kTileW == 0 && kRows % kRowStep == 0, "whole rows a pass");
   extern __shared__ __align__(16) float tile[];
+
+  // 0. Device control: a skipped round writes nothing; the band comes
+  // from the ladder at the index in device memory.
+  if (ctl.latch != nullptr && ctl.latch[blockIdx.z] != 0) return;
+  int max_disp_v = mdv_arg;
+  if (ctl.band != nullptr) {
+    const int idx = min(max(*ctl.band, 0), ctl.n_ladder - 1);
+    if (ctl.only >= 0 && idx != ctl.only) return;
+    max_disp_v = ladder_at(ctl.ladder, idx);
+  }
 
   const int col = threadIdx.x % kTileW, row = threadIdx.x / kTileW;
   const int x_first = blockIdx.x * kTileW, y_first = blockIdx.y * kRows;
@@ -207,8 +234,9 @@ struct Args {
   const float* u;
   const float* v;
   float* out;
-  int batch, height, width, max_disp, max_disp_v;
+  int batch, height, width, max_disp, max_disp_v;  // max_disp_v sizes the window
   int vec;  // kVecImage | kVecFlow
+  Control ctl;
 };
 
 template <int kPacking, bool kClamp, bool kStaged, int kTileW, int kRows, int kThreads>
@@ -221,7 +249,7 @@ static int launch(const Args& a, cudaStream_t s) {
   const dim3 grid((a.width + kTileW - 1) / kTileW, (a.height + kRows - 1) / kRows, a.batch);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;  // gridDim.y
   kernel<<<grid, kThreads, smem, s>>>(a.img, a.u, a.v, a.out, a.height, a.width, a.max_disp,
-                                      a.max_disp_v, a.vec);
+                                      a.max_disp_v, a.vec, a.ctl);
   return (int)cudaGetLastError();
 }
 
@@ -261,9 +289,42 @@ extern "C" int tpuflow_warp_banded_as(const float* img, const float* u, const fl
   if (!valid_plane(batch, height, width, max_disp, max_disp_v))
     return (int)cudaErrorInvalidValue;
   const Args a{img, u, v, out, batch, height, width, max_disp, max_disp_v,
-               copy_flags(img, u, v, width)};
+               copy_flags(img, u, v, width), Control{}};
   return launch_any(geometry(height, width, staged), packing, clamp_flow != 0, a,
                     static_cast<cudaStream_t>(stream));
+}
+
+// One round of the pyramidal driver under device control, the flow
+// clamped: skipped where latch[b] != 0 (out untouched), the band
+// ladder[*band] (ladder[0] where band is null), as form (i) (per_band 0:
+// one launch) or (ii) (per_band 1: one launch per ladder entry). latch is
+// the int32 flag of each of the `batch` elements.
+extern "C" int tpuflow_warp_round(const float* img, const float* u, const float* v, float* out,
+                                  const int* latch, const int* band, const int* ladder,
+                                  int n_ladder, int batch, int height, int width, int max_disp,
+                                  int packing, int per_band, void* stream) {
+  if (n_ladder < 1 || n_ladder > kMaxLadder || (band == nullptr && n_ladder != 1))
+    return (int)cudaErrorInvalidValue;
+  Control ctl{latch, band, {}, n_ladder, -1};
+  int widest = 0;
+  for (int i = 0; i < n_ladder; ++i) {
+    if (ladder[i] < 0) return (int)cudaErrorInvalidValue;
+    ctl.ladder[i] = ladder[i];
+    if (ladder[i] > widest) widest = ladder[i];
+  }
+  if (!valid_plane(batch, height, width, max_disp, widest)) return (int)cudaErrorInvalidValue;
+  const Geometry g = geometry(height, width, -1);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Args a{img, u, v, out, batch, height, width, max_disp, widest, copy_flags(img, u, v, width),
+         ctl};
+  if (!per_band || band == nullptr) return launch_any(g, packing, true, a, s);
+  for (int i = 0; i < n_ladder; ++i) {
+    a.max_disp_v = ladder[i];
+    a.ctl.only = i;
+    const int err = launch_any(g, packing, true, a, s);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 // The warp with the block its plane's size chooses.

@@ -18,6 +18,32 @@ constexpr int kMaxDevices = 64;
 constexpr int kVecImage = 1;
 constexpr int kVecFlow = 2;
 
+// Longest band ladder a round takes (the adaptive configs' have 2 or 3).
+constexpr int kMaxLadder = 8;
+
+// A round's device control (warp.cu): the latch of each batch element
+// (nonzero: skip; null: never), the band index in device memory (null:
+// the launch's max_disp_v) into the ladder, and, for the switch's
+// per-band form, the one ladder index this launch serves (-1: any).
+struct Control {
+  const int* latch;
+  const int* band;
+  int ladder[kMaxLadder];
+  int n_ladder;
+  int only;
+};
+
+// ladder[i] with every index static: an index computed at run time into a
+// kernel parameter's array makes the compiler copy the whole struct to
+// local memory in every thread.
+template <class T>
+__device__ __forceinline__ T ladder_at(const T (&ladder)[kMaxLadder], int i) {
+  T v = ladder[0];
+#pragma unroll
+  for (int k = 1; k < kMaxLadder; ++k) v = k == i ? ladder[k] : v;
+  return v;
+}
+
 // Staged columns left of a block's first output column: md + 1, rounded up
 // to a 16-byte chunk (the first column is a multiple of the block width,
 // so the window starts on a chunk).

@@ -13,7 +13,8 @@ two reports line up row for row:
   the bytes model and its share of the card's DRAM peak;
 - ``pyramidal total (fast)``: ms per frame of bench.py's streaming loop on
   noise frames (alternating frames, the pyramid carried, each frame
-  perturbed by the carried u and v), host clock around the loop, ending in
+  perturbed by the carried u and v), each step one CUDA graph replay
+  (``flow.graphed``), host clock around the loop, ending in
   ``torch.cuda.synchronize()``; the median of three runs, all three kept;
 - ``pyramidal total (benign)``, adaptive-band configs only: the same loop
   on the natural mountain-texture pair with 2 px horizontal motion (the
@@ -40,7 +41,7 @@ import torch
 from tpuflow_torch.core import ops
 from tpuflow_torch.core.config import PYRAMID_CONFIGS, PyramidConfig
 from tpuflow_torch.eval.timing import card_label, device_ms, require_cuda, resolve_device
-from tpuflow_torch.flow import pyramidal
+from tpuflow_torch.flow import graphed, pyramidal
 from tpuflow_torch.kernels import lk, torch_ref, warp
 
 # NVIDIA H100 SXM HBM3 peak (data sheet), for the roofline share.
@@ -81,20 +82,27 @@ def stream_ms_per_frame(prev: torch.Tensor, curr: torch.Tensor, cfg: PyramidConf
     """ms per frame of bench.py's streaming loop, one reading per run: each
     iteration streams ``curr`` then ``prev``, each perturbed by 1e-9 times
     the carried u and v, the new frame's pyramid carried to the next step.
-    Host clock around each run, ending in a device synchronize."""
+    On the card the step is one CUDA graph replay (``flow.graphed``, as the
+    reference jits the loop); on the CPU the eager driver. Host clock
+    around each run, ending in a device synchronize."""
     pyr = torch_ref.build_gaussian_pyramid(prev, cfg.levels, cfg.scale_factor)
     u = torch.zeros_like(prev)
     v = torch.zeros_like(prev)
+    if prev.device.type == "cuda":
+        step = graphed.GraphedStream(pyr, cfg).step
+    else:
+        def step(frame: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+            nonlocal pyr
+            fu, fv, pyr = pyramidal.lucas_kanade_pyramidal_step(pyr, frame, cfg, backend="cuda")
+            return fu, fv
 
     def run(n: int) -> float:
-        nonlocal pyr, u, v
+        nonlocal u, v
         _sync(prev.device)
         t0 = time.perf_counter()
         for _ in range(n):
-            u1, v1, pyr = pyramidal.lucas_kanade_pyramidal_step(
-                pyr, curr + (u + v) * 1e-9, cfg, backend="cuda")
-            u, v, pyr = pyramidal.lucas_kanade_pyramidal_step(
-                pyr, prev + (u1 + v1) * 1e-9, cfg, backend="cuda")
+            u1, v1 = step(curr + (u + v) * 1e-9)
+            u, v = step(prev + (u1 + v1) * 1e-9)
         _sync(prev.device)
         return (time.perf_counter() - t0) * 1e3 / (2 * n)
 

@@ -4,8 +4,10 @@ from tpuflow_torch.flow.pyramidal import (
     lucas_kanade_pyramidal_from_pyramids,
     lucas_kanade_pyramidal_step,
 )
+from tpuflow_torch.flow.graphed import GraphedStream
 
 __all__ = [
+    "GraphedStream",
     "lucas_kanade_single_scale",
     "lucas_kanade_pyramidal",
     "lucas_kanade_pyramidal_from_pyramids",

@@ -11,10 +11,25 @@ one fused refine kernel (K3 relaxed order, K5 exact order), which launch
 their CUDA kernels for CUDA tensors and run their plain PyTorch versions
 for CPU tensors (``kernels.warp``, ``kernels.lk``).
 
-Two kinds of host read keep the JAX control flow exactly: the early-exit
-flag is read once per round (the ``lax.while_loop`` condition), and with
-an adaptive band ladder the band index once per level (the ``lax.switch``
-operand). Both are counted in ``counters``.
+The fast path keeps the reference's control flow on the device and reads
+nothing to the host. The reference runs a level's rounds in a
+``lax.while_loop`` whose condition is ``i < iterations & ~converged`` and
+picks the adaptive band with ``lax.switch``. Here each level launches all
+``cfg.iterations`` rounds, and each round's kernels read the level's
+converged latch and the band index from device memory: a round after
+convergence passes the flow through bit for bit (``warp.warp_round``,
+``lk.refine_round``), the refine kernel latches its own sums, and the band
+index from ``_select_band_index`` stays a device tensor. The rounds run at
+each level are counted on the device (``counters.level_rounds``, read by a
+caller after the frame if it wants them). So one step is a fixed sequence
+of launches, which ``flow.graphed`` captures as a CUDA graph; on CPU
+tensors the plain versions run the same driver.
+
+The parity path keeps the reference's control flow with host reads: the
+early-exit flag is read once per round (the ``lax.while_loop`` condition),
+and with ``rtl_clamp`` and an adaptive band ladder the band index once per
+level (the ``lax.switch`` operand). Both are counted in ``counters``; the
+fast path leaves them at 0.
 """
 
 from __future__ import annotations
@@ -34,13 +49,18 @@ class Counters:
 
     convergence_reads: int = 0  # early-exit flags read to the host
     band_reads: int = 0  # adaptive band indices read to the host
-    # Rounds run at each level by the latest solve, coarsest level first.
+    # Rounds run at each level by the latest parity-path solve, coarsest
+    # level first.
     level_iterations: list[int] = dataclasses.field(default_factory=list)
+    # The same for the latest fast-path solve: an int32 (levels,) tensor on
+    # the solve's device, written by the kernels (never read here).
+    level_rounds: torch.Tensor | None = None
 
     def reset(self) -> None:
         self.convergence_reads = 0
         self.band_reads = 0
         self.level_iterations = []
+        self.level_rounds = None
 
 
 counters = Counters()
@@ -67,11 +87,14 @@ def _refine_level(
     rtl_clamp: bool = False,
     finest: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """Iterative warp -> residual LK -> accumulate at one level.
+    """Iterative warp -> residual LK -> accumulate at one level, with the
+    early exit read to the host.
 
     The residual is always accumulated; the loop then exits once both
     mean |du| and mean |dv| are below the convergence threshold. Returns
-    the refined flow and the number of rounds run.
+    the refined flow and the number of rounds run. The parity path's
+    level; with ``backend="cuda"`` the tiled path's replicated levels
+    (``sharding.tiled_pyramidal``), whose host reads are still its own.
     """
     n_px = img_prev.shape[0] * img_prev.shape[1]
     thr = cfg.convergence_threshold
@@ -134,6 +157,40 @@ def _select_band_index(
         frac = (interior > (b - 1.0)).to(torch.float32).sum() / n
         idx = idx + (frac > frac_threshold).to(torch.int32)
     return idx
+
+
+def _refine_level_device(
+    img_prev: torch.Tensor,
+    img_curr: torch.Tensor,
+    flow_u: torch.Tensor,
+    flow_v: torch.Tensor,
+    cfg: PyramidConfig,
+    ctrl: torch.Tensor,
+    band: torch.Tensor | None,
+    finest: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``cfg.iterations`` rounds of the fast path at one level under device
+    control: round r does work only if the level had not converged before
+    it (``ctrl``'s latch, the reference's while-loop condition); the band
+    is ``adaptive_v_bands[band]``, or the static band where ``band`` is
+    None. ``ctrl`` is this level's (3,) int32 latch, ticket and round count,
+    all 0 on entry."""
+    ladder = cfg.adaptive_v_bands if band is not None else (cfg.max_disp_v_effective,)
+    packing = _warp_packing(cfg, finest)
+    # Round 0 always runs (the latch starts clear), so a skipped round's
+    # kept ``warped`` is never read before it is written.
+    warped = torch.empty_like(img_curr)
+    u, v = flow_u, flow_v
+    for _ in range(cfg.iterations):
+        warp.warp_round(img_curr, u, v, warped, ctrl[0], max_disp=cfg.max_disp, ladder=ladder,
+                        band=band, packing=packing)
+        u, v, _ = lk.refine_round(
+            img_prev, warped, u, v, ctrl, ladder=tuple(float(b) for b in ladder), band=band,
+            window_size=cfg.window_size, det_threshold=cfg.det_threshold,
+            max_disp=float(cfg.max_disp), convergence_threshold=cfg.convergence_threshold,
+            relaxed_order=cfg.relaxed_order,
+        )
+    return u, v
 
 
 def _refine_level_adaptive(
@@ -207,12 +264,14 @@ def lucas_kanade_pyramidal_from_pyramids(
     first), so a stream can reuse each frame's pyramid."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "cuda":
+        return _from_pyramids_device(pyr_prev, pyr_curr, cfg, return_levels)
     flow_u = torch.zeros_like(pyr_prev[0])
     flow_v = torch.zeros_like(pyr_prev[0])
 
-    # The adaptive band exists only where the flow is clamped (fast path or
+    # The adaptive band exists only where the flow is clamped (here with
     # rtl_clamp), and only at levels with a coarse solve to derive it from.
-    adaptive = cfg.adaptive_v_bands is not None and (backend == "cuda" or rtl_clamp)
+    adaptive = cfg.adaptive_v_bands is not None and rtl_clamp
 
     levels = []
     iterations = []
@@ -231,6 +290,35 @@ def lucas_kanade_pyramidal_from_pyramids(
             levels.append((flow_u, flow_v))
     counters.level_iterations = iterations
 
+    if return_levels:
+        return flow_u, flow_v, levels
+    return flow_u, flow_v
+
+
+def _from_pyramids_device(pyr_prev, pyr_curr, cfg: PyramidConfig, return_levels: bool):
+    """The fast path's coarse-to-fine solve under device control: no host
+    read, the same launches every frame."""
+    dev = pyr_prev[0].device
+    flow_u = torch.zeros_like(pyr_prev[0])
+    flow_v = torch.zeros_like(pyr_prev[0])
+    # Each level's latch, ticket and round count, cleared once a solve.
+    ctrl = torch.zeros((cfg.levels, lk.CTRL_ROWS), dtype=torch.int32, device=dev)
+    margin = 2 * (cfg.max_disp + cfg.window_size)
+    levels = []
+    for level in range(cfg.levels):
+        img_prev = pyr_prev[level]
+        band = None
+        if level > 0:
+            flow_u, flow_v = torch_ref.upsample_flow(flow_u, flow_v, tuple(img_prev.shape))
+            if cfg.adaptive_v_bands is not None:
+                band = _select_band_index(flow_v, cfg.adaptive_v_bands, cfg.adaptive_v_frac,
+                                          margin)
+        flow_u, flow_v = _refine_level_device(
+            img_prev, pyr_curr[level], flow_u, flow_v, cfg, ctrl[level], band,
+            finest=level == cfg.levels - 1)
+        if return_levels:
+            levels.append((flow_u, flow_v))
+    counters.level_rounds = ctrl[:, 2]
     if return_levels:
         return flow_u, flow_v, levels
     return flow_u, flow_v

@@ -30,7 +30,16 @@ def reset_launch_counts() -> None:
             counts[name] = 0
 
 
+def add_launch_counts(delta: dict[str, int]) -> None:
+    """Add launches made without their wrappers: a CUDA graph's replay
+    adds the launches its capture recorded."""
+    for name, n in delta.items():
+        counts = warp.launch_counts if name in warp.launch_counts else lk.launch_counts
+        counts[name] += n
+
+
 __all__ = [
+    "add_launch_counts",
     "build_gaussian_pyramid",
     "compute_gradients",
     "launch_counts",

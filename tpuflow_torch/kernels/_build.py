@@ -45,6 +45,10 @@ _SIGNATURES = {
     # as tpuflow_warp_banded, with the block forced before the stream:
     # staged (1), gathering (0) or by plane size (-1); for measurement
     "tpuflow_warp_banded_as": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # img, u, v, out, latch, band, ladder (host i32[n]), n_ladder, batch,
+    # height, width, max_disp, packing, per_band, stream: one round under
+    # device control
+    "tpuflow_warp_round": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # as tpuflow_warp_banded, with the rows a walk takes before the stream
     # (the walk ablation)
     "tpuflow_warp_walk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -53,6 +57,12 @@ _SIGNATURES = {
     # max_disp_v, stream
     "tpuflow_lk_refine": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+    ),
+    # prev, warped, u, v, ctrl, band, ladder (host f32[n]), n_ladder, u_out,
+    # v_out, part_du, part_dv, sums, batch, height, width, window, relaxed,
+    # det_threshold, max_disp, thr, stream
+    "tpuflow_lk_refine_round": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
     "tpuflow_lk_refine_mxu": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,

@@ -20,6 +20,15 @@ both f32 orders and for windows 3, 5 and 7:
   JAX package honours the flag only on its batched route; here it holds
   for (H, W) planes too.
 
+``refine_round`` is the refine kernel (K3, K5) as one round of the
+pyramidal driver under device control, with its plain version
+``refine_round_ref``: the round reads the level's converged latch (set:
+the round is skipped and u, v pass through bit for bit) and the band index
+from device memory, and the kernel itself sums its block partials in a
+fixed order, latches ``sdu / n_px < thr & sdv / n_px < thr`` and counts
+the round, so the driver reads nothing to the host and launches nothing
+else.
+
 Both take the reference's parameters, in its order and with its defaults;
 ``tile_rows`` is accepted and ignored (the TPU's tiling). Each takes one
 (H, W) plane or a (B, H, W) batch (the TPU kernels' batched entries,
@@ -46,7 +55,7 @@ import numpy as np
 import torch
 
 from tpuflow_torch.core import ops
-from tpuflow_torch.kernels import _build
+from tpuflow_torch.kernels import _build, torch_ref
 
 WINDOWS = (3, 5, 7)
 
@@ -350,6 +359,135 @@ def lucas_kanade_refine(
         sums = torch.stack(sums, dim=1)
         return u_out, v_out, sums[0], sums[1]
     return u_out, v_out, sums[0][0], sums[0][1]
+
+
+CTRL_ROWS = 3  # a round's control: latch, ticket, round count
+MAX_LADDER = 8  # csrc/lk_tile.cuh kMaxLadder
+
+
+def refine_blocks(height: int, width: int, window_size: int) -> int:
+    """Block partials of one plane's refine launch (the CUDA kernel's
+    grid; needs the library)."""
+    return _build.load().tpuflow_lk_refine_blocks(height, width, window_size)
+
+
+def _check_round(planes, ctrl, band, ladder, window_size, parts) -> torch.device:
+    _check_window(window_size)
+    _check_planes(planes, "frames and flow")
+    batch = planes[0].shape[0] if planes[0].ndim == 3 else 1
+    if not 1 <= len(ladder) <= MAX_LADDER or (band is None and len(ladder) != 1):
+        raise ValueError(f"a band ladder holds 1..{MAX_LADDER} bands, and several need a "
+                         f"band index; got {ladder}")
+    want = (CTRL_ROWS, batch) if planes[0].ndim == 3 else (CTRL_ROWS,)
+    if ctrl.dtype != torch.int32 or tuple(ctrl.shape) != want:
+        raise ValueError(f"ctrl must be an int32 tensor of shape {want} (latch, ticket, rounds)")
+    if band is not None and (band.dtype != torch.int32 or band.numel() != 1):
+        raise ValueError("band must be a one-element int32 tensor")
+    tensors = (*planes, ctrl) + (() if band is None else (band,))
+    dev = _device_of(tensors + (() if parts is None else (parts,)))
+    return dev
+
+
+def refine_round_ref(
+    frame_prev: torch.Tensor,
+    warped: torch.Tensor,
+    flow_u: torch.Tensor,
+    flow_v: torch.Tensor,
+    ctrl: torch.Tensor,
+    *,
+    ladder: tuple[float, ...],
+    band: torch.Tensor | None = None,
+    window_size: int = 5,
+    det_threshold: float = 1e-4,
+    max_disp: float = 8.0,
+    convergence_threshold: float = 0.01,
+    relaxed_order: bool = False,
+    parts: torch.Tensor | None = None,
+):
+    """Plain PyTorch version of ``refine_round``: the same outputs and the
+    same updates of ``ctrl``, the sums over the whole plane (``parts`` is
+    the kernel's and is left alone)."""
+    batched = frame_prev.ndim == 3
+    mdv = torch_ref.ladder_value(band, ladder, torch.float32, frame_prev.device)
+    du, dv, _, _ = _lk_solve_ref(frame_prev, warped, window_size, det_threshold, relaxed_order)
+    u_next = flow_u.clamp(-max_disp, max_disp) + du
+    v_next = flow_v.clamp(-mdv, mdv) + dv
+    latch = ctrl[0]
+    ran = latch == 0
+    skip = (~ran).reshape((-1, 1, 1) if batched else ())
+    u_out = torch.where(skip, flow_u, u_next)
+    v_out = torch.where(skip, flow_v, v_next)
+    sdu, sdv = du.abs().sum(dim=(-2, -1)), dv.abs().sum(dim=(-2, -1))
+    n_px = frame_prev.shape[-2] * frame_prev.shape[-1]
+    # f32 on the device, as tpuflow's sdu / n_px < thr.
+    now = (sdu / n_px < convergence_threshold) & (sdv / n_px < convergence_threshold)
+    sums = torch.where(ran, torch.stack([sdu, sdv]), torch.zeros((), device=sdu.device))
+    ctrl[2] += ran.to(torch.int32)
+    ctrl[0] = torch.where(ran & now, torch.ones_like(latch), latch)
+    return u_out, v_out, sums
+
+
+def refine_round(
+    frame_prev: torch.Tensor,
+    warped: torch.Tensor,
+    flow_u: torch.Tensor,
+    flow_v: torch.Tensor,
+    ctrl: torch.Tensor,
+    *,
+    ladder: tuple[float, ...],
+    band: torch.Tensor | None = None,
+    window_size: int = 5,
+    det_threshold: float = 1e-4,
+    max_disp: float = 8.0,
+    convergence_threshold: float = 0.01,
+    relaxed_order: bool = False,
+    parts: torch.Tensor | None = None,
+):
+    """One refine round under device control: the CUDA kernel for CUDA
+    tensors (K3 relaxed order, K5 exact order), the plain version for CPU
+    tensors. Returns ``(u_next, v_next, sums)``, ``sums`` the (2,) or
+    (2, B) sum|du|, sum|dv| (0 for a skipped round).
+
+    ``ctrl`` is the round's int32 control, (3,) for a plane or (3, B) for a
+    batch: row 0 the converged latch (set: the round is skipped, u, v copied
+    through bit for bit; else the round's ``sdu / n_px < thr & sdv / n_px <
+    thr`` is ORed in), row 1 the kernel's ticket counter (0 between
+    launches), row 2 the rounds run, each updated in place on the device.
+    ``max_disp_v`` is ``ladder[band]`` (``band`` a one-element int32
+    tensor; None takes ``ladder[0]``). ``parts``, optional, (2, B,
+    ``refine_blocks(H, W, window)``) float32, receives the kernel's block
+    partials (CUDA only)."""
+    planes = (frame_prev, warped, flow_u, flow_v)
+    dev = _check_round(planes, ctrl, band, ladder, window_size, parts)
+    kw = dict(ladder=ladder, band=band, window_size=window_size, det_threshold=det_threshold,
+              max_disp=max_disp, convergence_threshold=convergence_threshold,
+              relaxed_order=relaxed_order)
+    if dev.type == "cpu":
+        return refine_round_ref(*planes, ctrl, **kw)
+
+    lib = _build.load()
+    h, w = frame_prev.shape[-2:]
+    batch = frame_prev.shape[0] if frame_prev.ndim == 3 else 1
+    n_blocks = lib.tpuflow_lk_refine_blocks(h, w, window_size)
+    if parts is None:
+        parts = torch.empty((2, batch, n_blocks), dtype=torch.float32, device=dev)
+    elif parts.shape != (2, batch, n_blocks) or parts.dtype != torch.float32:
+        raise ValueError(f"parts must be a float32 tensor of shape {(2, batch, n_blocks)}")
+    u_out = torch.empty_like(flow_u)
+    v_out = torch.empty_like(flow_v)
+    sums = torch.empty((2, batch), dtype=torch.float32, device=dev)
+    bands = (ctypes.c_float * len(ladder))(*ladder)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.tpuflow_lk_refine_round(
+        frame_prev.data_ptr(), warped.data_ptr(), flow_u.data_ptr(), flow_v.data_ptr(),
+        ctrl.data_ptr(), None if band is None else band.data_ptr(), bands, len(ladder),
+        u_out.data_ptr(), v_out.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
+        sums.data_ptr(), batch, h, w, window_size, int(relaxed_order), float(det_threshold),
+        float(max_disp), float(convergence_threshold), stream)
+    name = "lk_refine" if relaxed_order else "lk_refine_exact"
+    _build.check(lib, code, name)
+    launch_counts[name] += 1
+    return u_out, v_out, sums if frame_prev.ndim == 3 else sums[:, 0]
 
 
 def lucas_kanade_fused_ref(

@@ -125,3 +125,18 @@ def build_gaussian_pyramid(
         levels.append(current)
     levels.reverse()
     return levels
+
+
+def ladder_value(band: torch.Tensor | None, ladder: tuple, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """``ladder[band]`` as a 0-d tensor on ``device``, chosen on the device
+    (no host read; the index clamped into the ladder, as the kernels
+    clamp it); ``ladder[0]`` where ``band`` is None. The plain versions'
+    form of the band a device-controlled round reads."""
+    out = torch.full((), ladder[0], dtype=dtype, device=device)
+    if band is None:
+        return out
+    idx = band.clamp(0, len(ladder) - 1)
+    for i in range(1, len(ladder)):
+        out = torch.where(idx == i, torch.full((), ladder[i], dtype=dtype, device=device), out)
+    return out

@@ -34,6 +34,15 @@ clamped): ``packed_u8`` / ``packed_u16`` choose the packing, and
 ``tile_rows`` is accepted and ignored (the TPU's tiling). The keyword-only
 ``packing`` names the packing instead; given with a packed flag that
 disagrees, it raises.
+
+``warp_round`` (and ``warp_round_ref``) is the same warp, flow clamped, as
+one round of the pyramidal driver under device control: it reads the
+round's skip flag (the level's converged latch) and the band index from
+device memory, so the driver never reads either to the host. A skipped
+round leaves ``out`` as it was. The band switch has two forms on the card
+(``csrc/warp.cu``): one launch sized for the ladder's widest band
+(``per_band=False``, the default, measured faster) or one launch per
+candidate band, each exiting unless its band is the one chosen.
 """
 
 from __future__ import annotations
@@ -42,7 +51,7 @@ import ctypes
 
 import torch
 
-from tpuflow_torch.kernels import _build
+from tpuflow_torch.kernels import _build, torch_ref
 
 # Packing name -> the kernel's template value.
 PACKINGS = {"exact": 0, "u8": 8, "u16": 16}
@@ -53,6 +62,11 @@ launch_counts = {name: 0 for name in _COUNTER.values()}
 
 # Widest band, either way (the TPU kernel's limit).
 MAX_BAND = 31
+# Longest band ladder a round takes (csrc/warp.cuh kMaxLadder).
+MAX_LADDER = 8
+# The band switch's form on the card: one launch for the widest band
+# (False) or one per candidate band (True); chip_smoke.py times both.
+PER_BAND = False
 # The CUDA kernel's planes have sides under 2**24, where x + max_disp and
 # y + max_disp_v are exact floats.
 MAX_SIDE = 1 << 24
@@ -97,23 +111,26 @@ def warp_banded_ref(
     max_disp: int = 8,
     tile_rows: int | None = None,
     clamp_flow: bool = False,
-    max_disp_v: int | None = None,
+    max_disp_v: int | torch.Tensor | None = None,
     packed_u8: bool = False,
     packed_u16: bool = False,
     *,
     packing: str | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the banded warp kernel, for (H, W) planes
-    or (B, H, W) batches."""
+    or (B, H, W) batches. ``max_disp_v`` may be a 0-d integer tensor on
+    the image's device (a band read from the device, never to the host)."""
     packing = resolve_packing(packed_u8, packed_u16, packing)
     if max_disp_v is None:
         max_disp_v = max_disp
     h, w = image.shape[-2:]
     dev = image.device
+    mdv_f = (max_disp_v.to(torch.float32) if isinstance(max_disp_v, torch.Tensor)
+             else float(max_disp_v))
     u, v = flow_u, flow_v
     if clamp_flow:
         u = u.clamp(-float(max_disp), float(max_disp))
-        v = v.clamp(-float(max_disp_v), float(max_disp_v))
+        v = v.clamp(-mdv_f, mdv_f)
     xx_i = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
     yy_i = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
     xf = xx_i.to(torch.float32) + u
@@ -229,4 +246,88 @@ def warp_banded(
     name = _COUNTER[packing]
     _build.check(lib, code, name)
     launch_counts[name] += 1
+    return out
+
+
+def _check_round(image, flow_u, flow_v, out, latch, band, ladder, max_disp, packing) -> None:
+    if not 1 <= len(ladder) <= MAX_LADDER:
+        raise ValueError(f"a band ladder holds 1..{MAX_LADDER} bands, got {ladder}")
+    if band is None and len(ladder) != 1:
+        raise ValueError("a ladder of several bands needs a band index")
+    check_args(image, flow_u, flow_v, max_disp, max(ladder), packing, True)
+    if min(ladder) < 0:
+        raise ValueError(f"banded warp supports bands of 0..{MAX_BAND} px")
+    batch = image.shape[0] if image.ndim == 3 else 1
+    if out.shape != image.shape or out.dtype != torch.float32 or out.device != image.device:
+        raise ValueError("out must be a float32 tensor of the image's shape and device")
+    if latch.dtype != torch.int32 or latch.numel() != batch or latch.device != image.device:
+        raise ValueError("latch must hold one int32 flag per plane on the image's device")
+    if band is not None and (band.dtype != torch.int32 or band.numel() != 1
+                             or band.device != image.device):
+        raise ValueError("band must be a one-element int32 tensor on the image's device")
+    if image.device.type == "cuda" and not (out.is_contiguous() and latch.is_contiguous()):
+        raise ValueError("the CUDA warp needs contiguous tensors")
+
+
+def warp_round_ref(
+    image: torch.Tensor,
+    flow_u: torch.Tensor,
+    flow_v: torch.Tensor,
+    out: torch.Tensor,
+    latch: torch.Tensor,
+    *,
+    max_disp: int,
+    ladder: tuple[int, ...],
+    band: torch.Tensor | None = None,
+    packing: str = "exact",
+    per_band: bool = PER_BAND,
+) -> torch.Tensor:
+    """Plain PyTorch version of ``warp_round``: the clamped warp at band
+    ``ladder[band]`` written into ``out`` where ``latch`` is 0, ``out``
+    kept where it is set (``per_band`` names the kernel's form and changes
+    nothing here)."""
+    mdv = torch_ref.ladder_value(band, ladder, torch.int32, image.device)
+    warped = warp_banded_ref(image, flow_u, flow_v, max_disp, clamp_flow=True, max_disp_v=mdv,
+                             packing=packing)
+    skip = (latch != 0).reshape((-1, 1, 1) if image.ndim == 3 else ())
+    out.copy_(torch.where(skip, out, warped))
+    return out
+
+
+def warp_round(
+    image: torch.Tensor,
+    flow_u: torch.Tensor,
+    flow_v: torch.Tensor,
+    out: torch.Tensor,
+    latch: torch.Tensor,
+    *,
+    max_disp: int,
+    ladder: tuple[int, ...],
+    band: torch.Tensor | None = None,
+    packing: str = "exact",
+    per_band: bool = PER_BAND,
+) -> torch.Tensor:
+    """One round's warp under device control, into ``out``: the flow
+    clamped to ``max_disp`` and ``ladder[band]`` (``band`` a one-element
+    int32 tensor on the device; None takes ``ladder[0]``), skipped where
+    the int32 ``latch`` of a plane is set. The CUDA kernel for CUDA
+    tensors (one launch, or with ``per_band`` one per ladder entry), the
+    plain version for CPU tensors. Neither reads a flag to the host."""
+    _check_round(image, flow_u, flow_v, out, latch, band, ladder, max_disp, packing)
+    if image.device.type == "cpu":
+        return warp_round_ref(image, flow_u, flow_v, out, latch, max_disp=max_disp,
+                              ladder=ladder, band=band, packing=packing)
+
+    lib = _build.load()
+    h, w = image.shape[-2:]
+    batch = image.shape[0] if image.ndim == 3 else 1
+    stream = torch.cuda.current_stream(image.device).cuda_stream
+    bands = (ctypes.c_int * len(ladder))(*ladder)
+    code = lib.tpuflow_warp_round(
+        image.data_ptr(), flow_u.data_ptr(), flow_v.data_ptr(), out.data_ptr(),
+        latch.data_ptr(), None if band is None else band.data_ptr(), bands, len(ladder),
+        batch, h, w, max_disp, PACKINGS[packing], int(per_band), stream)
+    name = _COUNTER[packing]
+    _build.check(lib, code, name)
+    launch_counts[name] += len(ladder) if per_band and band is not None else 1
     return out

@@ -3,9 +3,15 @@ forward-backward culling, loss detection and fixed-slot keyframe
 reseeding, with no host read of its own.
 
 Counterpart of ``tpuflow.vo.device_loop``. The reference jits the step
-into one device program and ``lax.scan``s chunks of frames; here the step
-is eager PyTorch on the frames' device, and a chunk is a loop over frames
-that are already there. Two things keep it free of host reads:
+into one device program and ``lax.scan``s chunks of frames. Here ``step``
+is eager PyTorch on the frames' device, and ``scan_steps`` replays it as a
+CUDA graph on the card (``backend="cuda"``, no mesh): the step is captured
+once per frame shape and device for each front end (its config, fb check
+and grid), its ``FrontEndState`` updated in place inside the graph, and
+each replay's ``ObsRecord`` copied out. Elsewhere (the CPU, the parity
+backend, whose flow reads its early exit to the host, and a mesh, whose
+collectives keep the ranks in step) a chunk is a loop over eager steps.
+Two things keep the step free of host reads:
 
 - every shape is static: the track table is fixed-capacity, reseeding
   writes dead slots by mask, the loss log is a fixed-slot write, and new
@@ -16,9 +22,9 @@ that are already there. Two things keep it free of host reads:
   select writes nothing and mints no id. The result is bit-identical to
   the cond in every case.
 
-The flow itself (``flow.pyramidal``) reads its early-exit flag and band
-index to the host as the reference's ``lax.while_loop`` / ``lax.switch``
-would; those reads are its own and are counted in ``pyramidal.counters``.
+The fast path's flow (``flow.pyramidal``, ``backend="cuda"``) keeps its
+early exit and band on the device too; the parity path's flow reads them
+to the host, and those reads are counted in ``pyramidal.counters``.
 
 The previous frame is carried as its Gaussian pyramid, coarse to fine:
 each frame's pyramid is built once and serves as the current pair's
@@ -36,7 +42,9 @@ from typing import NamedTuple
 import torch
 
 from tpuflow_torch.core.config import PyramidConfig
+from tpuflow_torch.flow import graphed
 from tpuflow_torch.flow.pyramidal import lucas_kanade_pyramidal_from_pyramids
+from tpuflow_torch.kernels import add_launch_counts
 from tpuflow_torch.flow.single_scale import BACKENDS
 from tpuflow_torch.kernels import torch_ref
 from tpuflow_torch.sharding.tiled_pyramidal import tiled_lucas_kanade_pyramidal
@@ -71,6 +79,55 @@ class ObsRecord(NamedTuple):
     lm: torch.Tensor          # (N,) i32
     alive: torch.Tensor       # (N,) bool
     n_landmarks: torch.Tensor  # () i32 counter after this keyframe's reseed
+
+
+def _tensors(state: FrontEndState) -> list[torch.Tensor]:
+    """The state's tensors, the carry's levels first."""
+    return [*state.carry, *state[1:]]
+
+
+def _copy_state(dst: FrontEndState, src: FrontEndState) -> None:
+    for d, t in zip(_tensors(dst), _tensors(src)):
+        d.copy_(t)
+
+
+def _clone_state(state: FrontEndState) -> FrontEndState:
+    return FrontEndState(tuple(t.clone() for t in state.carry), *(t.clone() for t in state[1:]))
+
+
+class _GraphedStep:
+    """A front end's step captured once as a CUDA graph for one frame
+    shape and device: the static state is advanced in place by copies
+    captured in the graph, the frame goes in by a device-to-device copy,
+    and each replay's ObsRecord is copied out."""
+
+    def __init__(self, fe: FrontEnd, state: FrontEndState, frame: torch.Tensor) -> None:
+        self._state = _clone_state(state)
+        self._frame = torch.zeros(frame.shape, dtype=torch.float32, device=frame.device)
+
+        def body():
+            new_state, obs = fe.step(self._state, self._frame)
+            _copy_state(self._state, new_state)
+            return obs
+
+        self._graph, self._obs, self.launches = graphed.capture(
+            body, torch.cuda.Stream(frame.device))
+
+    def run(self, state: FrontEndState, frames: torch.Tensor
+            ) -> tuple[FrontEndState, ObsRecord]:
+        """Step through a (T, H, W) chunk from ``state``; returns the final
+        state and the T ObsRecords stacked, all caller-owned."""
+        _copy_state(self._state, state)
+        t = frames.shape[0]
+        out = ObsRecord(*(torch.empty((t, *f.shape), dtype=f.dtype, device=f.device)
+                          for f in self._obs))
+        for i in range(t):
+            self._frame.copy_(frames[i])
+            self._graph.replay()
+            add_launch_counts(self.launches)
+            for dst, src in zip(out, self._obs):
+                dst[i].copy_(src)
+        return _clone_state(self._state), out
 
 
 def _check_frame(frame) -> torch.Tensor:
@@ -119,6 +176,8 @@ class FrontEnd:
         # The border stripe where the dense flow is unreliable (warp fill,
         # window support and the fast path's clamp meet there).
         self.stripe = self.config.max_disp + self.config.window_size
+        # scan_steps' captured steps, by (frame shape, device).
+        self._graphs: dict[tuple, _GraphedStep] = {}
 
     def margin_for(self, h: int, w: int, for_cull: bool = True) -> int:
         """Seed/cull border margin for a frame shape: the full stripe where
@@ -245,11 +304,23 @@ class FrontEnd:
         )
         return new_state, ObsRecord(xy=xy, lm=lm, alive=alive, n_landmarks=n_lm)
 
+    def graphed(self, frames: torch.Tensor) -> bool:
+        """Whether ``scan_steps`` replays a CUDA graph for these frames: the
+        fast path on the card with no mesh."""
+        return self.backend == "cuda" and self.mesh is None and frames.device.type == "cuda"
+
     def scan_steps(
         self, state: FrontEndState, frames: torch.Tensor
     ) -> tuple[FrontEndState, ObsRecord]:
         """Step through a (T, H, W) chunk that is already on the device.
-        Returns the final state and the T ObsRecords stacked."""
+        Returns the final state and the T ObsRecords stacked. On the card
+        (see ``graphed``) each step is one replay of the step captured at
+        the first chunk of this shape; the same bits as ``step``."""
+        if self.graphed(frames):
+            key = (tuple(frames.shape[1:]), frames.device)
+            if key not in self._graphs:
+                self._graphs[key] = _GraphedStep(self, state, frames[0])
+            return self._graphs[key].run(state, frames)
         records = []
         for frame in frames:
             state, obs = self.step(state, frame)
@@ -265,8 +336,9 @@ def _shared_front_end(
     backend: str,
     config: PyramidConfig | None = None,
 ) -> FrontEnd:
-    """FrontEnds hold only their configuration, so sessions with the same
-    settings share one (``PyramidConfig`` is frozen and hashes)."""
+    """Sessions with the same settings share one FrontEnd, its configuration
+    and its captured steps (``PyramidConfig`` is frozen and hashes; a
+    captured step holds no session's state between chunks)."""
     return FrontEnd(
         grid_step=grid_step,
         keyframe_stride=keyframe_stride,
