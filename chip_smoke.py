@@ -33,12 +33,11 @@ failure raises and the script exits non-zero):
    then K1-K5 as the device-controlled rounds launch them
    (``warp.warp_round``, ``lk.refine_round``) at every level of both
    pyramids: with the band index in device memory forced to each rung of
-   the ladder (2, 3, 8), both forms of the warp's band switch ((i) one
-   launch sized for the widest band, (ii) one launch per band) and the
-   refine bit-identical to the host-int band's calls and to the plain round
-   versions, skipped rounds leaving their outputs bit-identical, the
+   the ladder (2, 3, 8), the warp (one launch sized for the widest band)
+   and the refine bit-identical to the host-int band's calls and to the
+   plain round versions, skipped rounds leaving their outputs bit-identical, the
    refine's in-kernel sums against torch.sum of its block partials and its
-   latch as torch reads those sums; each form timed beside its bound, the
+   latch as torch reads those sums; each timed beside its bound, the
    reference-signature entry's time and the launch floor;
 4. main paths: each path run with the launch counts reset just before and
    read just after. Each stream (16 frames): an eager step under torch's
@@ -518,58 +517,50 @@ def _band_indices(dev) -> list[torch.Tensor]:
 
 def check_round_warp(readings, name, curr, packing, max_disp, rng, dev, floor_ms):
     """(c), (e): the warp as one round under device control (warp.warp_round)
-    at one pyramid level. For both forms of the band switch, (i) one launch
-    sized for the widest band and (ii) one launch per band, the band index
-    in device memory forced to each rung of LADDER is bit-identical to the
-    host-int band's warp_banded and to the plain round version, and a
-    skipped round leaves ``out`` bit-identical. Then device times: each
-    form at bands 8 and 2, a skipped round and the plain round version,
-    beside the reference-signature entry, the bound and the launch floor."""
+    at one pyramid level: with the band index in device memory forced to
+    each rung of LADDER it is bit-identical to the host-int band's
+    warp_banded and to the plain round version, and a skipped round leaves
+    ``out`` bit-identical. Then device times at bands 8 and 2, a skipped
+    round and the plain round version, beside the reference-signature
+    entry, the bound and the launch floor."""
     shape = tuple(curr.shape)
     u, v = _flow(rng, shape, 9.0, dev)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     one = torch.ones((), dtype=torch.int32, device=dev)
     idx = _band_indices(dev)
     fill = _flow(rng, shape, 100.0, dev)[0]
-    for per_band in (False, True):
-        for i, band in enumerate(LADDER):
-            kw = dict(max_disp=max_disp, ladder=LADDER, band=idx[i], packing=packing,
-                      per_band=per_band)
-            got = warp.warp_round(curr, u, v, torch.empty_like(curr), zero, **kw)
-            want = warp.warp_banded(curr, u, v, max_disp=max_disp, clamp_flow=True,
-                                    max_disp_v=band, packing=packing)
-            plain = warp.warp_round_ref(curr, u, v, fill.clone(), zero, **kw)
-            skipped = warp.warp_round(curr, u, v, fill.clone(), one, **kw)
-            torch.cuda.synchronize()
-            if not (torch.equal(got, want) and torch.equal(got, plain)
-                    and torch.equal(skipped, fill)):
-                raise AssertionError(f"{name} round at {shape}, band {band}, per_band={per_band}: "
-                                     f"max |d| vs host-int band {max_abs(got, want)}, vs plain "
-                                     f"{max_abs(got, plain)}, skipped changed "
-                                     f"{max_abs(skipped, fill)}")
+    for i, band in enumerate(LADDER):
+        kw = dict(max_disp=max_disp, ladder=LADDER, band=idx[i], packing=packing)
+        got = warp.warp_round(curr, u, v, torch.empty_like(curr), zero, **kw)
+        want = warp.warp_banded(curr, u, v, max_disp=max_disp, clamp_flow=True,
+                                max_disp_v=band, packing=packing)
+        plain = warp.warp_round_ref(curr, u, v, fill.clone(), zero, **kw)
+        skipped = warp.warp_round(curr, u, v, fill.clone(), one, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, plain)
+                and torch.equal(skipped, fill)):
+            raise AssertionError(f"{name} round at {shape}, band {band}: max |d| vs host-int "
+                                 f"band {max_abs(got, want)}, vs plain {max_abs(got, plain)}, "
+                                 f"skipped changed {max_abs(skipped, fill)}")
     out = torch.empty_like(curr)
 
-    def rnd(per_band: bool, i: int, latch=zero):
+    def rnd(i: int, latch=zero):
         return lambda: warp.warp_round(curr, u, v, out, latch, max_disp=max_disp, ladder=LADDER,
-                                       band=idx[i], packing=packing, per_band=per_band)
+                                       band=idx[i], packing=packing)
 
-    t = {f"{form}_{LADDER[i]}": device_ms(rnd(pb, i))
-         for form, pb in (("one", False), ("per_band", True)) for i in (2, 0)}
-    t["skipped"] = device_ms(rnd(warp.PER_BAND, 2, one))
+    t = {f"band_{LADDER[i]}": device_ms(rnd(i)) for i in (2, 0)}
+    t["skipped"] = device_ms(rnd(2, one))
     entry_ms = device_ms(lambda: warp.warp_banded(curr, u, v, max_disp=max_disp, clamp_flow=True,
                                                   max_disp_v=8, packing=packing))
     plain_ms = device_ms(lambda: warp.warp_round_ref(curr, u, v, out, zero, max_disp=max_disp,
                                                      ladder=LADDER, band=idx[2],
                                                      packing=packing))
-    kept = "per_band" if warp.PER_BAND else "one"
-    ms = t[f"{kept}_8"]
+    ms = t["band_8"]
     print(f"[kernels] {name} round {shape[0]}x{shape[1]}: bit-exact to the host-int band and the "
-          f"plain round at bands {LADDER}, both forms, skipped rounds untouched; (i) one launch "
-          f"{t['one_8']:.4f} ms at band 8, {t['one_2']:.4f} at 2; (ii) a launch a band "
-          f"{t['per_band_8']:.4f} / {t['per_band_2']:.4f}; kept ({'ii' if warp.PER_BAND else 'i'})"
-          f" {ms:.4f} ms ({_bound_note(name, shape, ms)}); skipped {t['skipped']:.4f}; "
-          f"entry warp_banded {entry_ms:.4f}; plain round {plain_ms:.4f}; launch floor "
-          f"{floor_ms:.4f} ms")
+          f"plain round at bands {LADDER}, skipped rounds untouched; {ms:.4f} ms at band 8 "
+          f"({_bound_note(name, shape, ms)}), {t['band_2']:.4f} at 2; skipped "
+          f"{t['skipped']:.4f}; entry warp_banded {entry_ms:.4f}; plain round {plain_ms:.4f}; "
+          f"launch floor {floor_ms:.4f} ms")
     readings[name]["by_shape"][f"{shape[0]}x{shape[1]}"].update(
         round_ms=t, entry_ms=entry_ms, round_plain_ms=plain_ms)
     if "round_ms" not in readings[name]:  # the largest shape, as _record
@@ -1102,13 +1093,10 @@ _WRAPPERS = ("warp_banded", "warp_round"), ("lucas_kanade_refine", "refine_round
 
 @contextmanager
 def plain_versions():
-    """Swap each kernel wrapper for its plain PyTorch version. The front
-    ends' captured VO steps are dropped before and after, so no graph of
-    the kernels is replayed in the swap and none of the plain versions is
-    kept."""
+    """Swap each kernel wrapper for its plain PyTorch version (a captured
+    VO step is captured again where the wrappers differ from its own)."""
     saved = [(mod, name, getattr(mod, name)) for mod, names in zip((warp, lk), _WRAPPERS)
              for name in names]
-    device_loop._shared_front_end.cache_clear()
     for mod, name, _ in saved:
         setattr(mod, name, getattr(mod, name + "_ref"))
     try:
@@ -1116,7 +1104,6 @@ def plain_versions():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
-        device_loop._shared_front_end.cache_clear()
 
 
 def run_stream(a, b, config: str, n_frames: int = N_FRAMES):
@@ -1283,25 +1270,33 @@ def check_stream(a, b, config: str, smi: str):
     t0 = time.perf_counter()
     stream = GraphedStream(carry, cfg)
     capture_s = time.perf_counter() - t0
-    (g_flows, g_rounds, _), g_counts = counted(f"{config} stream graphed",
-                                               lambda: run_graphed(stream, a, b))
+    (g_flows, g_rounds, _), _ = counted(f"{config} stream graphed",
+                                        lambda: run_graphed(stream, a, b))
     same = all(torch.equal(u, gu) and torch.equal(v, gv)
                for (u, v), (gu, gv) in zip(flows, g_flows))
-    if not same or not torch.equal(g_rounds, rounds) or g_counts != counts:
+    if not same or not torch.equal(g_rounds, rounds):
         raise AssertionError(f"{config}: graphed stream bit-identical {same}, rounds "
-                             f"{sorted(set(map(tuple, g_rounds.tolist())))}, launches "
-                             f"{g_counts} against eager {counts}")
+                             f"{sorted(set(map(tuple, g_rounds.tolist())))}")
     graphed_ms = [1000 * run_graphed(stream, a, b, rounds=False)[2] / N_FRAMES
                   for _ in range(STREAM_RUNS)]
     # The same N_FRAMES-frame run under torch.profiler: device busy ms a
-    # frame, against the unprofiled runs' host ms a frame.
-    busy = [t / N_FRAMES for t in busy_ms(lambda: run_graphed(stream, a, b, rounds=False))]
+    # frame, against the unprofiled runs' host ms a frame, and the port's
+    # kernels the device ran, against the capture's and the eager run's.
+    events = device_events(lambda: run_graphed(stream, a, b, rounds=False))
+    busy = [t / N_FRAMES for t in busy_of(events)]
+    traced = traced_launches(events)
+    captured = {name: n * N_FRAMES for name, n in stream.launches.items()}
+    if not traced == captured == counts:
+        raise AssertionError(f"{config}: the graphed run's trace holds {traced} launches of the "
+                             f"port's kernels; the capture recorded {stream.launches} a replay, "
+                             f"the eager run launched {counts}")
     print(f"[main] {config} graphed (captured in {capture_s:.3f} s, {sum(stream.launches.values())}"
           f" kernel launches a replay): {_spread(graphed_ms)}, flows bit-identical to eager, same "
-          f"rounds and launches; under torch.profiler {N_FRAMES} frames busy {busy[0]:.3f} "
-          f"ms/frame, {busy[1]:.3f} in the port's kernels, {busy[2]:.3f} in Memcpy/Memset: "
-          f"busy share {100 * busy[0] / float(np.median(graphed_ms)):.1f}% of the graphed host "
-          f"ms a frame ({smi})")
+          f"rounds; its trace holds {traced} launches of the port's kernels, as eager; under "
+          f"torch.profiler {N_FRAMES} frames busy {busy[0]:.3f} ms/frame, {busy[1]:.3f} in the "
+          f"port's kernels, {busy[2]:.3f} in Memcpy/Memset: busy share "
+          f"{100 * busy[0] / float(np.median(graphed_ms)):.1f}% of the graphed host ms a frame "
+          f"({smi})")
     del stream
 
     before = launch_counts()
@@ -1323,7 +1318,6 @@ def check_stream(a, b, config: str, smi: str):
                              f"> {STREAM_ATOL}")
     if epe > 0.5:
         raise AssertionError(f"{config}: mean EPE {epe} px against the known {SHIFT_PX} px shift")
-    counts.update(g_counts)
     return counts, float(np.median(eager_ms)), float(np.median(graphed_ms))
 
 
@@ -1519,7 +1513,8 @@ def check_vo_session(a, b, chunk, config: str, smi: str):
           f"{', fb check 1.0 px' if VO_SESSIONS[config] else ''}, each step a graph replay: "
           f"front end {_spread(ms)} ({smi}), tracks alive {alive}, landmarks "
           f"{sess.n_landmarks}, launches {counts}, host reads convergence {reads[0]} band "
-          f"{reads[1]}, synchronizing operations {len(syncs)}; two eager steps under sync debug "
+          f"{reads[1]} (the capture's launches, added a replay), synchronizing operations "
+          f"{len(syncs)}; two eager steps under sync debug "
           f"\"error\": none")
     if syncs or sum(reads):
         raise AssertionError(f"vo {config}: {len(syncs)} synchronizing operations "
@@ -1527,15 +1522,16 @@ def check_vo_session(a, b, chunk, config: str, smi: str):
     if alive < 0.5 * sess._dev.alive.numel():
         raise AssertionError(f"vo {config}: only {alive} tracks alive")
 
-    e_runs = [vo_session(a, chunk, config, eager=True) for _ in range(VO_RUNS)]
+    first, e_counts = counted(f"vo {config}", lambda: vo_session(a, chunk, config, eager=True))
+    e_runs = [first] + [vo_session(a, chunk, config, eager=True) for _ in range(VO_RUNS - 1)]
     eager = e_runs[0][0]
     e_ms = [1000 * s / N_FRAMES for _, s in e_runs]
     got, want = _records(sess), _records(eager)
     same = all(np.array_equal(x, y) for g, w in zip(got[:3], want[:3]) for x, y in zip(g, w)) \
         and len(got[0]) == len(want[0]) and got[3] == want[3]
-    print(f"[vo] {config} the same session stepped eagerly (process_frame): {_spread(e_ms)}; "
-          f"{len(got[0])} ObsRecords {'bit-identical' if same else 'DIFFER'} to the graphed "
-          f"session's")
+    print(f"[vo] {config} the same session stepped eagerly (process_frame): {_spread(e_ms)}, "
+          f"launches {e_counts}; {len(got[0])} ObsRecords "
+          f"{'bit-identical' if same else 'DIFFER'} to the graphed session's")
     if not same:
         raise AssertionError(f"vo {config}: graphed and eager ObsRecords differ")
 
@@ -1573,7 +1569,7 @@ def check_vo_session(a, b, chunk, config: str, smi: str):
               f"(limit {STREAM_ATOL}, the stream's)")
         if not ids or xy > STREAM_ATOL:
             raise AssertionError(f"vo {config}: plain session differs (ids {ids}, xy {xy})")
-    return float(np.median(ms))
+    return float(np.median(ms)), e_counts
 
 
 def time_vo_reseed(a):
@@ -1604,29 +1600,77 @@ def profiled(run):
     return seconds, [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
-def busy_ms(run) -> tuple[float, ...]:
-    """One ``run()`` under torch.profiler: this process's device busy ms,
-    and the parts of it in the port's own kernels (namespaces
-    ``tpuflow_*``), in copies and fills (``Memcpy`` / ``Memset``) and in
-    NCCL's kernels (which hold the card while they wait for a peer)."""
+def device_events(run) -> list:
+    """One ``run()`` under torch.profiler: the device's events by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def busy_of(events) -> tuple[float, ...]:
+    """This process's device busy ms in ``events``, and the parts of it in
+    the port's own kernels (namespaces ``tpuflow_*``), in copies and fills
+    (``Memcpy`` / ``Memset``) and in NCCL's kernels (which hold the card
+    while they wait for a peer)."""
     return tuple(sum(e.self_device_time_total for e in events if part(e.key)) / 1000
                  for part in (lambda k: True, lambda k: "tpuflow_" in k,
                               lambda k: k.startswith("Mem"), lambda k: "nccl" in k.lower()))
 
 
-def profile_vo(a, chunk, config: str) -> None:
+def busy_ms(run) -> tuple[float, ...]:
+    """``busy_of`` one ``run()`` under torch.profiler."""
+    return busy_of(device_events(run))
+
+
+# The round kernels' names in a trace -> their launch counters: the warp's
+# first template argument is its packing, the column walk's second its
+# order (true: relaxed, K3) and its fourth its mode (0: refine).
+_TRACED_KERNELS = (
+    (re.compile(r"tpuflow_warp::warp_tile_kernel<(\d+),"),
+     {"0": "warp_exact", "8": "warp_packed_u8", "16": "warp_packed_u16"}),
+    (re.compile(r"tpuflow_lk::lk_walk_kernel<\d+, (true|false), \d+, 0>"),
+     {"true": "lk_refine", "false": "lk_refine_exact"}),
+)
+
+
+def traced_launches(events) -> dict[str, int]:
+    """The port's kernel launches that the device ran in ``events`` (a
+    trace, not the wrappers' counters), by launch counter; a kernel of the
+    port's that no counter names is kept under its own name."""
+    out: dict[str, int] = {}
+    for e in events:
+        if "tpuflow_" not in e.key:
+            continue
+        name = e.key
+        for pattern, names in _TRACED_KERNELS:
+            m = pattern.search(e.key)
+            if m:
+                name = names[m.group(1)]
+                break
+        out[name] = out.get(name, 0) + e.count
+    return out
+
+
+def profile_vo(a, chunk, config: str, eager_counts: dict) -> None:
     """Phase 6: device time by kernel and the device's busy share over 4
-    frames of a VO session (torch.profiler)."""
+    graphed frames of a VO session (torch.profiler); the port's kernels in
+    the trace must be the eager session's launches (``eager_counts``, over
+    N_FRAMES frames) for 4 frames."""
     seconds, kernels = profiled(lambda: vo_session(a, chunk[:4], config)[1])
     busy_us = sum(e.self_device_time_total for e in kernels)
     calls = sum(e.count for e in kernels)
+    traced = traced_launches(kernels)
+    want = {name: n * 4 // N_FRAMES for name, n in eager_counts.items()}
+    if traced != want or any(n * 4 % N_FRAMES for n in eager_counts.values()):
+        raise AssertionError(f"vo {config}: the graphed session's trace holds {traced} launches "
+                             f"of the port's kernels in 4 frames; the eager session launched "
+                             f"{eager_counts} in {N_FRAMES}")
+    print(f"[vo] profile {config}: the trace holds {traced} launches of the port's kernels in 4 "
+          f"graphed frames, as the eager session's a frame")
     print(f"[vo] profile {config} session, 4 frames under the profiler: wall "
           f"{1000 * seconds / 4:.3f} ms/frame, device busy {busy_us / 4000:.3f} ms/frame "
           f"({100 * busy_us / 1e6 / seconds:.1f}%), {calls / 4:.0f} device calls a frame")
@@ -2106,8 +2150,9 @@ def _digest(*arrays) -> str:
 def checked_kernels(found: dict):
     """Every kernel launch of the tiled path held against its plain version
     on the same inputs, once per kernel and shape: ``found[name][shape]`` is
-    the max |d| (for the refine steps of u, v; their sums to SUM_RTOL)."""
-    saved = warp.warp_banded, lk.lucas_kanade_fused, lk.lucas_kanade_refine
+    the max |d| (for the replicated levels' rounds of u, v, with the round's
+    output, control and sums to SUM_RTOL as the plain round's)."""
+    saved = warp.warp_banded, lk.lucas_kanade_fused, warp.warp_round, lk.refine_round
 
     def launch(kernel, image, *args, **kw):
         """The kernel's output, its name, and whether its shape is unchecked."""
@@ -2129,22 +2174,30 @@ def checked_kernels(found: dict):
             found[name][tuple(prev.shape)] = max(max_abs(g, w) for g, w in zip(out, want))
         return out
 
-    def refine_checked(prev, *args, **kw):
-        out, name, new = launch(saved[2], prev, *args, **kw)
+    def warp_round_checked(image, u, v, out, latch, **kw):
+        want = warp.warp_round_ref(image, u, v, out.clone(), latch.clone(), **kw)
+        _, name, new = launch(saved[2], image, u, v, out, latch, **kw)
         if new:
-            want = lk.lucas_kanade_refine_ref(prev, *args, **kw)
-            err = max(max_abs(out[0], want[0]), max_abs(out[1], want[1]))
-            sums_ok = all(abs(float(g) - float(w)) <= SUM_RTOL * abs(float(w))
-                          for g, w in zip(out[2:], want[2:]))
-            found[name][tuple(prev.shape)] = err if sums_ok else float("inf")
+            found[name][tuple(image.shape)] = max_abs(out, want)
         return out
 
-    warp.warp_banded, lk.lucas_kanade_fused, lk.lucas_kanade_refine = (
-        warp_checked, fused_checked, refine_checked)
+    def refine_round_checked(prev, warped, u, v, ctrl, **kw):
+        ctrl_ref = ctrl.clone()
+        want = lk.refine_round_ref(prev, warped, u, v, ctrl_ref, **kw)
+        out, name, new = launch(saved[3], prev, warped, u, v, ctrl, **kw)
+        if new:
+            err = max(max_abs(out[0], want[0]), max_abs(out[1], want[1]))
+            sums_ok = bool(((out[2] - want[2]).abs() <= SUM_RTOL * want[2].abs()).all())
+            same_ctrl = torch.equal(ctrl, ctrl_ref)
+            found[name][tuple(prev.shape)] = err if sums_ok and same_ctrl else float("inf")
+        return out
+
+    (warp.warp_banded, lk.lucas_kanade_fused, warp.warp_round,
+     lk.refine_round) = (warp_checked, fused_checked, warp_round_checked, refine_round_checked)
     try:
         yield
     finally:
-        warp.warp_banded, lk.lucas_kanade_fused, lk.lucas_kanade_refine = saved
+        warp.warp_banded, lk.lucas_kanade_fused, warp.warp_round, lk.refine_round = saved
 
 
 def _mesh_name(shape) -> str:
@@ -2729,10 +2782,10 @@ def main() -> None:
     t0 = time.perf_counter()
     chunk = vo_chunk(a, b)
     for config in VO_SESSIONS:
-        vo_ms = check_vo_session(a, b, chunk, config, smi)
+        vo_ms, vo_counts = check_vo_session(a, b, chunk, config, smi)
         print(f"[vo] {config}: front end {vo_ms:.3f} ms/frame against the flow stream's "
               f"{stream_ms[config]:.3f} ms/frame (phase 4)")
-        profile_vo(a, chunk, config)
+        profile_vo(a, chunk, config, vo_counts)
     time_vo_reseed(a)
     del chunk
     t1 = time.perf_counter()

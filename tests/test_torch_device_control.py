@@ -38,7 +38,7 @@ from tpuflow.flow import lucas_kanade_pyramidal_from_pyramids as jax_from_pyrami
 from tpuflow.kernels import jnp_ref, pallas_lk
 from tpuflow_torch import convert
 from tpuflow_torch.core.config import PYRAMID_CONFIGS, PyramidConfig
-from tpuflow_torch.flow import GraphedStream, pyramidal
+from tpuflow_torch.flow import GraphedStream, graphed, pyramidal
 from tpuflow_torch.kernels import lk, torch_ref, warp
 from tpuflow_torch.vo import device_loop
 
@@ -223,13 +223,36 @@ def test_round_sums_and_latch_agree_with_torch_sum_and_jax(side, relaxed):
     assert jax_latch == (side > 1.0)
 
 
+def _host_read_level(prev, curr, u, v, cfg):
+    """One level's rounds through the reference-signature kernels with the
+    early exit read to the host after each round (the reference's
+    while-loop condition)."""
+    n_px = prev.numel()
+    thr, mdv = cfg.convergence_threshold, cfg.max_disp_v_effective
+    converged = torch.tensor(False)
+    rounds = 0
+    while rounds < cfg.iterations:
+        warped = warp.warp_banded(curr, u, v, max_disp=cfg.max_disp, clamp_flow=True,
+                                  max_disp_v=mdv, packing=pyramidal._warp_packing(cfg, False))
+        u, v, sdu, sdv = lk.lucas_kanade_refine(
+            prev, warped, u, v, converged, window_size=cfg.window_size,
+            det_threshold=cfg.det_threshold, max_disp=float(cfg.max_disp),
+            max_disp_v=float(mdv), relaxed_order=cfg.relaxed_order)
+        converged = converged | ((sdu / n_px < thr) & (sdv / n_px < thr))
+        rounds += 1
+        if bool(converged):
+            break
+    return u, v, rounds
+
+
 def test_device_level_equals_the_host_read_loop():
-    # The tiled path's replicated levels keep the host-read loop; on one
-    # level both give the same bits and rounds.
+    # One level under device control (the tiled path's replicated levels
+    # run it with the static band) against the same rounds with the early
+    # exit read to the host: the same bits and rounds.
     prev, curr, u, v = _level_inputs(reach=1.0)
     for thr in (0.01, 0.2, 1e9):
         cfg = PyramidConfig(convergence_threshold=thr, relaxed_order=True)
-        hu, hv, rounds = pyramidal._refine_level(prev, curr, u, v, cfg, "cuda", finest=False)
+        hu, hv, rounds = _host_read_level(prev, curr, u, v, cfg)
         ctrl = torch.zeros(3, dtype=torch.int32)
         du, dv = pyramidal._refine_level_device(prev, curr, u, v, cfg, ctrl, None, finest=False)
         assert torch.equal(du, hu) and torch.equal(dv, hv)
@@ -243,3 +266,14 @@ def test_graphed_stream_and_front_end_graph_need_the_card():
         GraphedStream(frame, cfg)
     fe = device_loop.FrontEnd(backend="cuda", config=cfg)
     assert not fe.graphed(frame[None])
+
+
+def test_bound_kernels_follow_a_swapped_wrapper(monkeypatch):
+    # A captured graph keeps the wrappers bound at its capture; a swap is
+    # seen, so the graph is captured again (VO) or refuses to replay.
+    captured = graphed.bound_kernels()
+    assert graphed.same_kernels(captured)
+    monkeypatch.setattr(lk, "refine_round", lk.refine_round_ref)
+    assert not graphed.same_kernels(captured)
+    monkeypatch.undo()
+    assert graphed.same_kernels(captured)

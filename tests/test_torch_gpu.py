@@ -659,9 +659,7 @@ def test_vo_session_matches_plain_versions(cuda, monkeypatch, config):
     assert {k for k in after if after[k] > before[k]} == VO_KERNELS[config]
     monkeypatch.setattr(warp, "warp_round", warp.warp_round_ref)
     monkeypatch.setattr(lk, "refine_round", lk.refine_round_ref)
-    device_loop._shared_front_end.cache_clear()  # no graph captured on the kernels
     plain = session()
-    device_loop._shared_front_end.cache_clear()
     assert kernels.n_landmarks == plain.n_landmarks
     for uv, puv, ids, pids, ok, pok in zip(kernels.obs_uv, plain.obs_uv, kernels.obs_lm,
                                            plain.obs_lm, kernels.obs_valid, plain.obs_valid):
@@ -824,15 +822,14 @@ _ROUND_SHAPES = [(37, 61), (270, 480), (1025, 1024)]  # the last staged (>= 2^20
 
 @pytest.mark.parametrize("shape", _ROUND_SHAPES)
 @pytest.mark.parametrize("packing", ["u8", "u16", "exact"])
-@pytest.mark.parametrize("per_band", [False, True])
 @pytest.mark.parametrize("index", [0, 1, 2, None])
-def test_warp_round_bit_exact_at_each_band_and_skipped(cuda, shape, packing, per_band, index):
+def test_warp_round_bit_exact_at_each_band_and_skipped(cuda, shape, packing, index):
     rng = np.random.default_rng(17)
     img = _rand(rng, shape, 0, 255, cuda).round()
     u, v = _rand(rng, shape, -9, 9, cuda), _rand(rng, shape, -9, 9, cuda)
     ladder = (2, 3, 8) if index is not None else (5,)
     band = None if index is None else torch.tensor(index, dtype=torch.int32, device=cuda)
-    kw = dict(max_disp=8, ladder=ladder, band=band, packing=packing, per_band=per_band)
+    kw = dict(max_disp=8, ladder=ladder, band=band, packing=packing)
     mdv = ladder[index or 0]
     for latch in (0, 1):
         flag = torch.tensor(latch, dtype=torch.int32, device=cuda)
@@ -842,7 +839,7 @@ def test_warp_round_bit_exact_at_each_band_and_skipped(cuda, shape, packing, per
         launched = launch_counts()[_WARP_COUNTER[packing]] - before
         want = warp.warp_round_ref(img, u, v, fill.clone(), flag, **kw)
         torch.cuda.synchronize()
-        assert launched == (len(ladder) if per_band and band is not None else 1)
+        assert launched == 1
         assert torch.equal(got, want)
         if latch:
             assert torch.equal(got, fill)
@@ -948,3 +945,46 @@ def test_vo_graphed_scan_equals_eager_steps(cuda, config, fb):
             assert torch.equal(got[i], want)
     for got, want in zip(device_loop._tensors(g_state), device_loop._tensors(state)):
         assert torch.equal(got, want)
+
+
+def _traced_port_launches(fn) -> int:
+    """Launches of the port's kernels that the device ran in ``fn()``, from
+    a torch.profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "tpuflow_" in e.key)
+
+
+@pytest.mark.parametrize("config", ["production", "default"])
+def test_graph_replay_runs_the_captured_launches(cuda, config):
+    cfg = PYRAMID_CONFIGS[config]
+    a = torch.from_numpy(_vo_frames(1)[0]).to(cuda)
+    stream = GraphedStream(a, cfg)
+    frame = a.roll(2, dims=1)
+    stream.step(frame)
+    assert _traced_port_launches(lambda: stream.step(frame)) == sum(stream.launches.values())
+
+
+def test_graphs_follow_a_swapped_wrapper(cuda, monkeypatch):
+    frames = torch.from_numpy(_vo_frames(3)).to(cuda)
+    cfg = PYRAMID_CONFIGS["production"]
+    stream = GraphedStream(frames[0], cfg)
+    fe = device_loop.FrontEnd(backend="cuda", config=cfg)
+    state0, _ = fe.init(frames[0])
+    fe.scan_steps(state0, frames[1:])
+    calls = []
+
+    def refine_round(*args, **kw):
+        calls.append(1)
+        return lk.refine_round_ref(*args, **kw)
+
+    monkeypatch.setattr(lk, "refine_round", refine_round)
+    with pytest.raises(RuntimeError, match="wrappers"):
+        stream.step(frames[1])
+    fe.scan_steps(state0, frames[1:])
+    assert calls  # captured again, through the wrapper bound now

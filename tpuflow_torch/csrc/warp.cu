@@ -80,14 +80,12 @@
 // is skipped, and the block returns before any load, leaving `out` as it
 // was) and the band index, which picks max_disp_v from the ladder passed
 // as launch arguments. Both are read before the band's window is staged,
-// since its rows depend on the band. Two forms of the switch:
-//   (i)  one launch, shared memory sized for the ladder's widest band and
-//        the window's rows from the band read (the grid does not depend on
-//        the band);
-//   (ii) one launch per candidate band, each sized for its own band, whose
-//        blocks return at once unless the index read is theirs: the
-//        switch's own form.
-// Either leaves every output bit as the host-int band's launch gives it.
+// since its rows depend on the band. The switch is one launch, with
+// shared memory sized for the ladder's widest band and the window's rows
+// from the band read (the grid does not depend on the band); every output
+// bit is as the host-int band's launch gives it. (The switch's own form,
+// one launch per candidate band whose blocks return at once unless the
+// index read is theirs, was measured 5-6 us a round slower and dropped.)
 
 #include "warp.cuh"
 
@@ -118,9 +116,7 @@ warp_tile_kernel(const float* __restrict__ image, const float* __restrict__ flow
   if (ctl.latch != nullptr && ctl.latch[blockIdx.z] != 0) return;
   int max_disp_v = mdv_arg;
   if (ctl.band != nullptr) {
-    const int idx = min(max(*ctl.band, 0), ctl.n_ladder - 1);
-    if (ctl.only >= 0 && idx != ctl.only) return;
-    max_disp_v = ladder_at(ctl.ladder, idx);
+    max_disp_v = ladder_at(ctl.ladder, min(max(*ctl.band, 0), ctl.n_ladder - 1));
   }
 
   const int col = threadIdx.x % kTileW, row = threadIdx.x / kTileW;
@@ -296,16 +292,15 @@ extern "C" int tpuflow_warp_banded_as(const float* img, const float* u, const fl
 
 // One round of the pyramidal driver under device control, the flow
 // clamped: skipped where latch[b] != 0 (out untouched), the band
-// ladder[*band] (ladder[0] where band is null), as form (i) (per_band 0:
-// one launch) or (ii) (per_band 1: one launch per ladder entry). latch is
-// the int32 flag of each of the `batch` elements.
+// ladder[*band] (ladder[0] where band is null), in one launch sized for
+// the widest band. latch is the int32 flag of each of the `batch` elements.
 extern "C" int tpuflow_warp_round(const float* img, const float* u, const float* v, float* out,
                                   const int* latch, const int* band, const int* ladder,
                                   int n_ladder, int batch, int height, int width, int max_disp,
-                                  int packing, int per_band, void* stream) {
+                                  int packing, void* stream) {
   if (n_ladder < 1 || n_ladder > kMaxLadder || (band == nullptr && n_ladder != 1))
     return (int)cudaErrorInvalidValue;
-  Control ctl{latch, band, {}, n_ladder, -1};
+  Control ctl{latch, band, {}, n_ladder};
   int widest = 0;
   for (int i = 0; i < n_ladder; ++i) {
     if (ladder[i] < 0) return (int)cudaErrorInvalidValue;
@@ -313,18 +308,10 @@ extern "C" int tpuflow_warp_round(const float* img, const float* u, const float*
     if (ladder[i] > widest) widest = ladder[i];
   }
   if (!valid_plane(batch, height, width, max_disp, widest)) return (int)cudaErrorInvalidValue;
-  const Geometry g = geometry(height, width, -1);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Args a{img, u, v, out, batch, height, width, max_disp, widest, copy_flags(img, u, v, width),
-         ctl};
-  if (!per_band || band == nullptr) return launch_any(g, packing, true, a, s);
-  for (int i = 0; i < n_ladder; ++i) {
-    a.max_disp_v = ladder[i];
-    a.ctl.only = i;
-    const int err = launch_any(g, packing, true, a, s);
-    if (err != 0) return err;
-  }
-  return 0;
+  const Args a{img, u, v, out, batch, height, width, max_disp, widest,
+               copy_flags(img, u, v, width), ctl};
+  return launch_any(geometry(height, width, -1), packing, true, a,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // The warp with the block its plane's size chooses.

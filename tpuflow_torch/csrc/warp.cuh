@@ -23,14 +23,12 @@ constexpr int kMaxLadder = 8;
 
 // A round's device control (warp.cu): the latch of each batch element
 // (nonzero: skip; null: never), the band index in device memory (null:
-// the launch's max_disp_v) into the ladder, and, for the switch's
-// per-band form, the one ladder index this launch serves (-1: any).
+// the launch's max_disp_v) into the ladder.
 struct Control {
   const int* latch;
   const int* band;
   int ladder[kMaxLadder];
   int n_ladder;
-  int only;
 };
 
 // ladder[i] with every index static: an index computed at run time into a

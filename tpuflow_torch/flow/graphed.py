@@ -16,6 +16,10 @@ graph, and ``u``, ``v`` come back as tensors the caller owns. The kernels'
 replay never calls: the capture records what it launched, and each replay
 adds that to the counters (``kernels.add_launch_counts``).
 
+A graph replays the kernel wrappers that were bound when it was captured
+(``bound_kernels``): ``GraphedStream.step`` raises where another is bound
+now, and the VO front end captures its step again.
+
 CUDA tensors only: a CPU tensor raises (the CPU runs the eager driver,
 ``lucas_kanade_pyramidal_step``). A capture that fails raises; there is no
 fallback to the eager step.
@@ -28,7 +32,7 @@ import torch
 from tpuflow_torch.core import ops
 from tpuflow_torch.core.config import PyramidConfig
 from tpuflow_torch.flow import pyramidal
-from tpuflow_torch.kernels import _build, add_launch_counts, launch_counts, torch_ref
+from tpuflow_torch.kernels import _build, add_launch_counts, launch_counts, lk, torch_ref, warp
 
 WARMUP_STEPS = 2  # eager steps on a side stream before the capture
 
@@ -39,12 +43,22 @@ def _check_cuda(t: torch.Tensor, what: str) -> None:
                          "the eager step runs elsewhere")
 
 
+def bound_kernels() -> tuple:
+    """The round wrappers the fast path's step calls, as bound now."""
+    return warp.warp_round, lk.refine_round
+
+
+def same_kernels(captured: tuple) -> bool:
+    """Whether the wrappers bound now are the ones ``captured``."""
+    return all(a is b for a, b in zip(captured, bound_kernels()))
+
+
 def capture(body, stream: torch.cuda.Stream):
     """Warm ``body`` up on ``stream`` (the kernels' library loaded, cuBLAS
     handles and cached operator blocks made there), then capture it once on
-    the same stream. Returns the graph, body's outputs as captured and the
+    the same stream. Returns the graph, body's outputs as captured, the
     launches the capture recorded (taken back off the counters: a capture
-    runs nothing)."""
+    runs nothing) and the wrappers it captured (``bound_kernels``)."""
     _build.load()
     ops.pin_f32_matmul()  # TF32 off around the captured cuBLAS matmuls
     stream.wait_stream(torch.cuda.current_stream(stream.device))
@@ -53,13 +67,14 @@ def capture(body, stream: torch.cuda.Stream):
             body()
     torch.cuda.current_stream(stream.device).wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
+    kernels = bound_kernels()
     before = launch_counts()
     with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
         out = body()
     after = launch_counts()
     recorded = {name: n - before[name] for name, n in after.items() if n != before[name]}
     add_launch_counts({name: -n for name, n in recorded.items()})
-    return graph, out, recorded
+    return graph, out, recorded, kernels
 
 
 class GraphedStream:
@@ -94,8 +109,8 @@ class GraphedStream:
                 dst.copy_(src)
             return u, v, rounds
 
-        self._graph, (self._u, self._v, self.level_rounds), self.launches = capture(
-            body, torch.cuda.Stream(self.device))
+        self._graph, (self._u, self._v, self.level_rounds), self.launches, self._kernels = (
+            capture(body, torch.cuda.Stream(self.device)))
         self.reset(carry)
 
     def reset(self, carry) -> None:
@@ -114,6 +129,9 @@ class GraphedStream:
         if tuple(frame.shape) != self.shape or frame.device != self.device:
             raise ValueError(f"frame {tuple(frame.shape)} on {frame.device}: the graph was "
                              f"captured for {self.shape} on {self.device}")
+        if not same_kernels(self._kernels):
+            raise RuntimeError("the kernel wrappers bound now are not the ones the graph "
+                               "captured; make a new GraphedStream")
         self._frame.copy_(frame)
         self._graph.replay()
         add_launch_counts(self.launches)

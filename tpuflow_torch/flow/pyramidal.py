@@ -83,52 +83,31 @@ def _refine_level(
     flow_u: torch.Tensor,
     flow_v: torch.Tensor,
     cfg: PyramidConfig,
-    backend: Backend,
     rtl_clamp: bool = False,
-    finest: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """Iterative warp -> residual LK -> accumulate at one level, with the
-    early exit read to the host.
+    """The parity path's level: iterative warp -> residual LK -> accumulate
+    with the early exit read to the host.
 
     The residual is always accumulated; the loop then exits once both
     mean |du| and mean |dv| are below the convergence threshold. Returns
-    the refined flow and the number of rounds run. The parity path's
-    level; with ``backend="cuda"`` the tiled path's replicated levels
-    (``sharding.tiled_pyramidal``), whose host reads are still its own.
+    the refined flow and the number of rounds run.
     """
-    n_px = img_prev.shape[0] * img_prev.shape[1]
     thr = cfg.convergence_threshold
     mdv = cfg.max_disp_v_effective
     u, v = flow_u, flow_v
     converged = torch.zeros((), dtype=torch.bool, device=img_prev.device)
     rounds = 0
     while rounds < cfg.iterations:
-        if backend == "cuda":
-            warped = warp.warp_banded(
-                img_curr, u, v, max_disp=cfg.max_disp, clamp_flow=True, max_disp_v=mdv,
-                packing=_warp_packing(cfg, finest),
-            )
-            u, v, sdu, sdv = lk.lucas_kanade_refine(
-                img_prev, warped, u, v, converged,
-                window_size=cfg.window_size, det_threshold=cfg.det_threshold,
-                max_disp=float(cfg.max_disp), max_disp_v=float(mdv),
-                relaxed_order=cfg.relaxed_order,
-            )
-            # f32 on the device, as tpuflow's sdu / n_px < thr.
-            now_converged = (sdu / n_px < thr) & (sdv / n_px < thr)
-        else:
-            if rtl_clamp:
-                u = u.clamp(-cfg.max_disp, cfg.max_disp)
-                v = v.clamp(-mdv, mdv)
-            warped = torch_ref.warp_image(img_curr, u, v)
-            du, dv = lucas_kanade_single_scale(
-                img_prev, warped, cfg.window_size,
-                det_threshold=cfg.det_threshold, backend="torch",
-            )
-            u = torch.where(converged, u, u + du)
-            v = torch.where(converged, v, v + dv)
-            now_converged = (du.abs().mean() < thr) & (dv.abs().mean() < thr)
-        converged = converged | now_converged
+        if rtl_clamp:
+            u = u.clamp(-cfg.max_disp, cfg.max_disp)
+            v = v.clamp(-mdv, mdv)
+        warped = torch_ref.warp_image(img_curr, u, v)
+        du, dv = lucas_kanade_single_scale(
+            img_prev, warped, cfg.window_size, det_threshold=cfg.det_threshold, backend="torch",
+        )
+        u = torch.where(converged, u, u + du)
+        v = torch.where(converged, v, v + dv)
+        converged = converged | ((du.abs().mean() < thr) & (dv.abs().mean() < thr))
         rounds += 1
         if rounds < cfg.iterations:
             counters.convergence_reads += 1
@@ -199,9 +178,7 @@ def _refine_level_adaptive(
     flow_u: torch.Tensor,
     flow_v: torch.Tensor,
     cfg: PyramidConfig,
-    backend: Backend,
     rtl_clamp: bool = False,
-    finest: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """``_refine_level`` at the vertical band picked from the coarse
     solve's interior |v| statistics (one host read per level)."""
@@ -211,9 +188,7 @@ def _refine_level_adaptive(
     idx = int(_select_band_index(flow_v, bands, cfg.adaptive_v_frac, margin))
     counters.band_reads += 1
     vcfg = dataclasses.replace(cfg, max_disp_v=bands[idx], adaptive_v_bands=None)
-    return _refine_level(
-        img_prev, img_curr, flow_u, flow_v, vcfg, backend, rtl_clamp, finest
-    )
+    return _refine_level(img_prev, img_curr, flow_u, flow_v, vcfg, rtl_clamp)
 
 
 def lucas_kanade_pyramidal(
@@ -280,11 +255,8 @@ def lucas_kanade_pyramidal_from_pyramids(
         img_curr = pyr_curr[level]
         if level > 0:
             flow_u, flow_v = torch_ref.upsample_flow(flow_u, flow_v, tuple(img_prev.shape))
-        finest = level == cfg.levels - 1
         refine = _refine_level_adaptive if adaptive and level > 0 else _refine_level
-        flow_u, flow_v, rounds = refine(
-            img_prev, img_curr, flow_u, flow_v, cfg, backend, rtl_clamp, finest
-        )
+        flow_u, flow_v, rounds = refine(img_prev, img_curr, flow_u, flow_v, cfg, rtl_clamp)
         iterations.append(rounds)
         if return_levels:
             levels.append((flow_u, flow_v))

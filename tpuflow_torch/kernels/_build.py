@@ -46,9 +46,9 @@ _SIGNATURES = {
     # staged (1), gathering (0) or by plane size (-1); for measurement
     "tpuflow_warp_banded_as": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # img, u, v, out, latch, band, ladder (host i32[n]), n_ladder, batch,
-    # height, width, max_disp, packing, per_band, stream: one round under
-    # device control
-    "tpuflow_warp_round": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # height, width, max_disp, packing, stream: one round under device
+    # control
+    "tpuflow_warp_round": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # as tpuflow_warp_banded, with the rows a walk takes before the stream
     # (the walk ablation)
     "tpuflow_warp_walk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),

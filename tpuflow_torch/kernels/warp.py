@@ -39,10 +39,8 @@ disagrees, it raises.
 one round of the pyramidal driver under device control: it reads the
 round's skip flag (the level's converged latch) and the band index from
 device memory, so the driver never reads either to the host. A skipped
-round leaves ``out`` as it was. The band switch has two forms on the card
-(``csrc/warp.cu``): one launch sized for the ladder's widest band
-(``per_band=False``, the default, measured faster) or one launch per
-candidate band, each exiting unless its band is the one chosen.
+round leaves ``out`` as it was. On the card the band switch is one launch
+sized for the ladder's widest band (``csrc/warp.cu``).
 """
 
 from __future__ import annotations
@@ -64,9 +62,6 @@ launch_counts = {name: 0 for name in _COUNTER.values()}
 MAX_BAND = 31
 # Longest band ladder a round takes (csrc/warp.cuh kMaxLadder).
 MAX_LADDER = 8
-# The band switch's form on the card: one launch for the widest band
-# (False) or one per candidate band (True); chip_smoke.py times both.
-PER_BAND = False
 # The CUDA kernel's planes have sides under 2**24, where x + max_disp and
 # y + max_disp_v are exact floats.
 MAX_SIDE = 1 << 24
@@ -280,12 +275,10 @@ def warp_round_ref(
     ladder: tuple[int, ...],
     band: torch.Tensor | None = None,
     packing: str = "exact",
-    per_band: bool = PER_BAND,
 ) -> torch.Tensor:
     """Plain PyTorch version of ``warp_round``: the clamped warp at band
     ``ladder[band]`` written into ``out`` where ``latch`` is 0, ``out``
-    kept where it is set (``per_band`` names the kernel's form and changes
-    nothing here)."""
+    kept where it is set."""
     mdv = torch_ref.ladder_value(band, ladder, torch.int32, image.device)
     warped = warp_banded_ref(image, flow_u, flow_v, max_disp, clamp_flow=True, max_disp_v=mdv,
                              packing=packing)
@@ -305,14 +298,12 @@ def warp_round(
     ladder: tuple[int, ...],
     band: torch.Tensor | None = None,
     packing: str = "exact",
-    per_band: bool = PER_BAND,
 ) -> torch.Tensor:
     """One round's warp under device control, into ``out``: the flow
     clamped to ``max_disp`` and ``ladder[band]`` (``band`` a one-element
     int32 tensor on the device; None takes ``ladder[0]``), skipped where
     the int32 ``latch`` of a plane is set. The CUDA kernel for CUDA
-    tensors (one launch, or with ``per_band`` one per ladder entry), the
-    plain version for CPU tensors. Neither reads a flag to the host."""
+    tensors (one launch), the plain version for CPU tensors. Neither reads a flag to the host."""
     _check_round(image, flow_u, flow_v, out, latch, band, ladder, max_disp, packing)
     if image.device.type == "cpu":
         return warp_round_ref(image, flow_u, flow_v, out, latch, max_disp=max_disp,
@@ -326,8 +317,8 @@ def warp_round(
     code = lib.tpuflow_warp_round(
         image.data_ptr(), flow_u.data_ptr(), flow_v.data_ptr(), out.data_ptr(),
         latch.data_ptr(), None if band is None else band.data_ptr(), bands, len(ladder),
-        batch, h, w, max_disp, PACKINGS[packing], int(per_band), stream)
+        batch, h, w, max_disp, PACKINGS[packing], stream)
     name = _COUNTER[packing]
     _build.check(lib, code, name)
-    launch_counts[name] += len(ladder) if per_band and band is not None else 1
+    launch_counts[name] += 1
     return out

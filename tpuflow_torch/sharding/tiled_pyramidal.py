@@ -36,9 +36,10 @@ band.
 ``backend="cuda"`` runs the single-device fast path's kernels on the
 extended tiles: the banded warp (K1 packed-u8 on the finest level, K2
 packed-u16 on the coarse ones, K4 where the config packs nothing) and the
-fused LK solve K6; replicated levels run the untiled refine (K3 relaxed
-order, K5 exact order). For CPU tensors each wrapper runs its plain
-version.
+fused LK solve K6; replicated levels run the single-device fast path's
+level under device control (``warp.warp_round`` and ``lk.refine_round``,
+K3 relaxed order, K5 exact order) at the static band, with no host read.
+For CPU tensors each wrapper runs its plain version.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ import torch.nn.functional as F
 
 from tpuflow_torch.core import ops
 from tpuflow_torch.core.config import PyramidConfig
-from tpuflow_torch.flow.pyramidal import _refine_level
+from tpuflow_torch.flow.pyramidal import _refine_level, _refine_level_device
 from tpuflow_torch.flow.single_scale import BACKENDS
 from tpuflow_torch.kernels import lk, torch_ref, warp
 from tpuflow_torch.sharding import dist_pyramid
@@ -229,8 +230,15 @@ def _one(prev_t, curr_t, mesh, cfg, backend, dims, sharded):
                 v = torch.zeros_like(u)
             else:
                 u, v = torch_ref.upsample_flow(u, v, (lh, lw))
-            u, v, _ = _refine_level(full_prev[lvl], full_curr[lvl], u, v, cfg, backend,
-                                    rtl_clamp=True)
+            if backend == "cuda":
+                # The fast path's level under device control, at the static
+                # band: no host read, no collective.
+                ctrl = torch.zeros(lk.CTRL_ROWS, dtype=torch.int32, device=u.device)
+                u, v = _refine_level_device(full_prev[lvl], full_curr[lvl], u, v, cfg, ctrl,
+                                            None, finest=False)
+            else:
+                u, v, _ = _refine_level(full_prev[lvl], full_curr[lvl], u, v, cfg,
+                                        rtl_clamp=True)
             continue
         if lvl == 0:
             u_t = torch.zeros((lh // mesh.ty, lw // mesh.tx), dtype=torch.float32,

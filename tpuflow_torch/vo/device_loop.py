@@ -8,9 +8,12 @@ is eager PyTorch on the frames' device, and ``scan_steps`` replays it as a
 CUDA graph on the card (``backend="cuda"``, no mesh): the step is captured
 once per frame shape and device for each front end (its config, fb check
 and grid), its ``FrontEndState`` updated in place inside the graph, and
-each replay's ``ObsRecord`` copied out. Elsewhere (the CPU, the parity
-backend, whose flow reads its early exit to the host, and a mesh, whose
-collectives keep the ranks in step) a chunk is a loop over eager steps.
+each replay's ``ObsRecord`` copied out. A step is captured again where the
+kernel wrappers bound now are not the ones it captured
+(``graphed.bound_kernels``), so a swapped wrapper is never bypassed.
+Elsewhere (the CPU, the parity backend, whose flow reads its early exit to
+the host, and a mesh, whose collectives keep the ranks in step) a chunk is
+a loop over eager steps.
 Two things keep the step free of host reads:
 
 - every shape is static: the track table is fixed-capacity, reseeding
@@ -110,7 +113,7 @@ class _GraphedStep:
             _copy_state(self._state, new_state)
             return obs
 
-        self._graph, self._obs, self.launches = graphed.capture(
+        self._graph, self._obs, self.launches, self.kernels = graphed.capture(
             body, torch.cuda.Stream(frame.device))
 
     def run(self, state: FrontEndState, frames: torch.Tensor
@@ -176,7 +179,8 @@ class FrontEnd:
         # The border stripe where the dense flow is unreliable (warp fill,
         # window support and the fast path's clamp meet there).
         self.stripe = self.config.max_disp + self.config.window_size
-        # scan_steps' captured steps, by (frame shape, device).
+        # scan_steps' captured steps, by (frame shape, device): one each,
+        # replaced where the kernel wrappers have changed since its capture.
         self._graphs: dict[tuple, _GraphedStep] = {}
 
     def margin_for(self, h: int, w: int, for_cull: bool = True) -> int:
@@ -315,10 +319,13 @@ class FrontEnd:
         """Step through a (T, H, W) chunk that is already on the device.
         Returns the final state and the T ObsRecords stacked. On the card
         (see ``graphed``) each step is one replay of the step captured at
-        the first chunk of this shape; the same bits as ``step``."""
+        the first chunk of this shape, or at the first since the kernel
+        wrappers were swapped; the same bits as ``step``."""
         if self.graphed(frames):
             key = (tuple(frames.shape[1:]), frames.device)
-            if key not in self._graphs:
+            captured = self._graphs.get(key)
+            if captured is None or not graphed.same_kernels(captured.kernels):
+                self._graphs.pop(key, None)  # its memory pool goes with it
                 self._graphs[key] = _GraphedStep(self, state, frames[0])
             return self._graphs[key].run(state, frames)
         records = []
