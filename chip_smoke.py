@@ -53,18 +53,25 @@ failure raises and the script exits non-zero):
    graphed);
 5. gate: the 13-pattern suite through both LK modes for each config with a
    committed Pallas baseline, within 10% of it (provenance guard included);
-6. vo: the visual-odometry path (``tpuflow_torch.vo``): a 1080p
-   ``OdometrySession`` on the same a/b frames, grid step 16 (8,040 track
-   slots), 16 frames through ``process_frames`` (each step one replay of
-   the captured step), ``production`` (K1, K2, K3) and ``default`` with
-   the forward-backward check (K4, K5): two eager steps under sync debug
-   "error"; the front end's ms a frame (median and spread of 3 runs),
-   tracks alive, launches, host reads (the flow's counted reads and, under
-   torch's sync debug mode, every synchronizing operation: none); the same
-   session stepped eagerly (``process_frame``), its ObsRecords
-   bit-identical and its ms a frame; ``solve(ba_iterations=8)`` twice, a
-   torch.profiler pass of 4 frames and the masked reseed's cost; the
-   ``default`` session again through the plain versions; ``run_odometry_chunked`` on ``square_loop`` (17 frames)
+6. vo: the visual-odometry path (``tpuflow_torch.vo``): the grid-seed
+   kernel (``kernels.seed``, the keyframe reseed's ``lax.cond`` on the
+   card) at 1080p bit-identical to its plain version on the stream and the
+   natural frame at margins 0 and 13, its device time beside its bound and
+   the plain version's, and a call whose predicate is false beside the
+   launch floor; a 1080p ``OdometrySession`` on the same a/b frames, grid
+   step 16 (8,040 track slots), 16 frames through ``process_frames`` (each
+   step one replay of the captured step), ``production`` (K1, K2, K3, the
+   seed) and ``default`` with the forward-backward check (K4, K5, the
+   seed), and ``production`` at keyframe stride 2 (odd steps skip the
+   reseed on the device): two eager steps under sync debug "error"; the
+   front end's ms a frame (median and spread of 3 runs), tracks alive,
+   reseeds taken (the seed kernel's device counter), launches, host reads
+   (the flow's counted reads and, under torch's sync debug mode, every
+   synchronizing operation: none); the same session stepped eagerly
+   (``process_frame``), its ObsRecords and reseeds bit-identical and its
+   ms a frame; ``solve(ba_iterations=8)`` twice; the session through the
+   plain versions, its ObsRecords bit-identical too; a torch.profiler pass
+   of 4 frames; ``run_odometry_chunked`` on ``square_loop`` (17 frames)
    rendered at 1080p on the smoke's texture (fx = fy = 1800, depth 5),
    chunks of 6 under ``production`` (K1, K2, K3) with loop closure (loop
    edges under ``default``: K4, K5), twice: its seconds, each chunk's
@@ -74,8 +81,11 @@ failure raises and the script exits non-zero):
    ``checkpoint.save`` / ``load`` (seconds, bytes on disk), 8 more frames
    and ``solve(8)``, against the same session never interrupted;
    ``imu.preintegrate`` over ``swing_imu``'s 751 samples with and without
-   bias Jacobians and ``vi_graph.solve_vi`` over its 16 keyframes, each
-   beside the same call on the CPU; then the trajectory gate, all five
+   bias Jacobians (the scan kernel, ``kernels.imu``), its host time
+   beside the same call on the CPU, and the scan kernel against the plain
+   loop on the card (device time, the dependent-chain bound);
+   ``vi_graph.solve_vi`` over its 16 keyframes beside the CPU; then the
+   trajectory gate, all five
    sequences at 320x240 under ``backend="cuda"``, against the TPU's
    ``vo_pallas_baseline.json`` (the reference's cross-platform rule) and
    the card's ``tpuflow_torch/eval/data/vo_cuda_baseline.json`` (10%);
@@ -139,15 +149,20 @@ rounds per level on every frame, max |du|, |dv| <= 1e-3 px, mean EPE <
 0.5 px against the 2 px shift; the gate:
 every pattern within 10%, no_motion exactly 0 in both modes for the
 configs without packed-u16 warps, and the production configs' no_motion
-floor in (0, 1e-3) px; VO: the step's own synchronizing operations 0, at
-least half the track slots alive, two solves bit-identical with a mean
-reprojection error under 1 px, the plain-version session's alive flags,
-ids and counters identical and its live tracks within 1e-3 px; the
+floor in (0, 1e-3) px; VO: the grid-seed kernel bit-exact against its
+plain version (positions and alive flags), a false predicate leaving every
+cell dead; the step's own synchronizing operations 0, at least half the
+track slots alive, reseeds taken between 1 and the steps / stride, two
+solves bit-identical with a mean reprojection error under 1 px, the
+graphed, eager and plain-version sessions' ObsRecords and reseeds
+identical; the
 chunked square loop finite, with at least one measured loop edge and two
 runs bit-identical; the resumed session's poses, landmarks, keyframes and
 track table bit-identical; preintegration within 5e-6 of the CPU's and
-solve_vi within 1e-5 (poses, velocities; scale 1e-5 relative, RMS 1e-7),
-the limits of tests/test_torch_vo_graph.py; every sequence inside the
+faster than it, the scan kernel within 2e-6 of the plain loop in r and
+1e-5 of the largest entry in v, p and each Jacobian, and solve_vi within
+1e-5 (poses, velocities; scale 1e-5 relative, RMS 1e-7), the limits of
+tests/test_torch_vo_graph.py; every sequence inside the
 absolute bounds and both baselines' rules, TF32 off; the CLI streams
 bit-identical to the plain upload, the S8.7 datapath and the ``rtl`` CLI
 run identical on the card and the CPU, the CLI's single scale within
@@ -217,13 +232,14 @@ from tpuflow_torch.flow.__main__ import main as flow_cli
 from tpuflow_torch.flow.__main__ import mean_magnitude, stream_flow
 from tpuflow_torch.io.frames import load_flow_text, load_frame_bin, save_frame_bin
 from tpuflow_torch.io.stream import FrameStream, prefetch_to_device
-from tpuflow_torch.kernels import _build, fixed_point, lk, torch_ref, warp
+from tpuflow_torch.kernels import _build, fixed_point, lk, seed, torch_ref, warp
+from tpuflow_torch.kernels import imu as imu_kernel
 from tpuflow_torch.sharding import (initialize_multihost, make_flow_mesh,
                                     tiled_lucas_kanade_pyramidal, tiled_lucas_kanade_single_scale)
 from tpuflow_torch.sharding.mesh import counters as mesh_counters
 from tpuflow_torch.eval.vo_metrics import trajectory_metrics
 from tpuflow_torch.vo import (ba, checkpoint, device_loop, imu, loop_closure, pipeline,
-                              pose_graph, tracking, vi_graph)
+                              pose_graph, se3, vi_graph)
 from tpuflow_torch.vo.pipeline import OdometrySession
 
 HEIGHT, WIDTH = 1080, 1920
@@ -242,6 +258,8 @@ REFINE_CU = "tpuflow_torch/csrc/lk_refine.cu"
 FUSED_CU = "tpuflow_torch/csrc/lk_fused.cu"
 MXU_CU = "tpuflow_torch/csrc/lk_mxu.cu"
 ABLATION_CU = "tpuflow_torch/csrc/ablation.cu"
+SEED_CU = "tpuflow_torch/csrc/seed.cu"
+IMU_CU = "tpuflow_torch/csrc/imu_scan.cu"
 KERNELS = {
     "warp_packed_u8": (WARP_CU, "tpuflow/kernels/pallas_warp.py:498"),
     "warp_packed_u16": (WARP_CU, "tpuflow/kernels/pallas_warp.py:498"),
@@ -276,6 +294,17 @@ NO_LIBRARY_CALL = {
     "lk_fused_conf_mxu": "no single PyTorch call computes the LK solve",
     "warp_mxu_ablation": "no single PyTorch call does the 18-step gather-accumulate",
 }
+# The port's kernels with no Pallas counterpart, the reference's lax.cond
+# (the keyframe reseed) and lax.scan (IMU preintegration) on the card:
+# source, the reference's construct, and why no single PyTorch call
+# computes the same function.
+PORT_KERNELS = {
+    "seed_grid": (SEED_CU, "tpuflow/vo/device_loop.py:294",
+                  "no PyTorch call gates on a device predicate, and none computes the "
+                  "Shi-Tomasi response with its per-cell argmax"),
+    "imu_preintegrate": (IMU_CU, "tpuflow/vo/imu.py:140",
+                         "no PyTorch call runs a sequential scan of 3x3 products"),
+}
 PATH_KERNELS = {
     "production stream": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
     "default stream": {"warp_exact", "lk_refine_exact"},
@@ -287,19 +316,23 @@ PATH_KERNELS = {
     "batched kernel API, window_mxu": {"lk_refine_mxu", "lk_fused_mxu", "lk_fused_conf_mxu"},
     "shift ablation": {"shift_ablation"},
     "warp gather ablation": {"warp_mxu_ablation"},
-    "vo production": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
-    "vo default": {"warp_exact", "lk_refine_exact"},
-    "vo gate": {"warp_exact", "lk_refine_exact"},
+    # The VO sessions: the flow's kernels and the gated seed.
+    "vo production": {"warp_packed_u8", "warp_packed_u16", "lk_refine", "seed_grid"},
+    "vo default": {"warp_exact", "lk_refine_exact", "seed_grid"},
+    "vo production stride 2": {"warp_packed_u8", "warp_packed_u16", "lk_refine", "seed_grid"},
+    "vo imu": {"imu_preintegrate"},
+    # swing_imu's chunked pipeline preintegrates its IMU stream.
+    "vo gate": {"warp_exact", "lk_refine_exact", "seed_grid", "imu_preintegrate"},
     # Chunks under `production` (K1-K3), loop edges under `default` (K4, K5).
     "vo chunked": {"warp_packed_u8", "warp_packed_u16", "lk_refine", "warp_exact",
-                   "lk_refine_exact"},
+                   "lk_refine_exact", "seed_grid"},
     # The flow CLI's paths (phase 7): streams from .bin files, pair modes.
     "cli production stream": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
     "cli default stream": {"warp_exact", "lk_refine_exact"},
     "cli single scale": {"lk_fused"},
     "cli pyramidal": {"warp_exact", "lk_refine_exact"},
     "cli rtl": set(),  # the S8.7 datapath is torch int32 ops, no kernel
-    "profile_vo": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
+    "profile_vo": {"warp_packed_u8", "warp_packed_u16", "lk_refine", "seed_grid"},
     # Phase 8, the tiled paths, counted on each rank: every level tiled
     # (K6 on each tile) except at 1x4x1, whose coarsest level runs
     # replicated (K3 / K5); tiled single scale is plain torch ops.
@@ -313,7 +346,7 @@ PATH_KERNELS = {
     "mesh 1x4x1 production_fullband": {"warp_packed_u8", "warp_packed_u16", "lk_fused",
                                        "lk_refine"},
     "mesh 1x4x1 default": {"warp_exact", "lk_fused", "lk_refine_exact"},
-    "mesh vo": {"warp_exact", "lk_fused"},
+    "mesh vo": {"warp_exact", "lk_fused", "seed_grid"},
 }
 # Phase 7, the CLI pair modes on the card against --device cpu: the S8.7
 # mode identical; single scale (K6) within its CPU-test limit at window 5
@@ -331,10 +364,16 @@ CLI_PYRAMIDAL_MAX = 0.05
 CLI_PYRAMIDAL_P999 = 0.02
 CLI_PYRAMIDAL_RTOL = 1e-3
 CLI_RUNS = 3
-# The VO sessions at 1080p: grid step 16 (8,040 track slots), N_FRAMES
-# frames through process_frames after start; `default` with the
-# forward-backward check (a backward flow each frame).
-VO_SESSIONS = {"production": None, "default": 1.0}
+# The VO sessions at 1080p, by name: (config, forward-backward threshold,
+# keyframe stride). Grid step 16 (8,040 track slots), N_FRAMES frames
+# through process_frames after start; `default` with the forward-backward
+# check (a backward flow each frame); `production` also at keyframe
+# stride 2, whose odd steps skip the reseed on the device.
+VO_SESSIONS = {"production": ("production", None, 1), "default": ("default", 1.0, 1),
+               "production stride 2": ("production", None, 2)}
+# Kernel launches of a session's start, outside its steps: the first
+# frame's grid seed (FrontEnd.init).
+VO_START_LAUNCHES = {"seed_grid": 1}
 VO_GRID = 16
 VO_RUNS = 3
 VO_BA_ITERATIONS = 8
@@ -348,6 +387,11 @@ VO_CHUNK_SIZE = 6
 # solve_vi poses and velocities 1e-5, scale 1e-5 relative, residual RMS
 # 1e-7.
 IMU_ATOL = 5e-6
+# The scan kernel against the plain loop on the card (tests/test_torch_gpu.py):
+# r within 2e-6; v, p and each Jacobian within 1e-5 of its largest entry
+# (3-term dot products summed left to right against cuBLAS's order).
+IMU_SCAN_R_ATOL = 2e-6
+IMU_SCAN_RTOL = 1e-5
 VI_ATOL = {"poses_r": 1e-5, "poses_t": 1e-5, "velocities": 1e-5}
 
 # K10's tensor-core sums against the plain version's torch.matmul, u, v in
@@ -391,8 +435,8 @@ MESH_WALL_S = 300.0  # each group of rank processes, start-up included
 # The warps' vertical bands (the adaptive ladder's 2/3/8, none, the widest).
 WARP_BANDS = (0, 2, 3, 8, 31)
 MAX_BAND = warp.MAX_BAND
-_COUNTS = (warp.launch_counts, lk.launch_counts, shift_ablation.launch_counts,
-           warp_mxu_ablation.launch_counts)
+_COUNTS = (warp.launch_counts, lk.launch_counts, seed.launch_counts, imu_kernel.launch_counts,
+           shift_ablation.launch_counts, warp_mxu_ablation.launch_counts)
 
 
 def launch_counts() -> dict[str, int]:
@@ -1088,15 +1132,15 @@ def check_ablations(dev, readings):
           f"offset 0 (no bank conflicts) {gather_zero_ms:.5f} ms")
 
 
-_WRAPPERS = ("warp_banded", "warp_round"), ("lucas_kanade_refine", "refine_round")
+_WRAPPERS = ((warp, ("warp_banded", "warp_round")), (lk, ("lucas_kanade_refine", "refine_round")),
+             (seed, ("seed_grid",)), (imu_kernel, ("preintegrate_scan",)))
 
 
 @contextmanager
 def plain_versions():
     """Swap each kernel wrapper for its plain PyTorch version (a captured
     VO step is captured again where the wrappers differ from its own)."""
-    saved = [(mod, name, getattr(mod, name)) for mod, names in zip((warp, lk), _WRAPPERS)
-             for name in names]
+    saved = [(mod, name, getattr(mod, name)) for mod, names in _WRAPPERS for name in names]
     for mod, name, _ in saved:
         setattr(mod, name, getattr(mod, name + "_ref"))
     try:
@@ -1447,15 +1491,17 @@ def vo_chunk(a, b):
     return torch.stack([b if i % 2 == 0 else a for i in range(N_FRAMES)])
 
 
-def vo_session(a, chunk, config: str, eager: bool = False):
-    """A 1080p OdometrySession on the card: start on a, then the chunk
-    through process_frames (each step one replay of the captured step), or
-    with ``eager`` frame by frame through process_frame (each step eager).
-    Returns it and the chunk's seconds (host clock to a synchronize)."""
+def vo_session(a, chunk, name: str, eager: bool = False):
+    """The 1080p OdometrySession ``name`` (VO_SESSIONS) on the card: start
+    on a, then the chunk through process_frames (each step one replay of
+    the captured step), or with ``eager`` frame by frame through
+    process_frame (each step eager). Returns it and the chunk's seconds
+    (host clock to a synchronize)."""
+    config, fb, stride = VO_SESSIONS[name]
     fx = fy = 0.8 * WIDTH
-    sess = OdometrySession((fx, fy, WIDTH / 2.0, HEIGHT / 2.0), grid_step=VO_GRID,
-                           backend="cuda", pyramid_config=config,
-                           fb_check_threshold=VO_SESSIONS[config], device=a.device)
+    sess = OdometrySession((fx, fy, WIDTH / 2.0, HEIGHT / 2.0), keyframe_stride=stride,
+                           grid_step=VO_GRID, backend="cuda", pyramid_config=config,
+                           fb_check_threshold=fb, device=a.device)
     sess.start(a)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1486,16 +1532,23 @@ def _records(sess):
     return sess.obs_uv, sess.obs_lm, sess.obs_valid, sess.n_landmarks
 
 
-def check_vo_session(a, b, chunk, config: str, smi: str):
-    """Phase 6, one 1080p session: (a) two eager steps under sync debug
-    "error"; the graphed session's launches, host reads and time a frame;
-    (g) the same session stepped eagerly, its ObsRecords bit-identical to
-    the graphed ones, and its time a frame; then solve(ba_iterations=8)
-    twice (identical bits) and, for `default`, the same session through
-    the plain versions."""
-    vo_session(a, chunk, config)  # warm-up, and the step's capture
-    vo_session(a, chunk[:2], config, eager=True)
-    probe = vo_session(a, chunk[:0], config)[0]
+def _same_records(x, y) -> bool:
+    return all(len(f) == len(g) and all(np.array_equal(u, v) for u, v in zip(f, g))
+               for f, g in zip(x[:3], y[:3])) and x[3] == y[3]
+
+
+def check_vo_session(a, b, chunk, name: str, smi: str):
+    """Phase 6, one 1080p session (VO_SESSIONS): (a) two eager steps under
+    sync debug "error"; the graphed session's launches, host reads, reseeds
+    taken and time a frame; (g) the same session stepped eagerly, its
+    ObsRecords and reseeds identical to the graphed ones, and its time a
+    frame; then solve(ba_iterations=8) twice (identical bits) and the same
+    session through the plain versions, its ObsRecords identical too."""
+    config, fb, stride = VO_SESSIONS[name]
+    dev = a.device
+    vo_session(a, chunk, name)  # warm-up, and the step's capture
+    vo_session(a, chunk[:2], name, eager=True)
+    probe = vo_session(a, chunk[:0], name)[0]
     torch.cuda.synchronize()
     with no_sync():
         probe.process_frame(chunk[0])
@@ -1503,37 +1556,43 @@ def check_vo_session(a, b, chunk, config: str, smi: str):
     torch.cuda.synchronize()
     pyramidal.counters.reset()
     ((sess, _), syncs), counts = counted(
-        f"vo {config}", lambda: host_syncs(lambda: vo_session(a, chunk, config)))
+        f"vo {name}", lambda: host_syncs(lambda: vo_session(a, chunk, name)))
     reads = (pyramidal.counters.convergence_reads, pyramidal.counters.band_reads)
-    seconds = sorted(vo_session(a, chunk, config)[1] for _ in range(VO_RUNS))
+    reseeds = int(pyramidal.counters.reseeds(dev))
+    seconds = sorted(vo_session(a, chunk, name)[1] for _ in range(VO_RUNS))
     ms = [1000 * s / N_FRAMES for s in seconds]
     alive = int(sess._dev.alive.sum())
-    print(f"[vo] {config} session {HEIGHT}x{WIDTH}, grid {VO_GRID} "
-          f"({sess._dev.alive.numel()} slots), {N_FRAMES} frames through process_frames"
-          f"{', fb check 1.0 px' if VO_SESSIONS[config] else ''}, each step a graph replay: "
-          f"front end {_spread(ms)} ({smi}), tracks alive {alive}, landmarks "
-          f"{sess.n_landmarks}, launches {counts}, host reads convergence {reads[0]} band "
+    print(f"[vo] {name} session {HEIGHT}x{WIDTH}, grid {VO_GRID} "
+          f"({sess._dev.alive.numel()} slots), keyframe stride {stride}, {N_FRAMES} frames "
+          f"through process_frames{', fb check 1.0 px' if fb else ''}, each step a graph "
+          f"replay: front end {_spread(ms)} ({smi}), tracks alive {alive}, landmarks "
+          f"{sess.n_landmarks}, reseeds taken {reseeds} of {N_FRAMES} steps (the seed kernel's "
+          f"device counter), launches {counts}, host reads convergence {reads[0]} band "
           f"{reads[1]} (the capture's launches, added a replay), synchronizing operations "
           f"{len(syncs)}; two eager steps under sync debug "
           f"\"error\": none")
     if syncs or sum(reads):
-        raise AssertionError(f"vo {config}: {len(syncs)} synchronizing operations "
+        raise AssertionError(f"vo {name}: {len(syncs)} synchronizing operations "
                              f"{sorted(set(syncs))}, flow reads {reads}")
     if alive < 0.5 * sess._dev.alive.numel():
-        raise AssertionError(f"vo {config}: only {alive} tracks alive")
+        raise AssertionError(f"vo {name}: only {alive} tracks alive")
+    if not 0 < reseeds <= N_FRAMES // stride:
+        raise AssertionError(f"vo {name}: {reseeds} reseeds taken in {N_FRAMES} steps at "
+                             f"stride {stride}")
 
-    first, e_counts = counted(f"vo {config}", lambda: vo_session(a, chunk, config, eager=True))
-    e_runs = [first] + [vo_session(a, chunk, config, eager=True) for _ in range(VO_RUNS - 1)]
+    pyramidal.counters.reset()
+    first, e_counts = counted(f"vo {name}", lambda: vo_session(a, chunk, name, eager=True))
+    e_reseeds = int(pyramidal.counters.reseeds(dev))
+    e_runs = [first] + [vo_session(a, chunk, name, eager=True) for _ in range(VO_RUNS - 1)]
     eager = e_runs[0][0]
     e_ms = [1000 * s / N_FRAMES for _, s in e_runs]
     got, want = _records(sess), _records(eager)
-    same = all(np.array_equal(x, y) for g, w in zip(got[:3], want[:3]) for x, y in zip(g, w)) \
-        and len(got[0]) == len(want[0]) and got[3] == want[3]
-    print(f"[vo] {config} the same session stepped eagerly (process_frame): {_spread(e_ms)}, "
-          f"launches {e_counts}; {len(got[0])} ObsRecords "
+    same = _same_records(got, want) and e_reseeds == reseeds
+    print(f"[vo] {name} the same session stepped eagerly (process_frame): {_spread(e_ms)}, "
+          f"launches {e_counts}, reseeds taken {e_reseeds}; {len(got[0])} ObsRecords "
           f"{'bit-identical' if same else 'DIFFER'} to the graphed session's")
     if not same:
-        raise AssertionError(f"vo {config}: graphed and eager ObsRecords differ")
+        raise AssertionError(f"vo {name}: graphed and eager ObsRecords or reseeds differ")
 
     results, solve_s = [], []
     for _ in range(2):
@@ -1545,47 +1604,75 @@ def check_vo_session(a, b, chunk, config: str, smi: str):
     same = all(np.array_equal(getattr(r0, f), getattr(r1, f))
                for f in ("poses_r", "poses_t", "landmarks"))
     finite = all(np.isfinite(getattr(r0, f)).all() for f in ("poses_r", "poses_t", "landmarks"))
-    print(f"[vo] {config} solve(ba_iterations={VO_BA_ITERATIONS}) over {len(sess.keyframes)} "
+    print(f"[vo] {name} solve(ba_iterations={VO_BA_ITERATIONS}) over {len(sess.keyframes)} "
           f"keyframes, {sum(int(v.sum()) for v in sess.obs_valid)} valid observations: "
           f"{solve_s[0]:.3f} s, then {solve_s[1]:.3f} s; mean reprojection error "
           f"{r0.mean_reprojection_error:.4f} px; two solves {'bit-identical' if same else 'DIFFER'}")
     if not (same and finite and r0.mean_reprojection_error < 1.0):
-        raise AssertionError(f"vo {config} solve: identical {same}, finite {finite}, mean "
+        raise AssertionError(f"vo {name} solve: identical {same}, finite {finite}, mean "
                              f"reprojection error {r0.mean_reprojection_error}")
 
-    if VO_SESSIONS[config] is not None:
-        before = launch_counts()
-        with plain_versions():
-            plain, plain_s = vo_session(a, chunk, config, eager=True)
-        if launch_counts() != before:
-            raise AssertionError("the plain VO session launched a kernel")
-        uv, lm, ok, n_lm = _records(sess)
-        puv, plm, pok, pn_lm = _records(plain)
-        ids = all(np.array_equal(x, y) for x, y in zip(lm + ok, plm + pok)) and n_lm == pn_lm
-        xy = max(float(np.abs(x - y)[v].max(initial=0.0)) for x, y, v in zip(uv, puv, ok))
-        print(f"[vo] {config} session through the plain versions on the card: "
-              f"{1000 * plain_s / N_FRAMES:.3f} ms/frame; alive, ids and counters "
-              f"{'identical' if ids else 'DIFFER'}; max |dxy| of live tracks {xy:.3g} px "
-              f"(limit {STREAM_ATOL}, the stream's)")
-        if not ids or xy > STREAM_ATOL:
-            raise AssertionError(f"vo {config}: plain session differs (ids {ids}, xy {xy})")
+    before = launch_counts()
+    pyramidal.counters.reset()
+    with plain_versions():
+        plain, plain_s = vo_session(a, chunk, name, eager=True)
+    if launch_counts() != before:
+        raise AssertionError("the plain VO session launched a kernel")
+    p_reseeds = int(pyramidal.counters.reseeds(dev))
+    uv, _, ok, _ = _records(sess)
+    puv = _records(plain)[0]
+    xy = max(float(np.abs(x - y)[v].max(initial=0.0)) for x, y, v in zip(uv, puv, ok))
+    same = _same_records(_records(sess), _records(plain)) and p_reseeds == reseeds
+    print(f"[vo] {name} session through the plain versions on the card: "
+          f"{1000 * plain_s / N_FRAMES:.3f} ms/frame, reseeds taken {p_reseeds}; ObsRecords "
+          f"{'bit-identical' if same else 'DIFFER'} to the graphed session's (max |dxy| of "
+          f"live tracks {xy:.3g} px)")
+    if not same:
+        raise AssertionError(f"vo {name}: the plain session differs (max |dxy| {xy}, reseeds "
+                             f"{p_reseeds} against {reseeds})")
     return float(np.median(ms)), e_counts
 
 
-def time_vo_reseed(a):
-    """Phase 6: the masked reseed's cost at 1080p, the Shi-Tomasi grid seed
-    that every step computes: device time (CUDA events) and the host clock
-    of one call to a synchronize."""
-    margin = VO_GRID - 3  # any margin: the same passes
-    ms = device_ms(lambda: tracking.seed_grid(a, VO_GRID, margin=margin))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        tracking.seed_grid(a, VO_GRID, margin=margin)
-    torch.cuda.synchronize()
-    host_ms = 1000 * (time.perf_counter() - t0) / 20
-    print(f"[vo] masked reseed at {HEIGHT}x{WIDTH} (tracking.seed_grid, every step): device "
-          f"{ms:.4f} ms, host clock {host_ms:.4f} ms a call")
+def check_seed_kernel(a) -> dict:
+    """Phase 6: the grid seed kernel at 1080p, bit for bit against its plain
+    version on the stream frame and the natural frame at margins 0 and the
+    sessions' seed margin; its device time beside its bound and the plain
+    version's (the masked reseed every step paid before the gate); a call
+    whose predicate is false beside the launch floor."""
+    dev = a.device
+    natural = profile.natural_pair(device=dev)[0].contiguous()
+    margin = device_loop.FrontEnd(grid_step=VO_GRID).margin_for(HEIGHT, WIDTH, for_cull=False)
+    worst = 0.0
+    for label, frame in (("stream", a), ("natural", natural)):
+        for m in (0, margin):
+            xy, alive = seed.seed_grid(frame, VO_GRID, margin=m)
+            want_xy, want_alive = seed.seed_grid_ref(frame, VO_GRID, margin=m)
+            err = max_abs(xy, want_xy)
+            flips = int((alive != want_alive).sum())
+            worst = max(worst, err)
+            print(f"[vo] seed kernel, {label} frame {HEIGHT}x{WIDTH}, grid {VO_GRID}, margin {m}: "
+                  f"{alive.numel()} cells, {int(alive.sum())} alive; max |dxy| {err} and "
+                  f"{flips} alive flags against the plain version")
+            if err or flips:
+                raise AssertionError(f"seed kernel differs from its plain version ({label}, "
+                                     f"margin {m}): max |dxy| {err}, {flips} alive flags")
+    ms = device_ms(lambda: seed.seed_grid(a, VO_GRID, margin=margin))
+    plain_ms = device_ms(lambda: seed.seed_grid_ref(a, VO_GRID, margin=margin))
+    off = torch.zeros((), dtype=torch.bool, device=dev)
+    off_ms = device_ms(lambda: seed.seed_grid(a, VO_GRID, margin=margin, predicate=off))
+    _, off_alive = seed.seed_grid(a, VO_GRID, margin=margin, predicate=off)
+    if bool(off_alive.any()):
+        raise AssertionError("a seed call with a false predicate left a cell alive")
+    floor_ms = device_ms(_build.launch_empty)
+    bound_ms, by = bounds.seed_bound(HEIGHT, WIDTH, VO_GRID)
+    print(f"[vo] seed kernel at {HEIGHT}x{WIDTH}, grid {VO_GRID}, margin {margin}: device "
+          f"{ms:.5f} ms a call, bound {bound_ms:.5f} ms ({by}), {100 * bound_ms / ms:.1f}% of it; "
+          f"plain version (the masked reseed paid every step before the gate) {plain_ms:.4f} ms; "
+          f"predicate false {off_ms:.5f} ms against the launch floor {floor_ms:.5f} ms")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "shape": [HEIGHT, WIDTH],
+            "grid_step": VO_GRID, "margin": margin, "skipped_ms": off_ms,
+            "launch_floor_ms": floor_ms, "bytes": bounds.seed_bytes(HEIGHT, WIDTH, VO_GRID),
+            "bound_ms": bound_ms, "bound_by": by}
 
 
 def profiled(run):
@@ -1634,6 +1721,7 @@ _TRACED_KERNELS = (
      {"0": "warp_exact", "8": "warp_packed_u8", "16": "warp_packed_u16"}),
     (re.compile(r"tpuflow_lk::lk_walk_kernel<\d+, (true|false), \d+, 0>"),
      {"true": "lk_refine", "false": "lk_refine_exact"}),
+    (re.compile(r"tpuflow_seed::(seed)_grid_kernel"), {"seed": "seed_grid"}),
 )
 
 
@@ -1655,23 +1743,34 @@ def traced_launches(events) -> dict[str, int]:
     return out
 
 
-def profile_vo(a, chunk, config: str, eager_counts: dict) -> None:
+def profile_vo(a, chunk, name: str, eager_counts: dict) -> None:
     """Phase 6: device time by kernel and the device's busy share over 4
-    graphed frames of a VO session (torch.profiler); the port's kernels in
-    the trace must be the eager session's launches (``eager_counts``, over
+    graphed frames of a VO session (torch.profiler), the session started
+    before the trace; the port's kernels in the trace must be the eager
+    session's step launches (``eager_counts`` less its start's, over
     N_FRAMES frames) for 4 frames."""
-    seconds, kernels = profiled(lambda: vo_session(a, chunk[:4], config)[1])
+    sess = vo_session(a, chunk[:0], name)[0]
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.process_frames(chunk[:4])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    seconds, kernels = profiled(run)
     busy_us = sum(e.self_device_time_total for e in kernels)
     calls = sum(e.count for e in kernels)
     traced = traced_launches(kernels)
-    want = {name: n * 4 // N_FRAMES for name, n in eager_counts.items()}
-    if traced != want or any(n * 4 % N_FRAMES for n in eager_counts.values()):
-        raise AssertionError(f"vo {config}: the graphed session's trace holds {traced} launches "
+    steps = {k: n - VO_START_LAUNCHES.get(k, 0) for k, n in eager_counts.items()}
+    want = {k: n * 4 // N_FRAMES for k, n in steps.items()}
+    if traced != want or any(n * 4 % N_FRAMES for n in steps.values()):
+        raise AssertionError(f"vo {name}: the graphed session's trace holds {traced} launches "
                              f"of the port's kernels in 4 frames; the eager session launched "
-                             f"{eager_counts} in {N_FRAMES}")
-    print(f"[vo] profile {config}: the trace holds {traced} launches of the port's kernels in 4 "
-          f"graphed frames, as the eager session's a frame")
-    print(f"[vo] profile {config} session, 4 frames under the profiler: wall "
+                             f"{eager_counts} in its start and {N_FRAMES} frames")
+    print(f"[vo] profile {name}: the trace holds {traced} launches of the port's kernels in 4 "
+          f"graphed frames, as the eager session's steps")
+    print(f"[vo] profile {name} session, 4 frames under the profiler: wall "
           f"{1000 * seconds / 4:.3f} ms/frame, device busy {busy_us / 4000:.3f} ms/frame "
           f"({100 * busy_us / 1e6 / seconds:.1f}%), {calls / 4:.0f} device calls a frame")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
@@ -1834,23 +1933,62 @@ def _host_seconds(fn, runs: int = 3):
     return float(np.median(times)), out
 
 
-def check_vo_imu():
-    """Phase 6: preintegration of swing_imu's samples and solve_vi on the
-    card, each beside the same call on the CPU (the CPU tests' limits)."""
+def _scan_inputs(gyro, accel, dts, jac: bool, dev) -> list:
+    """The scan's per-sample inputs, as ``imu.preintegrate`` makes them."""
+    g, acc, h = (torch.from_numpy(np.asarray(x, np.float32)).to(dev) for x in (gyro, accel, dts))
+    wh = g * h[:, None]
+    args = [se3.so3_exp(wh), acc, h]
+    if jac:
+        args += [se3.so3_right_jacobian(wh), se3.hat(acc)]
+    return args
+
+
+def check_vo_imu(dev) -> tuple[dict, dict]:
+    """Phase 6: preintegration of swing_imu's samples on the card (the
+    scan kernel) beside the same call on the CPU, the kernel against the
+    plain loop on the card, and solve_vi on the card beside the CPU. Returns
+    the main path's launches and the scan's readings."""
     n = vo_verifier.SEQUENCE_LENGTHS["swing_imu"]
     ts, gyro, accel, frame_times = vo_verifier._imu_swing(n)
     dts = np.append(np.diff(ts), np.median(np.diff(ts)))
+    _, counts = counted("vo imu", lambda: [imu.preintegrate(gyro, accel, dts, bias_jacobians=jac)
+                                           for jac in (False, True)])
+    readings = {}
     for jac in (False, True):
         sec, got = _host_seconds(lambda: imu.preintegrate(gyro, accel, dts, bias_jacobians=jac))
         cpu_sec, want = _host_seconds(lambda: imu.preintegrate(
             gyro, accel, dts, bias_jacobians=jac, device="cpu"), runs=1)
         err = max(float((a.cpu() - b).abs().max()) for a, b in zip(got, want)
                   if isinstance(b, torch.Tensor))
+        args = _scan_inputs(gyro, accel, dts, jac, dev)
+        k_out = imu_kernel.preintegrate_scan(*args)
+        plain_sec, p_out = _host_seconds(lambda: imu_kernel.preintegrate_scan_ref(*args), runs=1)
+        r_err = max_abs(k_out[0], p_out[0])
+        rel = max(max_abs(x, y) / float(y.abs().max()) for x, y in zip(k_out[1:], p_out[1:]))
+        ms = device_ms(lambda: imu_kernel.preintegrate_scan(*args))
+        bound_ms, by = bounds.imu_bound(len(ts), jac)
+        chain_ms = bounds.imu_chain_ms(len(ts), jac)
         print(f"[vo] imu.preintegrate, {len(ts)} samples, bias_jacobians={jac}: card "
-              f"{1000 * sec:.1f} ms ({1e6 * sec / len(ts):.1f} us a sample), CPU "
-              f"{1000 * cpu_sec:.1f} ms; max |card - CPU| {err:.3g} (limit {IMU_ATOL})")
+              f"{1000 * sec:.3f} ms (host clock, the scan one launch), CPU {1000 * cpu_sec:.1f} "
+              f"ms; max |card - CPU| {err:.3g} (limit {IMU_ATOL}). Scan kernel {ms:.5f} ms "
+              f"device a call against the plain loop on the card {1000 * plain_sec:.1f} ms "
+              f"(host clock): max |dr| {r_err:.3g} (limit {IMU_SCAN_R_ATOL}), v, p and "
+              f"Jacobians {rel:.3g} of their largest entry (limit {IMU_SCAN_RTOL}); bound "
+              f"{bound_ms:.6f} ms ({by}), dependent chain {chain_ms:.5f} ms "
+              f"({100 * chain_ms / ms:.1f}% of the kernel's time)")
         if not err <= IMU_ATOL:
             raise AssertionError(f"imu.preintegrate differs from the CPU by {err}")
+        if not (r_err <= IMU_SCAN_R_ATOL and rel <= IMU_SCAN_RTOL):
+            raise AssertionError(f"the scan kernel differs from the plain loop: r {r_err}, "
+                                 f"others {rel} relative")
+        if not sec < cpu_sec:
+            raise AssertionError(f"preintegrate on the card ({sec} s) is slower than on the CPU "
+                                 f"({cpu_sec} s)")
+        readings[jac] = {"max_abs_err": r_err, "max_rel_err": rel, "ms": ms,
+                         "plain_ms": 1000 * plain_sec, "plain_clock": "host",
+                         "preintegrate_ms": 1000 * sec, "cpu_ms": 1000 * cpu_sec,
+                         "samples": len(ts), "bytes": bounds.imu_bytes(len(ts), jac),
+                         "bound_ms": bound_ms, "bound_by": by, "chain_bound_ms": chain_ms}
     # The swing as an up-to-scale vision trajectory (scale 2.5), increments
     # between its keyframes, gravity known.
     gt_r, gt_t = vo_verifier.SEQUENCES["swing_imu"](n)
@@ -1870,6 +2008,7 @@ def check_vo_imu():
           + f", scale {scale_err:.3g} relative, rms {rms_err:.3g}")
     if any(errs[f] > VI_ATOL[f] for f in VI_ATOL) or scale_err > 1e-5 or rms_err > 1e-7:
         raise AssertionError(f"solve_vi differs from the CPU: {errs}, {scale_err}, {rms_err}")
+    return counts, readings
 
 
 def run_vo_gate(dev):
@@ -2780,13 +2919,15 @@ def main() -> None:
 
     # 6. vo
     t0 = time.perf_counter()
+    port_readings = {"seed_grid": check_seed_kernel(a)}
     chunk = vo_chunk(a, b)
-    for config in VO_SESSIONS:
-        vo_ms, vo_counts = check_vo_session(a, b, chunk, config, smi)
-        print(f"[vo] {config}: front end {vo_ms:.3f} ms/frame against the flow stream's "
+    for name, (config, _, _) in VO_SESSIONS.items():
+        vo_ms, vo_counts = check_vo_session(a, b, chunk, name, smi)
+        print(f"[vo] {name}: front end {vo_ms:.3f} ms/frame against the flow stream's "
               f"{stream_ms[config]:.3f} ms/frame (phase 4)")
-        profile_vo(a, chunk, config, vo_counts)
-    time_vo_reseed(a)
+        profile_vo(a, chunk, name, vo_counts)
+        if name == "production":
+            counts["seed_grid"] = vo_counts["seed_grid"]
     del chunk
     t1 = time.perf_counter()
     square, gt_r, gt_t = render_square_1080p(fa)
@@ -2794,8 +2935,13 @@ def main() -> None:
     check_vo_chunked(square, gt_r, gt_t)
     check_vo_resume(square)
     del square
-    check_vo_imu()
+    imu_counts, imu_readings = check_vo_imu(dev)
+    counts.update(imu_counts)
+    port_readings["imu_preintegrate"] = {**imu_readings[False], "bias_jacobians": imu_readings[True]}
     run_vo_gate(dev)
+    missing = [name for name in PORT_KERNELS if not counts.get(name)]
+    if missing:
+        raise AssertionError(f"kernels launched on no main path: {missing}")
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise AssertionError("TF32 was enabled on the VO path")
     print(f"[vo] phase took {time.perf_counter() - t0:.1f} s")
@@ -2824,6 +2970,15 @@ def main() -> None:
             "library_ms": None, "library": NO_LIBRARY_CALL.get(name), **r,
             "bytes": bounds.call_bytes(name, *dims), "bound_ms": bound_ms,
             "bound_by": bound_by, "bound_share": bound_ms / r["ms"]})
+    for name, (src, replaces, why) in PORT_KERNELS.items():
+        r = port_readings[name]
+        # The seed launches once a VO step; the scan once a preintegrated segment.
+        per_frame = (counts[name] - VO_START_LAUNCHES.get(name, 0)) / N_FRAMES \
+            if name == "seed_grid" else None
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": counts[name], "launches_per_frame": per_frame, "library_ms": None,
+            "library": why, **r, "bound_share": r["bound_ms"] / r["ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -138,3 +138,30 @@ def test_smoke_reports_a_bound_and_a_yardstick_for_every_kernel():
     # reason why no single PyTorch call computes its function.
     assert set(chip_smoke.NO_LIBRARY_CALL) == set(bounds.KERNELS) - {"shift_ablation"}
     assert all(chip_smoke.NO_LIBRARY_CALL.values())
+
+
+def test_seed_bound_at_1080p_grid_16():
+    # The f32 frame read once, xy (8 B) and alive (1 B) written for each of
+    # the 67 x 120 cells; a false predicate writes alive alone.
+    assert bounds.seed_bytes(1080, 1920, 16) == 4 * PIXELS_1080P + 9 * 8040 == 8_366_760
+    ms, by = bounds.seed_bound(1080, 1920, 16)
+    assert by == "bytes" and ms == pytest.approx(8_366_760 / 3.35e9, rel=1e-12)
+    assert bounds.seed_bytes(1080, 1920, 16, taken=False) == 8040
+    ops_ms = bounds.SEED_OPS_PER_PIXEL * PIXELS_1080P / (bounds.F32_TFLOPS * 1e9)
+    assert 0 < ops_ms < ms
+
+
+@pytest.mark.parametrize("jac,per_sample,out,chain", [(False, 52, 60, 3), (True, 124, 240, 4)])
+def test_imu_scan_bounds(jac, per_sample, out, chain):
+    assert bounds.imu_bytes(751, jac) == per_sample * 751 + out
+    assert bounds.imu_bound(751, jac)[1] == "bytes"
+    # The dependent chain: 3 or 4 f32 operations a sample, 4 cycles each
+    # at 1980 MHz, far above the bytes' time.
+    want = chain * 751 * 4 / 1.98e9 * 1e3
+    assert bounds.imu_chain_ms(751, jac) == pytest.approx(want, rel=1e-12)
+    assert bounds.imu_chain_ms(751, jac) > 100 * bounds.imu_bound(751, jac)[0]
+
+
+def test_smoke_reports_the_port_kernels():
+    assert set(chip_smoke.PORT_KERNELS) == set(bounds.PORT_KERNELS)
+    assert all(why for _, _, why in chip_smoke.PORT_KERNELS.values())

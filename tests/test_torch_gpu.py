@@ -47,6 +47,15 @@ refine's in-kernel sums within 1e-6 relative of torch.sum of its block
 partials, each batch element latched alone; the graphed stream
 (``flow.GraphedStream``) and the VO front end's graphed ``scan_steps``
 bit-identical to the eager steps, with the eager step's launch counts.
+The grid seed (``kernels.seed``) bit-identical to its plain version at
+1080x1920 and 121x163, margins 0, 3, 13 and 20 (cells all ``-inf``), on
+noise, blurred noise and constant patches (exact ties), grid steps 8, 16
+and 32; a false predicate writes alive 0 and counts no reseed, a true one
+counts one. The IMU scan (``kernels.imu``) within 2e-6 of the plain loop
+in r and 1e-5 of the largest entry in v, p and each Jacobian, at 1, 2 and
+751 samples. A stride-2 VO front end (odd steps skip the reseed) gives the
+same records and reseed count graphed, eager and through the plain
+versions.
 """
 
 import numpy as np
@@ -58,7 +67,8 @@ from tpuflow_torch import PYRAMID_CONFIGS, lucas_kanade_pyramidal_step
 from tpuflow_torch.flow import GraphedStream
 from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation, warp_walk
 from tpuflow_torch.flow import pyramidal
-from tpuflow_torch.kernels import _build, launch_counts, lk, torch_ref, warp
+from tpuflow_torch.kernels import _build, launch_counts, lk, seed, torch_ref, warp
+from tpuflow_torch.kernels import imu as imu_kernel
 from tpuflow_torch.vo import ba, device_loop, imu, pose_graph, se3
 from tpuflow_torch.vo.pipeline import OdometrySession
 
@@ -631,8 +641,8 @@ def test_ablation_entry_points_refuse_uncovered_arguments(cuda):
     torch.cuda.synchronize()
 
 
-VO_KERNELS = {"production": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
-              "default": {"warp_exact", "lk_refine_exact"}}
+VO_KERNELS = {"production": {"warp_packed_u8", "warp_packed_u16", "lk_refine", "seed_grid"},
+              "default": {"warp_exact", "lk_refine_exact", "seed_grid"}}
 
 
 def _vo_frames(n, shape=(240, 320)):
@@ -659,6 +669,7 @@ def test_vo_session_matches_plain_versions(cuda, monkeypatch, config):
     assert {k for k in after if after[k] > before[k]} == VO_KERNELS[config]
     monkeypatch.setattr(warp, "warp_round", warp.warp_round_ref)
     monkeypatch.setattr(lk, "refine_round", lk.refine_round_ref)
+    monkeypatch.setattr(seed, "seed_grid", seed.seed_grid_ref)
     plain = session()
     assert kernels.n_landmarks == plain.n_landmarks
     for uv, puv, ids, pids, ok, pok in zip(kernels.obs_uv, plain.obs_uv, kernels.obs_lm,
@@ -988,3 +999,103 @@ def test_graphs_follow_a_swapped_wrapper(cuda, monkeypatch):
         stream.step(frames[1])
     fe.scan_steps(state0, frames[1:])
     assert calls  # captured again, through the wrapper bound now
+
+
+def _seed_frame(source: str, shape, dev):
+    rng = np.random.default_rng(shape[1])
+    if source == "noise":
+        a = rng.uniform(0, 255, shape)
+    elif source == "texture":
+        a = np.round(gaussian_filter(rng.uniform(0, 255, shape), 2.0))
+    else:  # 8x8 constant patches: exact ties in every cell
+        levels = rng.integers(0, 255, (shape[0] // 8 + 1, shape[1] // 8 + 1))
+        a = np.kron(levels, np.ones((8, 8)))[: shape[0], : shape[1]]
+    return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("shape", [(1080, 1920), (121, 163)])
+@pytest.mark.parametrize("margin", [0, 3, 13, 20])
+@pytest.mark.parametrize("source", ["noise", "texture", "patches"])
+def test_seed_kernel_bit_exact(cuda, shape, margin, source):
+    frame = _seed_frame(source, shape, cuda)
+    (xy, alive), counts = _launches(lambda: seed.seed_grid(frame, 16, margin=margin))
+    want_xy, want_alive = seed.seed_grid_ref(frame, 16, margin=margin)
+    assert counts == {"seed_grid": 1}
+    assert torch.equal(xy, want_xy) and torch.equal(alive, want_alive)
+
+
+@pytest.mark.parametrize("step", [8, 32])
+def test_seed_kernel_bit_exact_at_other_grid_steps(cuda, step):
+    frame = _seed_frame("texture", (270, 481), cuda)
+    xy, alive = seed.seed_grid(frame, step, margin=5)
+    want_xy, want_alive = seed.seed_grid_ref(frame, step, margin=5)
+    assert torch.equal(xy, want_xy) and torch.equal(alive, want_alive)
+
+
+def test_seed_kernel_gated_on_the_device(cuda):
+    frame = _seed_frame("texture", (240, 320), cuda)
+    taken = torch.zeros(1, dtype=torch.int32, device=cuda)
+    off = torch.tensor(False, device=cuda)
+    on = torch.tensor(True, device=cuda)
+    (_, alive), counts = _launches(lambda: seed.seed_grid(frame, 16, predicate=off, taken=taken))
+    assert counts == {"seed_grid": 1}
+    assert alive.shape == (15 * 20,) and not bool(alive.any()) and int(taken) == 0
+    xy, alive = seed.seed_grid(frame, 16, predicate=on, taken=taken)
+    want_xy, want_alive = seed.seed_grid_ref(frame, 16)
+    assert torch.equal(xy, want_xy) and torch.equal(alive, want_alive) and int(taken) == 1
+    with pytest.raises(ValueError):
+        seed.seed_grid(frame, 16, predicate=off.cpu())
+    with pytest.raises(ValueError):
+        seed.seed_grid(frame[:8], 16)  # no grid cell
+
+
+@pytest.mark.parametrize("n", [1, 2, 751])
+@pytest.mark.parametrize("jacobians", [False, True])
+def test_imu_scan_kernel_matches_the_plain_loop(cuda, n, jacobians):
+    rng = np.random.default_rng(n)
+    g, a = (torch.from_numpy(rng.normal(scale=s, size=(n, 3)).astype(np.float32)).to(cuda)
+            for s in (0.5, 3.0))
+    h = torch.from_numpy(rng.uniform(0.004, 0.006, n).astype(np.float32)).to(cuda)
+    wh = g * h[:, None]
+    args = [se3.so3_exp(wh), a, h]
+    if jacobians:
+        args += [se3.so3_right_jacobian(wh), se3.hat(a)]
+    got, counts = _launches(lambda: imu_kernel.preintegrate_scan(*args))
+    want = imu_kernel.preintegrate_scan_ref(*args)
+    assert counts == {"imu_preintegrate": 1}
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=2e-6)
+    for x, y in zip(got[1:], want[1:]):
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-5 * float(y.abs().max()))
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_vo_stride_two_graphed_eager_and_plain_agree(cuda, monkeypatch):
+    frames = torch.from_numpy(_vo_frames(7)).to(cuda)
+    fe = device_loop.FrontEnd(backend="cuda", keyframe_stride=2,
+                              config=PYRAMID_CONFIGS["production"])
+    counter = pyramidal.counters.reseeds(cuda)
+
+    def eager():
+        state, _ = fe.init(frames[0])
+        start = int(counter)
+        records = []
+        for frame in frames[1:]:
+            state, obs = fe.step(state, frame)
+            records.append(obs)
+        return records, int(counter) - start
+
+    state0, _ = fe.init(frames[0])
+    start = int(counter)
+    _, g_obs = fe.scan_steps(state0, frames[1:])
+    g_taken = int(counter) - start
+    e_obs, e_taken = eager()
+    monkeypatch.setattr(warp, "warp_round", warp.warp_round_ref)
+    monkeypatch.setattr(lk, "refine_round", lk.refine_round_ref)
+    monkeypatch.setattr(seed, "seed_grid", seed.seed_grid_ref)
+    before = launch_counts()
+    p_obs, p_taken = eager()
+    assert launch_counts() == before
+    assert g_taken == e_taken == p_taken <= 3  # at most the even steps
+    for i in range(len(e_obs)):
+        for g, e, p in zip(g_obs, e_obs[i], p_obs[i]):
+            assert torch.equal(g[i], e) and torch.equal(e, p)

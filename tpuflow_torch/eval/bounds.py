@@ -31,6 +31,22 @@ Bytes per call, by kernel name (``chip_smoke.KERNELS``):
 For example the refine at 1080x1920 moves 24 * 2,073,600 = 49,766,400 B,
 0.014855 ms at 3.35 TB/s. No timing here: these are the counts a chip
 run's times are divided by.
+
+The port's two kernels with no Pallas counterpart (``PORT_KERNELS``), the
+reference's ``lax.cond`` and ``lax.scan`` on the card, have bounds of their
+own shapes:
+
+- the grid seed (``seed_bound``): the f32 frame read once and 9 B a cell
+  written (xy and alive), against ``SEED_OPS_PER_PIXEL`` f32 operations a
+  pixel; bound by bytes (at 1080p grid 16: 8,366,760 B, 2.50 us). A call
+  whose predicate is false writes alive alone, 1 B a cell;
+- IMU preintegration (``imu_bound``): 52 B a sample in (Exp(w h), accel,
+  dt), 124 with the bias Jacobians' inputs, and 60 or 240 B out, against
+  ``IMU_OPS_PER_SAMPLE``: bytes and operations both take well under a
+  microsecond. What bounds it is latency (``imu_chain_ms``): each sample
+  waits on the last through r (a multiply and two fused multiply-adds, 3
+  dependent f32 operations) or, with the Jacobians, j_r (4), each at least
+  ``F32_LATENCY_CYCLES`` cycles at the SM's clock.
 """
 
 from __future__ import annotations
@@ -136,3 +152,65 @@ def bound_ms(name: str, batch: int, height: int, width: int,
              variant: str | None = None) -> float:
     """The least time in ms one call could take on the card."""
     return bound(name, batch, height, width, variant)[0]
+
+
+# The port's kernels with no Pallas counterpart.
+PORT_KERNELS = ("seed_grid", "imu_preintegrate")
+
+# f32 operations a pixel of the grid seed: the average (2), Sobel's two
+# sums of six taps (22), three products, 2 x 3 x 4 window adds, the
+# eigenvalue (9) and the cell compare.
+SEED_OPS_PER_PIXEL = 61
+# f32 operations a sample of the scan: a_world (15), p (18), v (6), r step
+# (45); with the bias Jacobians also r a^ and (r a^) j_r (90), j_r (63)
+# and the four other Jacobians' updates (126).
+IMU_OPS_PER_SAMPLE = {False: 84, True: 363}
+IMU_BYTES_PER_SAMPLE = {False: 4 * 13, True: 4 * 31}
+IMU_OUT_BYTES = {False: 4 * 15, True: 4 * 60}
+# Dependent f32 operations a sample on the scan's longest chain: r's
+# multiply and two fused multiply-adds, or j_r's and a subtract.
+IMU_CHAIN_OPS = {False: 3, True: 4}
+# Cycles from one f32 add, multiply or fused multiply-add to a dependent
+# one on Volta through Hopper (published microbenchmarks), and the H100
+# SXM's highest SM clock (NVIDIA's data sheet; nvidia-smi's clocks.max.sm
+# reads 1980 MHz on the card).
+F32_LATENCY_CYCLES = 4
+SM_CLOCK_GHZ = 1.98
+
+
+def _time(nbytes: int, ops: int) -> tuple[float, str]:
+    bytes_ms = nbytes / (HBM_GBPS * 1e9) * 1e3
+    ops_ms = ops / (F32_TFLOPS * 1e12) * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def seed_bytes(height: int, width: int, grid_step: int, taken: bool = True) -> int:
+    """Bytes one grid-seed call must move: the frame and xy and alive a
+    cell where it seeds, alive alone where its predicate is false."""
+    cells = (height // grid_step) * (width // grid_step)
+    return 4 * height * width + 9 * cells if taken else cells
+
+
+def seed_bound(height: int, width: int, grid_step: int, taken: bool = True
+               ) -> tuple[float, str]:
+    """(bound in ms, "bytes" or "operations") of one grid-seed call."""
+    ops = SEED_OPS_PER_PIXEL * height * width if taken else 0
+    return _time(seed_bytes(height, width, grid_step, taken), ops)
+
+
+def imu_bytes(n: int, bias_jacobians: bool) -> int:
+    """Bytes one scan over ``n`` samples must move."""
+    return IMU_BYTES_PER_SAMPLE[bias_jacobians] * n + IMU_OUT_BYTES[bias_jacobians]
+
+
+def imu_bound(n: int, bias_jacobians: bool) -> tuple[float, str]:
+    """(bound in ms, "bytes" or "operations") of one scan over ``n``
+    samples: the card's rates, which its dependent chain never reaches."""
+    return _time(imu_bytes(n, bias_jacobians), IMU_OPS_PER_SAMPLE[bias_jacobians] * n)
+
+
+def imu_chain_ms(n: int, bias_jacobians: bool) -> float:
+    """The least time in ms of the scan's dependent chain over ``n``
+    samples, at ``F32_LATENCY_CYCLES`` a dependent operation."""
+    cycles = IMU_CHAIN_OPS[bias_jacobians] * n * F32_LATENCY_CYCLES
+    return cycles / (SM_CLOCK_GHZ * 1e9) * 1e3

@@ -7,11 +7,12 @@ The port of ``tpuflow.eval.profile_vo``, with its six rows:
   the coarse-to-fine solve;
 - ``pyramid build (1 frame)``: the build alone;
 - ``seed_grid (Shi-Tomasi)``: the full-frame corner response and grid-cell
-  argmax of the keyframe reseed (every frame at ``keyframe_stride=1``);
+  argmax of the keyframe reseed, ungated (``kernels.seed.seed_grid``: the
+  seed kernel on the card, the plain version on the CPU);
 - ``advance (track gathers)``: dense-flow sampling and border cull of the
   track table;
 - ``full VO step``: the whole ``FrontEnd.step`` (flow, advance, loss
-  stats, the masked reseed);
+  stats, the reseed gated on the keyframe predicate);
 - ``unexplained (full - flow - seed - advance)``: the accounting row.
 
 Clocks. The flow step and the full step read the flow's early-exit flag
@@ -46,7 +47,7 @@ from tpuflow_torch.core.config import PYRAMID_CONFIGS
 from tpuflow_torch.eval import profile
 from tpuflow_torch.eval.timing import card_label, device_ms, resolve_device
 from tpuflow_torch.flow.pyramidal import lucas_kanade_pyramidal_step
-from tpuflow_torch.kernels import torch_ref
+from tpuflow_torch.kernels import seed, torch_ref
 from tpuflow_torch.vo import tracking
 from tpuflow_torch.vo.device_loop import get_front_end
 
@@ -133,7 +134,7 @@ def profile_vo(
         ("pyramid build (1 frame)", True,
          lambda: torch_ref.build_gaussian_pyramid(frame1, cfg.levels, cfg.scale_factor)),
         ("seed_grid (Shi-Tomasi)", True,
-         lambda: tracking.seed_grid(frame1, grid_step=grid_step, margin=seed_margin)),
+         lambda: seed.seed_grid(frame1, grid_step=grid_step, margin=seed_margin)),
         ("advance (track gathers)", True,
          lambda: tracking.advance(tracks0, u0, u0, margin=margin)),
         ("full VO step", False, lambda: fe.step(state0, frame1)),

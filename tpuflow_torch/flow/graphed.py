@@ -32,7 +32,8 @@ import torch
 from tpuflow_torch.core import ops
 from tpuflow_torch.core.config import PyramidConfig
 from tpuflow_torch.flow import pyramidal
-from tpuflow_torch.kernels import _build, add_launch_counts, launch_counts, lk, torch_ref, warp
+from tpuflow_torch.kernels import (_build, add_launch_counts, launch_counts, lk, seed, torch_ref,
+                                   warp)
 
 WARMUP_STEPS = 2  # eager steps on a side stream before the capture
 
@@ -44,8 +45,9 @@ def _check_cuda(t: torch.Tensor, what: str) -> None:
 
 
 def bound_kernels() -> tuple:
-    """The round wrappers the fast path's step calls, as bound now."""
-    return warp.warp_round, lk.refine_round
+    """The kernel wrappers the fast path's steps call, as bound now: the
+    flow's rounds and the VO front end's gated seed."""
+    return warp.warp_round, lk.refine_round, seed.seed_grid
 
 
 def same_kernels(captured: tuple) -> bool:

@@ -55,12 +55,25 @@ class Counters:
     # The same for the latest fast-path solve: an int32 (levels,) tensor on
     # the solve's device, written by the kernels (never read here).
     level_rounds: torch.Tensor | None = None
+    # Keyframe reseeds the VO front end's steps took (the reference's
+    # lax.cond branch), by device: a one-element int32 tensor that the seed
+    # kernel adds to on the device (``reseeds``). ``reset`` zeroes it in
+    # place, so a captured step goes on adding to the tensor read here.
+    reseed_counts: dict = dataclasses.field(default_factory=dict)
+
+    def reseeds(self, device: torch.device) -> torch.Tensor:
+        """The reseed counter on ``device``, made at its first use."""
+        if device not in self.reseed_counts:
+            self.reseed_counts[device] = torch.zeros(1, dtype=torch.int32, device=device)
+        return self.reseed_counts[device]
 
     def reset(self) -> None:
         self.convergence_reads = 0
         self.band_reads = 0
         self.level_iterations = []
         self.level_rounds = None
+        for count in self.reseed_counts.values():
+            count.zero_()
 
 
 counters = Counters()

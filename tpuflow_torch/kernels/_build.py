@@ -77,6 +77,11 @@ _SIGNATURES = {
     "tpuflow_shift_ablation": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     # x, off, out, rows, wp, mode, stream
     "tpuflow_warp_gather_ablation": (_P, _P, _P, _I, _I, _I, _P),
+    # frame, predicate (device bool or null), taken (device i32 or null),
+    # xy, alive, height, width, grid_step, margin, min_response, stream
+    "tpuflow_seed_grid": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # samples, n, bias_jacobians, out, stream
+    "tpuflow_imu_preintegrate": (_P, _I, _I, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -19,11 +19,14 @@ Two things keep the step free of host reads:
 - every shape is static: the track table is fixed-capacity, reseeding
   writes dead slots by mask, the loss log is a fixed-slot write, and new
   landmark ids come from a device counter plus a cumulative sum;
-- the keyframe reseed, a ``lax.cond`` in the reference, is a masked
-  select: the fresh corners are always computed and ``good`` is gated by
-  the keyframe predicate, so off a keyframe (or with no dead slot) the
-  select writes nothing and mints no id. The result is bit-identical to
-  the cond in every case.
+- the keyframe reseed, a ``lax.cond`` in the reference, is gated on the
+  device: on the fast path (``backend="cuda"``, CUDA tensors) the seed
+  kernel (``kernels.seed``) reads the keyframe predicate from device
+  memory and, off a keyframe or with no dead slot, reads no frame and
+  seeds no cell. Elsewhere the plain seed runs every step, masked by the
+  predicate. Either way ``good`` is gated by the predicate too, so the
+  select then writes nothing and mints no id, bit-identical to the cond.
+  Each taken branch adds 1 to ``pyramidal.counters.reseeds(device)``.
 
 The fast path's flow (``flow.pyramidal``, ``backend="cuda"``) keeps its
 early exit and band on the device too; the parity path's flow reads them
@@ -45,11 +48,10 @@ from typing import NamedTuple
 import torch
 
 from tpuflow_torch.core.config import PyramidConfig
-from tpuflow_torch.flow import graphed
+from tpuflow_torch.flow import graphed, pyramidal
 from tpuflow_torch.flow.pyramidal import lucas_kanade_pyramidal_from_pyramids
-from tpuflow_torch.kernels import add_launch_counts
 from tpuflow_torch.flow.single_scale import BACKENDS
-from tpuflow_torch.kernels import torch_ref
+from tpuflow_torch.kernels import add_launch_counts, seed, torch_ref
 from tpuflow_torch.sharding.tiled_pyramidal import tiled_lucas_kanade_pyramidal
 from tpuflow_torch.vo import tracking
 
@@ -209,15 +211,21 @@ class FrontEnd:
             rtl_clamp=self.rtl_clamp,
         )
 
+    def _seed(self, frame: torch.Tensor, predicate: torch.Tensor | None = None,
+              taken: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """The grid seed of ``frame`` at the seed margin, (xy, alive): the
+        kernel's wrapper on the fast path (the kernel for CUDA tensors),
+        the plain version elsewhere, both gated on ``predicate``."""
+        fn = seed.seed_grid if self.backend == "cuda" else seed.seed_grid_ref
+        return fn(frame, self.grid_step, margin=self.margin_for(*frame.shape, for_cull=False),
+                  predicate=predicate, taken=taken)
+
     def init(self, frame: torch.Tensor) -> tuple[FrontEndState, ObsRecord]:
         """Seed on the first frame; the returned ObsRecord is keyframe 0.
         Every slot gets a landmark id, dead seeds included."""
         frame = _check_frame(frame)
         dev = frame.device
-        t = tracking.seed_grid(
-            frame, grid_step=self.grid_step,
-            margin=self.margin_for(*frame.shape, for_cull=False),
-        )
+        t = tracking.tracks_at(*self._seed(frame))
         n = t.xy.shape[0]
         lm = torch.arange(n, dtype=torch.int32, device=dev)
         n_lm = torch.full((), n, dtype=torch.int32, device=dev)
@@ -279,18 +287,17 @@ class FrontEnd:
         # Keyframe reseed of the dead slots with fresh corners and new ids
         # from the device counter (ascending in slot order). The reference
         # skips the branch off a keyframe or with no dead slot; here the
-        # same predicate gates ``good``, so the select is then a no-op.
+        # seed kernel reads the same predicate on the device and then seeds
+        # nothing (the plain seed runs and is masked). The predicate also
+        # gates ``good``, so the selects below are then no-ops.
         is_kf = ((fi % self.keyframe_stride) == 0) & (~t.alive).any()
-        fresh = tracking.seed_grid(
-            frame, grid_step=self.grid_step,
-            margin=self.margin_for(h, w, for_cull=False),
-        )
-        good = fresh.alive & ~t.alive & is_kf
+        fresh_xy, fresh_alive = self._seed(frame, is_kf, pyramidal.counters.reseeds(frame.device))
+        good = fresh_alive & ~t.alive & is_kf
         new_ids = (
             state.n_landmarks + torch.cumsum(good.to(torch.int32), 0, dtype=torch.int32) - 1
         )
-        xy = torch.where(good[:, None], fresh.xy, t.xy)
-        start = torch.where(good[:, None], fresh.xy, t.start_xy)
+        xy = torch.where(good[:, None], fresh_xy, t.xy)
+        start = torch.where(good[:, None], fresh_xy, t.start_xy)
         age = torch.where(good, 0, t.age)
         alive = t.alive | good
         lm = torch.where(good, new_ids, state.track_lm)

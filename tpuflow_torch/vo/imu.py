@@ -6,12 +6,12 @@ increments (dR, dv, dp) that do not depend on the absolute state
 (on-manifold preintegration, Forster et al.), which keeps IMU rates out of
 the optimizer.
 
-- ``preintegrate`` is the reference's ``lax.scan`` over samples as a
-  sequential loop in float32 with TF32 off. The per-sample rotation steps
-  ``Exp(w h)`` (and, for the bias Jacobians, the right Jacobians and
-  ``hat(a)``) do not depend on the carry and are computed for all samples
-  at once; the recursion itself is a handful of tiny operations a sample,
-  each a launch on the card.
+- ``preintegrate`` is the reference's ``lax.scan`` over samples. The
+  per-sample rotation steps ``Exp(w h)`` (and, for the bias Jacobians,
+  the right Jacobians and ``hat(a)``) do not depend on the carry and are
+  computed for all samples at once in torch; the recursion itself is
+  ``kernels.imu.preintegrate_scan``: one CUDA kernel launch on the card,
+  the plain loop over samples in float32 (TF32 off) on the CPU.
 - ``preintegrate_segments`` splits a stream at keyframe times on the host;
   an interval with no sample gives the identity increment with
   ``n_samples=0``, which callers treat as missing data.
@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from tpuflow_torch.eval.timing import resolve_device
+from tpuflow_torch.kernels import imu as imu_kernel
 from tpuflow_torch.vo import se3
 from tpuflow_torch.vo._precision import pin_matmul_precision
 
@@ -101,39 +102,14 @@ def preintegrate(
 
     wh = gyro * dts[:, None]
     steps = se3.so3_exp(wh)                       # (N, 3, 3), off the carry
-    r = torch.eye(3, dtype=torch.float32, device=dev)
-    v = torch.zeros(3, dtype=torch.float32, device=dev)
-    p = torch.zeros(3, dtype=torch.float32, device=dev)
-
     if bias_jacobians:
-        a_hats = se3.hat(accel)
-        right = se3.so3_right_jacobian(wh)
-        j_r, j_vg, j_va, j_pg, j_pa = (torch.zeros((3, 3), dtype=torch.float32, device=dev)
-                                       for _ in range(5))
-        for k in range(n):
-            h, a, step_r = dts[k], accel[k], steps[k]
-            a_world = r @ a
-            # The bias Jacobians use the pre-update r, j_r and j_v*.
-            r_a_jr = r @ a_hats[k] @ j_r
-            j_pg = j_pg + j_vg * h - 0.5 * r_a_jr * h * h
-            j_pa = j_pa + j_va * h - 0.5 * r * h * h
-            j_vg = j_vg - r_a_jr * h
-            j_va = j_va - r * h
-            j_r = step_r.T @ j_r - right[k] * h
-            p = p + v * h + 0.5 * a_world * h * h
-            v = v + a_world * h
-            r = r @ step_r
+        r, v, p, j_r, j_vg, j_va, j_pg, j_pa = imu_kernel.preintegrate_scan(
+            steps, accel, dts, se3.so3_right_jacobian(wh), se3.hat(accel))
         return ImuIncrement(
             delta_r=r, delta_v=v, delta_p=p, dt=dts.sum(), n_samples=n,
             j_r_bg=j_r, j_v_bg=j_vg, j_v_ba=j_va, j_p_bg=j_pg, j_p_ba=j_pa,
         )
-
-    for k in range(n):
-        h = dts[k]
-        a_world = r @ accel[k]
-        p = p + v * h + 0.5 * a_world * h * h
-        v = v + a_world * h
-        r = r @ steps[k]
+    r, v, p = imu_kernel.preintegrate_scan(steps, accel, dts)
     return ImuIncrement(delta_r=r, delta_v=v, delta_p=p, dt=dts.sum(), n_samples=n)
 
 

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from tpuflow_torch.eval.timing import resolve_device
+from tpuflow_torch.kernels import seed
 from tpuflow_torch.vo import epipolar, tracking
 
 
@@ -102,7 +103,7 @@ def loop_edge(
     fi, fj = (torch.as_tensor(f if isinstance(f, torch.Tensor) else np.asarray(f, np.float32),
                               dtype=torch.float32, device=dev) for f in (frame_i, frame_j))
     u, v = flow_fn(fi, fj)
-    tracks = tracking.seed_grid(fi, grid_step=grid_step)
+    tracks = tracking.tracks_at(*seed.seed_grid(fi, grid_step=grid_step))
     prev_xy = tracks.xy
     adv = tracking.advance(tracks, u, v)
     ub, vb = flow_fn(fj, fi)

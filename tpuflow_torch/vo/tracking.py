@@ -2,9 +2,10 @@
 
 Counterpart of ``tpuflow.vo.tracking``: features are seeded one per grid
 cell at the cell's best Shi-Tomasi corner (the minimum eigenvalue of the
-5x5 structure tensor the LK solve builds) and advanced each frame by
-bilinear sampling of the dense flow. Every shape is static (a fixed track
-table with a validity mask), so a step reads nothing back to the host.
+5x5 structure tensor the LK solve builds; ``kernels.seed`` holds it, with
+its CUDA kernel) and advanced each frame by bilinear sampling of the dense
+flow. Every shape is static (a fixed track table with a validity mask), so
+a step reads nothing back to the host.
 """
 
 from __future__ import annotations
@@ -12,10 +13,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
-from tpuflow_torch.core import ops
-from tpuflow_torch.kernels import torch_ref
+from tpuflow_torch.kernels import seed
+from tpuflow_torch.kernels.seed import shi_tomasi_response  # noqa: F401 (the front end's response)
 
 
 class Tracks(NamedTuple):
@@ -27,27 +27,14 @@ class Tracks(NamedTuple):
     alive: torch.Tensor     # (N,) bool validity
 
 
-def shi_tomasi_response(frame: torch.Tensor, window: int = 5) -> torch.Tensor:
-    """Min-eigenvalue corner response of the window's structure tensor,
-    zero on the ``window // 2`` border."""
-    ix, iy, _ = torch_ref.compute_gradients(frame, frame)
-    half = window // 2
-    s_xx = ops.uniform_window_sum_valid(ix * ix, window)
-    s_yy = ops.uniform_window_sum_valid(iy * iy, window)
-    s_xy = ops.uniform_window_sum_valid(ix * iy, window)
-    tr = s_xx + s_yy
-    disc = torch.sqrt(torch.square(s_xx - s_yy) + 4.0 * torch.square(s_xy))
-    min_eig = 0.5 * (tr - disc)
-    return F.pad(min_eig, (half, half, half, half))
-
-
 def seed_grid(
     frame: torch.Tensor,
     grid_step: int = 16,
     min_response: float = 1.0,
     margin: int = 0,
 ) -> Tracks:
-    """Seed one feature per grid cell at the cell's best corner.
+    """Seed one feature per grid cell at the cell's best corner, in plain
+    PyTorch (``kernels.seed.seed_grid_ref``).
 
     ``margin`` excludes a border stripe: cells straddling it pick their
     best corner outside it, cells inside it seed nothing. The argmax keeps
@@ -55,33 +42,13 @@ def seed_grid(
     index in the cell among its maxima, so a cell that is all ``-inf``
     picks index 0.
     """
-    h, w = frame.shape
-    dev = frame.device
-    resp = shi_tomasi_response(frame)
-    if margin > 0:
-        y = torch.arange(h, device=dev)[:, None]
-        x = torch.arange(w, device=dev)[None, :]
-        inside = (y >= margin) & (y < h - margin) & (x >= margin) & (x < w - margin)
-        resp = torch.where(inside, resp, -torch.inf)
-    s = grid_step
-    gy, gx = h // s, w // s
-    r4 = resp[: gy * s, : gx * s].reshape(gy, s, gx, s)
-    cell_max = r4.amax(dim=(1, 3))
-    local = torch.arange(s, device=dev)
-    index = local.view(1, s, 1, 1) * s + local.view(1, 1, 1, s)
-    is_max = r4 == cell_max[:, None, :, None]
-    best = torch.where(is_max, index, s * s).amin(dim=(1, 3)).reshape(gy * gx)
-    best_resp = cell_max.reshape(gy * gx)
-    cell = torch.arange(gy * gx, device=dev)
-    x = (cell % gx) * s + best % s
-    y = (cell // gx) * s + best // s
-    xy = torch.stack([x.to(torch.float32), y.to(torch.float32)], dim=1)
-    return Tracks(
-        xy=xy,
-        start_xy=xy,
-        age=torch.zeros(gy * gx, dtype=torch.int32, device=dev),
-        alive=best_resp > min_response,
-    )
+    return tracks_at(*seed.seed_grid_ref(frame, grid_step, min_response, margin))
+
+
+def tracks_at(xy: torch.Tensor, alive: torch.Tensor) -> Tracks:
+    """Fresh tracks at (N, 2) positions: spawned there, age 0."""
+    age = torch.zeros(xy.shape[0], dtype=torch.int32, device=xy.device)
+    return Tracks(xy=xy, start_xy=xy, age=age, alive=alive)
 
 
 def sample_flow(flow_u: torch.Tensor, flow_v: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
