@@ -392,6 +392,13 @@ IMU_ATOL = 5e-6
 # (3-term dot products summed left to right against cuBLAS's order).
 IMU_SCAN_R_ATOL = 2e-6
 IMU_SCAN_RTOL = 1e-5
+# The first designs' device ms (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W:
+# the seed one product column a thread and a barrier a row, the scan one
+# lane), printed beside this run's: the seed at 1080p, grid 16, margin 13,
+# taken and with a false predicate; the scan over swing_imu's 751 samples by
+# bias_jacobians.
+SEED_FIRST_MS = {"taken": (0.02534, 0.02548), "skipped": (0.00295, 0.00317)}
+IMU_FIRST_MS = {False: (0.0594, 0.0675), True: (0.2180, 0.2478)}
 VI_ATOL = {"poses_r": 1e-5, "poses_t": 1e-5, "velocities": 1e-5}
 
 # K10's tensor-core sums against the plain version's torch.matmul, u, v in
@@ -1633,6 +1640,10 @@ def check_vo_session(a, b, chunk, name: str, smi: str):
     return float(np.median(ms)), e_counts
 
 
+def _span(times: tuple[float, float]) -> str:
+    return f"{times[0]:.5f}-{times[1]:.5f}"
+
+
 def check_seed_kernel(a) -> dict:
     """Phase 6: the grid seed kernel at 1080p, bit for bit against its plain
     version on the stream frame and the natural frame at margins 0 and the
@@ -1666,9 +1677,12 @@ def check_seed_kernel(a) -> dict:
     floor_ms = device_ms(_build.launch_empty)
     bound_ms, by = bounds.seed_bound(HEIGHT, WIDTH, VO_GRID)
     print(f"[vo] seed kernel at {HEIGHT}x{WIDTH}, grid {VO_GRID}, margin {margin}: device "
-          f"{ms:.5f} ms a call, bound {bound_ms:.5f} ms ({by}), {100 * bound_ms / ms:.1f}% of it; "
-          f"plain version (the masked reseed paid every step before the gate) {plain_ms:.4f} ms; "
-          f"predicate false {off_ms:.5f} ms against the launch floor {floor_ms:.5f} ms")
+          f"{ms:.5f} ms a call (first design: {_span(SEED_FIRST_MS['taken'])}), bound "
+          f"{bound_ms:.5f} ms ({by}), {100 * bound_ms / ms:.1f}% of it, launch floor "
+          f"{floor_ms:.5f} ms; plain "
+          f"version (the masked reseed paid every step before the gate) {plain_ms:.4f} ms; "
+          f"predicate false {off_ms:.5f} ms (first design: {_span(SEED_FIRST_MS['skipped'])}), "
+          f"{1000 * (off_ms - floor_ms):.2f} us over the floor")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "shape": [HEIGHT, WIDTH],
             "grid_step": VO_GRID, "margin": margin, "skipped_ms": off_ms,
             "launch_floor_ms": floor_ms, "bytes": bounds.seed_bytes(HEIGHT, WIDTH, VO_GRID),
@@ -1966,6 +1980,7 @@ def check_vo_imu(dev) -> tuple[dict, dict]:
         r_err = max_abs(k_out[0], p_out[0])
         rel = max(max_abs(x, y) / float(y.abs().max()) for x, y in zip(k_out[1:], p_out[1:]))
         ms = device_ms(lambda: imu_kernel.preintegrate_scan(*args))
+        floor_ms = device_ms(_build.launch_empty)
         bound_ms, by = bounds.imu_bound(len(ts), jac)
         chain_ms = bounds.imu_chain_ms(len(ts), jac)
         print(f"[vo] imu.preintegrate, {len(ts)} samples, bias_jacobians={jac}: card "
@@ -1973,9 +1988,10 @@ def check_vo_imu(dev) -> tuple[dict, dict]:
               f"ms; max |card - CPU| {err:.3g} (limit {IMU_ATOL}). Scan kernel {ms:.5f} ms "
               f"device a call against the plain loop on the card {1000 * plain_sec:.1f} ms "
               f"(host clock): max |dr| {r_err:.3g} (limit {IMU_SCAN_R_ATOL}), v, p and "
-              f"Jacobians {rel:.3g} of their largest entry (limit {IMU_SCAN_RTOL}); bound "
-              f"{bound_ms:.6f} ms ({by}), dependent chain {chain_ms:.5f} ms "
-              f"({100 * chain_ms / ms:.1f}% of the kernel's time)")
+              f"Jacobians {rel:.3g} of their largest entry (limit {IMU_SCAN_RTOL}); the first "
+              f"design {_span(IMU_FIRST_MS[jac])} ms; bound {bound_ms:.6f} ms ({by}), "
+              f"dependent chain {chain_ms:.5f} ms ({100 * chain_ms / ms:.1f}% of the kernel's "
+              f"time), launch floor {floor_ms:.5f} ms")
         if not err <= IMU_ATOL:
             raise AssertionError(f"imu.preintegrate differs from the CPU by {err}")
         if not (r_err <= IMU_SCAN_R_ATOL and rel <= IMU_SCAN_RTOL):
@@ -1988,6 +2004,7 @@ def check_vo_imu(dev) -> tuple[dict, dict]:
                          "plain_ms": 1000 * plain_sec, "plain_clock": "host",
                          "preintegrate_ms": 1000 * sec, "cpu_ms": 1000 * cpu_sec,
                          "samples": len(ts), "bytes": bounds.imu_bytes(len(ts), jac),
+                         "launch_floor_ms": floor_ms,
                          "bound_ms": bound_ms, "bound_by": by, "chain_bound_ms": chain_ms}
     # The swing as an up-to-scale vision trajectory (scale 2.5), increments
     # between its keyframes, gravity known.
@@ -2830,6 +2847,20 @@ def ablation_sass(sass: str) -> list[str]:
     return out
 
 
+def port_ptxas(log: str) -> list[str]:
+    """ptxas's registers, spill stores, static shared memory and stack of
+    the seed kernel and each scan instantiation (the seed's shared memory is
+    dynamic, sized by the grid step)."""
+    seeds = [f"seed_grid {regs} regs/{spill} B spilled/{stack} B stack"
+             for _, regs, spill, _, stack in ptxas_usage(
+                 log, r"_ZN12tpuflow_seed16seed_grid_kernelE")]
+    scans = [f"imu_scan{' bias Jacobians' if jac else ''} {regs} regs/{spill} B spilled/"
+             f"{smem} B smem/{stack} B stack"
+             for (jac,), regs, spill, smem, stack in ptxas_usage(
+                 log, r"_ZN11tpuflow_imu15imu_scan_kernelILb(\d)E")]
+    return seeds + scans
+
+
 def warp_ptxas(log: str) -> list[str]:
     """ptxas's registers and spill stores of each warp instantiation, the
     walk ablation's included (their shared memory is dynamic, sized by the
@@ -2878,6 +2909,7 @@ def main() -> None:
     for window, entries in sorted(mxu_ptxas(_build.build_log).items()):
         print(f"[build] K10 window {window}: " + "; ".join(sorted(entries)))
     print("[build] ablations: " + "; ".join(ablation_ptxas(_build.build_log)))
+    print("[build] seed and IMU scan: " + "; ".join(port_ptxas(_build.build_log)))
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path())],

@@ -1069,6 +1069,124 @@ def test_imu_scan_kernel_matches_the_plain_loop(cuda, n, jacobians):
     assert not torch.backends.cuda.matmul.allow_tf32
 
 
+# The seed kernel's tiling (csrc/seed.cu): a block holds cell_rows rows of
+# cells_x cells (by grid step: 1 -> 16 x 245, 8 -> 2 x 30, 16 -> 1 x 15,
+# 32 -> 1 x 7, 64 -> 1 x 3, 1020 -> 1 x 1), each warp 124 output columns.
+# Per step a frame whose cells across and cell rows are no multiple of the
+# block's, with its width a multiple of 4 (16-B staging) or not (4-B), and
+# a frame of one cell row (at step 1, of one block row: the plain version
+# takes no frame under the window's 5 rows); margins 0, 5 and 13.
+_SEED_TILING_SHAPES = {1: [(37, 263), (5, 300)], 8: [(75, 500), (15, 333)],
+                       16: [(121, 1000), (16, 261)], 32: [(100, 777), (40, 300)],
+                       64: [(200, 1300), (64, 700)], 1020: [(1100, 2100), (1020, 1025)]}
+
+
+@pytest.mark.parametrize("step,shape", [(s, shape) for s, shapes in _SEED_TILING_SHAPES.items()
+                                        for shape in shapes])
+@pytest.mark.parametrize("margin", [0, 5, 13])
+@pytest.mark.parametrize("source", ["texture", "flat"])
+def test_seed_kernel_bit_exact_at_the_tiling_edges(cuda, step, shape, margin, source):
+    # A flat frame: a zero response everywhere (ties in every cell) and cells
+    # wholly outside the margin all -inf.
+    frame = (_seed_frame("texture", shape, cuda) if source == "texture"
+             else torch.full(shape, 77.0, device=cuda))
+    (xy, alive), counts = _launches(lambda: seed.seed_grid(frame, step, margin=margin))
+    want_xy, want_alive = seed.seed_grid_ref(frame, step, margin=margin)
+    assert counts == {"seed_grid": 1}
+    assert torch.equal(xy, want_xy) and torch.equal(alive, want_alive)
+
+
+def test_seed_kernel_bit_exact_on_an_unaligned_frame(cuda):
+    # A frame 4 B past a 16-B boundary, width a multiple of 4: 4-B staging.
+    h, w = 121, 1000
+    flat = torch.empty(h * w + 1, device=cuda)
+    frame = flat[1:].view(h, w)
+    frame.copy_(_seed_frame("texture", (h, w), cuda))
+    assert frame.data_ptr() % 16 != 0
+    xy, alive = seed.seed_grid(frame, 16, margin=13)
+    want_xy, want_alive = seed.seed_grid_ref(frame, 16, margin=13)
+    assert torch.equal(xy, want_xy) and torch.equal(alive, want_alive)
+
+
+def test_seed_kernel_square_root_is_sqrtf_on_every_float(cuda):
+    # The kernel's branch-free square root against sqrtf, bit for bit, over
+    # every non-negative float32 (csrc/seed.cu, sqrt_rn).
+    lib = _build.load()
+    mismatches = torch.zeros(1, dtype=torch.int64, device=cuda)
+    code = lib.tpuflow_seed_sqrt_mismatches(mismatches.data_ptr(),
+                                            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, code, "sqrt check")
+    assert int(mismatches) == 0
+
+
+@pytest.mark.parametrize("step,shape", [(1, (37, 263)), (16, (121, 1000)), (1020, (1100, 2100))])
+def test_seed_kernel_false_predicate_at_the_tiling_edges(cuda, step, shape):
+    frame = _seed_frame("texture", shape, cuda)
+    taken = torch.full((1,), 5, dtype=torch.int32, device=cuda)
+    off = torch.tensor(False, device=cuda)
+    xy, alive = seed.seed_grid(frame, step, predicate=off, taken=taken)
+    assert alive.numel() == (shape[0] // step) * (shape[1] // step)
+    assert not bool(alive.any()) and int(taken) == 5
+
+
+def _scan_args(n: int, jacobians: bool, dev):
+    rng = np.random.default_rng(n)
+    g, a = (torch.from_numpy(rng.normal(scale=s, size=(n, 3)).astype(np.float32)).to(dev)
+            for s in (0.5, 3.0))
+    h = torch.from_numpy(rng.uniform(0.004, 0.006, n).astype(np.float32)).to(dev)
+    wh = g * h[:, None]
+    args = [se3.so3_exp(wh), a, h]
+    if jacobians:
+        args += [se3.so3_right_jacobian(wh), se3.hat(a)]
+    return args
+
+
+# The scan stages 128 samples a chunk, two chunks in flight: no sample, one,
+# two, one below a chunk, a chunk, one above, and swing_imu's 751.
+@pytest.mark.parametrize("n", [0, 1, 2, 127, 128, 129, 751])
+@pytest.mark.parametrize("jacobians", [False, True])
+def test_imu_scan_kernel_at_the_chunk_edges(cuda, n, jacobians):
+    args = _scan_args(n, jacobians, cuda)
+    got, counts = _launches(lambda: imu_kernel.preintegrate_scan(*args))
+    want = imu_kernel.preintegrate_scan_ref(*args)
+    assert counts == {"imu_preintegrate": 1}
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("jacobians", [False, True])
+def test_imu_scan_kernel_over_ten_thousand_samples(cuda, jacobians):
+    # Over 10,000 random samples the float32 plain loop (cuBLAS's 3x3
+    # products) and the kernel (dot3's order) round ~5e-5 apart in r, so
+    # both are held to the loop in float64: the kernel within twice the
+    # float32 loop's own distance from it, plus 2e-6.
+    args = _scan_args(10_000, jacobians, cuda)
+    got, counts = _launches(lambda: imu_kernel.preintegrate_scan(*args))
+    want32 = imu_kernel.preintegrate_scan_ref(*args)
+    want64 = imu_kernel.preintegrate_scan_ref(*[a.double() for a in args])
+    assert counts == {"imu_preintegrate": 1}
+    for x, y32, y64 in zip(got, want32, want64):
+        loop_err = float((y32.double() - y64).abs().max())
+        assert float((x.double() - y64).abs().max()) <= 2 * loop_err + 2e-6
+
+
+@pytest.mark.parametrize("jacobians", [False, True])
+def test_imu_scan_kernel_bit_identical_on_swing_imu(cuda, jacobians):
+    from tpuflow_torch.eval import vo_verifier
+
+    n = vo_verifier.SEQUENCE_LENGTHS["swing_imu"]
+    ts, gyro, accel, _ = vo_verifier._imu_swing(n)
+    dts = np.append(np.diff(ts), np.median(np.diff(ts)))
+    g, a, h = (torch.from_numpy(np.asarray(x, np.float32)).to(cuda) for x in (gyro, accel, dts))
+    wh = g * h[:, None]
+    args = [se3.so3_exp(wh), a, h]
+    if jacobians:
+        args += [se3.so3_right_jacobian(wh), se3.hat(a)]
+    got = imu_kernel.preintegrate_scan(*args)
+    want = imu_kernel.preintegrate_scan_ref(*args)
+    assert len(got) == len(want) and all(torch.equal(x, y) for x, y in zip(got, want))
+
+
 def test_vo_stride_two_graphed_eager_and_plain_agree(cuda, monkeypatch):
     frames = torch.from_numpy(_vo_frames(7)).to(cuda)
     fe = device_loop.FrontEnd(backend="cuda", keyframe_stride=2,

@@ -41,11 +41,13 @@ def preintegrate_scan_ref(
     a_hats: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """Plain PyTorch version of ``preintegrate_scan``: a loop over the
-    samples, a handful of small torch operations each."""
-    dev = steps.device
-    r = torch.eye(3, dtype=torch.float32, device=dev)
-    v = torch.zeros(3, dtype=torch.float32, device=dev)
-    p = torch.zeros(3, dtype=torch.float32, device=dev)
+    samples, a handful of small torch operations each, in the inputs' dtype
+    (float32 as the kernel; float64 gives a reference for float32's
+    rounding)."""
+    dev, dtype = steps.device, steps.dtype
+    r = torch.eye(3, dtype=dtype, device=dev)
+    v = torch.zeros(3, dtype=dtype, device=dev)
+    p = torch.zeros(3, dtype=dtype, device=dev)
     n = steps.shape[0]
     if right is None:
         for k in range(n):
@@ -56,7 +58,7 @@ def preintegrate_scan_ref(
             r = r @ steps[k]
         return r, v, p
 
-    j_r, j_vg, j_va, j_pg, j_pa = (torch.zeros((3, 3), dtype=torch.float32, device=dev)
+    j_r, j_vg, j_va, j_pg, j_pa = (torch.zeros((3, 3), dtype=dtype, device=dev)
                                    for _ in range(5))
     for k in range(n):
         h, a, step_r = dts[k], accel[k], steps[k]
