@@ -13,13 +13,9 @@ other version, this one, this one, the other (``eval.timing.device_ms``):
 the seed at 1080p, grid 16, margin 13, taken and with a false predicate,
 and on the frame's first eighth of rows; the scan at 1, 128 and 751
 samples, with and without bias Jacobians; an empty kernel's launch floor
-before and after. Then two probes: the other seed's launch, loads and
-barriers alone (``seed_loads.cu``, a copy of the one-column-a-thread body
-without its arithmetic) and this seed at other block geometries (cells
-across x cell rows a block, through ``tpuflow_seed_grid_as``). Prints one
-line a case, ptxas's report of the other build, and one JSON object; a
-difference found by the checks fails the run after the timings. Needs a
-CUDA device. For
+before and after. Prints one line a case, ptxas's report of the other
+build, and one JSON object; a difference found by the checks fails the run
+after the timings. Needs a CUDA device. For
 example, against the parent commit's sources unpacked under the gitignored
 ``build/``:
 
@@ -46,7 +42,6 @@ SOURCES = ("seed.cu", "imu_scan.cu")
 GRID, MARGINS = 16, (0, 13)
 SCAN_SAMPLES = (1, 128, 751)
 RANDOM_SAMPLES = (2, 3, 129, 751, 10_000)
-PROBE = Path(__file__).resolve().parent / "seed_loads.cu"
 
 
 def build_other(csrc: Path) -> tuple[ctypes.CDLL, str]:
@@ -62,19 +57,7 @@ def build_other(csrc: Path) -> tuple[ctypes.CDLL, str]:
     return lib, log
 
 
-def build_probe() -> ctypes.CDLL:
-    lib_path = _build.BUILD_DIR / "against" / "libseed_loads.so"
-    _build.build([PROBE], lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    lib.tpuflow_seed_loads.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    lib.tpuflow_seed_loads.restype = ctypes.c_int
-    lib.tpuflow_seed_loads_size.argtypes = [ctypes.c_int] * 3
-    lib.tpuflow_seed_loads_size.restype = ctypes.c_int
-    return lib
-
-
-def seed_call(lib, frame, margin, predicate=None, as_geometry=None):
+def seed_call(lib, frame, margin, predicate=None):
     """One launch of a library's seed kernel; returns (xy, alive)."""
     h, w = frame.shape
     cells = (h // GRID) * (w // GRID)
@@ -82,13 +65,8 @@ def seed_call(lib, frame, margin, predicate=None, as_geometry=None):
     alive = torch.empty((cells,), dtype=torch.bool, device=frame.device)
     stream = torch.cuda.current_stream().cuda_stream
     pred = None if predicate is None else predicate.data_ptr()
-    if as_geometry is None:
-        code = lib.tpuflow_seed_grid(frame.data_ptr(), pred, None, xy.data_ptr(),
-                                     alive.data_ptr(), h, w, GRID, margin, 1.0, stream)
-    else:
-        code = lib.tpuflow_seed_grid_as(frame.data_ptr(), pred, None, xy.data_ptr(),
-                                        alive.data_ptr(), h, w, GRID, margin, 1.0,
-                                        *as_geometry, stream)
+    code = lib.tpuflow_seed_grid(frame.data_ptr(), pred, None, xy.data_ptr(), alive.data_ptr(),
+                                 h, w, GRID, margin, 1.0, stream)
     _build.check(_build.load(), code, "seed_grid")
     return xy, alive
 
@@ -115,10 +93,7 @@ def scan_samples(dev, jac: bool):
     args = [se3.so3_exp(wh), acc, h]
     if jac:
         args += [se3.so3_right_jacobian(wh), se3.hat(acc)]
-    cols = [args[0].reshape(-1, 9), acc, h[:, None]]
-    if jac:
-        cols += [args[3].reshape(-1, 9), args[4].reshape(-1, 9)]
-    return torch.cat(cols, dim=1).contiguous(), args
+    return imu_kernel.pack_samples(*args), args
 
 
 def random_samples(dev, n: int, jac: bool):
@@ -133,11 +108,9 @@ def random_samples(dev, n: int, jac: bool):
     h = torch.from_numpy(rng.uniform(0.004, 0.006, n).astype(np.float32)).to(dev)
     wh = g * h[:, None]
     args = [se3.so3_exp(wh), a, h]
-    cols = [args[0].reshape(-1, 9), a, h[:, None]]
     if jac:
         args += [se3.so3_right_jacobian(wh), se3.hat(a)]
-        cols += [args[3].reshape(-1, 9), args[4].reshape(-1, 9)]
-    return torch.cat(cols, dim=1).contiguous(), args
+    return imu_kernel.pack_samples(*args), args
 
 
 def frames(dev):
@@ -227,33 +200,6 @@ def main() -> None:
         print(f"{name}: other {times['other'][0]:.5f} / {times['other'][1]:.5f} ms, this "
               f"{times['this'][0]:.5f} / {times['this'][1]:.5f} ms", flush=True)
 
-    # The parent kernel's launch, loads and barriers alone.
-    probe = build_probe()
-    size = probe.tpuflow_seed_loads_size(*natural.shape, GRID)
-    sink = torch.empty(size, dtype=torch.float32, device=dev)
-
-    def loads_only():
-        code = probe.tpuflow_seed_loads(natural.data_ptr(), sink.data_ptr(), *natural.shape,
-                                        GRID, torch.cuda.current_stream().cuda_stream)
-        _build.check(this, code, "seed loads probe")
-
-    doc["parent loads only"] = device_ms(loads_only, reps=100)
-    print(f"parent kernel's loads and barriers alone: {doc['parent loads only']:.5f} ms")
-
-    # This kernel's block geometry: cells across a block x cell rows a block.
-    sweep = {}
-    for cells_x in (7, 15, 30, 61):
-        for cell_rows in (1, 2, 4):
-            g = (cells_x, cell_rows)
-            want = seed.seed_grid_ref(natural, GRID, margin=13)
-            got = seed_call(this, natural, 13, as_geometry=g)
-            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-                failures.append(f"seed at geometry {g} differs from the plain version")
-            sweep[f"{cells_x}x{cell_rows}"] = device_ms(
-                lambda g=g: seed_call(this, natural, 13, as_geometry=g), reps=100)
-    doc["geometry"] = sweep
-    print("this seed by cells across x cell rows a block: " + ", ".join(
-        f"{k} {v:.5f}" for k, v in sweep.items()))
     doc["floor_ms"].append(device_ms(_build.launch_empty, reps=200))
     print(f"launch floor {doc['floor_ms'][0]:.5f} / {doc['floor_ms'][1]:.5f} ms")
     print(json.dumps(doc))

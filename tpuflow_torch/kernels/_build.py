@@ -80,9 +80,6 @@ _SIGNATURES = {
     # frame, predicate (device bool or null), taken (device i32 or null),
     # xy, alive, height, width, grid_step, margin, min_response, stream
     "tpuflow_seed_grid": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # as tpuflow_seed_grid, with the block's cells across and cell rows
-    # before the stream (for measurement)
-    "tpuflow_seed_grid_as": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
     # mismatches (device u64), stream: the seed kernel's square root against
     # sqrtf over every non-negative float32
     "tpuflow_seed_sqrt_mismatches": (_P, _P),

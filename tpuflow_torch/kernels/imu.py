@@ -92,6 +92,16 @@ def _check(steps, accel, dts, right, a_hats) -> int:
     return n
 
 
+def pack_samples(steps, accel, dts, right=None, a_hats=None) -> torch.Tensor:
+    """The kernel's input rows: (N, 13) [Exp(w h) row-major, accel, dt], or
+    (N, 31) with the right Jacobian and hat(accel) after them."""
+    n = steps.shape[0]
+    cols = [steps.reshape(n, 9), accel, dts[:, None]]
+    if right is not None:
+        cols += [right.reshape(n, 9), a_hats.reshape(n, 9)]
+    return torch.cat(cols, dim=1).contiguous()
+
+
 def preintegrate_scan(
     steps: torch.Tensor,
     accel: torch.Tensor,
@@ -105,10 +115,7 @@ def preintegrate_scan(
     if steps.device.type == "cpu":
         return preintegrate_scan_ref(steps, accel, dts, right, a_hats)
     jac = right is not None
-    cols = [steps.reshape(n, 9), accel, dts[:, None]]
-    if jac:
-        cols += [right.reshape(n, 9), a_hats.reshape(n, 9)]
-    samples = torch.cat(cols, dim=1).contiguous()  # (N, 13) or (N, 31)
+    samples = pack_samples(steps, accel, dts, right, a_hats)
     out = torch.empty(60 if jac else 15, dtype=torch.float32, device=steps.device)
     lib = _build.load()
     stream = torch.cuda.current_stream(steps.device).cuda_stream
