@@ -15,8 +15,9 @@ against its plain PyTorch version. Phases, one line each or more (any
 failure raises and the script exits non-zero):
 
 1. device: the card (name and power limit from nvidia-smi), the TF32 flags;
-2. build: nvcc builds every kernel from tpuflow_torch/csrc/ (and, where
-   cuobjdump is present, counts the tensor-core mma instructions);
+2. build: nvcc builds every kernel from tpuflow_torch/csrc/ and prints
+   ptxas's registers, spills and shared memory of each (where cuobjdump is
+   present it also counts the tensor-core mma instructions);
 3. kernels: each kernel at the main paths' shapes against its plain version
    on the card, with its median device time and the plain version's (CUDA
    events); the warps (K1, K2, K4) at every level of both pyramids, on the
@@ -56,9 +57,9 @@ failure raises and the script exits non-zero):
 6. vo: the visual-odometry path (``tpuflow_torch.vo``): the grid-seed
    kernel (``kernels.seed``, the keyframe reseed's ``lax.cond`` on the
    card) at 1080p bit-identical to its plain version on the stream and the
-   natural frame at margins 0 and 13, its device time beside its bound and
-   the plain version's, and a call whose predicate is false beside the
-   launch floor; a 1080p ``OdometrySession`` on the same a/b frames, grid
+   natural frame at margins 0 and 13, its device time beside its bound,
+   the launch floor, the first design's time and the plain version's, and
+   a call whose predicate is false beside the launch floor; a 1080p ``OdometrySession`` on the same a/b frames, grid
    step 16 (8,040 track slots), 16 frames through ``process_frames`` (each
    step one replay of the captured step), ``production`` (K1, K2, K3, the
    seed) and ``default`` with the forward-backward check (K4, K5, the
@@ -83,7 +84,8 @@ failure raises and the script exits non-zero):
    ``imu.preintegrate`` over ``swing_imu``'s 751 samples with and without
    bias Jacobians (the scan kernel, ``kernels.imu``), its host time
    beside the same call on the CPU, and the scan kernel against the plain
-   loop on the card (device time, the dependent-chain bound);
+   loop on the card (device time beside the dependent-chain bound, the
+   launch floor and the first design's time);
    ``vi_graph.solve_vi`` over its 16 keyframes beside the CPU; then the
    trajectory gate, all five
    sequences at 320x240 under ``backend="cuda"``, against the TPU's
