@@ -15,7 +15,9 @@ against its plain PyTorch version. Phases, one line each or more (any
 failure raises and the script exits non-zero):
 
 1. device: the card (name and power limit from nvidia-smi), the TF32 flags;
-2. build: nvcc builds every kernel from tpuflow_torch/csrc/ and prints
+2. build: the host's C++ compiler builds the native frame IO
+   (``tpuflow_torch/native/fastio.cpp``); nvcc builds every kernel from
+   tpuflow_torch/csrc/ and prints
    ptxas's registers, spills and shared memory of each (where cuobjdump is
    present it also counts the tensor-core mma instructions);
 3. kernels: each kernel at the main paths' shapes against its plain version
@@ -92,12 +94,18 @@ failure raises and the script exits non-zero):
    ``vo_pallas_baseline.json`` (the reference's cross-platform rule) and
    the card's ``tpuflow_torch/eval/data/vo_cuda_baseline.json`` (10%);
 7. cli: the user-facing modules. The 16 alternating frames written as
-   .bin files, through ``io.stream.FrameStream`` -> ``device_pairs`` (pinned
-   buffers, side-stream copies) -> ``flow.__main__.stream_flow`` under
-   ``production`` (K1, K2, K3) and ``default`` (K4, K5), bit for bit
-   against the same frames uploaded plainly, with ms a frame from host
-   files beside the same loop on frames already on the card (median and
-   spread of 3 runs); ``python -m tpuflow_torch.flow DIR --sequence
+   .bin files, through each of the two host-file readers, the native
+   read-ahead thread (``io.stream.FrameStream`` over ``io.fastio``, built
+   from ``tpuflow_torch/native/fastio.cpp`` in phase 2) and its plain
+   version (``io.stream.read_frames_ref``, a Python thread over numpy
+   reads), -> ``device_pairs`` (pinned buffers, side-stream copies; the
+   native reader reads straight into the pinned buffers) ->
+   ``flow.__main__.stream_flow`` under ``production`` (K1, K2, K3) and
+   ``default`` (K4, K5), both bit for bit against the same frames uploaded
+   plainly, with ms a frame through each reader beside the same loop on
+   frames already on the card (host clock, 3 runs in turn, median and
+   spread), and each reader alone and with ``prefetch_to_device``;
+   ``python -m tpuflow_torch.flow DIR --sequence
    --pyramidal --pyramid-config production --backend cuda`` as a
    subprocess, its mean magnitude equal to the in-process one; the S8.7
    datapath (``kernels.fixed_point``) on the card bit-identical to the CPU
@@ -107,7 +115,16 @@ failure raises and the script exits non-zero):
    ``--pyramidal`` (K4, K5), ``--backend rtl``) on the committed suite's
    translate_medium against the same runs on the CPU; the verifier's
    ``--suite-dir``; the plots where matplotlib imports (else the skip is
-   printed); ``eval.profile_vo``'s six rows at 1080p ``production``;
+   printed); ``eval.profile_vo``'s six rows at 1080p ``production``, each
+   in device ms, the flow step and the full VO step as graph replays
+   (the eager bodies' device and host ms beside them); then (``[gen]``
+   lines) the suite generator (``eval.patterns``) with its warps on the
+   card: the 13 patterns at 320x240 bit for bit the committed fixture and
+   ``generate_full_suite``'s tree ``write_suite``'s, at 1920x1080 the
+   card's frames bit for bit the CPU's with the seconds of each, and the
+   ``production`` verifier (K1, K2, K3, K6) over the 1080p suite written
+   to disk, each pattern's mean EPE printed, not gated (no baseline
+   exists at that size);
 8. mesh: the tiled flow of ``tpuflow_torch.sharding`` at 1080p under
    ``production_fullband`` and ``default``: (a) NCCL at world size 1 in this
    process, mesh 1x1x1, ``tiled_lucas_kanade_pyramidal`` against the
@@ -166,7 +183,9 @@ faster than it, the scan kernel within 2e-6 of the plain loop in r and
 1e-5 (poses, velocities; scale 1e-5 relative, RMS 1e-7), the limits of
 tests/test_torch_vo_graph.py; every sequence inside the
 absolute bounds and both baselines' rules, TF32 off; the CLI streams
-bit-identical to the plain upload, the S8.7 datapath and the ``rtl`` CLI
+bit-identical to the plain upload through both readers, the suite
+generated on the card bit for bit the fixture at 320x240 and the CPU's at
+1080p, every ``profile_vo`` row in device time, the S8.7 datapath and the ``rtl`` CLI
 run identical on the card and the CPU, the CLI's single scale within
 1.1e-5 px of the CPU run and its pyramidal run within 0.05 px of it
 (p99.9 0.02 px), its mae_u, mae_v and EPE within 1e-3 relative
@@ -232,8 +251,9 @@ from tpuflow_torch.eval.timing import card_label, device_ms
 from tpuflow_torch.flow import GraphedStream, pyramidal
 from tpuflow_torch.flow.__main__ import main as flow_cli
 from tpuflow_torch.flow.__main__ import mean_magnitude, stream_flow
-from tpuflow_torch.io.frames import load_flow_text, load_frame_bin, save_frame_bin
-from tpuflow_torch.io.stream import FrameStream, prefetch_to_device
+from tpuflow_torch.io import fastio
+from tpuflow_torch.io.frames import have_native_io, load_flow_text, load_frame_bin, save_frame_bin
+from tpuflow_torch.io.stream import FrameStream, prefetch_to_device, read_frames_ref
 from tpuflow_torch.kernels import _build, fixed_point, lk, seed, torch_ref, warp
 from tpuflow_torch.kernels import imu as imu_kernel
 from tpuflow_torch.sharding import (initialize_multihost, make_flow_mesh,
@@ -335,6 +355,8 @@ PATH_KERNELS = {
     "cli pyramidal": {"warp_exact", "lk_refine_exact"},
     "cli rtl": set(),  # the S8.7 datapath is torch int32 ops, no kernel
     "profile_vo": {"warp_packed_u8", "warp_packed_u16", "lk_refine", "seed_grid"},
+    # Phase 7b: the production verifier over the suite generated at 1080p.
+    "gen verifier": {"warp_packed_u8", "warp_packed_u16", "lk_refine", "lk_fused"},
     # Phase 8, the tiled paths, counted on each rank: every level tiled
     # (K6 on each tile) except at 1x4x1, whose coarsest level runs
     # replicated (K3 / K5); tiled single scale is plain torch ops.
@@ -366,6 +388,8 @@ CLI_PYRAMIDAL_MAX = 0.05
 CLI_PYRAMIDAL_P999 = 0.02
 CLI_PYRAMIDAL_RTOL = 1e-3
 CLI_RUNS = 3
+# The two host-file readers phase 7 compares (``_reader``).
+READERS = ("native", "plain")
 # The VO sessions at 1080p, by name: (config, forward-backward threshold,
 # keyframe stride). Grid step 16 (8,040 track slots), N_FRAMES frames
 # through process_frames after start; `default` with the forward-backward
@@ -2062,12 +2086,37 @@ def _spread(runs: list[float]) -> str:
     return f"median {np.median(runs):.3f} ms/frame (runs {', '.join(f'{t:.3f}' for t in runs)})"
 
 
+def _reader(name: str, paths: list[Path]):
+    """The frames of ``paths`` through one of the two readers: the native
+    read-ahead thread (``FrameStream``) or its plain version, a Python
+    thread over numpy reads (``read_frames_ref``)."""
+    if name == "native":
+        return FrameStream(paths, WIDTH, HEIGHT)
+    return read_frames_ref(paths, WIDTH, HEIGHT)
+
+
+def _host_ms_runs(fns: dict, per: int) -> dict[str, list[float]]:
+    """Host ms per item (to a synchronize) of each callable, CLI_RUNS runs
+    each, the callables taken in turn within a run."""
+    runs = {name: [] for name in fns}
+    for _ in range(CLI_RUNS):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs[name].append((time.perf_counter() - t0) * 1e3 / per)
+    return runs
+
+
 def check_cli_streams(fa, fb, a, frame_dir: Path) -> None:
     """Phase 7, step 1: the 16 alternating frames as .bin files through
-    FrameStream -> device_pairs -> stream_flow under `production` and
-    `default`, bit for bit against the same frames uploaded plainly; ms a
-    frame from host files beside the same loop on frames already on the
-    card; then the flow CLI's --sequence run as a subprocess."""
+    each reader (the native FrameStream and its plain Python-thread
+    version) -> device_pairs -> stream_flow under `production` and
+    `default`, both bit for bit against the same frames uploaded plainly;
+    ms a frame from host files through each reader beside the same loop on
+    frames already on the card; each reader alone and with the uploads;
+    then the flow CLI's --sequence run as a subprocess."""
     paths = [frame_dir / f"frame_{i:02d}.bin" for i in range(N_FRAMES)]
     for i, path in enumerate(paths):
         save_frame_bin(path, fa if i % 2 == 0 else fb)
@@ -2078,8 +2127,8 @@ def check_cli_streams(fa, fb, a, frame_dir: Path) -> None:
     for config in ("production", "default"):
         cfg = PYRAMID_CONFIGS[config]
 
-        def from_files():
-            return list(stream_flow(FrameStream(paths, WIDTH, HEIGHT), cfg, "cuda", dev))
+        def from_files(reader):
+            return list(stream_flow(_reader(reader, paths), cfg, "cuda", dev))
 
         def from_card():
             carry = torch_ref.build_gaussian_pyramid(on_card[0], cfg.levels, cfg.scale_factor)
@@ -2089,53 +2138,43 @@ def check_cli_streams(fa, fb, a, frame_dir: Path) -> None:
                 out.append((u, v))
             return out
 
-        flows, counts = counted(f"cli {config} stream", from_files)
         plain = from_card()
-        same = all(torch.equal(u, pu) and torch.equal(v, pv)
-                   for (u, v), (pu, pv) in zip(flows, plain))
-        if len(flows) != pairs or not same:
-            raise AssertionError(f"cli {config} stream: {len(flows)} pairs, bit-identical to "
-                                 f"the plain upload: {same}")
+        for reader in READERS:
+            flows, counts = counted(f"cli {config} stream", lambda: from_files(reader))
+            same = all(torch.equal(u, pu) and torch.equal(v, pv)
+                       for (u, v), (pu, pv) in zip(flows, plain))
+            if len(flows) != pairs or not same:
+                raise AssertionError(f"cli {config} stream, {reader} reader: {len(flows)} pairs, "
+                                     f"bit-identical to the plain upload: {same}")
         in_process[config] = mean_magnitude([torch.sqrt(u * u + v * v).mean() for u, v in flows])
-        timed = {}
-        for name, fn in (("host files", from_files), ("frames on the card", from_card)):
-            runs = []
-            for _ in range(CLI_RUNS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                runs.append((time.perf_counter() - t0) * 1e3 / pairs)
-            timed[name] = runs
+        timed = _host_ms_runs({"native": lambda: from_files("native"),
+                               "plain": lambda: from_files("plain"),
+                               "card": from_card}, pairs)
         print(f"[cli] {config} stream, {pairs} pairs {HEIGHT}x{WIDTH} (host clock to a "
-              f"synchronize, {CLI_RUNS} runs): from host files through FrameStream and the "
-              f"prefetching upload {_spread(timed['host files'])}; on frames already on the "
-              f"card {_spread(timed['frames on the card'])}; launches {counts}; bit-identical "
-              f"to the plain upload; mean magnitude {in_process[config]:.3f} px")
+              f"synchronize, {CLI_RUNS} runs in turn): from host files through the native "
+              f"FrameStream and the prefetching upload {_spread(timed['native'])}; through the "
+              f"plain Python reader {_spread(timed['plain'])}; on frames already on the card "
+              f"{_spread(timed['card'])}; launches {counts}; both readers bit-identical to the "
+              f"plain upload; mean magnitude {in_process[config]:.3f} px")
 
-    # Where the host-file stream's time goes: the read-ahead alone (read and
-    # widen to f32), then with the uploads (pinned copy, side-stream copy).
-    def read_only():
-        for _ in FrameStream(paths, WIDTH, HEIGHT):
+    # Where the host-file stream's time goes: each reader alone (read and
+    # widen to f32), then with the uploads (the native reader reads into
+    # the pinned buffers; the plain one's frames are copied there).
+    def read_only(reader):
+        for _ in _reader(reader, paths):
             pass
 
-    def read_upload():
-        for _ in prefetch_to_device(FrameStream(paths, WIDTH, HEIGHT), device=dev):
+    def read_upload(reader):
+        for _ in prefetch_to_device(_reader(reader, paths), device=dev):
             pass
 
-    parts = {}
-    for name, fn in (("read", read_only), ("read+upload", read_upload)):
-        runs = []
-        for _ in range(CLI_RUNS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            runs.append((time.perf_counter() - t0) * 1e3 / len(paths))
-        parts[name] = runs
-    print(f"[cli] the host-file stream without the flow, {len(paths)} frames: FrameStream "
-          f"alone {_spread(parts['read'])}; with prefetch_to_device "
-          f"{_spread(parts['read+upload'])}")
+    parts = _host_ms_runs({f"{kind} {reader}": (lambda k=kind, r=reader: (
+        read_only if k == "read" else read_upload)(r))
+        for kind in ("read", "read+upload") for reader in READERS}, len(paths))
+    for reader in READERS:
+        print(f"[cli] the host-file stream without the flow, {len(paths)} frames, {reader} "
+              f"reader: alone {_spread(parts['read ' + reader])}; with prefetch_to_device "
+              f"{_spread(parts['read+upload ' + reader])}")
 
     cmd = [sys.executable, "-m", "tpuflow_torch.flow", str(frame_dir), "--sequence",
            "--pyramidal", "--pyramid-config", "production", "--backend", "cuda",
@@ -2282,10 +2321,90 @@ def check_cli(fa, fb, a, label: str) -> None:
         check_cli_pairs(work)
     rows, counts = counted("profile_vo", lambda: vo_profiler.profile_vo(
         HEIGHT, WIDTH, "production", device=a.device))
-    print(f"[cli] profile_vo @ {WIDTH}x{HEIGHT} config=production on {label}: launches {counts}")
+    print(f"[cli] profile_vo @ {WIDTH}x{HEIGHT} config=production on {label}: launches {counts}; "
+          f"every row device ms (CUDA events), the flow step and the full step as graph replays")
     for line in vo_profiler.format_rows(rows):
         print(f"[cli] {line}")
+    if len(rows) != 6 or any(r["clock"] != vo_profiler.DEVICE_CLOCK or not np.isfinite(r["ms"])
+                             for r in rows):
+        raise AssertionError(f"profile_vo: rows without device time: {rows}")
     print(f"[cli] phase took {time.perf_counter() - t0:.1f} s")
+
+
+# -- phase 7b: the suite generator on the card ---------------------------------------------
+
+
+def _tree_equal(a: Path, b: Path) -> bool:
+    files_a = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
+    files_b = sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file())
+    return files_a == files_b and all((a / f).read_bytes() == (b / f).read_bytes()
+                                      for f in files_a)
+
+
+def check_gen(dev) -> None:
+    """Phase 7b (`[gen]` lines): ``eval.patterns``' generator with its warps
+    on the card. The 13 patterns at 320x240 bit for bit the committed
+    fixture, and ``generate_full_suite`` there the tree ``write_suite``
+    writes from it; at 1920x1080 the card's frames bit for bit the CPU's,
+    with the seconds each takes; the 1080p suite written, then the
+    ``production`` verifier over it on the card, each pattern's mean EPE
+    printed (no baseline exists at that size, so nothing is gated)."""
+    t_phase = time.perf_counter()
+    with np.load(patterns.SUITE_FIXTURE) as data:
+        fixture = {k: data[k] for k in data.files}
+    base = patterns.load_base_texture(320, 240)
+    same = [name for name, p in patterns.TEST_PATTERNS.items()
+            if np.array_equal(patterns.apply_motion(base, p, dev), fixture[name])]
+    with tempfile.TemporaryDirectory(prefix="tpuflow_gen_") as tmp:
+        work = Path(tmp)
+        tree = _tree_equal(patterns.generate_full_suite(320, 240, work / "gen", device=dev),
+                           patterns.write_suite(work / "fixture"))
+        print(f"[gen] 320x240 on the card: {len(same)} of {len(patterns.TEST_PATTERNS)} "
+              f"patterns and the base bit for bit the committed fixture "
+              f"({np.array_equal(base, fixture['base'])}); generate_full_suite's tree equals "
+              f"write_suite's, file for file: {tree}")
+        if len(same) != len(patterns.TEST_PATTERNS) or not tree \
+                or not np.array_equal(base, fixture["base"]):
+            raise AssertionError("the suite generated on the card is not the committed fixture")
+
+        t0 = time.perf_counter()
+        big = patterns.load_base_texture(WIDTH, HEIGHT)
+        resize_s = time.perf_counter() - t0
+        timed = {}
+        frames = {}
+        for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            t0 = time.perf_counter()
+            frames[key] = {n: patterns.apply_motion(big, p, where)
+                           for n, p in patterns.TEST_PATTERNS.items()}
+            timed[key] = time.perf_counter() - t0
+        differ = [n for n in patterns.TEST_PATTERNS
+                  if not np.array_equal(frames["card"][n], frames["cpu"][n])]
+        t0 = time.perf_counter()
+        suite = patterns.generate_full_suite(WIDTH, HEIGHT, work / "gen1080", device=dev)
+        write_s = time.perf_counter() - t0
+        print(f"[gen] {WIDTH}x{HEIGHT}: the base (integer resize, host) {resize_s:.3f} s; the 13 "
+              f"warps on the card {timed['card']:.3f} s, on the CPU {timed['cpu']:.3f} s (host "
+              f"clock, frames back in host memory); card == CPU bit for bit on "
+              f"{len(patterns.TEST_PATTERNS) - len(differ)} of 13 patterns; "
+              f"generate_full_suite (warps on the card, .bin, .mem and metadata written) "
+              f"{write_s:.2f} s")
+        if differ:
+            raise AssertionError(f"the card's 1080p frames differ from the CPU's: {differ}")
+
+        t0 = time.perf_counter()
+        results, counts = counted("gen verifier", lambda: verifier.run_suite(
+            pyramid_config_name="production", backend="cuda", verbose=False, device=dev,
+            suite_dir=suite))
+        seconds = time.perf_counter() - t0
+    epe = {r["pattern_name"]: (r["single_scale"]["metrics"]["epe"],
+                               r["pyramidal"]["metrics"]["epe"]) for r in results}
+    print(f"[gen] production verifier on the generated {WIDTH}x{HEIGHT} suite, on the card "
+          f"({seconds:.1f} s, launches {counts}); mean EPE px single / pyramidal (no baseline "
+          f"at this size, not gated): " + "; ".join(
+              f"{n} {s:.4f} / {p:.4f}" for n, (s, p) in epe.items()))
+    if len(results) != 13 or not all(np.isfinite(v).all() for v in epe.values()):
+        raise AssertionError(f"the 1080p suite's verifier run: {epe}")
+    print(f"[gen] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 # -- phase 8: the tiled flow over a process mesh ---------------------------------------------
@@ -2899,6 +3018,11 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
+    if not have_native_io():
+        raise AssertionError("the native frame IO did not load")
+    print(f"[build] native frame IO {fastio.library_path().name} ready in "
+          f"{time.perf_counter() - t0:.1f} s (c++ {' '.join(fastio.CXX_FLAGS)}, at first use)")
+    t0 = time.perf_counter()
     _build.load()
     usage = re.findall(r"Used (\d+) registers.*?(\d+) bytes smem", _build.build_log)
     print(f"[build] {_build.library_path().name} ready in {time.perf_counter() - t0:.1f} s "
@@ -2982,6 +3106,7 @@ def main() -> None:
 
     # 7. cli
     check_cli(fa, fb, a, smi)
+    check_gen(dev)
 
     # 8. mesh
     tiled_launches = check_mesh(a, b, fa, fb, smi)

@@ -55,7 +55,10 @@ counts one. The IMU scan (``kernels.imu``) within 2e-6 of the plain loop
 in r and 1e-5 of the largest entry in v, p and each Jacobian, at 1, 2 and
 751 samples. A stride-2 VO front end (odd steps skip the reseed) gives the
 same records and reseed count graphed, eager and through the plain
-versions.
+versions. The suite generator's warp (``eval.patterns.apply_motion``) on
+the card equals the CPU's at 640x480, bit for bit. The native reader
+(``io.stream.FrameStream``) feeds ``prefetch_to_device`` 64 frames through
+its few pinned buffers, each reused many times, with no stale frame.
 """
 
 import numpy as np
@@ -1217,3 +1220,50 @@ def test_vo_stride_two_graphed_eager_and_plain_agree(cuda, monkeypatch):
     for i in range(len(e_obs)):
         for g, e, p in zip(g_obs, e_obs[i], p_obs[i]):
             assert torch.equal(g[i], e) and torch.equal(e, p)
+
+
+@pytest.mark.parametrize("name", ["translate_small", "rotate_small", "rotate_large", "zoom_in",
+                                  "zoom_out", "translate_rotate", "custom"])
+def test_suite_generator_on_the_card_equals_the_cpu(cuda, name):
+    from tpuflow_torch.eval import patterns
+
+    base = patterns.load_base_texture(640, 480)
+    params = (patterns.MotionParameters("custom", dx=1.3, dy=-2.7, rotation=7.5, scale=1.05)
+              if name == "custom" else patterns.TEST_PATTERNS[name])
+    got = patterns.apply_motion(base, params, device=cuda)
+    want = patterns.apply_motion(base, params, device="cpu")
+    assert got.dtype == np.uint8 and got.shape == (480, 640)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("lookahead", [0, 2])
+@pytest.mark.parametrize("depth", [1, 3])
+def test_native_reader_feeds_the_uploads_without_a_stale_frame(cuda, tmp_path, lookahead,
+                                                               depth):
+    # 64 frames, each a distinct constant plus a ramp, through the native
+    # reader's few pinned buffers, each reused many times; the consumer
+    # queues work behind every frame so the copies and the reads overlap it.
+    from tpuflow_torch.io import fastio
+    from tpuflow_torch.io.frames import save_frame_bin
+    from tpuflow_torch.io.stream import FrameStream, prefetch_to_device
+
+    h, w = 270, 480
+    ramp = np.arange(h * w, dtype=np.int64).reshape(h, w) % 7
+    paths = []
+    for i in range(64):
+        p = tmp_path / f"frame_{i:02d}.bin"
+        save_frame_bin(p, (i * 3 + ramp) % 256)
+        paths.append(p)
+    before = fastio.live_workers()
+    got = []
+    for frame in prefetch_to_device(FrameStream(paths, w, h, depth=depth), lookahead=lookahead,
+                                    device=cuda):
+        torch.cuda._sleep(200_000)  # the consumer's stream is busy
+        got.append((frame.sum(dtype=torch.float64), frame[:2, :3].clone()))
+    torch.cuda.synchronize()
+    assert fastio.live_workers() == before
+    assert len(got) == 64
+    for i, (total, corner) in enumerate(got):
+        want = (i * 3 + ramp) % 256
+        assert float(total) == float(want.sum())
+        assert torch.equal(corner.cpu(), torch.from_numpy(want[:2, :3].astype(np.float32)))

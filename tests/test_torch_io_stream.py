@@ -1,7 +1,9 @@
 """The port's frame stream (``tpuflow_torch.io.stream``) on the CPU: the
-read-ahead thread gives the frames of a plain read in their order (and
-those of ``tpuflow.io.stream.FrameStream``), hands its errors to the
-consumer, and stops when the consumer does; ``device_pairs`` asked for the
+read-ahead thread, the native one of ``FrameStream`` (``io.fastio``) and
+its plain version ``read_frames_ref``, gives the frames of a plain read in
+their order (and those of ``tpuflow.io.stream.FrameStream``), hands its
+errors to the consumer after the frames read before them, and stops when
+the consumer does; ``device_pairs`` asked for the
 CPU is a pure transport, each frame passed once; ``flow.__main__.
 stream_flow`` gives the flow of a plain per-pair loop, bit for bit. The
 uploads to the card (pinned buffers, side stream, events) run in
@@ -17,6 +19,7 @@ import torch
 from tpuflow.io.stream import FrameStream as JaxFrameStream
 from tpuflow_torch import PYRAMID_CONFIGS, lucas_kanade_pyramidal_step, lucas_kanade_single_scale
 from tpuflow_torch.flow.__main__ import stream_flow
+from tpuflow_torch.io import fastio
 from tpuflow_torch.io import frames as fio
 from tpuflow_torch.io import stream
 from tpuflow_torch.kernels import launch_counts, torch_ref
@@ -44,11 +47,21 @@ def _frames(tmp_path, n=5, shape=(24, 32), seed=5, integer=False):
     return paths
 
 
+# The native reader (FrameStream) and its plain version, by name.
+READERS = {
+    "native": lambda paths, depth: iter(stream.FrameStream(paths, width=32, height=24,
+                                                           depth=depth)),
+    "plain": lambda paths, depth: stream.read_frames_ref(paths, width=32, height=24,
+                                                         depth=depth),
+}
+
+
+@pytest.mark.parametrize("reader", sorted(READERS))
 @pytest.mark.parametrize("depth", [0, 1, 3, 8])
-def test_frame_stream_reads_ahead_in_order(tmp_path, depth):
+def test_frame_stream_reads_ahead_in_order(tmp_path, depth, reader):
     paths = _frames(tmp_path, n=7)
-    got = list(stream.FrameStream(paths, width=32, height=24, depth=depth))
-    plain = [fio.load_frame_bin(p, 32, 24) for p in paths]
+    got = list(READERS[reader](paths, depth))
+    plain = [fio.load_frame_bin_ref(p, 32, 24) for p in paths]
     ref = list(JaxFrameStream(paths, width=32, height=24))
     assert len(got) == len(plain) == len(ref) == 7
     for g, p, r in zip(got, plain, ref):
@@ -57,27 +70,31 @@ def test_frame_stream_reads_ahead_in_order(tmp_path, depth):
         np.testing.assert_array_equal(g, r)
 
 
-def test_reader_error_reaches_the_consumer(tmp_path):
+@pytest.mark.parametrize("reader", sorted(READERS))
+def test_reader_error_reaches_the_consumer(tmp_path, reader):
     paths = _frames(tmp_path, n=4)
     paths.insert(2, tmp_path / "missing.bin")
-    it = iter(stream.FrameStream(paths, width=32, height=24, depth=3))
+    it = READERS[reader](paths, 3)
     got = [next(it), next(it)]  # the frames read before the error come first
-    np.testing.assert_array_equal(got[1], fio.load_frame_bin(paths[1], 32, 24))
+    np.testing.assert_array_equal(got[1], fio.load_frame_bin_ref(paths[1], 32, 24))
     with pytest.raises(FileNotFoundError):
         next(it)
 
 
-def test_reader_stops_with_the_consumer(tmp_path):
+@pytest.mark.parametrize("reader", sorted(READERS))
+def test_reader_stops_with_the_consumer(tmp_path, reader):
     def readers():
-        return [t for t in threading.enumerate() if t.name == "frame-readahead"]
+        if reader == "native":
+            return fastio.live_workers()
+        return sum(t.name == "frame-readahead" for t in threading.enumerate())
 
     paths = _frames(tmp_path, n=6)
-    assert not readers()
-    it = iter(stream.FrameStream(paths, width=32, height=24, depth=1))
+    before = readers()
+    it = READERS[reader](paths, 1)
     next(it)
-    assert len(readers()) == 1
+    assert readers() == before + 1
     it.close()
-    assert not readers()
+    assert readers() == before
 
 
 def test_device_pairs_matches_host_pairs(tmp_path):

@@ -573,10 +573,10 @@ def test_verifier_thresholds_match_reference(base, other, capsys):
 
 
 def test_base_texture_equals_reference():
-    np.testing.assert_array_equal(patterns.load_base_texture(320, 240),
-                                  jpatterns.load_base_texture(320, 240))
-    with pytest.raises(ValueError, match="320x240"):
-        patterns.load_base_texture(160, 120)
+    # Any size, as the reference's PIL resize (tests/test_torch_patterns_gen.py holds more).
+    for w, h in ((320, 240), (160, 120)):
+        np.testing.assert_array_equal(patterns.load_base_texture(w, h),
+                                      jpatterns.load_base_texture(w, h))
 
 
 def test_update_baseline_records_provenance(tmp_path, capsys):

@@ -15,22 +15,29 @@ The port of ``tpuflow.eval.profile_vo``, with its six rows:
   stats, the reseed gated on the keyframe predicate);
 - ``unexplained (full - flow - seed - advance)``: the accounting row.
 
-Clocks. The flow step and the full step read the flow's early-exit flag
-and band index to the host (``flow/pyramidal.py``), so a device-event
-reading of them would count the host's gaps as well. So every row's
-``ms`` is the host clock around ``PROFILE_CALLS`` calls ending in
-``torch.cuda.synchronize()``, the median of ``PROFILE_RUNS`` runs, and the
-accounting row subtracts like from like. The three bodies with no host
-read (build, seed, advance) also carry ``device_ms``
+Clocks. On the card every row's ``ms`` is device time
 (``eval.timing.device_ms``: CUDA events around back-to-back calls queued
-behind a GPU spin). Each row names its clock.
+behind a GPU spin), taken in the form the port serves: the flow step as
+one replay of its captured CUDA graph (``flow.graphed.capture``) and the
+full step as one replay of the front end's captured step
+(``FrontEnd.scan_steps`` over a one-frame chunk, which also copies the
+state in and the ObsRecord and state out); the other rows' bodies are
+single launches or short op chains, timed as they are called. The fast
+path reads nothing to the host (``backend="cuda"``), so each body's
+device time is its work alone, and the accounting row subtracts device
+time from device time. Each row also keeps the eager body's host clock
+(``eager_host_ms``: ``PROFILE_CALLS`` calls ending in a synchronize,
+median of ``PROFILE_RUNS`` runs, each in ``eager_runs_ms``), and the two
+graphed rows the eager body's device time (``eager_device_ms``, from
+``EAGER_REPS`` calls a batch so that the launch queue holds them all).
 
 The frames are the natural mountain-texture pair with 2 px horizontal
 motion: at 1080p the committed ``data/natural_1080x1920.npz`` frame
-(``eval.profile.natural_pair``); other sizes resize the texture with PIL
-(bilinear), as the reference does. The front end runs ``backend="cuda"``
-on the card; ``device="cpu"`` runs the parity path (``"torch"``) once per
-row, for the CPU schema test only, with no device time.
+(``eval.profile.natural_pair``); other sizes resize the texture as PIL's
+bilinear filter does (``eval.patterns.load_base_texture``, no PIL), as
+the reference does. The front end runs ``backend="cuda"`` on the card;
+``device="cpu"`` runs the parity path (``"torch"``) once per row by host
+clock, for the CPU schema test only, with no device time.
 
 Run on a card: ``python -m tpuflow_torch.eval.profile_vo --config production``.
 """
@@ -44,37 +51,34 @@ import numpy as np
 import torch
 
 from tpuflow_torch.core.config import PYRAMID_CONFIGS
-from tpuflow_torch.eval import profile
+from tpuflow_torch.eval import patterns, profile
 from tpuflow_torch.eval.timing import card_label, device_ms, resolve_device
+from tpuflow_torch.flow import graphed
 from tpuflow_torch.flow.pyramidal import lucas_kanade_pyramidal_step
-from tpuflow_torch.kernels import seed, torch_ref
+from tpuflow_torch.kernels import add_launch_counts, seed, torch_ref
 from tpuflow_torch.vo import tracking
 from tpuflow_torch.vo.device_loop import get_front_end
 
-PROFILE_CALLS = 10  # calls a timed run on the card
+PROFILE_CALLS = 10  # calls a host-clock run on the card
 PROFILE_RUNS = 3
-HOST_CLOCK = "host"  # host clock to a synchronize, median of the runs
+HOST_CLOCK = "host"  # host clock to a synchronize (the CPU's rows)
+DEVICE_CLOCK = "device"  # CUDA events (every row on the card)
+# Back-to-back calls a batch when an eager step's device time is read: an
+# eager step launches 150-260 kernels, and the calls must all fit in the
+# launch queue behind the GPU spin, or they run at the host's pace.
+EAGER_REPS = 2
 
 
 def natural_frames(height: int, width: int, device: torch.device, dx: float = 2.0):
     """The natural frame and it shifted ``dx`` px right (gray 128 fill) on
     ``device``: the committed frame at 1080p, else the texture resized
-    with PIL's bilinear filter (``tpuflow.eval.profile._natural_pair``)."""
+    as PIL's bilinear filter resizes it (``tpuflow.eval.profile._natural_pair``;
+    ``eval.patterns.load_base_texture``, no PIL needed)."""
     if (height, width) == profile.NATURAL_SHAPE:
         return profile.natural_pair(dx, device=device)
-    try:
-        from PIL import Image
-    except ImportError as exc:
-        raise ImportError(
-            f"a {width}x{height} natural frame needs Pillow (PIL); the committed one is "
-            f"{profile.NATURAL_SHAPE[1]}x{profile.NATURAL_SHAPE[0]}"
-        ) from exc
     from scipy.ndimage import shift as nd_shift
 
-    from tpuflow_torch.eval.natural import TEXTURE
-
-    img = Image.open(TEXTURE).convert("L").resize((width, height), Image.Resampling.BILINEAR)
-    f0 = np.array(img, dtype=np.float32)
+    f0 = patterns.load_base_texture(width, height).astype(np.float32)
     f1 = nd_shift(f0, (0.0, dx), order=1, mode="constant", cval=128.0).astype(np.float32)
     return torch.from_numpy(f0).to(device), torch.from_numpy(f1).to(device)
 
@@ -127,27 +131,55 @@ def profile_vo(
     margin = fe.margin_for(h, w)
     seed_margin = fe.margin_for(h, w, for_cull=False)
 
+    def flow_step():
+        return lucas_kanade_pyramidal_step(pyr0, frame1, cfg, backend=backend, rtl_clamp=True)
+
     stages = [
-        ("flow step (build+solve)", False,
-         lambda: lucas_kanade_pyramidal_step(pyr0, frame1, cfg, backend=backend,
-                                             rtl_clamp=True)),
-        ("pyramid build (1 frame)", True,
+        ("flow step (build+solve)", flow_step),
+        ("pyramid build (1 frame)",
          lambda: torch_ref.build_gaussian_pyramid(frame1, cfg.levels, cfg.scale_factor)),
-        ("seed_grid (Shi-Tomasi)", True,
+        ("seed_grid (Shi-Tomasi)",
          lambda: seed.seed_grid(frame1, grid_step=grid_step, margin=seed_margin)),
-        ("advance (track gathers)", True,
-         lambda: tracking.advance(tracks0, u0, u0, margin=margin)),
-        ("full VO step", False, lambda: fe.step(state0, frame1)),
+        ("advance (track gathers)", lambda: tracking.advance(tracks0, u0, u0, margin=margin)),
+        ("full VO step", lambda: fe.step(state0, frame1)),
     ]
-    calls, runs = (PROFILE_CALLS, PROFILE_RUNS) if on_card else (1, 1)
+    if not on_card:
+        rows = []
+        for name, fn in stages:
+            runs_ms = host_ms(fn, dev, 1, 1)
+            rows.append({"stage": name, "ms": statistics.median(runs_ms), "clock": HOST_CLOCK,
+                         "runs_ms": runs_ms})
+        return _with_accounting(rows, HOST_CLOCK)
+
+    # The rows timed as the graph replays the port serves.
+    served = {"flow step (build+solve)": _replay(flow_step, dev),
+              "full VO step": lambda: fe.scan_steps(state0, frame1[None])}
     rows = []
-    for name, no_host_read, fn in stages:
-        runs_ms = host_ms(fn, dev, calls, runs)
-        row = {"stage": name, "ms": statistics.median(runs_ms), "clock": HOST_CLOCK,
-               "runs_ms": runs_ms}
-        if on_card and no_host_read:
-            row["device_ms"] = device_ms(fn)
+    for name, fn in stages:
+        runs_ms = host_ms(fn, dev, PROFILE_CALLS, PROFILE_RUNS)
+        row = {"stage": name, "ms": device_ms(served.get(name, fn)), "clock": DEVICE_CLOCK,
+               "eager_host_ms": statistics.median(runs_ms), "eager_runs_ms": runs_ms}
+        if name in served:
+            row["eager_device_ms"] = device_ms(fn, reps=EAGER_REPS)
         rows.append(row)
+    return _with_accounting(rows, DEVICE_CLOCK)
+
+
+def _replay(body, dev: torch.device):
+    """``body`` captured once as a CUDA graph (``flow.graphed.capture``);
+    returns a call that replays it and counts its launches."""
+    graph, _, launches, _ = graphed.capture(body, torch.cuda.Stream(dev))
+
+    def replay():
+        graph.replay()
+        add_launch_counts(launches)
+
+    return replay
+
+
+def _with_accounting(rows: list[dict], clock: str) -> list[dict]:
+    """The rows and the accounting row: the full step less the flow step,
+    the seed and the advance, each on the same clock."""
     comp = {r["stage"]: r["ms"] for r in rows}
     explained = (
         comp["flow step (build+solve)"]
@@ -157,7 +189,7 @@ def profile_vo(
     rows.append({
         "stage": "unexplained (full - flow - seed - advance)",
         "ms": comp["full VO step"] - explained,
-        "clock": HOST_CLOCK,
+        "clock": clock,
     })
     return rows
 
@@ -165,9 +197,14 @@ def profile_vo(
 def format_rows(rows: list[dict]) -> list[str]:
     lines = []
     for r in rows:
-        dev_ms = f"  device {r['device_ms']:.4f} ms" if "device_ms" in r else ""
-        runs = ("  runs " + ", ".join(f"{t:.4f}" for t in r["runs_ms"])) if "runs_ms" in r else ""
-        lines.append(f"  {r['stage']:42s} {r['ms']:8.3f} ms ({r['clock']} clock){dev_ms}{runs}")
+        form, eager = "", ""
+        if "eager_device_ms" in r:  # a graph replay, beside its eager body
+            form = ", graph replay"
+            eager = f"  eager: device {r['eager_device_ms']:.4f} ms,"
+        if "eager_host_ms" in r:
+            eager += (f"  {'' if eager else 'eager: '}host {r['eager_host_ms']:.4f} ms (runs "
+                      + ", ".join(f"{t:.4f}" for t in r["eager_runs_ms"]) + ")")
+        lines.append(f"  {r['stage']:42s} {r['ms']:8.4f} ms ({r['clock']} clock{form}){eager}")
     return lines
 
 
@@ -188,7 +225,7 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--json", type=str, default=None, metavar="PATH")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                         help="the card (default; fails without one) or the CPU "
-                        "(parity path, one call a row, no device time)")
+                        "(parity path, one call a row by host clock, no device time)")
     args = parser.parse_args(argv)
 
     dev = resolve_device(args.device)

@@ -1,11 +1,15 @@
 """Host-side IO, numpy only: frames and flow dumps in the reference's
 interchange formats (``frames``), IMU sample text (``imu``), video decode
 (``video``, OpenCV imported when a video is opened), ``.mem``/``.bin`` to
-PNG (``convert``, Pillow imported then), and the frame stream with its
-read-ahead thread and uploads to the card (``stream``).
+PNG (``convert``, Pillow imported then), the frame stream with its
+read-ahead thread and uploads to the card (``stream``), and the native
+frame IO under the ``.bin`` / ``.mem`` functions and the stream
+(``fastio``, built from ``native/fastio.cpp`` with the host's C++
+compiler at first use).
 
 This package keeps its own copies of ``tpuflow.io``'s modules; it imports
-nothing of ``tpuflow`` (nor its optional native extension).
+nothing of ``tpuflow``, and its native IO is its own, not the JAX
+package's extension.
 """
 
 from tpuflow_torch.io.frames import (

@@ -4,8 +4,11 @@
 - ``frame_*.mem``: one 2-hex-digit byte a line, for Verilog ``$readmemh``;
 - the flow text dump: ``x y u v`` a line, header comments with ``#``.
 
-A numpy copy of ``tpuflow.io.frames`` (its pure-Python path; the
-optional native extension is not used).
+The port of ``tpuflow.io.frames``. The ``.bin`` loader and the ``.mem``
+codec go through the port's native frame IO (``io.fastio``, built from
+``native/fastio.cpp`` at first use), as the reference's go through its
+extension where it is built; the ``_ref`` functions are their plain numpy
+versions, which the tests hold them against.
 """
 
 from __future__ import annotations
@@ -14,9 +17,24 @@ from pathlib import Path
 
 import numpy as np
 
+from tpuflow_torch.io import fastio
+
+
+def have_native_io() -> bool:
+    """Whether the native frame IO is loaded: it is built at the first call
+    where this checkout has no library yet, and a failed build raises with
+    the compiler's output."""
+    return fastio.load() is not None
+
 
 def load_frame_bin(path, width: int = 320, height: int = 240) -> np.ndarray:
-    """Raw uint8 frame -> float32 (H, W)."""
+    """Raw uint8 frame -> float32 (H, W), read and widened natively; a file
+    of another byte count than ``height * width`` raises ``ValueError``."""
+    return fastio.load_bin_f32(path, np.empty((height, width), np.float32))
+
+
+def load_frame_bin_ref(path, width: int = 320, height: int = 240) -> np.ndarray:
+    """The plain version of ``load_frame_bin``."""
     data = np.fromfile(path, dtype=np.uint8)
     return data.reshape((height, width)).astype(np.float32)
 
@@ -26,7 +44,12 @@ def save_frame_bin(path, frame: np.ndarray) -> None:
 
 
 def load_frame_mem(path, width: int = 320, height: int = 240) -> np.ndarray:
-    """$readmemh hex frame -> float32 (H, W)."""
+    """$readmemh hex frame -> float32 (H, W), decoded natively."""
+    return fastio.decode_mem(path).reshape((height, width)).astype(np.float32)
+
+
+def load_frame_mem_ref(path, width: int = 320, height: int = 240) -> np.ndarray:
+    """The plain version of ``load_frame_mem``."""
     vals = np.asarray(
         [
             int(line, 16)
@@ -39,6 +62,12 @@ def load_frame_mem(path, width: int = 320, height: int = 240) -> np.ndarray:
 
 
 def save_frame_mem(path, frame: np.ndarray) -> None:
+    """Write a frame as u8 ``$readmemh`` hex, one byte a line, natively."""
+    fastio.encode_mem(path, np.asarray(frame).astype(np.uint8).ravel())
+
+
+def save_frame_mem_ref(path, frame: np.ndarray) -> None:
+    """The plain version of ``save_frame_mem``."""
     flat = np.asarray(frame).astype(np.uint8).flatten()
     with open(path, "w") as f:
         f.writelines(f"{v:02x}\n" for v in flat)

@@ -4,19 +4,26 @@ card that run ahead of the compute.
 The port of ``tpuflow.io.stream``:
 
 - ``FrameStream`` reads ``.bin`` frames in order, ``depth`` frames ahead,
-  on a background thread (the reference's native prefetcher is the JAX
-  package's own extension; this is its Python counterpart). The frames and
-  their order are those of a plain read. An error in the reader reaches
-  the consumer after the frames read before it; it never ends the stream
-  quietly.
+  on the native read-ahead thread (``io.fastio.Prefetcher``, built from
+  ``native/fastio.cpp``, the counterpart of the reference's
+  ``_fastio.FramePrefetcher``): file IO and the widening to float32 run
+  without the interpreter lock, each frame into a buffer the consumer
+  gave. Iterating it yields a fresh array a frame. An error in the reader
+  reaches the consumer after the frames read before it (the reference's
+  prefetcher raises as soon as it fails, ahead of frames it had read); it
+  never ends the stream quietly. ``read_frames_ref`` is its plain
+  version: a Python thread over ``load_frame_bin_ref``.
 - ``prefetch_to_device`` uploads each frame once, ``lookahead`` frames
   ahead of the consumer: a pinned host buffer, a ``non_blocking`` copy on
   a side CUDA stream, and an event that the consumer's stream waits on
   before the frame is handed over (``record_stream`` tells the caching
-  allocator that the consumer's stream uses it). A pinned buffer is
-  written again only after its last copy's event has completed, so a
-  reused buffer can never give a wrong frame. On the CPU, when asked for,
-  the frames pass through as tensors (no copy).
+  allocator that the consumer's stream uses it). Given a ``FrameStream``,
+  the native thread reads each frame straight into a pinned buffer, one
+  host copy fewer; any other iterable's frames are copied into pinned
+  buffers. A pinned buffer is written again only after its last copy's
+  event has completed, so a reused buffer can never give a wrong frame.
+  On the CPU, when asked for, the frames pass through as tensors (no
+  copy).
 - ``device_pairs``: consecutive (prev, curr) pairs of uploaded frames.
 
 The device is the card unless the caller names another
@@ -35,7 +42,8 @@ import numpy as np
 import torch
 
 from tpuflow_torch.eval.timing import resolve_device
-from tpuflow_torch.io.frames import load_frame_bin
+from tpuflow_torch.io import fastio
+from tpuflow_torch.io.frames import load_frame_bin_ref
 
 _END = object()
 
@@ -81,9 +89,17 @@ def _readahead(frames: Iterable, depth: int = 3) -> Iterator:
         thread.join()
 
 
+def read_frames_ref(
+    paths: Sequence[str | Path], width: int = 320, height: int = 240, depth: int = 3
+) -> Iterator[np.ndarray]:
+    """The plain version of iterating a ``FrameStream``: a Python thread
+    reading ``load_frame_bin_ref`` frames ``depth`` ahead."""
+    return _readahead((load_frame_bin_ref(p, width, height) for p in paths), depth)
+
+
 class FrameStream:
     """Iterate (H, W) float32 frames from .bin files, read ``depth`` ahead
-    on a background thread."""
+    on the native read-ahead thread."""
 
     def __init__(
         self,
@@ -97,12 +113,24 @@ class FrameStream:
         self.height = height
         self.depth = depth
 
-    def _read(self) -> Iterator[np.ndarray]:
-        for p in self.paths:
-            yield load_frame_bin(p, self.width, self.height)
+    def read_into(self, new_buffer) -> Iterator:
+        """The frames in order, each read by the native thread into a
+        buffer from ``new_buffer()`` (a float32 array or CPU tensor of
+        height x width values), ``depth`` ahead. The yielded buffer is the
+        caller's; the thread stops when the iterator is closed."""
+        reader = fastio.Prefetcher(self.paths, self.height * self.width)
+        try:
+            for _ in range(max(self.depth, 1)):
+                reader.give(new_buffer())
+            while (frame := reader.next()) is not None:
+                reader.give(new_buffer())
+                yield frame
+        finally:
+            reader.close()
 
     def __iter__(self) -> Iterator[np.ndarray]:
-        return _readahead(self._read(), self.depth)
+        shape = (self.height, self.width)
+        return self.read_into(lambda: np.empty(shape, np.float32))
 
     def pairs(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
         """Consecutive (prev, curr) frame pairs."""
@@ -131,6 +159,18 @@ def _hand_over(frame: torch.Tensor, uploaded: torch.cuda.Event) -> torch.Tensor:
     return frame
 
 
+def _copy_out(pinned: torch.Tensor, dev: torch.device, copies: torch.cuda.Stream
+              ) -> tuple[torch.Tensor, torch.cuda.Event]:
+    """A ``non_blocking`` copy of a pinned buffer to ``dev`` on the side
+    stream ``copies``, and the event recorded after it."""
+    with torch.cuda.stream(copies):
+        out = torch.empty(pinned.shape, dtype=pinned.dtype, device=dev)
+        out.copy_(pinned, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(copies)
+    return out, done
+
+
 def _upload_ahead(frames: Iterable, lookahead: int, dev: torch.device) -> Iterator[torch.Tensor]:
     copies = torch.cuda.Stream(device=dev)
     # lookahead + 1 pinned buffers, used in turn: (buffer, its last copy's event).
@@ -147,12 +187,40 @@ def _upload_ahead(frames: Iterable, lookahead: int, dev: torch.device) -> Iterat
         else:
             pinned = slot[0]
         pinned.copy_(host)
-        with torch.cuda.stream(copies):
-            out = torch.empty(host.shape, dtype=host.dtype, device=dev)
-            out.copy_(pinned, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(copies)
+        out, done = _copy_out(pinned, dev, copies)
         slots[k] = (pinned, done)
+        in_flight.append((out, done))
+        while len(in_flight) > lookahead:
+            yield _hand_over(*in_flight.popleft())
+    while in_flight:
+        yield _hand_over(*in_flight.popleft())
+
+
+def _upload_stream(stream: FrameStream, lookahead: int, dev: torch.device
+                   ) -> Iterator[torch.Tensor]:
+    """``_upload_ahead`` for a ``FrameStream``: the native thread reads each
+    frame straight into a pinned buffer, and a buffer goes back to it only
+    after its copy's event has completed."""
+    copies = torch.cuda.Stream(device=dev)
+    shape = (stream.height, stream.width)
+    # The reader's depth, the copies in flight and the frame being copied.
+    pool = max(stream.depth, 1) + lookahead + 1
+    made = 0
+    copied: collections.deque = collections.deque()  # (pinned, its copy's event), oldest first
+
+    def buffer() -> torch.Tensor:
+        nonlocal made
+        if made < pool:
+            made += 1
+            return torch.empty(shape, dtype=torch.float32, pin_memory=True)
+        pinned, done = copied.popleft()
+        done.synchronize()
+        return pinned
+
+    in_flight: collections.deque = collections.deque()
+    for pinned in stream.read_into(buffer):
+        out, done = _copy_out(pinned, dev, copies)
+        copied.append((pinned, done))
         in_flight.append((out, done))
         while len(in_flight) > lookahead:
             yield _hand_over(*in_flight.popleft())
@@ -165,13 +233,17 @@ def prefetch_to_device(
 ) -> Iterator[torch.Tensor]:
     """Stream frames to ``device`` ``lookahead`` ahead of consumption, each
     uploaded once: on the card the copies overlap the compute consuming
-    the earlier frames; on the CPU (asked for) the frames pass through as
+    the earlier frames (a ``FrameStream``'s frames are read straight into
+    the pinned buffers); on the CPU (asked for) the frames pass through as
     tensors. Raises where the card is asked for, or defaulted to, and
     there is none."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         for frame in frames:
             yield _as_tensor(frame).to(dev)
+        return
+    if isinstance(frames, FrameStream):
+        yield from _upload_stream(frames, max(int(lookahead), 0), dev)
         return
     yield from _upload_ahead(frames, max(int(lookahead), 0), dev)
 

@@ -244,6 +244,10 @@ def warp_banded(
     return out
 
 
+# The reference's name (``pallas_warp.warp_image_banded``): the same function.
+warp_image_banded = warp_banded
+
+
 def _check_round(image, flow_u, flow_v, out, latch, band, ladder, max_disp, packing) -> None:
     if not 1 <= len(ladder) <= MAX_LADDER:
         raise ValueError(f"a band ladder holds 1..{MAX_LADDER} bands, got {ladder}")
