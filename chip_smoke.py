@@ -143,7 +143,29 @@ failure raises and the script exits non-zero):
    observation shards against the unsharded solve, twice; (e) NCCL with
    one rank per card where the machine has two cards or more;
 9. profile: device time by kernel and the device's busy share over 4 frames
-   of each stream (torch.profiler).
+   of each stream (torch.profiler);
+10. 4k (``[4k]`` lines): the port above 1080p, on ``--seed`` frames at
+   3840x2160. K1-K5 as the rounds launch them at every level of both 4K
+   pyramids (K1 2160x3840; K2 1080x1920, on the staged tile, and 540x960;
+   K3 at all three levels; K4, K5), as in phase 3, each timed beside its
+   bound and the plain round; the ``production``, ``production_fullband``
+   and ``default`` streams: a frame pair with every kernel launch held
+   bit for bit against its plain version on the same inputs, then each
+   stream as phase 4 checks its streams (eager and graphed bit-identical,
+   the rounds' sums at every level, the plain versions' stream, ms a frame
+   and the graph's busy share); the eager ``production`` frame's device
+   time by kernel; the 4K accuracy gate (``eval.check_4k``: the subset
+   generated on the card, the ``production`` verifier with the dense
+   ground truth, every launch held against its plain version, each
+   pattern's pyramidal dense EPE against the committed capture by
+   check_4k.sh's rule); the stage profiler at 4K under ``production``
+   (the benign row included) and ``production_fullband``; one
+   ``production`` and one ``default`` pair at 5120x2880 and 7680x4320,
+   every launch bit-exact to its plain version, the step captured as a
+   graph and replayed bit-identical, the peak device memory and the
+   banded operators' first-use host seconds; and README's resolution
+   grid, graphed ms a frame of ``default``, ``narrow_vertical`` and
+   ``production`` at 640x480, 1280x720, 1920x1080 and 3840x2160.
 
 Limits on the card: the warps (K1, K2, K4) bit-exact against their plain
 versions at vertical bands 0/2/3/8/31 and at md = mdv = 0 and 31 (K4 with
@@ -152,7 +174,9 @@ clamp_flow on and off), each batch element equal to its 2-D launch; the refine s
 partials summed in another order); the rounds (K1-K5 under device
 control) bit-identical to the host-int band's calls and the plain round
 versions at each band and when skipped, the in-kernel sums within 1e-6
-relative of torch.sum of the same partials, the latch and round count as
+relative of torch.sum of the same partials (above 1080p 1e-6 scaled by the
+sum's depth over 1080p's) and within the float32 bound of their depth of
+the partials' float64 sum, the latch and round count as
 torch reads those sums, on every round of both streams too; the single-scale solves (K6, K7) u, v
 and |det| bit-identical; a batch element bit-identical to the kernel's 2-D
 launch; each stream and VO step free of synchronizing operations and host
@@ -244,7 +268,8 @@ from scipy.ndimage import shift as nd_shift
 from tpuflow_torch import PYRAMID_CONFIGS, lucas_kanade_pyramidal_step, lucas_kanade_single_scale
 from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation, warp_walk
 from tpuflow_torch.core import ops
-from tpuflow_torch.eval import bounds, natural, patterns, profile, verifier, vo_verifier
+from tpuflow_torch.eval import (bounds, check_4k, natural, patterns, profile, verifier,
+                                vo_verifier)
 from tpuflow_torch.eval import profile_vo as vo_profiler
 from tpuflow_torch.eval.metrics import compute_all_metrics
 from tpuflow_torch.eval.timing import card_label, device_ms
@@ -270,9 +295,14 @@ SHIFT_PX = 2.0
 STREAM_ATOL = 1e-3
 SUM_RTOL = 1e-5
 # The refine round's in-kernel sums against torch.sum of the same block
-# partials: non-negative terms added in two fixed orders of depth ~12, so
-# each side within ~12 ulp (7e-7) of the exact sum.
+# partials: non-negative terms added in two fixed orders of depth ~12 at
+# 1080p, so each side within ~12 ulp (7e-7) of the exact sum. The depth
+# grows with the partials (kernels.lk.round_sum_depth: 13 at 1080x1920,
+# 27 at 2160x3840, 86 at 4320x7680), so above 1080p the limit scales with
+# it (round_sum_limits), and the in-kernel sum is also held to its own
+# rounding bound against the float64 sum of the partials.
 ROUND_SUM_RTOL = 1e-6
+F32_UNIT = 2.0 ** -24  # float32's unit roundoff
 LADDER = (2, 3, 8)  # production's adaptive band ladder
 STREAM_RUNS = 3
 WARP_CU = "tpuflow_torch/csrc/warp.cu"
@@ -333,6 +363,18 @@ PATH_KERNELS = {
     # The same streams, each step one CUDA graph replay (flow.graphed).
     "production stream graphed": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
     "default stream graphed": {"warp_exact", "lk_refine_exact"},
+    # Phase 10 (4K): production_fullband's streams, the 4K gate (the
+    # verifier's two modes), 5K and 8K pairs, the resolution grid graphed.
+    "production_fullband stream": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
+    "production_fullband stream graphed": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
+    "4k gate": {"warp_packed_u8", "warp_packed_u16", "lk_refine", "lk_fused"},
+    "5K production pair": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
+    "5K default pair": {"warp_exact", "lk_refine_exact"},
+    "8K production pair": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
+    "8K default pair": {"warp_exact", "lk_refine_exact"},
+    "grid default": {"warp_exact", "lk_refine_exact"},
+    "grid narrow_vertical": {"warp_exact", "lk_refine_exact"},
+    "grid production": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
     "single scale": {"lk_fused"},
     "single scale + confidence": {"lk_fused_conf"},
     "batched kernel API, window_mxu": {"lk_refine_mxu", "lk_fused_mxu", "lk_fused_conf_mxu"},
@@ -592,7 +634,19 @@ def _band_indices(dev) -> list[torch.Tensor]:
     return [torch.tensor(i, dtype=torch.int32, device=dev) for i in range(len(LADDER))]
 
 
-def check_round_warp(readings, name, curr, packing, max_disp, rng, dev, floor_ms):
+def round_sum_limits(shape, window: int = 5) -> tuple[int, float, float]:
+    """A plane's round-sum depth and its two limits: against torch.sum of
+    the partials, ROUND_SUM_RTOL scaled by the depth over the 1080p finest
+    level's (never below ROUND_SUM_RTOL); against the float64 sum, the
+    float32 bound gamma_depth = depth u / (1 - depth u)."""
+    depth = lk.round_sum_depth(*shape, window)
+    ref = lk.round_sum_depth(HEIGHT, WIDTH, window)
+    return (depth, ROUND_SUM_RTOL * max(1.0, depth / ref),
+            depth * F32_UNIT / (1.0 - depth * F32_UNIT))
+
+
+def check_round_warp(readings, name, curr, packing, max_disp, rng, dev, floor_ms,
+                     tag: str = "kernels"):
     """(c), (e): the warp as one round under device control (warp.warp_round)
     at one pyramid level: with the band index in device memory forced to
     each rung of LADDER it is bit-identical to the host-int band's
@@ -633,26 +687,29 @@ def check_round_warp(readings, name, curr, packing, max_disp, rng, dev, floor_ms
                                                      ladder=LADDER, band=idx[2],
                                                      packing=packing))
     ms = t["band_8"]
-    print(f"[kernels] {name} round {shape[0]}x{shape[1]}: bit-exact to the host-int band and the "
+    print(f"[{tag}] {name} round {shape[0]}x{shape[1]}: bit-exact to the host-int band and the "
           f"plain round at bands {LADDER}, skipped rounds untouched; {ms:.4f} ms at band 8 "
           f"({_bound_note(name, shape, ms)}), {t['band_2']:.4f} at 2; skipped "
           f"{t['skipped']:.4f}; entry warp_banded {entry_ms:.4f}; plain round {plain_ms:.4f}; "
           f"launch floor {floor_ms:.4f} ms")
-    readings[name]["by_shape"][f"{shape[0]}x{shape[1]}"].update(
+    readings[name].setdefault("by_shape", {}).setdefault(f"{shape[0]}x{shape[1]}", {}).update(
         round_ms=t, entry_ms=entry_ms, round_plain_ms=plain_ms)
-    if "round_ms" not in readings[name]:  # the largest shape, as _record
+    # The largest shape of phase 3, as _record (phase 10 keeps its shapes only).
+    if "round_ms" not in readings[name] and "ms" in readings[name]:
         readings[name].update(round_ms=t, entry_ms=readings[name]["ms"], ms=ms,
                               plain_ms=plain_ms)
 
 
-def check_round_refine(readings, name, prev, warped, flow, relaxed, dev, floor_ms):
+def check_round_refine(readings, name, prev, warped, flow, relaxed, dev, floor_ms,
+                       tag: str = "kernels"):
     """(c), (d), (e): the refine as one round under device control
     (lk.refine_round) at one level: with the band index forced to each rung
     of LADDER, u, v bit-identical to the host-int band's
     lucas_kanade_refine and to the plain round version, the control rows
     as the plain version leaves them, the sums within SUM_RTOL of the plain
-    version's and within ROUND_SUM_RTOL of torch.sum of the kernel's own
-    block partials, the latch as torch evaluates sdu / n_px < thr on those
+    version's and within the plane's limits (round_sum_limits) of torch.sum
+    and the float64 sum of the kernel's own block partials, the latch as
+    torch evaluates sdu / n_px < thr on those
     sums (at thresholds either side of them); a skipped round passes u, v
     through bit for bit with sums 0 and the control unchanged. Then device
     times: a running round, a skipped one, the plain round, the entry."""
@@ -662,7 +719,8 @@ def check_round_refine(readings, name, prev, warped, flow, relaxed, dev, floor_m
     kw0 = dict(ladder=tuple(map(float, LADDER)), window_size=5, det_threshold=1e-4,
                max_disp=8.0, relaxed_order=relaxed)
     parts = torch.empty((2, 1, lk.refine_blocks(*shape, 5)), device=dev)
-    worst_sum = 0.0
+    depth, sum_rtol, exact_rtol = round_sum_limits(shape)
+    worst_sum = worst_exact = 0.0
     for i, band in enumerate(LADDER):
         _, _, sdu, sdv = lk.lucas_kanade_refine(prev, warped, *flow,
                                                 torch.tensor(False, device=dev),
@@ -679,20 +737,25 @@ def check_round_refine(readings, name, prev, warped, flow, relaxed, dev, floor_m
             torch.cuda.synchronize()
             sums = [float(x) for x in got[2]]
             part_sums = [float(x) for x in parts.sum(dim=(1, 2))]
+            exact_sums = [float(x) for x in parts.double().sum(dim=(1, 2))]
             latch = int(sums[0] / n_px < thr and sums[1] / n_px < thr)  # f64 here: margin 1e-3
             rel = max(abs(g - w) / w for g, w in zip(sums, part_sums))
+            rel_exact = max(abs(g - w) / w for g, w in zip(sums, exact_sums))
             rel_plain = max(abs(g - float(w)) / float(w) for g, w in zip(sums, want[2]))
             worst_sum = max(worst_sum, rel)
+            worst_exact = max(worst_exact, rel_exact)
             ok = (torch.equal(got[0], host[0]) and torch.equal(got[1], host[1])
                   and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
                   and torch.equal(ctrl, ctrl_ref) and ctrl.tolist() == [latch, 0, 1]
-                  and rel <= ROUND_SUM_RTOL and rel_plain <= SUM_RTOL)
+                  and rel <= sum_rtol and rel_exact <= exact_rtol and rel_plain <= SUM_RTOL)
             if not ok:
                 raise AssertionError(f"{name} round at {shape}, band {band}, thr {thr}: u, v vs "
                                      f"host-int band {max_abs(got[0], host[0])}, "
                                      f"{max_abs(got[1], host[1])}; ctrl {ctrl.tolist()} vs "
                                      f"plain {ctrl_ref.tolist()} (latch {latch}); sums rel "
-                                     f"{rel} vs partials, {rel_plain} vs plain")
+                                     f"{rel} vs partials (limit {sum_rtol:.3g}), {rel_exact} vs "
+                                     f"their f64 sum (limit {exact_rtol:.3g}), {rel_plain} vs "
+                                     "plain")
         skip = torch.tensor([1, 0, 0], dtype=torch.int32, device=dev)
         got = lk.refine_round(prev, warped, *flow, skip, **dict(kw0, band=idx[i]))
         torch.cuda.synchronize()
@@ -702,6 +765,8 @@ def check_round_refine(readings, name, prev, warped, flow, relaxed, dev, floor_m
                                  "pass-through")
     readings[name]["max_round_sum_rel"] = max(readings[name].get("max_round_sum_rel", 0.0),
                                               worst_sum)
+    readings[name]["max_round_sum_rel_f64"] = max(
+        readings[name].get("max_round_sum_rel_f64", 0.0), worst_exact)
     running = torch.zeros(3, dtype=torch.int32, device=dev)
     skipped = torch.tensor([1, 0, 0], dtype=torch.int32, device=dev)
     # A threshold no sum meets keeps every timed round running.
@@ -712,24 +777,29 @@ def check_round_refine(readings, name, prev, warped, flow, relaxed, dev, floor_m
     frozen = torch.tensor(False, device=dev)  # made once: a host copy would sync each call
     entry_ms = device_ms(lambda: lk.lucas_kanade_refine(prev, warped, *flow, frozen,
                                                         max_disp_v=8.0, relaxed_order=relaxed))
-    print(f"[kernels] {name} round {shape[0]}x{shape[1]}: bit-exact to the host-int band and "
+    print(f"[{tag}] {name} round {shape[0]}x{shape[1]}: bit-exact to the host-int band and "
           f"the plain round at bands {LADDER}, latch and rounds as torch reads the sums, "
-          f"in-kernel sums within {worst_sum:.3g} of torch.sum of the partials, skipped rounds "
+          f"in-kernel sums ({parts.shape[-1]} partials, depth {depth}) within {worst_sum:.3g} "
+          f"of torch.sum of the partials (limit {sum_rtol:.3g}) and {worst_exact:.3g} of their "
+          f"f64 sum (limit {exact_rtol:.3g}), skipped rounds "
           f"pass through; {ms:.4f} ms ({_bound_note(name, shape, ms)}); skipped {skip_ms:.4f}; "
           f"entry lucas_kanade_refine + torch.sum {entry_ms:.4f}; plain round {plain_ms:.4f}; "
           f"launch floor {floor_ms:.4f} ms")
     by_shape = readings[name].setdefault("by_shape", {})
     by_shape[f"{shape[0]}x{shape[1]}"] = {"ms": ms, "skipped_ms": skip_ms,
-                                          "entry_ms": entry_ms, "plain_ms": plain_ms}
-    if "entry_ms" not in readings[name]:  # the largest shape first
+                                          "entry_ms": entry_ms, "plain_ms": plain_ms,
+                                          "partials": parts.shape[-1], "sum_depth": depth,
+                                          "sum_rel": worst_sum, "sum_rel_f64": worst_exact}
+    # The largest shape of phase 3 first (phase 10 keeps its shapes only).
+    if "entry_ms" not in readings[name] and "ms" in readings[name]:
         readings[name].update(entry_ms=readings[name]["ms"], ms=ms, plain_ms=plain_ms,
                               skipped_ms=skip_ms, launch_floor_ms=floor_ms)
 
 
-def check_rounds(readings, dev, a, b, rng, floor_ms):
-    """Phase 3, the kernels as the device-controlled rounds launch them: K1,
-    K2, K3 at the production pyramid's levels, K4, K5 at the default
-    pyramid's, finest first."""
+def check_rounds(readings, dev, a, b, rng, floor_ms, tag: str = "kernels"):
+    """Phase 3 (and 10 at 4K), the kernels as the device-controlled rounds
+    launch them: K1, K2, K3 at the production pyramid's levels, K4, K5 at
+    the default pyramid's, finest first."""
     for config, refine in (("production", "lk_refine"), ("default", "lk_refine_exact")):
         cfg = PYRAMID_CONFIGS[config]
         pyr_a = torch_ref.build_gaussian_pyramid(a, cfg.levels, cfg.scale_factor)
@@ -740,12 +810,13 @@ def check_rounds(readings, dev, a, b, rng, floor_ms):
             name = {"u8": "warp_packed_u8", "u16": "warp_packed_u16", "exact": "warp_exact"}[
                 packing]
             prev, curr = pyr_a[level], pyr_b[level]
-            check_round_warp(readings, name, curr, packing, cfg.max_disp, rng, dev, floor_ms)
+            check_round_warp(readings, name, curr, packing, cfg.max_disp, rng, dev, floor_ms,
+                             tag)
             flow = _flow(rng, tuple(prev.shape), 9.0, dev)
             warped = warp.warp_banded(curr, *flow, max_disp=8, clamp_flow=True, max_disp_v=8,
                                       packing=packing)
             check_round_refine(readings, refine, prev, warped, flow, cfg.relaxed_order, dev,
-                               floor_ms)
+                               floor_ms, tag)
 
 
 def check_kernels(dev, a, b, rng):
@@ -1241,7 +1312,7 @@ def logged_rounds(log: list):
                             device=prev.device)
         before = ctrl.clone()
         out = real(prev, warped, u, v, ctrl, parts=parts, **kw)
-        log.append((before, ctrl.clone(), out[2], parts, prev.numel(),
+        log.append((before, ctrl.clone(), out[2], parts, tuple(prev.shape),
                     kw["convergence_threshold"]))
         return out
 
@@ -1252,22 +1323,30 @@ def logged_rounds(log: list):
         lk.refine_round = real
 
 
-def check_logged_rounds(config: str, log: list) -> float:
-    """(d): each round's in-kernel sums within ROUND_SUM_RTOL of torch.sum
-    of its block partials, and its latch and round count as torch reads
-    those sums (f32, as the reference's sdu / n_px < thr); a skipped round
-    leaves the control as it was with sums 0. Returns the worst relative
-    difference."""
-    worst, latched = 0.0, 0
-    for k, (before, after, sums, parts, n_px, thr) in enumerate(log):
+def check_logged_rounds(config: str, log: list, tag: str = "main") -> float:
+    """(d): each round's in-kernel sums within its plane's limits
+    (round_sum_limits) of torch.sum and of the float64 sum of its block
+    partials, and its latch and round count as torch reads those sums (f32,
+    as the reference's sdu / n_px < thr); a skipped round leaves the
+    control as it was with sums 0. Returns the worst relative difference
+    from torch.sum."""
+    worst, worst_exact, latched = 0.0, 0.0, 0
+    limits = {}
+    for k, (before, after, sums, parts, shape, thr) in enumerate(log):
         ran = int(before[0]) == 0
         if ran:
+            if shape not in limits:
+                limits[shape] = round_sum_limits(shape)
+            _, sum_rtol, exact_rtol = limits[shape]
             part = parts.sum(dim=(1, 2))
+            exact = parts.double().sum(dim=(1, 2))
             rel = float(((sums - part).abs() / part).max())
-            now = int(bool(((sums / n_px) < thr).all()))
+            rel_exact = float(((sums.double() - exact).abs() / exact).max())
+            now = int(bool(((sums / (shape[0] * shape[1])) < thr).all()))
             latched += now
             worst = max(worst, rel)
-            ok = rel <= ROUND_SUM_RTOL and after.tolist() == [
+            worst_exact = max(worst_exact, rel_exact)
+            ok = rel <= sum_rtol and rel_exact <= exact_rtol and after.tolist() == [
                 now, 0, int(before[2]) + 1]
         else:
             ok = torch.equal(after, before) and not sums.any()
@@ -1275,9 +1354,11 @@ def check_logged_rounds(config: str, log: list) -> float:
             raise AssertionError(f"{config} round {k}: control {before.tolist()} -> "
                                  f"{after.tolist()}, sums {sums.tolist()}, partials "
                                  f"{parts.sum(dim=(1, 2)).tolist()}")
-    print(f"[main] {config}: {len(log)} refine rounds logged, in-kernel sums within {worst:.3g} "
-          f"of torch.sum of their partials (limit {ROUND_SUM_RTOL}), latch as torch reads the "
-          f"sums on every round ({latched} latched)")
+    depths = ", ".join(f"{h}x{w} depth {d} limits {lt:.3g} / {le:.3g}"
+                       for (h, w), (d, lt, le) in sorted(limits.items(), reverse=True))
+    print(f"[{tag}] {config}: {len(log)} refine rounds logged, in-kernel sums within {worst:.3g} "
+          f"of torch.sum of their partials and {worst_exact:.3g} of their f64 sum ({depths}), "
+          f"latch as torch reads the sums on every round ({latched} latched)")
     return worst
 
 
@@ -1305,8 +1386,8 @@ def counted(path: str, fn):
     return out, counts
 
 
-def check_stream(a, b, config: str, smi: str):
-    """Phase 4, one stream: (a) an eager step under sync debug "error"; the
+def check_stream(a, b, config: str, smi: str, tag: str = "main"):
+    """Phase 4 (and 10 at 4K), one stream: (a) an eager step under sync debug "error"; the
     eager device-control stream (counted: no host read, the path's
     kernels); (d) its refine rounds logged; (b) the same stream graphed,
     bit-identical to eager with the same rounds, and the plain versions'
@@ -1314,13 +1395,14 @@ def check_stream(a, b, config: str, smi: str):
     frame by host clock, eager and graphed, median and spread of
     STREAM_RUNS runs, and the graphed replay's device busy share."""
     cfg = PYRAMID_CONFIGS[config]
+    height, width = a.shape
     run_stream(a, b, config, 2)  # warm-up: cuBLAS handles, operator blocks on the card
     carry = torch_ref.build_gaussian_pyramid(a, cfg.levels, cfg.scale_factor)
     torch.cuda.synchronize()
     with no_sync():
         lucas_kanade_pyramidal_step(carry, b, cfg, backend="cuda")
     torch.cuda.synchronize()
-    print(f"[main] {config}: an eager step under torch's sync debug mode \"error\": no "
+    print(f"[{tag}] {config}: an eager step under torch's sync debug mode \"error\": no "
           "synchronizing operation")
     pyramidal.counters.reset()
     (flows, rounds, seconds), counts = counted(f"{config} stream",
@@ -1330,18 +1412,18 @@ def check_stream(a, b, config: str, smi: str):
         raise AssertionError(f"{config} stream read {reads} flags to the host")
     for u, v in flows:
         finite = bool(torch.isfinite(u).all()) and bool(torch.isfinite(v).all())
-        if u.shape != (HEIGHT, WIDTH) or not finite:
+        if u.shape != (height, width) or not finite:
             raise AssertionError(f"{config} stream gave non-finite or misshapen flow")
     epe = mean_epe(flows)
     eager_ms = [1000 * seconds / N_FRAMES] + [1000 * run_stream(a, b, config)[2] / N_FRAMES
                                               for _ in range(STREAM_RUNS - 1)]
     rounds_seen = sorted(set(map(tuple, rounds.tolist())))
-    print(f"[main] {N_FRAMES} frames {HEIGHT}x{WIDTH} {config} eager: {_spread(eager_ms)}, "
+    print(f"[{tag}] {N_FRAMES} frames {height}x{width} {config} eager: {_spread(eager_ms)}, "
           f"launches {counts}, host reads convergence={reads[0]} band={reads[1]}, rounds per "
           f"level (distinct over the frames) {rounds_seen}, mean EPE {epe:.4f} px ({smi})")
     with logged_rounds([]) as log:
         run_stream(a, b, config)
-    check_logged_rounds(config, log)
+    check_logged_rounds(config, log, tag)
     del log
 
     t0 = time.perf_counter()
@@ -1367,7 +1449,7 @@ def check_stream(a, b, config: str, smi: str):
         raise AssertionError(f"{config}: the graphed run's trace holds {traced} launches of the "
                              f"port's kernels; the capture recorded {stream.launches} a replay, "
                              f"the eager run launched {counts}")
-    print(f"[main] {config} graphed (captured in {capture_s:.3f} s, {sum(stream.launches.values())}"
+    print(f"[{tag}] {config} graphed (captured in {capture_s:.3f} s, {sum(stream.launches.values())}"
           f" kernel launches a replay): {_spread(graphed_ms)}, flows bit-identical to eager, same "
           f"rounds; its trace holds {traced} launches of the port's kernels, as eager; under "
           f"torch.profiler {N_FRAMES} frames busy {busy[0]:.3f} ms/frame, {busy[1]:.3f} in the "
@@ -1386,7 +1468,7 @@ def check_stream(a, b, config: str, smi: str):
                              f"{rounds.tolist()}, plain {plain_rounds.tolist()}")
     diff = max(max(max_abs(u, pu), max_abs(v, pv))
                for (u, v), (pu, pv) in zip(flows, plain_flows))
-    print(f"[main] {config} through the plain versions on the card: "
+    print(f"[{tag}] {config} through the plain versions on the card: "
           f"{1000 * plain_seconds / N_FRAMES:.3f} ms/frame, same rounds on every frame, "
           f"max |du|,|dv| vs kernels and graphed {diff:.3g} px, mean EPE "
           f"{mean_epe(plain_flows):.4f} px")
@@ -2841,17 +2923,276 @@ def _check_mesh(a, b, fa, fb, smi, dev, work, t_phase) -> dict:
     return tiled_launches
 
 
-def profile_stream(a, b, config: str) -> None:
+def profile_stream(a, b, config: str, tag: str = "profile") -> None:
     """Device time by kernel and the device's busy share over a 4-frame
-    stream (torch.profiler)."""
+    eager stream (torch.profiler)."""
     seconds, kernels = profiled(lambda: run_stream(a, b, config, 4)[2])
     busy_us = sum(e.self_device_time_total for e in kernels)
-    print(f"[profile] {config}, 4 frames under the profiler: wall "
+    print(f"[{tag}] {config} {a.shape[0]}x{a.shape[1]}, 4 frames under the profiler: wall "
           f"{1000 * seconds / 4:.3f} ms/frame, device busy {busy_us / 4000:.3f} ms/frame "
           f"({100 * busy_us / 1e6 / seconds:.1f}%)")
-    print(f"[profile] {'device us/frame':>15} {'calls/frame':>11}  kernel")
+    print(f"[{tag}] {'device us/frame':>15} {'calls/frame':>11}  kernel")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
-        print(f"[profile] {e.self_device_time_total / 4:15.1f} {e.count / 4:11.1f}  {e.key[:90]}")
+        print(f"[{tag}] {e.self_device_time_total / 4:15.1f} {e.count / 4:11.1f}  {e.key[:90]}")
+
+
+# -- phase 10: frame sizes above 1080p ----------------------------------------------------------
+
+UHD = (2160, 3840)  # 4K, the reference's largest served size
+UHD_CONFIGS = ("production", "production_fullband", "default")
+# Sizes the reference cannot run (its 40-row refine tile fails to compile
+# there), held to the port's plain versions: one pair a config each.
+BEYOND_UHD = {"5K": (2880, 5120), "8K": (4320, 7680)}
+BEYOND_UHD_CONFIGS = ("production", "default")
+# README.md's resolution grid, graphed ms a frame on this card.
+GRID_SIZES = ((480, 640), (720, 1280), (1080, 1920), (2160, 3840))
+GRID_CONFIGS = ("default", "narrow_vertical", "production")
+_LEVEL_KERNELS = {"production": ("warp_packed_u8", "warp_packed_u16", "lk_refine"),
+                  "production_fullband": ("warp_packed_u8", "warp_packed_u16", "lk_refine"),
+                  "default": ("warp_exact", "warp_exact", "lk_refine_exact")}
+
+
+def _expected_launch_shapes(config: str, carry) -> dict[str, set]:
+    """The (kernel, plane shape) pairs a config's step launches on the
+    carry's levels (coarse to fine): the finest level's warp, the coarse
+    levels' warp, the refine at every level."""
+    finest, coarse, refine = _LEVEL_KERNELS[config]
+    shapes = [tuple(level.shape) for level in carry]
+    out: dict[str, set] = {}
+    out.setdefault(finest, set()).add(shapes[-1])
+    out.setdefault(coarse, set()).update(shapes[:-1])
+    out.setdefault(refine, set()).update(shapes)
+    return out
+
+
+def every_launch_checked(config: str, carry, frames, what: str) -> tuple:
+    """The step's every kernel launch held against its plain version on the
+    same inputs (``checked_kernels``), over ``frames`` eagerly: each must
+    be bit-exact (the refine's sums within SUM_RTOL and its control as the
+    plain round's), and every (kernel, shape) the config launches must be
+    seen. Returns the flows, the carry and what was checked."""
+    cfg = PYRAMID_CONFIGS[config]
+    carry_in = carry
+    found: dict = {}
+    flows = []
+    with checked_kernels(found):
+        for frame in frames:
+            u, v, carry = lucas_kanade_pyramidal_step(carry, frame, cfg, backend="cuda")
+            flows.append((u, v))
+    torch.cuda.synchronize()
+    want = _expected_launch_shapes(config, carry_in)
+    seen = {name: set(by) for name, by in found.items()}
+    bad = {name: {s: e for s, e in by.items() if e != 0.0} for name, by in found.items()}
+    if seen != want or any(bad.values()):
+        raise AssertionError(f"{what}: launches checked {seen}, expected {want}; not bit-exact "
+                             f"to the plain versions: {bad}")
+    return flows, carry, found
+
+
+@contextmanager
+def operator_builds(log: list):
+    """Every first use of a banded pyramid operator (``ops._operator_blocks``,
+    a cache miss: the dense f64 operator built on the host, cut into
+    blocks and uploaded) appended to ``log`` as (builder, args, seconds)."""
+    real = ops._operator_blocks
+
+    def timed(builder, args, device):
+        misses = real.cache_info().misses
+        t0 = time.perf_counter()
+        out = real(builder, args, device)
+        if real.cache_info().misses != misses:
+            log.append((builder.__name__, args, time.perf_counter() - t0))
+        return out
+
+    ops._operator_blocks = timed
+    try:
+        yield log
+    finally:
+        ops._operator_blocks = real
+
+
+def check_4k_gate(dev, work: Path) -> dict:
+    """(a) ``eval.check_4k``'s three steps on the card: the subset generated
+    at 3840x2160, the ``production`` verifier with the dense ground truth
+    (every kernel launch held against its plain version, once a shape),
+    each pattern's pyramidal dense EPE gated against the committed capture
+    by check_4k.sh's rule. Returns the path's launches."""
+    t0 = time.perf_counter()
+    suite = check_4k.generate_subset(work / "suite_4k", device=dev)
+    gen_s = time.perf_counter() - t0
+    found: dict = {}
+    t0 = time.perf_counter()
+    with checked_kernels(found):
+        results, counts = counted("4k gate", lambda: check_4k.verify(suite, device=dev,
+                                                                    verbose=False))
+    verify_s = time.perf_counter() - t0
+    bad = {name: {s: e for s, e in by.items() if e != 0.0} for name, by in found.items()}
+    rows = check_4k.gate(verifier.results_document(results),
+                         json.loads(check_4k.CAPTURE.read_text()))
+    print(f"[4k] gate: the subset generated on the card at {check_4k.WIDTH}x{check_4k.HEIGHT} in "
+          f"{gen_s:.1f} s, verified in {verify_s:.1f} s (launches {counts}; each kernel and "
+          f"shape held against its plain version: "
+          + ", ".join(f"{n} {sorted(by)}" for n, by in found.items()) + ")")
+    for line in check_4k.report(rows):
+        print(f"[4k] gate: {line}")
+    failures = [pattern for pattern, _, _, ok in rows if not ok]
+    if failures or any(bad.values()):
+        raise AssertionError(f"4K gate: regression on {failures}; launches not bit-exact {bad}")
+    return counts
+
+
+def check_4k_profile(label: str) -> None:
+    """(c) The stage profiler at 3840x2160 under ``production`` (with the
+    benign row) and ``production_fullband``: every row present."""
+    h, w = UHD
+    for config in ("production", "production_fullband"):
+        rows = profile.profile_pipeline(h, w, config)
+        stages = [r["stage"] for r in rows]
+        for line in profile.format_report(rows, h, w, label).splitlines():
+            print(f"[4k] profiler {config}: {line}")
+        benign = "pyramidal total (benign)" in stages
+        if benign != (PYRAMID_CONFIGS[config].adaptive_v_bands is not None) \
+                or "pyramidal total (fast)" not in stages \
+                or not all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in rows):
+            raise AssertionError(f"4K profile {config}: rows {stages}")
+
+
+def check_beyond_uhd(seed_: int, smi: str) -> dict:
+    """(d) 5K and 8K, where the reference cannot run: one pair a config,
+    every kernel launch bit-exact to its plain version, the flow finite and
+    near the 2 px shift, the step captured as a graph and replayed
+    bit-identical to the eager step; peak device memory and the banded
+    operators' first-use host seconds. Returns the paths' launches."""
+    counts: dict = {}
+    for label, (h, w) in BEYOND_UHD.items():
+        fa, fb = make_frames(seed_, h, w)
+        a, b = torch.from_numpy(fa).cuda(), torch.from_numpy(fb).cuda()
+        del fa, fb
+        for config in BEYOND_UHD_CONFIGS:
+            cfg = PYRAMID_CONFIGS[config]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with operator_builds([]) as built:
+                t0 = time.perf_counter()
+                carry = torch_ref.build_gaussian_pyramid(a, cfg.levels, cfg.scale_factor)
+                (flows, _, found), path_counts = counted(
+                    f"{label} {config} pair",
+                    lambda: every_launch_checked(config, carry, [b], f"{label} {config}"))
+                first_s = time.perf_counter() - t0
+            for name, n in path_counts.items():
+                counts[name] = counts.get(name, 0) + n
+            u, v = flows[0]
+            finite = bool(torch.isfinite(u).all()) and bool(torch.isfinite(v).all())
+            epe = mean_epe(flows)
+            t0 = time.perf_counter()
+            stream = GraphedStream(carry, cfg)
+            capture_s = time.perf_counter() - t0
+            gu, gv = stream.step(b)
+            torch.cuda.synchronize()
+            same = torch.equal(gu, u) and torch.equal(gv, v)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            del stream, carry, flows, gu, gv, u, v
+            ops_s = sum(t for _, _, t in built)
+            worst = max(built, key=lambda r: r[2], default=("none", (), 0.0))
+            print(f"[4k] {label} {h}x{w} {config} pair: every launch bit-exact to its plain version "
+                  f"({', '.join(f'{n} {sorted(s)}' for n, s in found.items())}); launches "
+                  f"{path_counts}; flow finite {finite}, mean EPE {epe:.4f} px against the "
+                  f"{SHIFT_PX} px shift; graph captured in {capture_s:.2f} s, its replay "
+                  f"bit-identical to the eager step: {same}; peak device memory {peak:.2f} GiB; "
+                  f"first step {first_s:.2f} s host, of it {len(built)} banded operators built "
+                  f"in {ops_s:.2f} s (largest {worst[0]}{worst[1]} {worst[2]:.2f} s) ({smi})")
+            if not (finite and same) or epe > 0.5:
+                raise AssertionError(f"{label} {config}: finite {finite}, graph bit-identical "
+                                     f"{same}, mean EPE {epe}")
+        del a, b
+        torch.cuda.empty_cache()
+    return counts
+
+
+def check_grid(seed_: int, smi: str) -> dict:
+    """(e) README.md's resolution grid on this card: graphed ms a frame of
+    ``default``, ``narrow_vertical`` and ``production`` at 640x480,
+    1280x720, 1920x1080 and 3840x2160, median and spread of STREAM_RUNS
+    runs of N_FRAMES frames. Returns the launches of one counted run a
+    cell."""
+    counts: dict = {}
+    table = {}
+    for h, w in GRID_SIZES:
+        fa, fb = make_frames(seed_, h, w)
+        a, b = torch.from_numpy(fa).cuda(), torch.from_numpy(fb).cuda()
+        for config in GRID_CONFIGS:
+            cfg = PYRAMID_CONFIGS[config]
+            stream = GraphedStream(torch_ref.build_gaussian_pyramid(a, cfg.levels,
+                                                                    cfg.scale_factor), cfg)
+            _, path_counts = counted(f"grid {config}",
+                                     lambda: run_graphed(stream, a, b, rounds=False))
+            for name, n in path_counts.items():
+                counts[name] = counts.get(name, 0) + n
+            runs = [1000 * run_graphed(stream, a, b, rounds=False)[2] / N_FRAMES
+                    for _ in range(STREAM_RUNS)]
+            table[(h, w, config)] = runs
+            del stream
+        print(f"[4k] grid {w}x{h} graphed ms a frame: " + "; ".join(
+            f"{c} {_spread(table[(h, w, c)])} ({1000 / np.median(table[(h, w, c)]):.0f} fps)"
+            for c in GRID_CONFIGS) + f" ({smi})")
+    return counts
+
+
+def check_uhd(seed_: int, smi: str) -> tuple[dict, dict]:
+    """Phase 10 (`[4k]` lines): the port above 1080p. At 3840x2160: K1-K5 as
+    the rounds launch them at every level of both pyramids (check_rounds:
+    bit-exact, timed beside the bound and the plain round); the
+    ``production``, ``production_fullband`` and ``default`` streams, first
+    a pair with every launch held against its plain version, then as phase
+    4 checks its streams (eager and graphed, bit-identical; the rounds'
+    sums; the plain versions' stream); the eager ``production`` frame's
+    device time by kernel; (a) the 4K gate; (c) the 4K stage profiles; (d)
+    5K and 8K; (e) the resolution grid. Returns the main paths' launches
+    and the 4K kernel readings."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    fa, fb = make_frames(seed_, *UHD)
+    a, b = torch.from_numpy(fa).to(dev), torch.from_numpy(fb).to(dev)
+    rng = np.random.default_rng(seed_ + 4)
+    floor_ms = device_ms(_build.launch_empty)
+    readings = {name: {} for name in ("warp_packed_u8", "warp_packed_u16", "warp_exact",
+                                      "lk_refine", "lk_refine_exact")}
+    check_rounds(readings, dev, a, b, rng, floor_ms, tag="4k")
+    counts: dict = {}
+    per_frame = {}
+    for config in UHD_CONFIGS:
+        cfg = PYRAMID_CONFIGS[config]
+        carry = torch_ref.build_gaussian_pyramid(a, cfg.levels, cfg.scale_factor)
+        _, _, found = every_launch_checked(config, carry, [b, a], f"4K {config}")
+        print(f"[4k] {config} {UHD[0]}x{UHD[1]}: a frame pair with every launch bit-exact to "
+              f"its plain version: " + ", ".join(f"{n} {sorted(s)}" for n, s in found.items()))
+        path_counts, _, _ = check_stream(a, b, config, smi, tag="4k")
+        per_frame[config] = {name: n / N_FRAMES for name, n in path_counts.items()}
+        for name, n in path_counts.items():
+            counts[name] = counts.get(name, 0) + n
+    profile_stream(a, b, "production", tag="4k")
+    del a, b
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="tpuflow_4k_") as tmp:
+        for name, n in check_4k_gate(dev, Path(tmp)).items():
+            counts[name] = counts.get(name, 0) + n
+    check_4k_profile(smi)
+    for part in (check_beyond_uhd(seed_, smi), check_grid(seed_, smi)):
+        for name, n in part.items():
+            counts[name] = counts.get(name, 0) + n
+    for name, r in readings.items():
+        r["launches_per_frame"] = {c: f[name] for c, f in per_frame.items() if name in f}
+        for key, by in r["by_shape"].items():
+            h, w = map(int, key.split("x"))
+            ms = by["round_ms"]["band_8"] if "round_ms" in by else by["ms"]
+            plain = by.get("round_plain_ms", by.get("plain_ms"))
+            by.update(bound_ms=bounds.bound(name, 1, h, w)[0])
+            by["bound_share"] = by["bound_ms"] / ms
+            print(f"[4k] kernels {name} {key} round: {ms:.5f} ms, bound {by['bound_ms']:.5f} ms "
+                  f"({100 * by['bound_share']:.1f}%), plain round {plain:.4f} ms; launches a 4K "
+                  f"frame {r['launches_per_frame']} ({smi})")
+    print(f"[4k] phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts, readings
 
 
 _WALK_NAMES = {(0, 1): "K3", (0, 0): "K5", (1, 0): "K6", (1, 1): "K6 relaxed",
@@ -3115,6 +3456,13 @@ def main() -> None:
     profile_stream(a, b, "production")
     profile_stream(a, b, "default")
 
+    # 10. 4k
+    del a, b
+    torch.cuda.empty_cache()
+    uhd_counts, uhd_readings = check_uhd(args.seed, smi)
+    for name, n in uhd_counts.items():
+        counts[name] = counts.get(name, 0) + n
+
     kernels = []
     for name, (src, rep) in KERNELS.items():
         r = readings[name]
@@ -3128,7 +3476,8 @@ def main() -> None:
                                         if name in c},
             "library_ms": None, "library": NO_LIBRARY_CALL.get(name), **r,
             "bytes": bounds.call_bytes(name, *dims), "bound_ms": bound_ms,
-            "bound_by": bound_by, "bound_share": bound_ms / r["ms"]})
+            "bound_by": bound_by, "bound_share": bound_ms / r["ms"],
+            "launches_4k": uhd_counts.get(name, 0), "uhd": uhd_readings.get(name)})
     for name, (src, replaces, why) in PORT_KERNELS.items():
         r = port_readings[name]
         # The seed launches once a VO step; the scan once a preintegrated segment.

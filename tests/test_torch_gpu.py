@@ -1267,3 +1267,129 @@ def test_native_reader_feeds_the_uploads_without_a_stale_frame(cuda, tmp_path, l
         want = (i * 3 + ramp) % 256
         assert float(total) == float(want.sum())
         assert torch.equal(corner.cpu(), torch.from_numpy(want[:2, :3].astype(np.float32)))
+
+
+# Frame sizes above 1080p: the planes a 4K (2160x3840) and an 8K
+# (4320x7680) pyramid give the kernels.
+_LADDER = (2, 3, 8)
+
+
+def _textured_pair(shape, dev, seed=0):
+    """A blurred 8-bit noise frame and it rolled 2 px right."""
+    rng = np.random.default_rng(seed)
+    a = np.round(gaussian_filter(rng.uniform(0, 255, shape), 2.0)).astype(np.float32)
+    a = torch.from_numpy(a).to(dev)
+    return a, a.roll(2, dims=1)
+
+
+def test_packed_u16_warp_on_the_staged_tile_at_1080x1920(cuda):
+    # The second level of a 4K production pyramid: K2 there takes the
+    # staged 128x32 tile (planes of 2**20 pixels and more), where at 1080p
+    # it only ever gathered; the entry and the round, bit-exact.
+    shape = (1080, 1920)
+    assert warp.tile_geometry(*shape, 8, 8)["staged"]
+    rng = np.random.default_rng(21)
+    img = _rand(rng, shape, 0, 255, cuda)
+    zero = torch.zeros((), dtype=torch.int32, device=cuda)
+    for i, mdv in enumerate(_LADDER):
+        u, v = _rand(rng, shape, -11, 11, cuda), _rand(rng, shape, -11, 11, cuda)
+        kw = dict(clamp_flow=True, max_disp_v=mdv, packing="u16")
+        before = launch_counts()["warp_packed_u16"]
+        got = warp.warp_banded(img, u, v, 8, **kw)
+        band = torch.tensor(i, dtype=torch.int32, device=cuda)
+        rkw = dict(max_disp=8, ladder=_LADDER, band=band, packing="u16")
+        rnd = warp.warp_round(img, u, v, torch.empty_like(img), zero, **rkw)
+        assert launch_counts()["warp_packed_u16"] == before + 2
+        assert torch.equal(got, warp.warp_banded_ref(img, u, v, 8, **kw))
+        assert torch.equal(rnd, warp.warp_round_ref(img, u, v, torch.empty_like(img), zero,
+                                                    **rkw))
+        assert torch.equal(rnd, got)
+
+
+def test_4k_production_pair_equals_the_plain_versions(cuda, monkeypatch):
+    cfg = PYRAMID_CONFIGS["production"]
+    a, b = _textured_pair((2160, 3840), cuda)
+
+    def step():
+        carry = torch_ref.build_gaussian_pyramid(a, cfg.levels, cfg.scale_factor)
+        u, v, _ = lucas_kanade_pyramidal_step(carry, b, cfg, backend="cuda")
+        return u, v, pyramidal.counters.level_rounds.tolist()
+
+    (u, v, rounds), counts = _launches(step)
+    assert counts == {"warp_packed_u8": 3, "warp_packed_u16": 6, "lk_refine": 9}
+    monkeypatch.setattr(warp, "warp_round", warp.warp_round_ref)
+    monkeypatch.setattr(lk, "refine_round", lk.refine_round_ref)
+    pu, pv, plain_rounds = step()
+    assert rounds == plain_rounds
+    assert torch.equal(u, pu) and torch.equal(v, pv)
+    assert bool(torch.isfinite(u).all()) and bool(torch.isfinite(v).all())
+
+
+def test_8k_default_pair_every_launch_equals_its_plain_version(cuda, monkeypatch):
+    # Each of the step's 18 launches (K4 and K5 at the three levels of an 8K
+    # pyramid) against its plain version on the same inputs: u, v and the
+    # control bit-identical, the sums to rtol 1e-5.
+    cfg = PYRAMID_CONFIGS["default"]
+    a, b = _textured_pair((4320, 7680), cuda)
+    real_warp, real_refine = warp.warp_round, lk.refine_round
+    seen = []
+
+    def warp_checked(image, u, v, out, latch, **kw):
+        want = warp.warp_round_ref(image, u, v, out.clone(), latch.clone(), **kw)
+        got = real_warp(image, u, v, out, latch, **kw)
+        assert torch.equal(got, want)
+        seen.append(("warp_exact", tuple(image.shape)))
+        return got
+
+    def refine_checked(prev, warped, u, v, ctrl, **kw):
+        ctrl_ref = ctrl.clone()
+        want = lk.refine_round_ref(prev, warped, u, v, ctrl_ref, **kw)
+        got = real_refine(prev, warped, u, v, ctrl, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(ctrl, ctrl_ref)
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+        seen.append(("lk_refine_exact", tuple(prev.shape)))
+        return got
+
+    monkeypatch.setattr(warp, "warp_round", warp_checked)
+    monkeypatch.setattr(lk, "refine_round", refine_checked)
+    carry = torch_ref.build_gaussian_pyramid(a, cfg.levels, cfg.scale_factor)
+    (u, v, _), counts = _launches(lambda: lucas_kanade_pyramidal_step(carry, b, cfg,
+                                                                      backend="cuda"))
+    levels = [tuple(level.shape) for level in carry]
+    assert levels[-1] == (4320, 7680)
+    assert counts == {"warp_exact": 9, "lk_refine_exact": 9}
+    assert sorted(set(seen)) == sorted({(k, s) for k in ("warp_exact", "lk_refine_exact")
+                                        for s in levels})
+    assert bool(torch.isfinite(u).all()) and bool(torch.isfinite(v).all())
+    assert abs(float(u[32:-32, 32:-32].median()) - 2.0) < 0.1
+
+
+@pytest.mark.parametrize("shape", [(2160, 3840), (4320, 7680)])
+def test_refine_round_sums_within_their_depth_above_1080p(cuda, shape):
+    # The round's in-kernel sum adds ~4x (4K) and ~16x (8K) the partials of
+    # 1080p, so its depth (kernels.lk.round_sum_depth) grows: within
+    # 1e-6 scaled by that depth over 1080p's of torch.sum of the same
+    # partials, and within gamma_depth of their float64 sum.
+    depth = lk.round_sum_depth(*shape, 5)
+    ref_depth = lk.round_sum_depth(1080, 1920, 5)
+    assert depth > ref_depth
+    unit = 2.0 ** -24
+    rng = np.random.default_rng(31)
+    prev, warped = _smooth(rng, shape, cuda)
+    u, v = _rand(rng, shape, -5, 5, cuda), _rand(rng, shape, -5, 5, cuda)
+    band = torch.tensor(2, dtype=torch.int32, device=cuda)
+    ctrl = torch.zeros(3, dtype=torch.int32, device=cuda)
+    ctrl_ref = ctrl.clone()
+    parts = torch.zeros((2, 1, lk.refine_blocks(*shape, 5)), device=cuda)
+    kw = dict(ladder=(2.0, 3.0, 8.0), band=band, relaxed_order=True)
+    got = lk.refine_round(prev, warped, u, v, ctrl, parts=parts, **kw)
+    want = lk.refine_round_ref(prev, warped, u, v, ctrl_ref, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(ctrl, ctrl_ref)
+    part = parts.sum(dim=(1, 2))
+    exact = parts.double().sum(dim=(1, 2))
+    assert float(((got[2] - part).abs() / part).max()) <= 1e-6 * depth / ref_depth
+    assert float(((got[2].double() - exact).abs() / exact).max()) <= \
+        depth * unit / (1 - depth * unit)

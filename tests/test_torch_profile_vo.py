@@ -77,8 +77,9 @@ def test_profile_vo_needs_a_device_by_default(monkeypatch):
 
 def test_natural_frames_match_the_reference():
     from tpuflow.eval.profile import _natural_pair
+    from tpuflow_torch.eval import profile
 
-    f0, f1 = profile_vo.natural_frames(*SHAPE, torch.device("cpu"))
+    f0, f1 = profile.natural_pair(*SHAPE, device="cpu")
     j0, j1 = _natural_pair(*SHAPE)
     np.testing.assert_array_equal(f0.numpy(), j0)
     np.testing.assert_array_equal(f1.numpy(), j1)

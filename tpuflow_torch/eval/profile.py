@@ -17,10 +17,10 @@ two reports line up row for row:
   (``flow.graphed``), host clock around the loop, ending in
   ``torch.cuda.synchronize()``; the median of three runs, all three kept;
 - ``pyramidal total (benign)``, adaptive-band configs only: the same loop
-  on the natural mountain-texture pair with 2 px horizontal motion (the
-  committed ``data/natural_1080x1920.npz`` frame, shifted with
-  ``ops.map_coordinates_bilinear``, gray 128 fill). The fixture is 1080p,
-  so at other sizes the row is left out, with a note.
+  on the natural mountain-texture pair with 2 px horizontal motion
+  (``natural_pair``: at 1080p the committed ``data/natural_1080x1920.npz``
+  frame, at any other size the texture resized as PIL's bilinear filter
+  resizes it, no PIL needed), at every size, as the reference computes it.
 
 ``profile_pipeline`` measures on the card by default and raises where there
 is none. ``device="cpu"`` runs the plain versions under the host clock,
@@ -40,6 +40,7 @@ import torch
 
 from tpuflow_torch.core import ops
 from tpuflow_torch.core.config import PYRAMID_CONFIGS, PyramidConfig
+from tpuflow_torch.eval import patterns
 from tpuflow_torch.eval.timing import card_label, device_ms, require_cuda, resolve_device
 from tpuflow_torch.flow import graphed, pyramidal
 from tpuflow_torch.kernels import lk, torch_ref, warp
@@ -52,11 +53,23 @@ STREAM_ITERS = 15  # loop iterations per timed run: two frames each
 STREAM_RUNS = 3
 
 
-def natural_pair(dx: float = 2.0, device: torch.device | str | None = None):
-    """The natural 1080p frame and the same frame shifted ``dx`` px right
-    (bilinear, gray 128 fill), as ``tpuflow.eval.profile._natural_pair``,
-    on ``device``: the card unless the caller names another."""
+def natural_pair(height: int = 1080, width: int = 1920, dx: float = 2.0, *,
+                 device: torch.device | str | None = None):
+    """The natural (height, width) frame and the same frame shifted ``dx``
+    px right (bilinear, gray 128 fill), as
+    ``tpuflow.eval.profile._natural_pair(height, width, dx)`` makes them,
+    on ``device``: the card unless the caller names another. At 1080p the
+    frame is the committed one, shifted on ``device``; at any other size
+    the texture resized as PIL's bilinear filter resizes it
+    (``eval.patterns.load_base_texture``), shifted by
+    ``scipy.ndimage.shift`` on the host."""
     dev = resolve_device(device)
+    if (height, width) != NATURAL_SHAPE:
+        from scipy.ndimage import shift as nd_shift
+
+        f0 = patterns.load_base_texture(width, height).astype(np.float32)
+        f1 = nd_shift(f0, (0.0, dx), order=1, mode="constant", cval=128.0).astype(np.float32)
+        return torch.from_numpy(f0).to(dev), torch.from_numpy(f1).to(dev)
     f0 = torch.from_numpy(np.load(NATURAL)["frame"].astype(np.float32)).to(dev)
     h, w = f0.shape
     yy = torch.arange(h, dtype=torch.float32, device=f0.device)[:, None].expand(h, w)
@@ -168,11 +181,7 @@ def profile_pipeline(height: int = 1080, width: int = 1920, config: str = "defau
 
     rows.append(total("pyramidal total (fast)", plane(rng, 0, 255), curr))
     if cfg.adaptive_v_bands is not None:
-        if (h, w) == NATURAL_SHAPE:
-            rows.append(total("pyramidal total (benign)", *natural_pair(device=dev)))
-        else:
-            print(f"note: 'pyramidal total (benign)' left out: the natural frame is "
-                  f"{NATURAL_SHAPE[1]}x{NATURAL_SHAPE[0]}, the profile {w}x{h}")
+        rows.append(total("pyramidal total (benign)", *natural_pair(h, w, device=dev)))
     return rows
 
 

@@ -32,10 +32,9 @@ graphed rows the eager body's device time (``eager_device_ms``, from
 ``EAGER_REPS`` calls a batch so that the launch queue holds them all).
 
 The frames are the natural mountain-texture pair with 2 px horizontal
-motion: at 1080p the committed ``data/natural_1080x1920.npz`` frame
-(``eval.profile.natural_pair``); other sizes resize the texture as PIL's
-bilinear filter does (``eval.patterns.load_base_texture``, no PIL), as
-the reference does. The front end runs ``backend="cuda"`` on the card;
+motion (``eval.profile.natural_pair``: at 1080p the committed
+``data/natural_1080x1920.npz`` frame; other sizes resize the texture as
+PIL's bilinear filter does, no PIL needed), as the reference makes them. The front end runs ``backend="cuda"`` on the card;
 ``device="cpu"`` runs the parity path (``"torch"``) once per row by host
 clock, for the CPU schema test only, with no device time.
 
@@ -51,7 +50,7 @@ import numpy as np
 import torch
 
 from tpuflow_torch.core.config import PYRAMID_CONFIGS
-from tpuflow_torch.eval import patterns, profile
+from tpuflow_torch.eval import profile
 from tpuflow_torch.eval.timing import card_label, device_ms, resolve_device
 from tpuflow_torch.flow import graphed
 from tpuflow_torch.flow.pyramidal import lucas_kanade_pyramidal_step
@@ -67,20 +66,6 @@ DEVICE_CLOCK = "device"  # CUDA events (every row on the card)
 # eager step launches 150-260 kernels, and the calls must all fit in the
 # launch queue behind the GPU spin, or they run at the host's pace.
 EAGER_REPS = 2
-
-
-def natural_frames(height: int, width: int, device: torch.device, dx: float = 2.0):
-    """The natural frame and it shifted ``dx`` px right (gray 128 fill) on
-    ``device``: the committed frame at 1080p, else the texture resized
-    as PIL's bilinear filter resizes it (``tpuflow.eval.profile._natural_pair``;
-    ``eval.patterns.load_base_texture``, no PIL needed)."""
-    if (height, width) == profile.NATURAL_SHAPE:
-        return profile.natural_pair(dx, device=device)
-    from scipy.ndimage import shift as nd_shift
-
-    f0 = patterns.load_base_texture(width, height).astype(np.float32)
-    f1 = nd_shift(f0, (0.0, dx), order=1, mode="constant", cval=128.0).astype(np.float32)
-    return torch.from_numpy(f0).to(device), torch.from_numpy(f1).to(device)
 
 
 def _sync(dev: torch.device) -> None:
@@ -119,7 +104,7 @@ def profile_vo(
     backend = "cuda" if on_card else "torch"
     h, w = height, width
 
-    frame0, frame1 = natural_frames(h, w, dev)
+    frame0, frame1 = profile.natural_pair(h, w, device=dev)
     pyr0 = torch_ref.build_gaussian_pyramid(frame0, cfg.levels, cfg.scale_factor)
     rng = np.random.default_rng(3)
     u0 = torch.from_numpy(rng.uniform(-2, 2, (h, w)).astype(np.float32)).to(dev)

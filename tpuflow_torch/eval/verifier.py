@@ -414,14 +414,18 @@ def generate_markdown_table(results: List[Dict[str, Any]]) -> str:
     return "\n".join(lines)
 
 
-def save_results_json(results: List[Dict[str, Any]], output_path: Path) -> None:
-    data = {
+def results_document(results: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """The results as ``verification_results.json`` holds them."""
+    return {
         "version": "1.0",
         "timestamp": datetime.now(timezone.utc).isoformat(),
         "patterns": {r["pattern_name"]: _strip_arrays(r) for r in results},
     }
+
+
+def save_results_json(results: List[Dict[str, Any]], output_path: Path) -> None:
     output_path.parent.mkdir(parents=True, exist_ok=True)
-    output_path.write_text(json.dumps(data, indent=2))
+    output_path.write_text(json.dumps(results_document(results), indent=2))
 
 
 # ---------------------------------------------------------------------------
