@@ -231,8 +231,9 @@ ablation instantiations' registers, spills and shared memory, their
 shared loads (LDS) a thread and K9's select instructions a pixel. It
 prints one JSON object of the kernels' readings on the line before the
 last (time, plain version's time, bytes, bound,
-share, launches on the main path and per stream frame, and a one-call
-PyTorch yardstick's time where one exists, else null with the reason),
+share, launches on the main path and per stream frame, the launches of
+phase 10's eager runs at 4K and at 5K and 8K, and a one-call PyTorch
+yardstick's time where one exists, else null with the reason),
 and ``{"ok": true, "device": {...}}`` as the last line. Frames are
 made from ``--seed`` with numpy and scipy; the suite is the committed
 fixture. Needs one CUDA device; fails without one. Run:
@@ -364,7 +365,7 @@ PATH_KERNELS = {
     "production stream graphed": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
     "default stream graphed": {"warp_exact", "lk_refine_exact"},
     # Phase 10 (4K): production_fullband's streams, the 4K gate (the
-    # verifier's two modes), 5K and 8K pairs, the resolution grid graphed.
+    # verifier's two modes), 5K and 8K pairs.
     "production_fullband stream": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
     "production_fullband stream graphed": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
     "4k gate": {"warp_packed_u8", "warp_packed_u16", "lk_refine", "lk_fused"},
@@ -372,9 +373,6 @@ PATH_KERNELS = {
     "5K default pair": {"warp_exact", "lk_refine_exact"},
     "8K production pair": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
     "8K default pair": {"warp_exact", "lk_refine_exact"},
-    "grid default": {"warp_exact", "lk_refine_exact"},
-    "grid narrow_vertical": {"warp_exact", "lk_refine_exact"},
-    "grid production": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
     "single scale": {"lk_fused"},
     "single scale + confidence": {"lk_fused_conf"},
     "batched kernel API, window_mxu": {"lk_refine_mxu", "lk_fused_mxu", "lk_fused_conf_mxu"},
@@ -2507,48 +2505,48 @@ def _digest(*arrays) -> str:
 
 @contextmanager
 def checked_kernels(found: dict):
-    """Every kernel launch of the tiled path held against its plain version
-    on the same inputs, once per kernel and shape: ``found[name][shape]`` is
-    the max |d| (for the replicated levels' rounds of u, v, with the round's
-    output, control and sums to SUM_RTOL as the plain round's)."""
+    """Every kernel launch of the path held against its plain version on
+    the same inputs: ``found[name][shape]`` is the max |d| over all the
+    launches of that kernel and shape (for the rounds, of u, v; inf where
+    a refine round's sums are not within SUM_RTOL of the plain round's or
+    its control differs)."""
     saved = warp.warp_banded, lk.lucas_kanade_fused, warp.warp_round, lk.refine_round
 
     def launch(kernel, image, *args, **kw):
-        """The kernel's output, its name, and whether its shape is unchecked."""
+        """The kernel's output and its name, read from the counter it bumped."""
         before = launch_counts()
         out = kernel(image, *args, **kw)
         name = next(n for n, c in launch_counts().items() if c != before.get(n, 0))
-        return out, name, tuple(image.shape) not in found.setdefault(name, {})
+        return out, name
+
+    def note(name, image, err):
+        by = found.setdefault(name, {})
+        by[tuple(image.shape)] = max(by.get(tuple(image.shape), 0.0), err)
 
     def warp_checked(image, *args, **kw):
-        out, name, new = launch(saved[0], image, *args, **kw)
-        if new:
-            found[name][tuple(image.shape)] = max_abs(out, warp.warp_banded_ref(image, *args, **kw))
+        out, name = launch(saved[0], image, *args, **kw)
+        note(name, image, max_abs(out, warp.warp_banded_ref(image, *args, **kw)))
         return out
 
     def fused_checked(prev, *args, **kw):
-        out, name, new = launch(saved[1], prev, *args, **kw)
-        if new:
-            want = lk.lucas_kanade_fused_ref(prev, *args, **kw)
-            found[name][tuple(prev.shape)] = max(max_abs(g, w) for g, w in zip(out, want))
+        out, name = launch(saved[1], prev, *args, **kw)
+        want = lk.lucas_kanade_fused_ref(prev, *args, **kw)
+        note(name, prev, max(max_abs(g, w) for g, w in zip(out, want)))
         return out
 
     def warp_round_checked(image, u, v, out, latch, **kw):
         want = warp.warp_round_ref(image, u, v, out.clone(), latch.clone(), **kw)
-        _, name, new = launch(saved[2], image, u, v, out, latch, **kw)
-        if new:
-            found[name][tuple(image.shape)] = max_abs(out, want)
+        _, name = launch(saved[2], image, u, v, out, latch, **kw)
+        note(name, image, max_abs(out, want))
         return out
 
     def refine_round_checked(prev, warped, u, v, ctrl, **kw):
         ctrl_ref = ctrl.clone()
         want = lk.refine_round_ref(prev, warped, u, v, ctrl_ref, **kw)
-        out, name, new = launch(saved[3], prev, warped, u, v, ctrl, **kw)
-        if new:
-            err = max(max_abs(out[0], want[0]), max_abs(out[1], want[1]))
-            sums_ok = bool(((out[2] - want[2]).abs() <= SUM_RTOL * want[2].abs()).all())
-            same_ctrl = torch.equal(ctrl, ctrl_ref)
-            found[name][tuple(prev.shape)] = err if sums_ok and same_ctrl else float("inf")
+        out, name = launch(saved[3], prev, warped, u, v, ctrl, **kw)
+        err = max(max_abs(out[0], want[0]), max_abs(out[1], want[1]))
+        sums_ok = bool(((out[2] - want[2]).abs() <= SUM_RTOL * want[2].abs()).all())
+        note(name, prev, err if sums_ok and torch.equal(ctrl, ctrl_ref) else float("inf"))
         return out
 
     (warp.warp_banded, lk.lucas_kanade_fused, warp.warp_round,
@@ -3014,7 +3012,7 @@ def operator_builds(log: list):
 def check_4k_gate(dev, work: Path) -> dict:
     """(a) ``eval.check_4k``'s three steps on the card: the subset generated
     at 3840x2160, the ``production`` verifier with the dense ground truth
-    (every kernel launch held against its plain version, once a shape),
+    (every kernel launch held against its plain version),
     each pattern's pyramidal dense EPE gated against the committed capture
     by check_4k.sh's rule. Returns the path's launches."""
     t0 = time.perf_counter()
@@ -3109,13 +3107,13 @@ def check_beyond_uhd(seed_: int, smi: str) -> dict:
     return counts
 
 
-def check_grid(seed_: int, smi: str) -> dict:
+def check_grid(seed_: int, smi: str) -> None:
     """(e) README.md's resolution grid on this card: graphed ms a frame of
     ``default``, ``narrow_vertical`` and ``production`` at 640x480,
     1280x720, 1920x1080 and 3840x2160, median and spread of STREAM_RUNS
-    runs of N_FRAMES frames. Returns the launches of one counted run a
-    cell."""
-    counts: dict = {}
+    runs of N_FRAMES frames after one run to warm up. Timing only: the
+    kernels of these paths are checked, and their launches counted, in
+    the eager runs of phases 4 and 10."""
     table = {}
     for h, w in GRID_SIZES:
         fa, fb = make_frames(seed_, h, w)
@@ -3124,10 +3122,7 @@ def check_grid(seed_: int, smi: str) -> dict:
             cfg = PYRAMID_CONFIGS[config]
             stream = GraphedStream(torch_ref.build_gaussian_pyramid(a, cfg.levels,
                                                                     cfg.scale_factor), cfg)
-            _, path_counts = counted(f"grid {config}",
-                                     lambda: run_graphed(stream, a, b, rounds=False))
-            for name, n in path_counts.items():
-                counts[name] = counts.get(name, 0) + n
+            run_graphed(stream, a, b, rounds=False)
             runs = [1000 * run_graphed(stream, a, b, rounds=False)[2] / N_FRAMES
                     for _ in range(STREAM_RUNS)]
             table[(h, w, config)] = runs
@@ -3135,7 +3130,6 @@ def check_grid(seed_: int, smi: str) -> dict:
         print(f"[4k] grid {w}x{h} graphed ms a frame: " + "; ".join(
             f"{c} {_spread(table[(h, w, c)])} ({1000 / np.median(table[(h, w, c)]):.0f} fps)"
             for c in GRID_CONFIGS) + f" ({smi})")
-    return counts
 
 
 def check_uhd(seed_: int, smi: str) -> tuple[dict, dict]:
@@ -3147,8 +3141,10 @@ def check_uhd(seed_: int, smi: str) -> tuple[dict, dict]:
     4 checks its streams (eager and graphed, bit-identical; the rounds'
     sums; the plain versions' stream); the eager ``production`` frame's
     device time by kernel; (a) the 4K gate; (c) the 4K stage profiles; (d)
-    5K and 8K; (e) the resolution grid. Returns the main paths' launches
-    and the 4K kernel readings."""
+    5K and 8K; (e) the resolution grid. Returns the launches of the eager
+    runs, each counted from a reset just before it, summed at 4K (the
+    streams and the gate) and at 5K and 8K (the pairs), and the 4K kernel
+    readings."""
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
     fa, fb = make_frames(seed_, *UHD)
@@ -3177,9 +3173,8 @@ def check_uhd(seed_: int, smi: str) -> tuple[dict, dict]:
         for name, n in check_4k_gate(dev, Path(tmp)).items():
             counts[name] = counts.get(name, 0) + n
     check_4k_profile(smi)
-    for part in (check_beyond_uhd(seed_, smi), check_grid(seed_, smi)):
-        for name, n in part.items():
-            counts[name] = counts.get(name, 0) + n
+    beyond_counts = check_beyond_uhd(seed_, smi)
+    check_grid(seed_, smi)
     for name, r in readings.items():
         r["launches_per_frame"] = {c: f[name] for c, f in per_frame.items() if name in f}
         for key, by in r["by_shape"].items():
@@ -3192,7 +3187,7 @@ def check_uhd(seed_: int, smi: str) -> tuple[dict, dict]:
                   f"({100 * by['bound_share']:.1f}%), plain round {plain:.4f} ms; launches a 4K "
                   f"frame {r['launches_per_frame']} ({smi})")
     print(f"[4k] phase took {time.perf_counter() - t_phase:.1f} s")
-    return counts, readings
+    return {"4K": counts, "5K/8K": beyond_counts}, readings
 
 
 _WALK_NAMES = {(0, 1): "K3", (0, 0): "K5", (1, 0): "K6", (1, 1): "K6 relaxed",
@@ -3460,8 +3455,6 @@ def main() -> None:
     del a, b
     torch.cuda.empty_cache()
     uhd_counts, uhd_readings = check_uhd(args.seed, smi)
-    for name, n in uhd_counts.items():
-        counts[name] = counts.get(name, 0) + n
 
     kernels = []
     for name, (src, rep) in KERNELS.items():
@@ -3477,7 +3470,8 @@ def main() -> None:
             "library_ms": None, "library": NO_LIBRARY_CALL.get(name), **r,
             "bytes": bounds.call_bytes(name, *dims), "bound_ms": bound_ms,
             "bound_by": bound_by, "bound_share": bound_ms / r["ms"],
-            "launches_4k": uhd_counts.get(name, 0), "uhd": uhd_readings.get(name)})
+            "launches_4k": uhd_counts["4K"].get(name, 0),
+            "launches_5k_8k": uhd_counts["5K/8K"].get(name, 0), "uhd": uhd_readings.get(name)})
     for name, (src, replaces, why) in PORT_KERNELS.items():
         r = port_readings[name]
         # The seed launches once a VO step; the scan once a preintegrated segment.

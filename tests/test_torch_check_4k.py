@@ -110,8 +110,8 @@ def test_cli_exit_codes_and_update(monkeypatch, tmp_path, capture, capsys):
     calls = []
     monkeypatch.setattr(check_4k, "generate_subset",
                         lambda d, **kw: calls.append(("generate", d, kw)) or d)
-    common = ["--device", "cpu", "--suite-dir", str(tmp_path / "suite"),
-              "--output-dir", str(tmp_path / "out")]
+    monkeypatch.setattr(check_4k, "resolve_device", lambda device: torch.device("cpu"))
+    common = ["--suite-dir", str(tmp_path / "suite"), "--output-dir", str(tmp_path / "out")]
 
     def run(epes, *extra):
         monkeypatch.setattr(check_4k, "verify", lambda d, **kw: _fake_results(epes))
@@ -133,6 +133,14 @@ def test_cli_exit_codes_and_update(monkeypatch, tmp_path, capture, capsys):
     refused = run(base, "--update", str(check_4k.CAPTURE))
     assert isinstance(refused, str) and "benchmarks/" in refused and len(calls) == n_calls
     assert json.loads(check_4k.CAPTURE.read_text()) == capture
+
+
+def test_cli_needs_a_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(check_4k, "generate_subset", lambda d, **kw: pytest.fail("generated"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        check_4k.main(["--suite-dir", str(tmp_path / "suite"),
+                       "--output-dir", str(tmp_path / "out")])
 
 
 @pytest.fixture(scope="module")

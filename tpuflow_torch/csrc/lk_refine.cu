@@ -25,6 +25,9 @@ extern "C" int tpuflow_lk_refine_blocks(int height, int width, int window) {
   return num_blocks(height, width, window);
 }
 
+// Threads of the column walk's block, which share a round's final sum.
+extern "C" int tpuflow_lk_walk_threads() { return kWalkThreads; }
+
 extern "C" int tpuflow_lk_refine(const float* prev, const float* warped,
                                  const float* u_in, const float* v_in,
                                  const void* converged, float* u_out,

@@ -16,8 +16,8 @@ the JAX package's ``scripts/check_4k.sh``, in the script's three steps.
 ``--update PATH`` writes this run's results to PATH in place of the gate;
 a PATH under ``benchmarks/`` (the JAX package's captures) is refused. The
 suite and the verifier's report go under ``build/check_4k/`` by default.
-``device="cpu"`` (``--device cpu``) runs the kernels' plain versions on the
-CPU, for the CPU tests at small sizes.
+The library functions take ``device="cpu"``, which runs the kernels'
+plain versions on the CPU, for the CPU tests at small sizes.
 
 Run on a card: ``python -m tpuflow_torch.eval.check_4k [--update PATH]``.
 """
@@ -122,14 +122,11 @@ def main(argv: Optional[List[str]] = None) -> None:
                         "benchmarks/)")
     parser.add_argument("--suite-dir", type=str, default=str(WORK_DIR / "suite_4k"))
     parser.add_argument("--output-dir", type=str, default=str(WORK_DIR / "verify_4k"))
-    parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
-                        help="the card (default; fails without one) or the CPU, where the "
-                        "kernels' plain versions run")
     args = parser.parse_args(argv)
     if args.update and Path(args.update).resolve().is_relative_to(REPO / "benchmarks"):
         raise SystemExit(f"--update {args.update}: benchmarks/ holds the JAX package's "
                          "captures and is not written")
-    dev = resolve_device(args.device)
+    dev = resolve_device(None)
 
     print(f"== 1/3 generate the 4K pattern subset -> {args.suite_dir} ==")
     suite = generate_subset(Path(args.suite_dir), device=dev)

@@ -18,9 +18,8 @@ two reports line up row for row:
   ``torch.cuda.synchronize()``; the median of three runs, all three kept;
 - ``pyramidal total (benign)``, adaptive-band configs only: the same loop
   on the natural mountain-texture pair with 2 px horizontal motion
-  (``natural_pair``: at 1080p the committed ``data/natural_1080x1920.npz``
-  frame, at any other size the texture resized as PIL's bilinear filter
-  resizes it, no PIL needed), at every size, as the reference computes it.
+  (``natural_pair``: the texture resized as PIL's bilinear filter resizes
+  it, no PIL needed), at every size, as the reference computes it.
 
 ``profile_pipeline`` measures on the card by default and raises where there
 is none. ``device="cpu"`` runs the plain versions under the host clock,
@@ -47,8 +46,6 @@ from tpuflow_torch.kernels import lk, torch_ref, warp
 
 # NVIDIA H100 SXM HBM3 peak (data sheet), for the roofline share.
 HBM_GBPS = 3350.0
-NATURAL = Path(__file__).resolve().parent / "data" / "natural_1080x1920.npz"
-NATURAL_SHAPE = (1080, 1920)
 STREAM_ITERS = 15  # loop iterations per timed run: two frames each
 STREAM_RUNS = 3
 
@@ -58,23 +55,16 @@ def natural_pair(height: int = 1080, width: int = 1920, dx: float = 2.0, *,
     """The natural (height, width) frame and the same frame shifted ``dx``
     px right (bilinear, gray 128 fill), as
     ``tpuflow.eval.profile._natural_pair(height, width, dx)`` makes them,
-    on ``device``: the card unless the caller names another. At 1080p the
-    frame is the committed one, shifted on ``device``; at any other size
+    on ``device``: the card unless the caller names another. The frame is
     the texture resized as PIL's bilinear filter resizes it
     (``eval.patterns.load_base_texture``), shifted by
     ``scipy.ndimage.shift`` on the host."""
-    dev = resolve_device(device)
-    if (height, width) != NATURAL_SHAPE:
-        from scipy.ndimage import shift as nd_shift
+    from scipy.ndimage import shift as nd_shift
 
-        f0 = patterns.load_base_texture(width, height).astype(np.float32)
-        f1 = nd_shift(f0, (0.0, dx), order=1, mode="constant", cval=128.0).astype(np.float32)
-        return torch.from_numpy(f0).to(dev), torch.from_numpy(f1).to(dev)
-    f0 = torch.from_numpy(np.load(NATURAL)["frame"].astype(np.float32)).to(dev)
-    h, w = f0.shape
-    yy = torch.arange(h, dtype=torch.float32, device=f0.device)[:, None].expand(h, w)
-    xx = torch.arange(w, dtype=torch.float32, device=f0.device)[None, :].expand(h, w)
-    return f0, ops.map_coordinates_bilinear(f0, yy, xx - dx, cval=128.0)
+    dev = resolve_device(device)
+    f0 = patterns.load_base_texture(width, height).astype(np.float32)
+    f1 = nd_shift(f0, (0.0, dx), order=1, mode="constant", cval=128.0).astype(np.float32)
+    return torch.from_numpy(f0).to(dev), torch.from_numpy(f1).to(dev)
 
 
 def _host_ms(fn, reps: int = 2) -> float:

@@ -32,11 +32,11 @@ graphed rows the eager body's device time (``eager_device_ms``, from
 ``EAGER_REPS`` calls a batch so that the launch queue holds them all).
 
 The frames are the natural mountain-texture pair with 2 px horizontal
-motion (``eval.profile.natural_pair``: at 1080p the committed
-``data/natural_1080x1920.npz`` frame; other sizes resize the texture as
-PIL's bilinear filter does, no PIL needed), as the reference makes them. The front end runs ``backend="cuda"`` on the card;
-``device="cpu"`` runs the parity path (``"torch"``) once per row by host
-clock, for the CPU schema test only, with no device time.
+motion (``eval.profile.natural_pair``: the texture resized as PIL's
+bilinear filter resizes it, no PIL needed), as the reference makes them.
+The front end runs ``backend="cuda"`` on the card; ``device="cpu"`` runs
+the parity path (``"torch"``) once per row by host clock, for the CPU
+schema test only, with no device time.
 
 Run on a card: ``python -m tpuflow_torch.eval.profile_vo --config production``.
 """

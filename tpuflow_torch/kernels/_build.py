@@ -134,6 +134,8 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.tpuflow_lk_refine_blocks.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.tpuflow_lk_refine_blocks.restype = ctypes.c_int
+    lib.tpuflow_lk_walk_threads.argtypes = []
+    lib.tpuflow_lk_walk_threads.restype = ctypes.c_int
     lib.tpuflow_lk_refine_mxu_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.tpuflow_lk_refine_mxu_blocks.restype = ctypes.c_int
     lib.tpuflow_lk_mxu_mma.argtypes = [ctypes.c_int, ctypes.c_int]

@@ -371,19 +371,16 @@ def refine_blocks(height: int, width: int, window_size: int) -> int:
     return _build.load().tpuflow_lk_refine_blocks(height, width, window_size)
 
 
-# Threads of the refine's block, which share the round's final sum.
-WALK_THREADS = 128
-
-
 def round_sum_depth(height: int, width: int, window_size: int) -> int:
     """Rounded additions a block partial can pass through in a round's
     in-kernel sum (``lk_tile.cuh::finish_round``): its thread's strided
-    adds over the partials, one in ``WALK_THREADS`` (the first exact), a
-    5-level warp butterfly and the 3 adds across the block's 4 warps. The
+    adds over the partials, one in the block's threads (the first exact),
+    a 5-level warp butterfly and the adds across the block's warps. The
     partials are non-negative, so the float32 sum lies within ``depth *
     2**-24`` relative of their exact sum (needs the library)."""
-    per_thread = -(-refine_blocks(height, width, window_size) // WALK_THREADS)
-    return per_thread - 1 + 5 + 3
+    threads = _build.load().tpuflow_lk_walk_threads()
+    per_thread = -(-refine_blocks(height, width, window_size) // threads)
+    return per_thread - 1 + 5 + threads // 32 - 1
 
 
 def _check_round(planes, ctrl, band, ladder, window_size, parts) -> torch.device:
