@@ -126,14 +126,30 @@ failure raises and the script exits non-zero):
    to disk, each pattern's mean EPE printed, not gated (no baseline
    exists at that size);
 8. mesh: the tiled flow of ``tpuflow_torch.sharding`` at 1080p under
-   ``production_fullband`` and ``default``: (a) NCCL at world size 1 in this
-   process, mesh 1x1x1, ``tiled_lucas_kanade_pyramidal`` against the
-   untiled ``rtl_clamp`` path and ``tiled_lucas_kanade_single_scale``
-   against ``lucas_kanade_single_scale(backend="torch")``; (b) 4 gloo ranks
+   ``production_fullband`` and ``default``, under device control (the
+   reference's ``lax.while_loop`` and ``lax.psum`` early exit on the card:
+   every round launched, K6's tile round ``lk.fused_tile_round`` skipping
+   on the latch): (a) NCCL at world size 1 in this process, mesh 1x1x1:
+   the eager step under sync debug "error" (host reads 0, counted), bit
+   for bit its host-steered twin, rounds run and skipped a level, a still
+   pair (a, a) that latches at every level's first round; every launch
+   against its plain version (K6's tile round running and skipped, its
+   sums against du.abs().sum() and the float64 sum within their depth's
+   bound); the step as ``flow.TiledGraphedStream`` replays over 8
+   alternating pairs and the still pair, bit for bit the eager steps; ms
+   a pair eager and graphed (host clock, median and spread of 3), device
+   busy of each and its parts; against the untiled ``rtl_clamp`` path; K6's
+   tile round timed at each extended-tile shape, running and skipped,
+   beside its bound and its plain version;
+   ``tiled_lucas_kanade_single_scale`` against
+   ``lucas_kanade_single_scale(backend="torch")``; the mesh-tiled VO
+   session graphed and eager at world 1 (identical records) against an
+   untiled ``rtl_clamp`` session; (b) 4 gloo ranks
    as processes sharing the card (NCCL takes one rank per card) at meshes
    1x2x2 and 1x4x1, each against the untiled card result, each kernel
-   launch on a tile (K1, K2, K4, K6, and K3 / K5 on 1x4x1's replicated
-   coarsest level) against its plain version on that tile, launches a
+   launch on a tile (K1, K2, K4, K6's tile round, and K3 / K5 on 1x4x1's
+   replicated coarsest level) against its plain version on that tile, host
+   reads (0) and rounds a level per rank, launches a
    frame pair per rank, halo and gather bytes, host-clock ms a frame pair
    and each rank's device busy ms (torch.profiler, also on (a) and (e))
    beside the untiled path's; (c) the mesh-tiled VO session (1x2x2,
@@ -141,7 +157,9 @@ failure raises and the script exits non-zero):
    session; (d)
    ``ba.solve(8)`` over the ``[vo]`` phase's 1080p problem in 4
    observation shards against the unsharded solve, twice; (e) NCCL with
-   one rank per card where the machine has two cards or more;
+   one rank per card where the machine has two cards or more, eager and
+   graphed (a refused capture printed) (``--mesh-cards-only`` runs (e)
+   alone);
 9. profile: device time by kernel and the device's busy share over 4 frames
    of each stream (torch.profiler);
 10. 4k (``[4k]`` lines): the port above 1080p, on ``--seed`` frames at
@@ -216,7 +234,11 @@ run identical on the card and the CPU, the CLI's single scale within
 (``CLI_SINGLE_ATOL``, ``CLI_PYRAMIDAL_*``); the tiled flow within p99.9 2e-3
 px and max 0.05 px of the untiled card result and its mean EPE within 1e-3
 relative, tiled single scale within 1e-4 px, every tile-shape kernel launch
-bit-exact against its plain version, every rank holding the same result,
+bit-exact against its plain version (K6's tile round's sums within
+gamma_depth of their float64 sum and 2 gamma_depth of du.abs().sum(),
+``tile_sum_limits``), the device-controlled step bit for bit its
+host-steered twin and its graph replays, no host read, every rank holding
+the same result and running the same rounds,
 the tiled VO session's alive flags identical on 99.9% of the slot records,
 its landmark ids identical and its live tracks within 1e-3 px on 99.9% of them and 0.05 px on all,
 the sharded solve's mean reprojection error within 1e-4 px of the
@@ -244,7 +266,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import hashlib
 import importlib.util
 import io
@@ -274,7 +295,7 @@ from tpuflow_torch.eval import (bounds, check_4k, natural, patterns, profile, ve
 from tpuflow_torch.eval import profile_vo as vo_profiler
 from tpuflow_torch.eval.metrics import compute_all_metrics
 from tpuflow_torch.eval.timing import card_label, device_ms
-from tpuflow_torch.flow import GraphedStream, pyramidal
+from tpuflow_torch.flow import GraphedStream, TiledGraphedStream, pyramidal
 from tpuflow_torch.flow.__main__ import main as flow_cli
 from tpuflow_torch.flow.__main__ import mean_magnitude, stream_flow
 from tpuflow_torch.io import fastio
@@ -321,6 +342,9 @@ KERNELS = {
     "lk_refine_exact": (REFINE_CU, "tpuflow/kernels/pallas_lk.py:573"),
     "lk_fused": (FUSED_CU, "tpuflow/kernels/pallas_lk.py:460"),
     "lk_fused_conf": (FUSED_CU, "tpuflow/kernels/pallas_lk.py:460"),
+    # K6's round form on the tiled path's halo-extended tiles (the same
+    # Pallas call, reached by tpuflow/sharding/tiled_pyramidal.py:198).
+    "lk_fused_tile_round": (FUSED_CU, "tpuflow/kernels/pallas_lk.py:460"),
     "lk_refine_mxu": (MXU_CU, "tpuflow/kernels/pallas_lk.py:139"),
     "lk_fused_mxu": (MXU_CU, "tpuflow/kernels/pallas_lk.py:139"),
     "lk_fused_conf_mxu": (MXU_CU, "tpuflow/kernels/pallas_lk.py:139"),
@@ -342,6 +366,8 @@ NO_LIBRARY_CALL = {
     "lk_refine_exact": "no single PyTorch call computes the LK solve with its clip and latch",
     "lk_fused": "no single PyTorch call computes the LK solve",
     "lk_fused_conf": "no single PyTorch call computes the LK solve",
+    "lk_fused_tile_round": "no single PyTorch call computes the LK solve, its crop, mask and "
+                           "in-place add under a latch",
     "lk_refine_mxu": "no single PyTorch call computes the LK solve with its clip and latch",
     "lk_fused_mxu": "no single PyTorch call computes the LK solve",
     "lk_fused_conf_mxu": "no single PyTorch call computes the LK solve",
@@ -397,21 +423,32 @@ PATH_KERNELS = {
     "profile_vo": {"warp_packed_u8", "warp_packed_u16", "lk_refine", "seed_grid"},
     # Phase 7b: the production verifier over the suite generated at 1080p.
     "gen verifier": {"warp_packed_u8", "warp_packed_u16", "lk_refine", "lk_fused"},
-    # Phase 8, the tiled paths, counted on each rank: every level tiled
-    # (K6 on each tile) except at 1x4x1, whose coarsest level runs
-    # replicated (K3 / K5); tiled single scale is plain torch ops.
-    "mesh 1x1x1 production_fullband": {"warp_packed_u8", "warp_packed_u16", "lk_fused"},
-    "mesh 1x1x1 default": {"warp_exact", "lk_fused"},
+    # Phase 8, the tiled paths under device control, counted on each rank:
+    # every level tiled (K6's tile round on each tile) except at 1x4x1,
+    # whose coarsest level runs replicated (K3 / K5); eager and, over NCCL,
+    # graphed; tiled single scale is plain torch ops.
+    "mesh 1x1x1 production_fullband": {"warp_packed_u8", "warp_packed_u16",
+                                       "lk_fused_tile_round"},
+    "mesh 1x1x1 default": {"warp_exact", "lk_fused_tile_round"},
+    "mesh 1x1x1 production_fullband graphed": {"warp_packed_u8", "warp_packed_u16",
+                                               "lk_fused_tile_round"},
+    "mesh 1x1x1 default graphed": {"warp_exact", "lk_fused_tile_round"},
     "mesh 1x1x1 single scale": set(),
-    "mesh 1x2x2 production_fullband": {"warp_packed_u8", "warp_packed_u16", "lk_fused"},
-    "mesh 1x2x2 default": {"warp_exact", "lk_fused"},
-    "mesh 1x1x2 production_fullband": {"warp_packed_u8", "warp_packed_u16", "lk_fused"},
-    "mesh 1x1x2 default": {"warp_exact", "lk_fused"},
-    "mesh 1x4x1 production_fullband": {"warp_packed_u8", "warp_packed_u16", "lk_fused",
-                                       "lk_refine"},
-    "mesh 1x4x1 default": {"warp_exact", "lk_fused", "lk_refine_exact"},
-    "mesh vo": {"warp_exact", "lk_fused", "seed_grid"},
+    "mesh 1x1x1 vo graphed": {"warp_exact", "lk_fused_tile_round", "seed_grid"},
+    "mesh 1x2x2 production_fullband": {"warp_packed_u8", "warp_packed_u16",
+                                       "lk_fused_tile_round"},
+    "mesh 1x2x2 default": {"warp_exact", "lk_fused_tile_round"},
+    "mesh 1x1x2 production_fullband": {"warp_packed_u8", "warp_packed_u16",
+                                       "lk_fused_tile_round"},
+    "mesh 1x1x2 default": {"warp_exact", "lk_fused_tile_round"},
+    "mesh 1x4x1 production_fullband": {"warp_packed_u8", "warp_packed_u16",
+                                       "lk_fused_tile_round", "lk_refine"},
+    "mesh 1x4x1 default": {"warp_exact", "lk_fused_tile_round", "lk_refine_exact"},
+    "mesh vo": {"warp_exact", "lk_fused_tile_round", "seed_grid"},
 }
+# The kernels whose main paths are phase 8's (the tiled flow), held to the
+# launch check after it rather than after phase 4.
+MESH_PATH_KERNELS = {"lk_fused_tile_round"}
 # Phase 7, the CLI pair modes on the card against --device cpu: the S8.7
 # mode identical; single scale (K6) within its CPU-test limit at window 5
 # (tests/test_torch_kernels.py, 1e-5 px) plus the dump's 6-decimal
@@ -504,6 +541,16 @@ MESH_EPE_RTOL = 1e-3
 MESH_ENVELOPE = 1e-3
 MESH_SINGLE_ATOL = 1e-4
 MESH_BA_ATOL = 1e-4
+# Phase 8 (a): each tiled step timed as a stream of MESH_PAIRS pairs (b, a,
+# b, ...), eager and graphed, MESH_RUNS times.
+MESH_PAIRS = 8
+# K6's tile round: its sums are torch.sum of its block partials, whose
+# worst-order depth (kernels.lk.tile_round_depth: a lane's adds down its
+# walk, the warp's butterfly, the block's warps, one add a partial) bounds
+# them within gamma_depth = depth u / (1 - depth u) of the exact (float64)
+# sum of the same |du|. torch's own sum of the same du (the plain
+# version's du.abs().sum()) adds ~n / threads terms a thread and then
+# trees, far shallower, so the two lie within 2 gamma_depth of each other.
 MESH_WALL_S = 300.0  # each group of rank processes, start-up included
 # The warps' vertical bands (the adaptive ladder's 2/3/8, none, the widest).
 WARP_BANDS = (0, 2, 3, 8, 31)
@@ -1841,6 +1888,8 @@ _TRACED_KERNELS = (
      {"0": "warp_exact", "8": "warp_packed_u8", "16": "warp_packed_u16"}),
     (re.compile(r"tpuflow_lk::lk_walk_kernel<\d+, (true|false), \d+, 0>"),
      {"true": "lk_refine", "false": "lk_refine_exact"}),
+    (re.compile(r"tpuflow_lk::lk_walk_kernel<\d+, false, \d+, (3)>"),
+     {"3": "lk_fused_tile_round"}),
     (re.compile(r"tpuflow_seed::(seed)_grid_kernel"), {"seed": "seed_grid"}),
 )
 
@@ -2503,14 +2552,25 @@ def _digest(*arrays) -> str:
     return h.hexdigest()
 
 
+def tile_sum_limits(shape, window: int = 5) -> tuple[int, float]:
+    """K6's tile round on a (H, W) extended tile: its sums' depth and the
+    float32 bound gamma_depth."""
+    depth = lk.tile_round_depth(*shape, window)
+    return depth, depth * F32_UNIT / (1.0 - depth * F32_UNIT)
+
+
 @contextmanager
-def checked_kernels(found: dict):
+def checked_kernels(found: dict, tiles: dict | None = None):
     """Every kernel launch of the path held against its plain version on
     the same inputs: ``found[name][shape]`` is the max |d| over all the
     launches of that kernel and shape (for the rounds, of u, v; inf where
     a refine round's sums are not within SUM_RTOL of the plain round's or
-    its control differs)."""
-    saved = warp.warp_banded, lk.lucas_kanade_fused, warp.warp_round, lk.refine_round
+    its control differs, or a running tile round's sums not within its
+    limits (``tile_sum_limits``) of du.abs().sum() and of the float64 sum).
+    ``tiles``, if given, gets each tile-round shape's running and skipped
+    launches, its worst sum distances and the first launch's inputs."""
+    saved = (warp.warp_banded, lk.lucas_kanade_fused, warp.warp_round, lk.refine_round,
+             lk.fused_tile_round)
 
     def launch(kernel, image, *args, **kw):
         """The kernel's output and its name, read from the counter it bumped."""
@@ -2549,12 +2609,44 @@ def checked_kernels(found: dict):
         note(name, prev, err if sums_ok and torch.equal(ctrl, ctrl_ref) else float("inf"))
         return out
 
-    (warp.warp_banded, lk.lucas_kanade_fused, warp.warp_round,
-     lk.refine_round) = (warp_checked, fused_checked, warp_round_checked, refine_round_checked)
+    def tile_round_checked(prev_ext, warped_ext, u, v, ctrl, **kw):
+        ref = [t.clone() for t in (u, v, ctrl)]
+        plain = {k: x for k, x in kw.items() if k != "parts"}
+        want = lk.fused_tile_round_ref(prev_ext, warped_ext, *ref, **plain)
+        skipped = bool(ctrl[0] != 0)
+        inputs = [t.clone() for t in (prev_ext, warped_ext, u, v)]
+        sums, name = launch(saved[4], prev_ext, warped_ext, u, v, ctrl, **kw)
+        err = max(max_abs(u, ref[0]), max_abs(v, ref[1]))
+        shape = tuple(prev_ext.shape)
+        rel = rel64 = 0.0
+        depth, gamma = tile_sum_limits(shape, kw.get("window_size", 5))
+        if not skipped:
+            du, dv = lk.tile_round_delta_ref(prev_ext, warped_ext, **{
+                k: x for k, x in plain.items() if k in ("gy0", "gx0", "gh", "gw", "window_size",
+                                                        "det_threshold", "relaxed_order")})
+            exact = [float(d.double().abs().sum()) for d in (du, dv)]
+            got = [float(x) for x in sums]
+            rel = max(abs(g - float(w)) / max(float(w), 1e-30) for g, w in zip(got, want))
+            rel64 = max(abs(g - e) / max(e, 1e-30) for g, e in zip(got, exact))
+        ok = torch.equal(ctrl, ref[2]) and rel <= 2 * gamma and rel64 <= gamma
+        note(name, prev_ext, err if ok else float("inf"))
+        if tiles is not None:
+            t = tiles.setdefault(shape, {"running": 0, "skipped": 0, "sum_rel": 0.0,
+                                         "sum_rel_f64": 0.0, "depth": depth, "gamma": gamma})
+            t["skipped" if skipped else "running"] += 1
+            t["sum_rel"], t["sum_rel_f64"] = max(t["sum_rel"], rel), max(t["sum_rel_f64"], rel64)
+            if not skipped:
+                t.setdefault("inputs", (inputs, kw))
+        return sums
+
+    (warp.warp_banded, lk.lucas_kanade_fused, warp.warp_round, lk.refine_round,
+     lk.fused_tile_round) = (warp_checked, fused_checked, warp_round_checked,
+                             refine_round_checked, tile_round_checked)
     try:
         yield
     finally:
-        warp.warp_banded, lk.lucas_kanade_fused, warp.warp_round, lk.refine_round = saved
+        (warp.warp_banded, lk.lucas_kanade_fused, warp.warp_round, lk.refine_round,
+         lk.fused_tile_round) = saved
 
 
 def _mesh_name(shape) -> str:
@@ -2588,6 +2680,7 @@ def mesh_rank(rank: int, work: str, device: str) -> None:
     a, b = torch.from_numpy(frames["a"]).to(dev), torch.from_numpy(frames["b"]).to(dev)
     report, arrays = {"flow": {}}, {}
     found: dict = {}
+    tiles: dict = {}
     vo_mesh = None
     for shape in MESH_SHAPES:
         mesh = make_flow_mesh(*shape, device=dev)
@@ -2602,17 +2695,20 @@ def mesh_rank(rank: int, work: str, device: str) -> None:
 
             run()  # warm-up: operator slices, groups' buffers
             mesh_counters.reset()
-            with checked_kernels(found):
+            with checked_kernels(found, tiles):
                 (u, v), counts = counted(f"mesh {key}", run)
-            traffic = dataclasses.asdict(mesh_counters)
+            traffic = mesh_counters.traffic()
+            rounds = mesh_counters.level_rounds[0].tolist()
             dist.barrier(mesh.group)
             report["flow"][key] = {"launches": counts, "traffic": traffic, "ms": _host_ms(run),
-                                   "device_ms": busy_ms(run)}
+                                   "device_ms": busy_ms(run), "rounds": rounds}
             if rank == 0:
                 arrays[f"{key}/u"], arrays[f"{key}/v"] = u[0].cpu().numpy(), v[0].cpu().numpy()
             report["flow"][key]["digest"] = _digest(u.cpu().numpy(), v.cpu().numpy())
     report["kernels"] = {n: {"x".join(map(str, s)): e for s, e in shapes.items()}
                          for n, shapes in found.items()}
+    report["tile_sums"] = {"x".join(map(str, s)): {k: t[k] for k in (
+        "running", "skipped", "sum_rel", "sum_rel_f64", "gamma")} for s, t in tiles.items()}
 
     # (c) the mesh-tiled VO session.
     chunk = vo_chunk(a, b)[:MESH_VO_FRAMES]
@@ -2668,11 +2764,23 @@ def nccl_rank(rank: int, world: int, work: str, shape) -> None:
         run()
         mesh_counters.reset()
         (u, v), counts = counted(f"mesh {_mesh_name(shape)} {config}", run)
-        traffic = dataclasses.asdict(mesh_counters)
+        traffic = mesh_counters.traffic()
         dist.barrier(mesh.group)
         report[config] = {"launches": counts, "traffic": traffic, "ms": _host_ms(run),
                           "device_ms": busy_ms(run),
                           "digest": _digest(u.cpu().numpy(), v.cpu().numpy())}
+        # The step graphed on every rank, its halo exchanges (NCCL point to
+        # point) captured too; a refused capture is recorded, not hidden.
+        try:
+            stream = TiledGraphedStream(a[None], cfg, mesh)
+            gu, gv = stream.step(b[None])
+            report[config]["graphed_same"] = bool(torch.equal(gu, u) and torch.equal(gv, v))
+            report[config]["graphed_ms"] = [t / MESH_PAIRS for t in _host_ms(
+                lambda: [stream.step(c[None]) for _, c in _alternating(a, b)])]
+            del stream
+        except Exception as exc:  # noqa: BLE001 - the refusal is the reading
+            report[config]["graphed_error"] = f"{type(exc).__name__}: {exc}"[:2000]
+        dist.barrier(mesh.group)
         if rank == 0:
             arrays[f"{config}/u"], arrays[f"{config}/v"] = u[0].cpu().numpy(), v[0].cpu().numpy()
     dist.barrier()
@@ -2700,6 +2808,18 @@ def check_nccl_across_cards(dev, work: str, untiled: dict, untiled_dev: dict) ->
     for config, rep0 in reports[0].items():
         if any(r[config]["digest"] != rep0["digest"] for r in reports):
             raise AssertionError(f"mesh nccl {config}: the ranks hold different flows")
+        if "graphed_error" in rep0:
+            print(f"[mesh] (e) {_mesh_name(shape)} {config} graphed over NCCL: capture REFUSED "
+                  f"on rank 0: {rep0['graphed_error']}")
+        else:
+            gms = sorted(rep0["graphed_ms"])
+            print(f"[mesh] (e) {_mesh_name(shape)} {config} graphed over NCCL "
+                  f"(TiledGraphedStream on every rank): first replay bit for bit the eager "
+                  f"step on every rank: {all(r[config]['graphed_same'] for r in reports)}; "
+                  f"{gms[len(gms) // 2]:.3f} ms a pair (host clock, median of {len(gms)} "
+                  f"streams of {MESH_PAIRS}, spread {gms[0]:.3f}-{gms[-1]:.3f})")
+            if not all(r[config]["graphed_same"] for r in reports):
+                raise AssertionError(f"mesh nccl {config}: graphed differs from eager")
         u, v = (torch.from_numpy(got[f"{config}/{c}"]).to(dev) for c in "uv")
         p999, mx = _p999_max(u, v, *untiled[config])
         ms = sorted(rep0["ms"])
@@ -2749,9 +2869,210 @@ def _spawn(target, args_of, n: int, what: str) -> None:
                              f"{len(hung)} killed at the {MESH_WALL_S} s limit")
 
 
-def check_mesh(a, b, fa, fb, smi: str) -> dict:
+def _tile_step(mesh, cfg):
+    """The eager device-controlled tiled step of one (prev, curr) pair."""
+    def step(prev, curr):
+        return tiled_lucas_kanade_pyramidal(prev[None], curr[None], mesh, config=cfg,
+                                            backend="cuda")
+    return step
+
+
+def _alternating(a, b, n: int = MESH_PAIRS):
+    """The pairs of a stream b, a, b, ... after a: (a, b), (b, a), ..."""
+    return [(a, b) if i % 2 == 0 else (b, a) for i in range(n)]
+
+
+def time_tile_round(tiles: dict, smi: str) -> dict:
+    """Phase 8 (a): K6's tile round at each extended-tile shape the 1080p
+    world-1 step gave it (the first running launch's inputs): a skipped
+    call (latch set) bit-exact to the plain version (u, v and the control
+    untouched); device ms running and skipped beside the bound and the
+    plain version's. Returns the kernel's reading (the finest shape's)."""
+    reading: dict = {"max_abs_err": 0.0, "by_shape": {}}
+    for shape in sorted(tiles, reverse=True):
+        (prev_ext, warped_ext, u, v), kw = tiles[shape]["inputs"]
+        kw = {k: x for k, x in kw.items() if k != "parts"}
+        dev = u.device
+        skip = torch.tensor([1, 0, 5], dtype=torch.int32, device=dev)
+        us, vs, skip_ref = u.clone(), v.clone(), skip.clone()
+        lk.fused_tile_round(prev_ext, warped_ext, us, vs, skip, **kw)
+        lk.fused_tile_round_ref(prev_ext, warped_ext, u.clone(), v.clone(), skip_ref, **kw)
+        if not (torch.equal(us, u) and torch.equal(vs, v) and torch.equal(skip, skip_ref)
+                and skip.tolist() == [1, 0, 5]):
+            raise AssertionError(f"lk_fused_tile_round skipped at {shape}: not a no-op")
+        run = torch.zeros(3, dtype=torch.int32, device=dev)
+        ms = device_ms(lambda: lk.fused_tile_round(prev_ext, warped_ext, us, vs, run, **kw))
+        skip_ms = device_ms(lambda: lk.fused_tile_round(prev_ext, warped_ext, us, vs, skip,
+                                                        **kw))
+        plain_ms = device_ms(lambda: lk.fused_tile_round_ref(prev_ext, warped_ext, us, vs, run,
+                                                             **kw))
+        t = tiles[shape]
+        print(f"[mesh] (a) lk_fused_tile_round {shape[0]}x{shape[1]} extended tile: "
+              f"{t['running']} running and {t['skipped']} skipped launches bit-exact to the "
+              f"plain version, sums within {t['sum_rel']:.3g} of du.abs().sum() (limit "
+              f"{2 * t['gamma']:.3g}) and {t['sum_rel_f64']:.3g} of the float64 sum (limit "
+              f"{t['gamma']:.3g}, depth {t['depth']}); a skipped call a no-op; {ms:.4f} ms "
+              f"({_bound_note('lk_fused_tile_round', shape, ms)}); skipped {skip_ms:.4f}; plain "
+              f"{plain_ms:.4f} ms; {smi}")
+        reading["by_shape"][f"{shape[0]}x{shape[1]}"] = {
+            "ms": ms, "skipped_ms": skip_ms, "plain_ms": plain_ms,
+            "running_launches": t["running"], "skipped_launches": t["skipped"],
+            "sum_rel": t["sum_rel"], "sum_rel_f64": t["sum_rel_f64"], "sum_depth": t["depth"]}
+        if "ms" not in reading:  # the finest level's tile, the largest
+            reading.update(ms=ms, plain_ms=plain_ms, skipped_ms=skip_ms, shape=list(shape))
+    return reading
+
+
+def check_world_one(a, b, mesh, untiled, untiled_dev, smi) -> tuple[dict, dict]:
+    """Phase 8 (a), NCCL at world 1, mesh 1x1x1, each of MESH_CONFIGS: the
+    device-controlled step eager under sync debug "error" (host reads 0,
+    counted), bit for bit its host-steered twin (``_tiled_solve(...,
+    device_control=False)``, the early exit read to the host), the rounds
+    run and skipped a level, and a still pair (a, a) that latches at every
+    level's first round; every kernel launch of both pairs against its
+    plain version; the step captured as ``TiledGraphedStream`` and replayed
+    over MESH_PAIRS alternating pairs, bit for bit the eager steps, rounds
+    included; ms a pair eager and graphed (host clock, median and spread of
+    MESH_RUNS streams), device busy of each; the limits against the
+    untiled card result. Returns the launches a pair by path and K6's tile
+    round's reading."""
+    from tpuflow_torch.sharding import tiled_pyramidal as tp
+
+    tiles: dict = {}
+    found: dict = {}
+    counts_by_path: dict = {}
+    for config in MESH_CONFIGS:
+        cfg = PYRAMID_CONFIGS[config]
+        step = _tile_step(mesh, cfg)
+        step(a, b)  # warm-up: operator slices, NCCL buffers
+        mesh_counters.reset()
+        with no_sync():
+            (u, v), counts = counted(f"mesh 1x1x1 {config}", lambda: step(a, b))
+        reads = mesh_counters.convergence_reads
+        rounds = mesh_counters.level_rounds[0].tolist()
+        counts_by_path[f"1x1x1 {config}"] = counts
+        hu, hv = tp._tiled_solve(a[None], b[None], mesh, cfg, "cuda", device_control=False)
+        twin = torch.equal(u, hu) and torch.equal(v, hv)
+        zu, zv = step(a, a)
+        still_rounds = mesh_counters.level_rounds[0].tolist()
+        hzu, hzv = tp._tiled_solve(a[None], a[None], mesh, cfg, "cuda", device_control=False)
+        still_twin = torch.equal(zu, hzu) and torch.equal(zv, hzv)
+        back = step(b, a)
+        with checked_kernels(found, tiles):
+            step(a, b)
+            step(a, a)
+        p999, mx = _p999_max(u[0], v[0], *untiled[config])
+
+        t0 = time.perf_counter()
+        stream = TiledGraphedStream(a[None], cfg, mesh)
+        capture_s = time.perf_counter() - t0
+        want = [(u, v), back]
+
+        def graphed_stream():
+            stream.reset(a[None])
+            return [stream.step(c[None]) for _, c in _alternating(a, b)]
+
+        flows, g_counts = counted(f"mesh 1x1x1 {config} graphed", graphed_stream)
+        same = all(torch.equal(f[0], want[i % 2][0]) and torch.equal(f[1], want[i % 2][1])
+                   for i, f in enumerate(flows))
+        g_rounds = stream.level_rounds[0].tolist()
+        stream.reset(a[None])
+        gz = stream.step(a[None])
+        same_still = (torch.equal(gz[0], zu) and torch.equal(gz[1], zv)
+                      and stream.level_rounds[0].tolist() == still_rounds)
+        eager_ms = [t / MESH_PAIRS for t in _host_ms(
+            lambda: [step(p, c) for p, c in _alternating(a, b)])]
+        graphed_ms = [t / MESH_PAIRS for t in _host_ms(graphed_stream)]
+        dev_eager = busy_ms(lambda: step(a, b))
+        dev_graphed = busy_ms(lambda: stream.step(b[None]))
+        its = cfg.iterations
+        eager_sorted, graphed_sorted = sorted(eager_ms), sorted(graphed_ms)
+        per_pair = {k: n / MESH_PAIRS for k, n in g_counts.items()}
+        print(f"[mesh] (a) NCCL world 1, mesh 1x1x1, {config}, under device control: host reads "
+              f"a pair {reads} (counter; the step ran under sync debug \"error\"); rounds run "
+              f"a level {rounds}, skipped {[its - r for r in rounds]}; bit for bit the "
+              f"host-steered loop: {'yes' if twin else 'NO'}; still pair (a, a): rounds "
+              f"{still_rounds}, skipped {[its - r for r in still_rounds]}, bit for bit the "
+              f"host-steered loop: {'yes' if still_twin else 'NO'}; tiled against untiled "
+              f"(rtl_clamp, same card) p99.9 |d| {p999:.3g} px, max {mx:.3g} px (limits "
+              f"{MESH_P999}, {MESH_MAX}); launches a pair {counts}; {smi}")
+        print(f"[mesh] (a) {config} graphed (TiledGraphedStream, captured in {capture_s:.3f} s): "
+              f"{MESH_PAIRS} alternating pairs bit for bit the eager steps: "
+              f"{'yes' if same else 'NO'}; rounds {g_rounds}; still pair bit for bit: "
+              f"{'yes' if same_still else 'NO'}; launches a pair {per_pair}; ms a pair, host "
+              f"clock, median of {MESH_RUNS} streams of {MESH_PAIRS}: eager "
+              f"{eager_sorted[len(eager_ms) // 2]:.3f} (spread {eager_sorted[0]:.3f}-"
+              f"{eager_sorted[-1]:.3f}), graphed {graphed_sorted[len(graphed_ms) // 2]:.3f} "
+              f"(spread {graphed_sorted[0]:.3f}-{graphed_sorted[-1]:.3f}); eager "
+              f"{_device_note([dev_eager], untiled_dev[config])}; graphed "
+              f"{_device_note([dev_graphed], untiled_dev[config])}; {smi}")
+        if not (reads == 0 and twin and still_twin and same and same_still
+                and still_rounds == [1] * cfg.levels and p999 <= MESH_P999 and mx <= MESH_MAX):
+            raise AssertionError(f"mesh 1x1x1 {config}: reads {reads}, twin {twin}, still "
+                                 f"{still_twin} {still_rounds}, graphed {same} {same_still}, "
+                                 f"p99.9 {p999}, max {mx}")
+        if per_pair != {k: float(n) for k, n in counts.items()}:
+            raise AssertionError(f"mesh 1x1x1 {config}: graphed launches {per_pair} against "
+                                 f"eager {counts}")
+        del stream
+    for name, shapes in sorted(found.items()):
+        worst = max(shapes.values())
+        print(f"[mesh] (a) {name} on extended tile shapes {sorted(shapes)}: max |d| against the "
+              f"plain version {worst:.3g}")
+        if worst != 0.0:
+            raise AssertionError(f"mesh 1x1x1: {name} differs from its plain version")
+    if set(found) != {"warp_packed_u8", "warp_packed_u16", "warp_exact", "lk_fused_tile_round"}:
+        raise AssertionError(f"mesh 1x1x1: kernels checked {sorted(found)}")
+    if not any(t["skipped"] for t in tiles.values()):
+        raise AssertionError("mesh 1x1x1: no skipped tile round was checked")
+    return counts_by_path, time_tile_round(tiles, smi)
+
+
+def check_world_one_vo(a, b, mesh, ref_sess) -> None:
+    """Phase 8 (a): the mesh-tiled VO session (``default``, grid VO_GRID) at
+    NCCL world 1 through two chunks of MESH_VO_FRAMES frames, graphed
+    (``process_frames``: the first chunk captures the step, the second is
+    timed, a replay a frame) and stepped eagerly: records identical; the
+    first chunk's against the untiled rtl_clamp session by (c)'s limits."""
+    chunk = vo_chunk(a, b)[:MESH_VO_FRAMES]
+    graphed_sess = _session_1080(a, "default", mesh)
+    if not graphed_sess._fe.graphed(chunk):
+        raise AssertionError("mesh vo: an NCCL world-1 session is not graphed")
+    _, counts = counted("mesh 1x1x1 vo graphed", lambda: graphed_sess.process_frames(chunk))
+    ms = _host_ms(lambda: graphed_sess.process_frames(chunk), 1)
+    eager_sess = _session_1080(a, "default", mesh)
+    eager_ms = _host_ms(lambda: [eager_sess.process_frame(f) for f in chunk], 2)
+
+    def rec(sess, field, n=None):
+        return np.stack(getattr(sess, field)[:n])
+
+    same = all(np.array_equal(rec(graphed_sess, f), rec(eager_sess, f))
+               for f in ("obs_uv", "obs_valid", "obs_lm"))
+    n = len(ref_sess.obs_uv)
+    ok_g, ok_r = rec(graphed_sess, "obs_valid", n), rec(ref_sess, "obs_valid")
+    alike = ok_g == ok_r
+    both = ok_g & ok_r
+    same_lm = bool(np.array_equal(rec(graphed_sess, "obs_lm", n), rec(ref_sess, "obs_lm")))
+    d = np.abs(rec(graphed_sess, "obs_uv", n) - rec(ref_sess, "obs_uv"))[both].max(axis=1)
+    close = int((d <= 1e-3).sum())
+    print(f"[mesh] (a) VO session {HEIGHT}x{WIDTH} default, grid {VO_GRID}, at NCCL world 1, "
+          f"2 x {MESH_VO_FRAMES} frames: graphed {ms[0] / MESH_VO_FRAMES:.3f} ms/frame (the "
+          f"second chunk), eager {min(eager_ms) / MESH_VO_FRAMES:.3f} (the faster of two "
+          f"chunks); graphed and eager records {'identical' if same else 'DIFFER'}; launches "
+          f"of the first chunk (capture included) {counts}; its {n} records against the "
+          f"untiled rtl_clamp session: alive flags identical on {int(alike.sum())} of "
+          f"{alike.size}, landmark ids {'identical' if same_lm else 'DIFFER'}, of "
+          f"{both.sum()} tracks alive in both {close} within 1e-3 px, max "
+          f"{float(d.max(initial=0.0)):.3g} px")
+    if not same or (alike.mean() < 0.999 or not same_lm or close < 0.999 * both.sum()
+                    or d.max(initial=0.0) > MESH_MAX):
+        raise AssertionError("mesh vo at world 1: graphed, eager and untiled sessions differ")
+
+
+def check_mesh(a, b, fa, fb, smi: str) -> tuple[dict, dict]:
     """Phase 8 (a-e). Returns each kernel's launches a frame pair per rank on
-    each tiled path."""
+    each tiled path, and K6's tile round's launches on the world-1 main
+    paths (eager) with its reading."""
     t_phase = time.perf_counter()
     dev = a.device
     work = tempfile.mkdtemp(prefix="tpuflow_mesh_")
@@ -2770,32 +3091,26 @@ def _host_ms(fn, runs: int = MESH_RUNS) -> list[float]:
     return [1000 * t for t in _host_runs(fn, runs)[0]]
 
 
-def _check_mesh(a, b, fa, fb, smi, dev, work, t_phase) -> dict:
+def _check_mesh(a, b, fa, fb, smi, dev, work, t_phase) -> tuple[dict, dict]:
     np.savez(f"{work}/frames.npz", a=fa, b=fb)
     tiled_launches: dict = {}
     untiled = {c: _untiled(a, b, c) for c in MESH_CONFIGS}
     untiled_ms = {c: _host_ms(lambda: _untiled(a, b, c)) for c in MESH_CONFIGS}
     untiled_dev = {c: busy_ms(lambda: _untiled(a, b, c)) for c in MESH_CONFIGS}
     epe_untiled = {c: mean_epe([untiled[c]]) for c in MESH_CONFIGS}
+    # (c)'s reference: the untiled rtl_clamp session, stepped eagerly as the
+    # gloo ranks' mesh-tiled session steps (no capture timed).
+    ref_sess = _session_1080(a, "default", rtl_clamp=True)
+    ref_vo_ms = _host_ms(lambda: [ref_sess.process_frame(f)
+                                  for f in vo_chunk(a, b)[:MESH_VO_FRAMES]], 1)[0] / MESH_VO_FRAMES
 
     # (a) NCCL at world size 1, mesh (1, 1, 1), in this process.
     initialize_multihost(f"file://{work}/store_a", 1, 0, backend="nccl")
     mesh = make_flow_mesh(1, 1, 1, device=dev)
-    for config in MESH_CONFIGS:
-        cfg = PYRAMID_CONFIGS[config]
-        tiled_lucas_kanade_pyramidal(a[None], b[None], mesh, config=cfg, backend="cuda")
-        (u, v), counts = counted(f"mesh 1x1x1 {config}", lambda: tiled_lucas_kanade_pyramidal(
-            a[None], b[None], mesh, config=cfg, backend="cuda"))
-        tiled_launches[f"1x1x1 {config}"] = counts
-        p999, mx = _p999_max(u[0], v[0], *untiled[config])
-        dev_ms = busy_ms(lambda: tiled_lucas_kanade_pyramidal(
-            a[None], b[None], mesh, config=cfg, backend="cuda"))
-        print(f"[mesh] (a) NCCL world 1, mesh 1x1x1, {config}: tiled against untiled "
-              f"(rtl_clamp, same card) p99.9 |d| {p999:.3g} px, max {mx:.3g} px (limits "
-              f"{MESH_P999}, {MESH_MAX}); launches {counts}; "
-              f"{_device_note([dev_ms], untiled_dev[config])}")
-        if not (p999 <= MESH_P999 and mx <= MESH_MAX):
-            raise AssertionError(f"mesh 1x1x1 {config}: p99.9 {p999}, max {mx}")
+    counts, tile_reading = check_world_one(a, b, mesh, untiled, untiled_dev, smi)
+    tiled_launches.update(counts)
+    main_counts = {"lk_fused_tile_round": sum(c.get("lk_fused_tile_round", 0)
+                                              for c in counts.values())}
     (su, sv), counts = counted("mesh 1x1x1 single scale", lambda: tiled_lucas_kanade_single_scale(
         a[None], b[None], mesh))
     wu, wv = lucas_kanade_single_scale(a, b, backend="torch")
@@ -2805,6 +3120,7 @@ def _check_mesh(a, b, fa, fb, smi, dev, work, t_phase) -> dict:
           f"plain torch ops on both sides, as the reference's tiled body is jnp)")
     if err > MESH_SINGLE_ATOL:
         raise AssertionError(f"mesh 1x1x1 single scale: max |d| {err}")
+    check_world_one_vo(a, b, mesh, ref_sess)
     dist.destroy_process_group()
 
     # (d)'s problem: the [vo] phase's 1080p production session, 17 keyframes.
@@ -2826,10 +3142,6 @@ def _check_mesh(a, b, fa, fb, smi, dev, work, t_phase) -> dict:
     np.savez(f"{work}/ba.npz", **{f: getattr(problem, f).cpu().numpy()
                                  for f in ba.BAProblem._fields})
     single = ba.solve(problem, iterations=VO_BA_ITERATIONS)
-    ref_sess = _session_1080(a, "default", rtl_clamp=True)
-    # Stepped eagerly, as the mesh-tiled session steps (no capture timed).
-    ref_vo_ms = _host_ms(lambda: [ref_sess.process_frame(f)
-                                  for f in vo_chunk(a, b)[:MESH_VO_FRAMES]], 1)[0] / MESH_VO_FRAMES
     del sess
 
     # (b)-(d): MESH_RANKS gloo ranks sharing the card.
@@ -2863,17 +3175,26 @@ def _check_mesh(a, b, fa, fb, smi, dev, work, t_phase) -> dict:
               f"px ({rel:.2e} relative, limit {MESH_EPE_RTOL}); rank 0 launches a pair "
               f"{rep0['launches']}; halo {traffic['halo_bytes']} B in {traffic['halo_exchanges']} "
               f"exchanges, gathers {traffic['gather_bytes']} B ({traffic['level_gathers']} "
-              f"level), {traffic['all_reduces']} sums; "
+              f"level), {traffic['all_reduces']} sums; host reads {traffic['convergence_reads']}, "
+              f"rounds run a level {rep0['rounds']} (device control); "
               f"{_device_note([r['flow'][key]['device_ms'] for r in reports], untiled_dev[config])}")
         if not (p999 <= MESH_P999 and mx <= MESH_MAX and rel <= MESH_EPE_RTOL):
             raise AssertionError(f"mesh {key}: p99.9 {p999}, max {mx}, EPE {rel} relative")
+        if any(r["flow"][key]["traffic"]["convergence_reads"] for r in reports) or any(
+                r["flow"][key]["rounds"] != rep0["rounds"] for r in reports):
+            raise AssertionError(f"mesh {key}: a host read, or ranks that ran other rounds")
+    for shape_key, t in sorted(reports[0]["tile_sums"].items()):
+        print(f"[mesh] (b) lk_fused_tile_round on {shape_key} extended tiles: {t['running']} "
+              f"running, {t['skipped']} skipped launches a rank 0; sums within {t['sum_rel']:.3g} "
+              f"of du.abs().sum() (limit {2 * t['gamma']:.3g}), {t['sum_rel_f64']:.3g} of the "
+              f"float64 sum (limit {t['gamma']:.3g})")
     for name, shapes in sorted(reports[0]["kernels"].items()):
         worst = max(shapes.values())
         print(f"[mesh] (b) {name} on tile shapes {sorted(shapes)}: max |d| against the plain "
               f"version {worst:.3g}")
         if worst != 0.0:
             raise AssertionError(f"mesh: {name} differs from its plain version on a tile")
-    want = {"warp_packed_u8", "warp_packed_u16", "warp_exact", "lk_fused", "lk_refine",
+    want = {"warp_packed_u8", "warp_packed_u16", "warp_exact", "lk_fused_tile_round", "lk_refine",
             "lk_refine_exact"}
     if set(reports[0]["kernels"]) != want:
         raise AssertionError(f"mesh: kernels checked on tiles {sorted(reports[0]['kernels'])}")
@@ -2918,7 +3239,7 @@ def _check_mesh(a, b, fa, fb, smi, dev, work, t_phase) -> dict:
     # (e) NCCL, one rank per card.
     check_nccl_across_cards(dev, work, untiled, untiled_dev)
     print(f"[mesh] phase took {time.perf_counter() - t_phase:.1f} s")
-    return tiled_launches
+    return tiled_launches, {**main_counts, "reading": tile_reading}
 
 
 def profile_stream(a, b, config: str, tag: str = "profile") -> None:
@@ -3132,6 +3453,22 @@ def check_grid(seed_: int, smi: str) -> None:
             for c in GRID_CONFIGS) + f" ({smi})")
 
 
+def check_uhd_fused(a, b, smi: str) -> dict:
+    """Phase 10: K6 at 3840x2160 in the exact Sobel order (the 4K gate's
+    single scale, ``lucas_kanade_single_scale``'s default), bit-exact to
+    its plain version, its device ms beside the plain version's."""
+    got = lk.lucas_kanade_fused(a, b)
+    want = lk.lucas_kanade_fused_ref(a, b)
+    err = max(max_abs(g, w) for g, w in zip(got, want))
+    if err != 0.0:
+        raise AssertionError(f"lk_fused at 4K: max |d| {err} against its plain version")
+    ms = device_ms(lambda: lk.lucas_kanade_fused(a, b))
+    plain_ms = device_ms(lambda: lk.lucas_kanade_fused_ref(a, b))
+    print(f"[4k] lk_fused (K6) {UHD[0]}x{UHD[1]}: bit-exact to its plain version; {ms:.5f} ms "
+          f"({_bound_note('lk_fused', UHD, ms)}); plain {plain_ms:.4f} ms; {smi}")
+    return {"by_shape": {f"{UHD[0]}x{UHD[1]}": {"ms": ms, "plain_ms": plain_ms}}}
+
+
 def check_uhd(seed_: int, smi: str) -> tuple[dict, dict]:
     """Phase 10 (`[4k]` lines): the port above 1080p. At 3840x2160: K1-K5 as
     the rounds launch them at every level of both pyramids (check_rounds:
@@ -3154,6 +3491,7 @@ def check_uhd(seed_: int, smi: str) -> tuple[dict, dict]:
     readings = {name: {} for name in ("warp_packed_u8", "warp_packed_u16", "warp_exact",
                                       "lk_refine", "lk_refine_exact")}
     check_rounds(readings, dev, a, b, rng, floor_ms, tag="4k")
+    readings["lk_fused"] = check_uhd_fused(a, b, smi)
     counts: dict = {}
     per_frame = {}
     for config in UHD_CONFIGS:
@@ -3191,7 +3529,8 @@ def check_uhd(seed_: int, smi: str) -> tuple[dict, dict]:
 
 
 _WALK_NAMES = {(0, 1): "K3", (0, 0): "K5", (1, 0): "K6", (1, 1): "K6 relaxed",
-               (2, 0): "K7", (2, 1): "K7 relaxed"}
+               (2, 0): "K7", (2, 1): "K7 relaxed", (3, 0): "K6 tile round",
+               (3, 1): "K6 tile round relaxed"}
 _MXU_NAMES = {0: "refine", 1: "fused", 2: "|det|"}
 _MXU_ENTRY = r"\S*lk_mxu_kernelILi(\d)ELb(\d)ELi(\d)E"
 _WARP_NAMES = {(8, 1): "K1", (16, 1): "K2", (0, 1): "K4", (0, 0): "K4 unclamped"}
@@ -3335,9 +3674,31 @@ def warp_ptxas(log: str) -> list[str]:
     return tiles + walks
 
 
+def run_mesh_cards_only(seed: int, smi: str) -> None:
+    """Phase 8 (e) alone (``--mesh-cards-only``): the tiled step over NCCL
+    with one rank per card, eager and graphed, against the untiled result
+    of card 0. For a machine with several cards, where nothing else of the
+    smoke needs them."""
+    dev = torch.device("cuda", 0)
+    _build.load()
+    fa, fb = make_frames(seed)
+    a, b = torch.from_numpy(fa).to(dev), torch.from_numpy(fb).to(dev)
+    work = tempfile.mkdtemp(prefix="tpuflow_mesh_")
+    try:
+        np.savez(f"{work}/frames.npz", a=fa, b=fb)
+        untiled = {c: _untiled(a, b, c) for c in MESH_CONFIGS}
+        untiled_dev = {c: busy_ms(lambda: _untiled(a, b, c)) for c in MESH_CONFIGS}
+        print(f"[mesh] (e) alone on {torch.cuda.device_count()} cards ({smi})")
+        check_nccl_across_cards(dev, work, untiled, untiled_dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--mesh-cards-only", action="store_true",
+                        help="run phase 8 (e) alone: NCCL across the machine's cards")
     args = parser.parse_args()
 
     # 1. device
@@ -3351,6 +3712,9 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
+    if args.mesh_cards_only:
+        run_mesh_cards_only(args.seed, smi)
+        return
 
     # 2. build
     t0 = time.perf_counter()
@@ -3402,7 +3766,7 @@ def main() -> None:
     counts.update(check_mxu_path(a, b))
     counts.update(check_ablation_paths(dev))
     report_profile(smi)
-    missing = [name for name in KERNELS if not counts.get(name)]
+    missing = [name for name in KERNELS if not counts.get(name) and name not in MESH_PATH_KERNELS]
     if missing:
         raise AssertionError(f"kernels launched on no main path: {missing}")
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
@@ -3445,7 +3809,12 @@ def main() -> None:
     check_gen(dev)
 
     # 8. mesh
-    tiled_launches = check_mesh(a, b, fa, fb, smi)
+    tiled_launches, mesh_main = check_mesh(a, b, fa, fb, smi)
+    readings["lk_fused_tile_round"].update(mesh_main.pop("reading"))
+    counts.update(mesh_main)
+    missing = [name for name in MESH_PATH_KERNELS if not counts.get(name)]
+    if missing:
+        raise AssertionError(f"kernels launched on no main path: {missing}")
 
     # 9. profile
     profile_stream(a, b, "production")

@@ -165,3 +165,16 @@ def test_imu_scan_bounds(jac, per_sample, out, chain):
 def test_smoke_reports_the_port_kernels():
     assert set(chip_smoke.PORT_KERNELS) == set(bounds.PORT_KERNELS)
     assert all(why for _, _, why in chip_smoke.PORT_KERNELS.values())
+
+
+@pytest.mark.parametrize("window", [3, 5, 7])
+def test_tile_round_bytes_on_the_extended_tile_and_its_crop(window):
+    # prev and the warped frame read on the extended tile (8 B a pixel); u
+    # and v read and written in place on its crop (16 B a pixel).
+    ext = window // 2 + 1
+    h, w = 1080 + 2 * ext, 1920 + 2 * ext
+    want = 8 * h * w + 16 * PIXELS_1080P
+    assert bounds.call_bytes("lk_fused_tile_round", 1, h, w, window) == want
+    assert bounds.call_bytes("lk_fused_tile_round", 2, h, w, window) == 2 * want
+    ms, by = bounds.bound("lk_fused_tile_round", 1, h, w, window)
+    assert by == "bytes" and ms == pytest.approx(want / 3.35e9, rel=1e-12)

@@ -1393,3 +1393,164 @@ def test_refine_round_sums_within_their_depth_above_1080p(cuda, shape):
     assert float(((got[2] - part).abs() / part).max()) <= 1e-6 * depth / ref_depth
     assert float(((got[2].double() - exact).abs() / exact).max()) <= \
         depth * unit / (1 - depth * unit)
+
+
+# -- the tiled path under device control: K6's tile round, graphs over NCCL ----------------
+
+# Crops around the walk's strip widths and block rows, down to one pixel.
+_CROP_SHAPES = [(1, 1), (5, 7), (19, 23), (31, 25), (70, 233), (135, 240)]
+
+
+def _tile_inputs(rng, shape, window, dev, batch=None):
+    """Extended tiles of a (h, w) tile at ``window`` and the tile's flow."""
+    ext = window // 2 + 1
+    lead = () if batch is None else (batch,)
+    h, w = shape
+    prev, curr = _smooth(rng, (*lead, h + 2 * ext, w + 2 * ext), dev)
+    return prev, curr, _rand(rng, (*lead, h, w), -4, 4, dev), _rand(rng, (*lead, h, w), -4, 4, dev)
+
+
+@pytest.mark.parametrize("shape", _CROP_SHAPES)
+@pytest.mark.parametrize("window", [3, 5, 7])
+@pytest.mark.parametrize("relaxed", [False, True])
+@pytest.mark.parametrize("latch", [0, 1])
+def test_tile_round_kernel_matches_plain(cuda, shape, window, relaxed, latch):
+    """K6's round on a halo-extended tile of an odd shape, at a tile
+    origin whose crop meets the level's border: u, v and the control bit
+    for bit the plain version's; a running round's sums within gamma_depth
+    (kernels.lk.tile_round_depth) of the float64 sum of the same |du| and
+    within twice that of the plain version's du.abs().sum(); a set latch
+    leaves u, v and the control as they were."""
+    rng = np.random.default_rng(sum(shape) + window + 7 * relaxed)
+    prev, curr, u, v = _tile_inputs(rng, shape, window, cuda)
+    kw = dict(gy0=shape[0], gx0=0, gh=3 * shape[0], gw=2 * shape[1], window_size=window,
+              relaxed_order=relaxed)
+    ctrl = torch.tensor([latch, 0, 2], dtype=torch.int32, device=cuda)
+    u0, v0, ctrl_ref, ur, vr = u.clone(), v.clone(), ctrl.clone(), u.clone(), v.clone()
+    before = launch_counts()["lk_fused_tile_round"]
+    sums = lk.fused_tile_round(prev, curr, u, v, ctrl, **kw)
+    want = lk.fused_tile_round_ref(prev, curr, ur, vr, ctrl_ref, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["lk_fused_tile_round"] == before + 1
+    assert torch.equal(u, ur) and torch.equal(v, vr) and torch.equal(ctrl, ctrl_ref)
+    if latch:
+        assert torch.equal(u, u0) and torch.equal(v, v0) and ctrl.tolist() == [1, 0, 2]
+        return
+    assert ctrl.tolist() == [0, 0, 3]
+    depth = lk.tile_round_depth(*prev.shape, window)
+    gamma = depth * 2.0 ** -24 / (1 - depth * 2.0 ** -24)
+    du, dv = lk.tile_round_delta_ref(prev, curr, **kw)
+    exact = torch.stack([du.double().abs().sum(), dv.double().abs().sum()])
+    assert float(((sums.double() - exact).abs() / exact.clamp_min(1e-30)).max()) <= gamma
+    assert float(((sums - want).abs() / want.clamp_min(1e-30)).max()) <= 2 * gamma
+
+
+def test_tile_round_batch_latches_per_element(cuda):
+    rng = np.random.default_rng(3)
+    prev, curr, u, v = _tile_inputs(rng, (37, 61), 5, cuda, batch=2)
+    ctrl = torch.tensor([[0, 1], [0, 0], [0, 0]], dtype=torch.int32, device=cuda)
+    ur, vr, ctrl_ref = u.clone(), v.clone(), ctrl.clone()
+    u0, v0 = u.clone(), v.clone()
+    lk.fused_tile_round(prev, curr, u, v, ctrl, gy0=0, gx0=0, gh=37, gw=61)
+    lk.fused_tile_round_ref(prev, curr, ur, vr, ctrl_ref, gy0=0, gx0=0, gh=37, gw=61)
+    torch.cuda.synchronize()
+    assert torch.equal(u, ur) and torch.equal(v, vr) and torch.equal(ctrl, ctrl_ref)
+    assert torch.equal(u[1], u0[1]) and not torch.equal(u[0], u0[0])
+    one_u, one_v = u0[0].clone(), v0[0].clone()
+    lk.fused_tile_round(prev[0], curr[0], one_u, one_v,
+                        torch.zeros(3, dtype=torch.int32, device=cuda),
+                        gy0=0, gx0=0, gh=37, gw=61)
+    assert torch.equal(one_u, u[0]) and torch.equal(one_v, v[0])
+
+
+@pytest.fixture(scope="module")
+def nccl_world_one(tmp_path_factory):
+    """An NCCL process group of this process alone and its 1x1x1 mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from tpuflow_torch.sharding import initialize_multihost, make_flow_mesh
+
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    initialize_multihost(f"file://{store}", 1, 0, backend="nccl")
+    yield make_flow_mesh(1, 1, 1, device=torch.device("cuda", 0))
+    dist.destroy_process_group()
+
+
+def _tiled_pair(dev, shape=(240, 320)):
+    rng = np.random.default_rng(12)
+    a = np.round(gaussian_filter(rng.uniform(0, 255, shape), 2.0)).astype(np.float32)
+    b = np.roll(a, 2, axis=1)
+    return torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+
+
+@pytest.mark.parametrize("config", ["production_fullband", "default"])
+def test_tiled_graphed_stream_equals_the_eager_step(nccl_world_one, config):
+    """The tiled step captured at NCCL world 1 (its all-reduces in the
+    graph) and replayed over alternating pairs and a still pair, bit for
+    bit the eager device-controlled step with the same rounds, and the
+    eager step bit for bit its host-steered twin."""
+    from tpuflow_torch.flow import TiledGraphedStream
+    from tpuflow_torch.sharding import tiled_pyramidal as tp
+
+    mesh = nccl_world_one
+    cfg = PYRAMID_CONFIGS[config]
+    a, b = _tiled_pair(mesh.device)
+    eager = {}
+    for p, c in ((a, b), (b, a), (a, a)):
+        u, v = tp.tiled_lucas_kanade_pyramidal(p[None], c[None], mesh, config=cfg,
+                                               backend="cuda")
+        eager[(id(p), id(c))] = (u, v, tp.counters.level_rounds.clone())
+        hu, hv = tp._tiled_solve(p[None], c[None], mesh, cfg, "cuda", device_control=False)
+        assert torch.equal(u, hu) and torch.equal(v, hv)
+    assert eager[(id(a), id(a))][2].tolist() == [[1] * cfg.levels]
+    stream = TiledGraphedStream(a[None], cfg, mesh)
+    prev = a
+    for frame in (b, a, b, a, a):
+        gu, gv = stream.step(frame[None])
+        u, v, rounds = eager[(id(prev), id(frame))]
+        assert torch.equal(gu, u) and torch.equal(gv, v)
+        assert torch.equal(stream.level_rounds, rounds)
+        prev = frame
+    assert stream.launches["lk_fused_tile_round"] == cfg.levels * cfg.iterations
+
+
+def test_tiled_graphed_stream_refuses_cpu_frames_and_gloo(nccl_world_one):
+    import torch.distributed as dist
+
+    from tpuflow_torch.flow import TiledGraphedStream
+    from tpuflow_torch.sharding.mesh import FlowMesh
+
+    mesh = nccl_world_one
+    cfg = PYRAMID_CONFIGS["default"]
+    with pytest.raises(ValueError, match="CUDA"):
+        TiledGraphedStream(torch.zeros(1, 240, 320), cfg, mesh)
+    gloo = dist.new_group([0], backend="gloo")
+    gloo_mesh = FlowMesh(1, 1, 1, (0,), 0, mesh.device, gloo, gloo)
+    with pytest.raises(ValueError, match="gloo"):
+        TiledGraphedStream(torch.zeros(1, 240, 320, device=mesh.device), cfg, gloo_mesh)
+    fe = device_loop.FrontEnd(backend="cuda", config=cfg, mesh=gloo_mesh)
+    assert not fe.graphed(torch.zeros(2, 240, 320, device=mesh.device))
+    dist.destroy_process_group(gloo)
+
+
+def test_tiled_vo_front_end_graphed_at_nccl_world_one(nccl_world_one):
+    """A mesh-tiled VO front end over NCCL replays its captured step: the
+    same records as its eager steps."""
+    mesh = nccl_world_one
+    frames = torch.from_numpy(np.stack(_vo_frames(6))).to(mesh.device)
+    sessions = []
+    for graphed in (True, False):
+        sess = OdometrySession((200.0, 200.0, 160.0, 120.0), grid_step=16, backend="cuda",
+                               pyramid_config="default", mesh=mesh, device=mesh.device)
+        assert sess._fe.graphed(frames)
+        if graphed:
+            sess.process_frames(frames)
+        else:
+            for f in frames:
+                sess.process_frame(f)
+        sessions.append(sess)
+    for field in ("obs_uv", "obs_valid", "obs_lm"):
+        assert np.array_equal(np.stack(getattr(sessions[0], field)),
+                              np.stack(getattr(sessions[1], field)))

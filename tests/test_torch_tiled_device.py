@@ -1,0 +1,277 @@
+"""The tiled pyramidal path under device control (``backend="cuda"``) on
+the CPU, where each kernel wrapper runs its plain version.
+
+The port runs in 4 gloo worker processes (tests/mesh_harness.py,
+tests/torch_mesh_worker.py), once per tiling for the whole module; the
+JAX side (``tpuflow.sharding``, Pallas in interpret mode) on the
+conftest's virtual CPU devices.
+
+Limits:
+- ``fused_tile_round_ref`` equals ``lucas_kanade_fused_ref`` on the
+  extended tile, cropped, zeroed outside the global interior and added
+  into the tile's flow, bit for bit, and its sums ``du.abs().sum()`` of
+  that crop; a set latch leaves the flow and the round count untouched;
+- the device-controlled step equals the host-steered loop of the same
+  kernels (the early exit read to the host) bit for bit, rounds and all,
+  and stays within 1e-3 px of the reference's Pallas path, the limit of
+  tests/test_torch_sharding.py's ``backend="cuda"`` case;
+- divergence d: on a pair whose finest level converges at its first round
+  with the flow past the band, the frozen flow is kept, not re-clipped
+  (its largest |u| exceeds ``max_disp``), and against the reference's
+  Pallas path within p99.9 2e-3 px (the limit tests/test_torch_sharding.py
+  holds the tiled paths to between the packages) and max 1e-2 px: the
+  flat field's weakly conditioned solves, 20 px and more from the patch,
+  amplify the pyramids' float32 rounding (divergence f) to 2.5e-3 px in u
+  and 3.6e-3 px in v there, at 39 and 32 of 65,536 pixels (1x2x2), where
+  the textured pair holds 1e-3;
+- no host read: with ``Tensor.__bool__``, ``item``, ``tolist`` and the
+  number conversions refused, the device-controlled step runs and the
+  host-steered loop is caught.
+"""
+
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh
+from scipy.ndimage import gaussian_filter
+
+from tpuflow.core.config import PyramidConfig as JaxPyramidConfig
+from tpuflow.sharding import tiled_pyramidal as jtp
+from tpuflow_torch.core.config import PyramidConfig
+from tpuflow_torch.flow import TiledGraphedStream
+from tpuflow_torch.kernels import lk
+
+sys.path.insert(0, str(Path(__file__).parent))
+from mesh_harness import run_ranks  # noqa: E402
+from torch_mesh_worker import DEVICE_CFGS  # noqa: E402
+
+torch.set_num_threads(1)
+
+TILINGS = {"1x2x2": (1, 2, 2), "1x4x1": (1, 4, 1)}
+CASES = ["tiled_device", "no_host_read", "graph_refusals"]
+PALLAS_ATOL = 1e-3
+WITNESS_P999 = 2e-3
+WITNESS_MAX = 1e-2
+WITNESS_MAX_DISP = DEVICE_CFGS["wd"]["max_disp"]
+
+
+def _witness_pair(seed: int, size: int, dx: int):
+    """A flat 128x256 field with one ``size`` px textured patch moved
+    ``dx`` px right: the flat field holds the mean |du| under the
+    threshold, so a level can converge at its first round while the
+    patch's flow lies past the band."""
+    rng = np.random.default_rng(seed)
+    tex = gaussian_filter(rng.uniform(0, 255, (size + 4, size + 4)), 1.0)[2:-2, 2:-2]
+    prev = np.full((128, 256), 128.0, np.float32)
+    curr = prev.copy()
+    prev[60:60 + size, 100:100 + size] = tex
+    curr[60:60 + size, 100 + dx:100 + dx + size] = tex
+    return prev, curr
+
+
+def _inputs() -> dict:
+    rng = np.random.default_rng(1234)
+    base = rng.uniform(0, 255, (80, 128)).astype(np.float32)
+    # Element 0 converges at the finest level's first round, element 1 (a
+    # textured field moved 1 px) later or not at all: one latch each.
+    p0, c0 = _witness_pair(0, 6, 6)
+    p1 = gaussian_filter(rng.uniform(0, 255, (128, 256)), 2.0).astype(np.float32)
+    return {"pc_prev": base[None], "pc_curr": np.roll(base, 2, axis=1)[None],
+            "wd_prev": np.stack([p0, p1]), "wd_curr": np.stack([c0, np.roll(p1, 1, axis=1)])}
+
+
+@pytest.fixture(scope="module")
+def port(tmp_path_factory):
+    """``port(name)``: every rank's results for tiling ``name``."""
+    done: dict = {}
+
+    def get(name: str):
+        if name not in done:
+            try:
+                done[name] = run_ranks(tmp_path_factory.mktemp(name), 4, ",".join(
+                    str(x) for x in TILINGS[name]), CASES, _inputs())
+            except RuntimeError as exc:
+                done[name] = exc
+        if isinstance(done[name], Exception):
+            raise done[name]
+        return done[name]
+
+    return get
+
+
+# -- (a) the round form of K6's plain version ----------------------------------------------
+
+
+def _tile_case(seed: int, window: int, shape=(19, 23)):
+    rng = np.random.default_rng(seed)
+    ext = window // 2 + 1
+    h, w = shape
+    prev = torch.from_numpy(rng.uniform(0, 255, (h + 2 * ext, w + 2 * ext)).astype(np.float32))
+    curr = torch.from_numpy(rng.uniform(0, 255, (h + 2 * ext, w + 2 * ext)).astype(np.float32))
+    u = torch.from_numpy(rng.uniform(-3, 3, shape).astype(np.float32))
+    v = torch.from_numpy(rng.uniform(-3, 3, shape).astype(np.float32))
+    return prev, curr, u, v, ext
+
+
+@pytest.mark.parametrize("relaxed", [False, True])
+@pytest.mark.parametrize("window", lk.WINDOWS)
+@pytest.mark.parametrize("origin", [(0, 0), (19, 23), (38, 0)], ids=["corner", "inner", "edge"])
+def test_tile_round_ref_is_fused_cropped_masked_added(window, relaxed, origin):
+    """The tile at ``origin`` of a 57x69 level (3x3 tiles of 19x23): the
+    fused solve on the extended tile, cropped, zeroed within window // 2
+    of the level's border, added into u, v in place; the sums of the
+    crop's |du|, |dv|; the round counted in ctrl row 2."""
+    prev, curr, u, v, ext = _tile_case(window + 10 * relaxed, window)
+    gy0, gx0 = origin
+    gh, gw, half = 57, 69, window // 2
+    h, w = u.shape
+    du, dv = lk.lucas_kanade_fused_ref(prev, curr, window_size=window, relaxed_order=relaxed)
+    du, dv = du[ext:ext + h, ext:ext + w], dv[ext:ext + h, ext:ext + w]
+    rows = torch.arange(h)[:, None] + gy0
+    cols = torch.arange(w)[None, :] + gx0
+    inside = (rows >= half) & (rows < gh - half) & (cols >= half) & (cols < gw - half)
+    du, dv = torch.where(inside, du, 0.0), torch.where(inside, dv, 0.0)
+    want_u, want_v = u + du, v + dv
+    ctrl = torch.zeros(lk.CTRL_ROWS, dtype=torch.int32)
+    sums = lk.fused_tile_round(prev, curr, u, v, ctrl, gy0=gy0, gx0=gx0, gh=gh, gw=gw,
+                               window_size=window, relaxed_order=relaxed)
+    assert torch.equal(u, want_u) and torch.equal(v, want_v)
+    assert torch.equal(sums, torch.stack([du.abs().sum(), dv.abs().sum()]))
+    assert ctrl.tolist() == [0, 0, 1]
+    if origin == (19, 23):
+        assert bool(inside.all())  # an inner tile has no border to zero
+    else:
+        assert not bool(inside.all()) and float(du.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("window", lk.WINDOWS)
+def test_tile_round_ref_skips_on_a_set_latch(window):
+    prev, curr, u, v, _ = _tile_case(3, window)
+    u0, v0 = u.clone(), v.clone()
+    ctrl = torch.tensor([1, 0, 4], dtype=torch.int32)
+    lk.fused_tile_round_ref(prev, curr, u, v, ctrl, gy0=0, gx0=0, gh=19, gw=23,
+                            window_size=window)
+    assert torch.equal(u, u0) and torch.equal(v, v0)
+    assert ctrl.tolist() == [1, 0, 4]
+
+
+def test_tile_round_batch_keeps_one_latch_an_element():
+    """A (2, ...) batch: element 1 latched keeps its flow, element 0 runs as
+    its plane alone."""
+    prev, curr, u, v, _ = _tile_case(4, 5)
+    p2, c2, u2, v2, _ = _tile_case(5, 5)
+    bu, bv = torch.stack([u, u2]), torch.stack([v, v2])
+    ctrl = torch.tensor([[0, 1], [0, 0], [2, 2]], dtype=torch.int32)
+    sums = lk.fused_tile_round(torch.stack([prev, p2]), torch.stack([curr, c2]), bu, bv, ctrl,
+                               gy0=0, gx0=0, gh=19, gw=23)
+    one = torch.zeros(lk.CTRL_ROWS, dtype=torch.int32)
+    s0 = lk.fused_tile_round(prev, curr, u, v, one, gy0=0, gx0=0, gh=19, gw=23)
+    assert torch.equal(bu[0], u) and torch.equal(bv[0], v) and torch.equal(sums[:, 0], s0)
+    assert torch.equal(bu[1], u2) and torch.equal(bv[1], v2)
+    assert ctrl.tolist() == [[0, 1], [0, 0], [3, 2]]
+
+
+@pytest.mark.parametrize("bad", ["shape", "ctrl", "window"])
+def test_tile_round_refuses_bad_arguments(bad):
+    prev, curr, u, v, _ = _tile_case(6, 5)
+    ctrl = torch.zeros(lk.CTRL_ROWS, dtype=torch.int32)
+    kw = dict(gy0=0, gx0=0, gh=19, gw=23)
+    if bad == "shape":
+        prev, curr = prev[1:], curr[1:]
+    elif bad == "ctrl":
+        ctrl = torch.zeros(lk.CTRL_ROWS, dtype=torch.int64)
+    else:
+        kw["window_size"] = 9
+    with pytest.raises((ValueError, TypeError)):
+        lk.fused_tile_round(prev, curr, u, v, ctrl, **kw)
+
+
+def test_tiled_graphed_stream_needs_the_card():
+    with pytest.raises(ValueError, match="CUDA"):
+        TiledGraphedStream(torch.zeros(1, 64, 64), PyramidConfig(), None)
+
+
+# -- (b) the step under device control against the host-steered loop -------------------------
+
+
+@pytest.mark.parametrize("name", list(TILINGS))
+@pytest.mark.parametrize("prefix", list(DEVICE_CFGS))
+def test_device_control_equals_the_host_steered_loop(port, name, prefix):
+    """Bit for bit, on every rank, with no host read counted (the loop
+    counts its reads), and every rank ran the same rounds."""
+    ranks = port(name)
+    for res in ranks:
+        for c in "uv":
+            np.testing.assert_array_equal(res[f"tiled_device/{prefix}_{c}"],
+                                          res[f"tiled_device/{prefix}_host_{c}"])
+            np.testing.assert_array_equal(res[f"tiled_device/{prefix}_{c}"],
+                                          ranks[0][f"tiled_device/{prefix}_{c}"])
+        np.testing.assert_array_equal(res[f"tiled_device/{prefix}_rounds"],
+                                      ranks[0][f"tiled_device/{prefix}_rounds"])
+        assert int(res[f"tiled_device/{prefix}_reads"]) == 0
+        assert int(res[f"tiled_device/{prefix}_host_reads"]) > 0
+
+
+def _jax_pallas(name, prefix):
+    inp = _inputs()
+    devs = np.array(jax.devices()[:4]).reshape(TILINGS[name])
+    return jtp.tiled_lucas_kanade_pyramidal(
+        jnp.asarray(inp[f"{prefix}_prev"]), jnp.asarray(inp[f"{prefix}_curr"]),
+        Mesh(devs, ("batch", "ty", "tx")), config=JaxPyramidConfig(**DEVICE_CFGS[prefix]),
+        backend="pallas", interpret=True)
+
+
+@pytest.mark.parametrize("name", list(TILINGS))
+def test_device_control_matches_pallas_interpret(port, name):
+    ju, jv = _jax_pallas(name, "pc")
+    res = port(name)[0]
+    np.testing.assert_allclose(res["tiled_device/pc_u"], np.asarray(ju), rtol=0, atol=PALLAS_ATOL)
+    np.testing.assert_allclose(res["tiled_device/pc_v"], np.asarray(jv), rtol=0, atol=PALLAS_ATOL)
+
+
+# -- (c) divergence d: a frozen flow is not re-clipped ----------------------------------------
+
+
+@pytest.mark.parametrize("name", list(TILINGS))
+def test_frozen_flow_past_the_band_is_kept(port, name):
+    """Element 0's finest level converges at its first round (one round
+    run of three) with its flow past the 2 px band, and keeps that flow;
+    element 1 runs more rounds on its own latch. Both against the
+    reference's Pallas path (limits in the module docstring)."""
+    res = port(name)[0]
+    rounds = res["tiled_device/wd_rounds"]
+    its = DEVICE_CFGS["wd"]["iterations"]
+    assert rounds.shape == (2, DEVICE_CFGS["wd"]["levels"])
+    assert rounds[0, -1] == 1 and (rounds[1] > 1).any()
+    u = res["tiled_device/wd_u"]
+    assert np.abs(u[0]).max() > WITNESS_MAX_DISP + 1
+    assert rounds.max() <= its
+    ju, jv = _jax_pallas(name, "wd")
+    du, dv = np.abs(u - np.asarray(ju)), np.abs(res["tiled_device/wd_v"] - np.asarray(jv))
+    assert np.quantile(np.concatenate([du.ravel(), dv.ravel()]), 0.999) <= WITNESS_P999
+    assert max(du.max(), dv.max()) <= WITNESS_MAX
+
+
+# -- (d) no host read --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", list(TILINGS))
+@pytest.mark.parametrize("prefix", list(DEVICE_CFGS))
+def test_device_control_reads_nothing_to_the_host(port, name, prefix):
+    for res in port(name):
+        assert not bool(res[f"no_host_read/{prefix}_device_raised"])
+        assert bool(res[f"no_host_read/{prefix}_host_raised"])
+        for c in "uv":
+            np.testing.assert_array_equal(res[f"no_host_read/{prefix}_{c}"],
+                                          res[f"tiled_device/{prefix}_{c}"])
+
+
+def test_gloo_mesh_is_never_graphed(port):
+    for res in port("1x2x2"):
+        assert not bool(res["graph_refusals/graphable"])
+        assert not bool(res["graph_refusals/vo_graphed"])

@@ -141,6 +141,102 @@ def down_up(mesh, inp):
             "rep_u": ru.numpy(), "rep_v": rv.numpy()}
 
 
+# -- the tiled path under device control (tests/test_torch_tiled_device.py) -------------------
+
+# The device-controlled cases' configs, by input prefix: "pc" as
+# tests/test_torch_sharding.py's pyr_cuda; "wd" the early-exit witness
+# (a patch moving past a 2 px band on a flat field).
+DEVICE_CFGS = {"pc": dict(levels=2, iterations=2),
+               "wd": dict(levels=3, window_size=5, iterations=3, max_disp=2)}
+
+
+@case
+def tiled_device(mesh, inp):
+    """``backend="cuda"`` under device control and its host-steered twin
+    (the same kernels' plain versions, the early exit read to the host):
+    flows, rounds per level, host reads."""
+    from tpuflow_torch.sharding import tiled_pyramidal as tp
+
+    out = {}
+    for prefix, kw in DEVICE_CFGS.items():
+        cfg = PyramidConfig(**kw)
+        prev, curr = _t(inp[f"{prefix}_prev"]), _t(inp[f"{prefix}_curr"])
+        counters.reset()
+        u, v = tiled_lucas_kanade_pyramidal(prev, curr, mesh, config=cfg, backend="cuda")
+        out.update({f"{prefix}_u": u.numpy(), f"{prefix}_v": v.numpy(),
+                    f"{prefix}_rounds": counters.level_rounds.numpy(),
+                    f"{prefix}_reads": np.array(counters.convergence_reads)})
+        counters.reset()
+        u, v = tp._tiled_solve(prev, curr, mesh, cfg, "cuda", device_control=False)
+        out.update({f"{prefix}_host_u": u.numpy(), f"{prefix}_host_v": v.numpy(),
+                    f"{prefix}_host_reads": np.array(counters.convergence_reads)})
+    return out
+
+
+class _HostRead(RuntimeError):
+    pass
+
+
+def _host_reads_raise():
+    """Make every way of reading a tensor's value to the host raise;
+    returns the undo."""
+    names = ("__bool__", "item", "tolist", "__float__", "__int__", "__index__")
+    saved = {n: getattr(torch.Tensor, n) for n in names}
+
+    def refuse(self, *args, **kwargs):
+        raise _HostRead("a tensor's value was read to the host")
+
+    for n in names:
+        setattr(torch.Tensor, n, refuse)
+
+    def undo():
+        for n, f in saved.items():
+            setattr(torch.Tensor, n, f)
+
+    return undo
+
+
+@case
+def no_host_read(mesh, inp):
+    """The device-controlled step with every host read refused, and the
+    host-steered loop under the same refusal (it must be caught)."""
+    from tpuflow_torch.sharding import tiled_pyramidal as tp
+
+    out = {}
+    for prefix, kw in DEVICE_CFGS.items():
+        cfg = PyramidConfig(**kw)
+        prev, curr = _t(inp[f"{prefix}_prev"]), _t(inp[f"{prefix}_curr"])
+        for name, fn in (("device", tiled_lucas_kanade_pyramidal),
+                         ("host", lambda *a, **k: tp._tiled_solve(*a[:3], k["config"], "cuda",
+                                                                  device_control=False))):
+            undo = _host_reads_raise()
+            try:
+                u, v = fn(prev, curr, mesh, config=cfg, backend="cuda")
+                raised = False
+            except _HostRead:
+                raised = True
+            finally:
+                undo()
+            out[f"{prefix}_{name}_raised"] = np.array(raised)
+            if name == "device":
+                out[f"{prefix}_u"], out[f"{prefix}_v"] = u.numpy(), v.numpy()
+        # Every rank raises at the same read, so the ranks stay in step.
+        dist.barrier(mesh.group)
+    return out
+
+
+@case
+def graph_refusals(mesh, inp):
+    """A gloo mesh is never graphed: the VO front end steps eagerly and the
+    tiled graph stream refuses it."""
+    from tpuflow_torch.flow import graphed
+    from tpuflow_torch.vo.device_loop import FrontEnd
+
+    fe = FrontEnd(backend="cuda", mesh=mesh)
+    return {"graphable": np.array(graphed.graphable_mesh(mesh)),
+            "vo_graphed": np.array(fe.graphed(torch.zeros((1, 8, 8))))}
+
+
 # -- tpuflow.vo's mesh cases (tests/test_torch_vo_mesh.py) -----------------------------------
 
 

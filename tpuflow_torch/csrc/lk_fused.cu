@@ -9,6 +9,13 @@
 // `batch` elements (blockIdx.z). The column-walk kernel, what it computes
 // and its design are in lk_tile.cuh. The window_mxu variant (K10) is in
 // lk_mxu.cu.
+//
+// tpuflow_lk_fused_tile_round is K6 as one round of the tiled pyramidal
+// path under device control, the body of the reference's sharded
+// lax.while_loop from the fused solve through the guarded add
+// (tpuflow/sharding/tiled_pyramidal.py:176-212, :309-310): the same walk
+// on the halo-extended tile, its crop added into the tile's flow, and
+// block partials of |du|, |dv| for the tiled loop to reduce across the mesh.
 
 #include "lk_tile.cuh"
 
@@ -53,4 +60,43 @@ extern "C" int tpuflow_lk_fused(const float* prev, const float* curr,
   }
   if (relaxed) return launch_mode<true, kUniform>(window, with_det, args, batch, s);
   return launch_mode<false, kUniform>(window, with_det, args, batch, s);
+}
+
+// One round of the tiled path on `batch` halo-extended tiles of (height,
+// width), each extended by `crop` px on every side: u and v are the tiles'
+// (height - 2 crop, width - 2 crop) flow planes, updated in place where the
+// element's latch (ctrl row 0) is clear; part_du, part_dv receive one
+// partial sum a block (tpuflow_lk_refine_blocks(height, width, window) an
+// element); ctrl row 2 counts the rounds run. (gy0, gx0) is the crop's
+// global origin and (gh, gw) the level's global shape.
+extern "C" int tpuflow_lk_fused_tile_round(const float* prev_ext, const float* warped_ext,
+                                           float* u, float* v, int* ctrl, float* part_du,
+                                           float* part_dv, int batch, int height, int width,
+                                           int crop, int gy0, int gx0, int gh, int gw,
+                                           int window, int relaxed, float det_threshold,
+                                           void* stream) {
+  if (window < 3 || window > kMaxWindow || crop < window / 2 || height <= 2 * crop ||
+      width <= 2 * crop)
+    return (int)cudaErrorInvalidValue;
+  LkArgs args{};
+  args.prev = prev_ext;
+  args.curr = warped_ext;
+  args.u_out = u;
+  args.v_out = v;
+  args.part_du = part_du;
+  args.part_dv = part_dv;
+  args.height = height;
+  args.width = width;
+  args.det_threshold = det_threshold;
+  args.ctrl = ctrl;
+  args.crop = crop;
+  args.tile_h = height - 2 * crop;
+  args.tile_w = width - 2 * crop;
+  args.gy0 = gy0;
+  args.gx0 = gx0;
+  args.gh = gh;
+  args.gw = gw;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (relaxed) return launch_window<true, kUniform, kTileRound>(window, args, batch, s);
+  return launch_window<false, kUniform, kTileRound>(window, args, batch, s);
 }

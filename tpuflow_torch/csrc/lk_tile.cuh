@@ -1,7 +1,9 @@
 // Lucas-Kanade tile kernel on Hopper (sm_90a), shared by the refine step
-// (lk_refine.cu: K3 relaxed order, K5 exact order) and the fused
-// single-scale solve (lk_fused.cu: K6, K7 with the |det| plane). The
-// window_mxu variant (K10) keeps a staged body of its own, in lk_mxu.cu.
+// (lk_refine.cu: K3 relaxed order, K5 exact order), the fused
+// single-scale solve (lk_fused.cu: K6, K7 with the |det| plane) and K6's
+// round on a halo-extended tile of the tiled pyramidal path (lk_fused.cu).
+// The window_mxu variant (K10) keeps a staged body of its own, in
+// lk_mxu.cu.
 //
 // Replaces tpuflow/kernels/pallas_lk.py::_lk_tile (:189-311) as reached by
 // _lk_refine_kernel (:351), _lk_kernel (:314) and _lk_conf_kernel (:331).
@@ -35,7 +37,19 @@
 //     order (no float atomics), so the early exit is reproducible;
 //   fused: (du, dv) written as the flow;
 //   fused with det: also |det| on the interior and 0 elsewhere
-//     (pallas_lk.py:305-310).
+//     (pallas_lk.py:305-310);
+//   tile round (the tiled path's round on a tile extended by `crop` =
+//     window / 2 + 1 px, tpuflow/sharding/tiled_pyramidal.py:176-212 and
+//     :309-310): K6's (du, dv) on the extended tile, kept on the crop
+//     [crop, crop + tile_h) x [crop, crop + tile_w) only, zeroed outside
+//     the global interior (the crop's global row gy0 + y and column
+//     gx0 + x within window / 2 of the level's gh x gw border), added into
+//     the tile's u, v in place, and one partial sum of |du| and of |dv|
+//     per block over the crop. A set latch (ctrl row 0) skips the round:
+//     no frame read, no partial written, u and v untouched. The latch is
+//     not set here: the tiled loop sums the partials across the mesh's ranks
+//     first and latches on the device from the reduced sums. A running
+//     round adds one to its element's round count (ctrl row 2).
 //
 // Bound on this card: device memory. Each pixel's bytes, each input read
 // once and each output written once: 24 B for the refine (prev, warped,
@@ -109,7 +123,7 @@ namespace tpuflow_lk {
 constexpr int kMaxWindow = 7;
 constexpr int kMaxBatch = 65535;  // gridDim.z
 
-enum Mode { kRefine = 0, kFused = 1, kFusedDet = 2 };
+enum Mode { kRefine = 0, kFused = 1, kFusedDet = 2, kTileRound = 3 };
 
 struct Taps {
   float t[kMaxWindow];
@@ -139,7 +153,7 @@ struct LkArgs {
   float* u_out;
   float* v_out;
   float* det_out;  // fused with det only
-  float* part_du;  // refine only: one partial sum per block, element-major
+  float* part_du;  // refine and tile round: one partial sum per block, element-major
   float* part_dv;
   int height;
   int width;
@@ -155,6 +169,17 @@ struct LkArgs {
   int n_ladder;
   float* sums;  // (2, batch): the element's sum|du|, then sum|dv|
   float thr;    // convergence threshold on the mean |du|, |dv|
+  // A tile round (kTileRound): u_out, v_out are the tile's (tile_h,
+  // tile_w) flow planes, updated in place; `ctrl` as above (rows 0 and 2
+  // used); the crop's offset in the extended tile and its global origin
+  // and the level's global shape.
+  int crop;
+  int tile_h;
+  int tile_w;
+  int gy0;
+  int gx0;
+  int gh;
+  int gw;
 };
 
 // Shift-tree run of N = 2^k taps: run<2N>(a) = run<N>(a) + run<N>(a + N).
@@ -240,6 +265,19 @@ __device__ __forceinline__ void solve_store(const LkArgs& args, const float (&s)
       acc_u += fabsf(du);
       acc_v += fabsf(dv);
     }
+  } else if constexpr (kMode == kTileRound) {
+    // (y, x) in the extended tile; the crop lies inside its interior.
+    const int gy = y - args.crop + args.gy0, gx = x - args.crop + args.gx0;
+    if (!(gy >= kHalf && gy < args.gh - kHalf && gx >= kHalf && gx < args.gw - kHalf)) {
+      du = 0.0f;
+      dv = 0.0f;
+    }
+    if (store) {
+      *u_dst = *u_dst + du;
+      *v_dst = *v_dst + dv;
+      acc_u += fabsf(du);
+      acc_v += fabsf(dv);
+    }
   } else {
     const float det_out = interior ? fabsf(det) : 0.0f;
     if (store) {
@@ -251,7 +289,7 @@ __device__ __forceinline__ void solve_store(const LkArgs& args, const float (&s)
 }
 
 // ---------------------------------------------------------------------------
-// The column walk (K3, K5, K6, K7).
+// The column walk (K3, K5, K6, K7, K6's tile round).
 
 constexpr int kLanes = 32;
 constexpr unsigned kFull = 0xffffffffu;
@@ -399,7 +437,7 @@ __global__ void __launch_bounds__(kWalkThreads, walk_min_blocks<kWindow>())
   constexpr int kPlanes = kMode == kRefine ? 4 : 2;
 
   __shared__ float stage[kStripWarps][kStages][2][kPlanes][kLanes];
-  __shared__ float red[2][kStripWarps];  // refine only
+  __shared__ float red[2][kStripWarps];  // refine and tile round only
 
   const int height = args.height, width = args.width;
   const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
@@ -502,7 +540,15 @@ __global__ void __launch_bounds__(kWalkThreads, walk_min_blocks<kWindow>())
       frozen = args.converged[blockIdx.z] != 0;
     }
   }
+  if constexpr (kMode == kTileRound) {
+    // Skipped after convergence: nothing read or written. Else the round
+    // is counted once (block 0 of the element).
+    if (args.ctrl[blockIdx.z] != 0) return;
+    if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) args.ctrl[2 * gridDim.z + blockIdx.z] += 1;
+  }
   float acc_u = 0.0f, acc_v = 0.0f;
+  // A tile round's flow planes: (tile_h, tile_w) each, per element.
+  const size_t tile_plane = (size_t)blockIdx.z * args.tile_h * args.tile_w;
 
   // Window sums and the solve of output row y (if in range) from gradient
   // rows in ring slots g0 + 1 .. g0 + kWindow (mod kWindow), oldest first.
@@ -515,6 +561,15 @@ __global__ void __launch_bounds__(kWalkThreads, walk_min_blocks<kWindow>())
 #pragma unroll
       for (int d = 0; d < kWindow; ++d) col[d] = prod[pl][(g0 + 1 + d) % kWindow];
       s[pl] = lane_window_sum<kWindow, kOrder>(window_sum<kWindow, kOrder>(col, taps), taps);
+    }
+    if constexpr (kMode == kTileRound) {
+      const int cy = r0 + y - args.crop, cx = xo - args.crop;
+      const bool in_crop = out_lane && y < n_out && (unsigned)cy < (unsigned)args.tile_h &&
+                           (unsigned)cx < (unsigned)args.tile_w;
+      const size_t t = tile_plane + (in_crop ? (size_t)cy * args.tile_w + cx : 0);
+      solve_store<kHalf, kMode>(args, s, r0 + y, xo, in_crop, false, 0.0f, 0.0f, 0.0f,
+                                args.u_out + t, args.v_out + t, nullptr, acc_u, acc_v);
+      return;
     }
     const unsigned o = (unsigned)((r0 + y) * width);
     float u_in = 0.0f, v_in = 0.0f;
@@ -582,7 +637,7 @@ __global__ void __launch_bounds__(kWalkThreads, walk_min_blocks<kWindow>())
   }
   cp_async_wait<0>();
 
-  if constexpr (kMode == kRefine) {
+  if constexpr (kMode == kRefine || kMode == kTileRound) {
     // Lanes by a fixed butterfly, then the warps in order.
 #pragma unroll
     for (int m = kLanes / 2; m > 0; m >>= 1) {
@@ -605,7 +660,9 @@ __global__ void __launch_bounds__(kWalkThreads, walk_min_blocks<kWindow>())
       args.part_du[b] = su;
       args.part_dv[b] = sv;
     }
-    if (args.ctrl != nullptr) finish_round(args, red);
+    if constexpr (kMode == kRefine) {
+      if (args.ctrl != nullptr) finish_round(args, red);
+    }
   }
 }
 

@@ -16,6 +16,12 @@ Bytes per call, by kernel name (``chip_smoke.KERNELS``):
   flag are left out);
 - fused (K6, K10 fused): 16 B a pixel: prev and curr in, u and v out;
   with |det| (K7, K10 fused with |det|): 20 B;
+- K6's tile round (``lk_fused_tile_round``), (height, width) the
+  halo-extended tile, extended by ``window // 2 + 1`` px a side (window 5
+  unless ``variant`` names another): 8 B a pixel of the extended tile
+  (prev and the warped frame in) and 16 B a pixel of its crop (u and v
+  read and written in place); the block partials (~2.6 KB at 1080p) and
+  the latch are left out;
 - shift ablation (K8), at its script's shape only, by kind: the elements of
   the (256, 2048) input that the kind's 31 slices cover, each read once,
   and the (64, 1024) output written once ("aligned", the kind the smoke
@@ -94,7 +100,16 @@ OPS_PER_PIXEL = {
     "lk_fused_conf_mxu": 96,
 }
 
-KERNELS = (*BYTES_PER_PIXEL, "shift_ablation", "warp_mxu_ablation")
+KERNELS = (*BYTES_PER_PIXEL, "lk_fused_tile_round", "shift_ablation", "warp_mxu_ablation")
+# K6's tile round: the solve's operations a pixel of the extended tile (as
+# K6) and the add and its |du| a pixel of the crop, per plane.
+TILE_ROUND_OPS = (95, 4)
+
+
+def _crop(height: int, width: int, variant) -> tuple[int, int]:
+    """The crop of a tile round's (height, width) extended tile."""
+    ext = int(variant or 5) // 2 + 1
+    return height - 2 * ext, width - 2 * ext
 
 
 def _shift_ablation_elements(kind: str) -> int:
@@ -114,6 +129,9 @@ def call_bytes(name: str, batch: int, height: int, width: int,
     "gather")."""
     if name in BYTES_PER_PIXEL:
         return BYTES_PER_PIXEL[name] * batch * height * width
+    if name == "lk_fused_tile_round":
+        ch, cw = _crop(height, width, variant)
+        return batch * (8 * height * width + 16 * ch * cw)
     if name == "shift_ablation":
         if (batch, height, width) != (1, shift_ablation.OUT_R, shift_ablation.OUT_C):
             raise ValueError("shift_ablation has one shape: batch 1, "
@@ -128,11 +146,15 @@ def call_bytes(name: str, batch: int, height: int, width: int,
     raise KeyError(f"no byte count for kernel {name!r}")
 
 
-def call_ops(name: str, batch: int, height: int, width: int) -> int:
+def call_ops(name: str, batch: int, height: int, width: int,
+             variant: str | None = None) -> int:
     """f32 operations one call does (the ablations: their adds and
     multiplies)."""
     if name in OPS_PER_PIXEL:
         return OPS_PER_PIXEL[name] * batch * height * width
+    if name == "lk_fused_tile_round":
+        ch, cw = _crop(height, width, variant)
+        return batch * (TILE_ROUND_OPS[0] * height * width + TILE_ROUND_OPS[1] * ch * cw)
     if name == "shift_ablation":
         return 2 * (shift_ablation.N_SHIFTS - 1) * height * width
     if name == "warp_mxu_ablation":
@@ -144,7 +166,7 @@ def bound(name: str, batch: int, height: int, width: int,
           variant: str | None = None) -> tuple[float, str]:
     """(bound in ms, "bytes" or "operations"): the larger of the two times."""
     bytes_ms = call_bytes(name, batch, height, width, variant) / (HBM_GBPS * 1e9) * 1e3
-    ops_ms = call_ops(name, batch, height, width) / (F32_TFLOPS * 1e12) * 1e3
+    ops_ms = call_ops(name, batch, height, width, variant) / (F32_TFLOPS * 1e12) * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 

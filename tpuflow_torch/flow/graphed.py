@@ -23,6 +23,17 @@ now, and the VO front end captures its step again.
 CUDA tensors only: a CPU tensor raises (the CPU runs the eager driver,
 ``lucas_kanade_pyramidal_step``). A capture that fails raises; there is no
 fallback to the eager step.
+
+``TiledGraphedStream`` is the same for the tiled flow over an NCCL mesh
+(the reference jits ``tpuflow.sharding.tiled_lucas_kanade_pyramidal``'s
+``shard_map`` step): the device-controlled step (``sharding.
+tiled_pyramidal``, ``backend="cuda"``) issues the same launches and the
+same collectives every pair, so every rank captures one step, its halo
+exchanges, all-reduces and the final gather included, and each pair is
+one replay a rank. Every rank of the mesh must construct the stream and
+step it with the same frames, as with the eager call. A gloo mesh stages
+its collectives through host memory and is never graphed: it raises, as a
+CPU tensor does.
 """
 
 from __future__ import annotations
@@ -46,8 +57,9 @@ def _check_cuda(t: torch.Tensor, what: str) -> None:
 
 def bound_kernels() -> tuple:
     """The kernel wrappers the fast path's steps call, as bound now: the
-    flow's rounds and the VO front end's gated seed."""
-    return warp.warp_round, lk.refine_round, seed.seed_grid
+    flow's rounds (the tiled path's K6 round too) and the VO front end's
+    gated seed."""
+    return warp.warp_round, lk.refine_round, lk.fused_tile_round, seed.seed_grid
 
 
 def same_kernels(captured: tuple) -> bool:
@@ -134,6 +146,79 @@ class GraphedStream:
         if not same_kernels(self._kernels):
             raise RuntimeError("the kernel wrappers bound now are not the ones the graph "
                                "captured; make a new GraphedStream")
+        self._frame.copy_(frame)
+        self._graph.replay()
+        add_launch_counts(self.launches)
+        return self._u.clone(), self._v.clone()
+
+
+def graphable_mesh(mesh) -> bool:
+    """Whether a tiled step over ``mesh`` can be captured: an NCCL mesh on
+    the card (gloo stages its collectives through host memory)."""
+    import torch.distributed as dist
+
+    return mesh.device.type == "cuda" and dist.get_backend(mesh.spatial) == "nccl"
+
+
+class TiledGraphedStream:
+    """The tiled pyramidal flow over an NCCL mesh, one graph replay a frame
+    pair on each rank.
+
+    ``first`` is the stream's first global (B, H, W) frame batch on the
+    mesh's card, as ``tiled_lucas_kanade_pyramidal`` takes it. The step is
+    captured at construction for its shape, ``cfg`` and ``mesh``;
+    ``step(frames)`` returns the global (B, H, W) flow from the previous
+    batch to ``frames`` and keeps ``frames`` as the next pair's first. ``level_rounds`` is the graph's
+    int32 (local batch, levels) tensor of the rounds each level ran in the
+    latest step. Raises ``ValueError`` for a CPU tensor or a gloo mesh."""
+
+    def __init__(self, first: torch.Tensor, cfg: PyramidConfig, mesh) -> None:
+        from tpuflow_torch.sharding import tiled_pyramidal
+
+        _check_cuda(first, "the first frame")
+        if not graphable_mesh(mesh):
+            raise ValueError("a tiled CUDA graph needs an NCCL mesh on the card; a gloo mesh "
+                             "stages its collectives through host memory and runs eagerly")
+        if first.device != mesh.device:
+            raise ValueError(f"the frames lie on {first.device}, the mesh on {mesh.device}")
+        if first.ndim != 3:
+            raise ValueError(f"frames must be (B, H, W), got {tuple(first.shape)}")
+        self.cfg = cfg
+        self.mesh = mesh
+        self.shape = tuple(first.shape)
+        self.device = first.device
+        self._prev = first.to(torch.float32).clone()
+        self._frame = torch.zeros(self.shape, dtype=torch.float32, device=self.device)
+
+        def body():
+            u, v = tiled_pyramidal.tiled_lucas_kanade_pyramidal(
+                self._prev, self._frame, mesh, config=cfg, backend="cuda")
+            self._prev.copy_(self._frame)
+            return u, v, tiled_pyramidal.counters.level_rounds
+
+        saved = self._prev.clone()
+        self._graph, (self._u, self._v, self.level_rounds), self.launches, self._kernels = (
+            capture(body, torch.cuda.Stream(self.device)))
+        self._prev.copy_(saved)
+
+    def reset(self, first: torch.Tensor) -> None:
+        """Start the stream anew at ``first``, a frame of the captured shape."""
+        self._check(first)
+        self._prev.copy_(first)
+
+    def _check(self, frame: torch.Tensor) -> None:
+        _check_cuda(frame, "the frame")
+        if tuple(frame.shape) != self.shape or frame.device != self.device:
+            raise ValueError(f"frame {tuple(frame.shape)} on {frame.device}: the graph was "
+                             f"captured for {self.shape} on {self.device}")
+
+    def step(self, frame: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One pair: the global ``(u, v)`` from the previous frame to
+        ``frame``, caller-owned."""
+        self._check(frame)
+        if not same_kernels(self._kernels):
+            raise RuntimeError("the kernel wrappers bound now are not the ones the graph "
+                               "captured; make a new TiledGraphedStream")
         self._frame.copy_(frame)
         self._graph.replay()
         add_launch_counts(self.launches)

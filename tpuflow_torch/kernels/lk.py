@@ -29,6 +29,15 @@ fixed order, latches ``sdu / n_px < thr & sdv / n_px < thr`` and counts
 the round, so the driver reads nothing to the host and launches nothing
 else.
 
+``fused_tile_round`` is K6 as one round of the tiled pyramidal path under
+device control, with its plain version ``fused_tile_round_ref``: the fused
+solve on a tile extended by ``window // 2 + 1`` px, its crop zeroed
+outside the level's global interior and added into the tile's ``u``,
+``v`` in place, and block partials of |du|, |dv| over the crop, unless
+the element's latch in device memory is set (then nothing is read or
+written). It does not latch: the tiled loop reduces the sums across the
+mesh's ranks first and latches on the device from the reduced sums.
+
 Both take the reference's parameters, in its order and with its defaults;
 ``tile_rows`` is accepted and ignored (the TPU's tiling). Each takes one
 (H, W) plane or a (B, H, W) batch (the TPU kernels' batched entries,
@@ -62,7 +71,7 @@ WINDOWS = (3, 5, 7)
 # Kernel launches; incremented only where a kernel is launched.
 launch_counts = {
     "lk_refine": 0, "lk_refine_exact": 0, "lk_fused": 0, "lk_fused_conf": 0,
-    "lk_refine_mxu": 0, "lk_fused_mxu": 0, "lk_fused_conf_mxu": 0,
+    "lk_refine_mxu": 0, "lk_fused_mxu": 0, "lk_fused_conf_mxu": 0, "lk_fused_tile_round": 0,
 }
 
 
@@ -577,3 +586,146 @@ def lucas_kanade_fused(
     _build.check(lib, code, name)
     launch_counts[name] += 1
     return (u, v, det) if return_confidence else (u, v)
+
+
+def tile_round_depth(height: int, width: int, window_size: int) -> int:
+    """Rounded additions a pixel's |du| can pass through on its way into a
+    tile round's sum, ``torch.sum`` of the block partials taken as the
+    worst order (one add a partial): a lane's adds down its walk (the
+    first exact), the warp's 5-level butterfly, the adds across the
+    block's 4 warps, then the partials' sum. ``height``, ``width`` are the
+    extended tile's. The terms are non-negative, so the float32 sum lies
+    within ``depth * 2**-24`` relative of the exact sum (needs the
+    library)."""
+    lib = _build.load()
+    rows = lib.tpuflow_lk_walk_rows(height, width, window_size)
+    threads = lib.tpuflow_lk_walk_threads()
+    return rows - 1 + 5 + threads // 32 - 1 + refine_blocks(height, width, window_size) - 1
+
+
+def _check_tile_round(prev_ext, warped_ext, u, v, ctrl, window_size, parts):
+    _check_window(window_size)
+    _check_planes((prev_ext, warped_ext), "the extended tiles")
+    _check_planes((u, v), "the tile's flow")
+    ext = window_size // 2 + 1
+    h, w = u.shape[-2:]
+    if (u.ndim != prev_ext.ndim or u.shape[:-2] != prev_ext.shape[:-2]
+            or prev_ext.shape[-2:] != (h + 2 * ext, w + 2 * ext)):
+        raise ValueError(f"the extended tiles must be the flow's tile extended by {ext} px a "
+                         f"side: got {tuple(prev_ext.shape)} for flow {tuple(u.shape)}")
+    batch = u.shape[0] if u.ndim == 3 else 1
+    want = (CTRL_ROWS, batch) if u.ndim == 3 else (CTRL_ROWS,)
+    if ctrl.dtype != torch.int32 or tuple(ctrl.shape) != want:
+        raise ValueError(f"ctrl must be an int32 tensor of shape {want} (latch, -, rounds)")
+    dev = _device_of((prev_ext, warped_ext, u, v, ctrl)
+                     + (() if parts is None else (parts,)))
+    return dev, batch, ext
+
+
+def tile_round_delta_ref(prev_ext, warped_ext, *, gy0: int, gx0: int, gh: int, gw: int,
+                         window_size: int = 5, det_threshold: float = 1e-4,
+                         relaxed_order: bool = False):
+    """The (du, dv) a tile round adds: K6's plain solve on the extended
+    tiles, cropped by ``window_size // 2 + 1`` px a side and zeroed outside
+    the level's global interior."""
+    ext = window_size // 2 + 1
+    half = window_size // 2
+    h, w = prev_ext.shape[-2] - 2 * ext, prev_ext.shape[-1] - 2 * ext
+    du_e, dv_e, _, _ = _lk_solve_ref(prev_ext, warped_ext, window_size, det_threshold,
+                                     relaxed_order)
+    rows = torch.arange(h, device=du_e.device)[:, None] + gy0
+    cols = torch.arange(w, device=du_e.device)[None, :] + gx0
+    interior = (rows >= half) & (rows < gh - half) & (cols >= half) & (cols < gw - half)
+    return (torch.where(interior, du_e[..., ext:ext + h, ext:ext + w], 0.0),
+            torch.where(interior, dv_e[..., ext:ext + h, ext:ext + w], 0.0))
+
+
+def fused_tile_round_ref(
+    prev_ext: torch.Tensor,
+    warped_ext: torch.Tensor,
+    flow_u: torch.Tensor,
+    flow_v: torch.Tensor,
+    ctrl: torch.Tensor,
+    *,
+    gy0: int,
+    gx0: int,
+    gh: int,
+    gw: int,
+    window_size: int = 5,
+    det_threshold: float = 1e-4,
+    relaxed_order: bool = False,
+    parts: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of ``fused_tile_round``: the same updates of
+    ``flow_u``, ``flow_v`` and ``ctrl``; the sums over the whole crop
+    (``parts`` is the kernel's and is left alone)."""
+    du, dv = tile_round_delta_ref(prev_ext, warped_ext, gy0=gy0, gx0=gx0, gh=gh, gw=gw,
+                                  window_size=window_size, det_threshold=det_threshold,
+                                  relaxed_order=relaxed_order)
+    batched = flow_u.ndim == 3
+    ran = ctrl[0] == 0
+    run = ran.reshape((-1, 1, 1) if batched else ())
+    flow_u.copy_(torch.where(run, flow_u + du, flow_u))
+    flow_v.copy_(torch.where(run, flow_v + dv, flow_v))
+    ctrl[2] += ran.to(torch.int32)
+    return torch.stack([du.abs().sum(dim=(-2, -1)), dv.abs().sum(dim=(-2, -1))])
+
+
+def fused_tile_round(
+    prev_ext: torch.Tensor,
+    warped_ext: torch.Tensor,
+    flow_u: torch.Tensor,
+    flow_v: torch.Tensor,
+    ctrl: torch.Tensor,
+    *,
+    gy0: int,
+    gx0: int,
+    gh: int,
+    gw: int,
+    window_size: int = 5,
+    det_threshold: float = 1e-4,
+    relaxed_order: bool = False,
+    parts: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """One round of the tiled path on a halo-extended tile (K6's round
+    form): the CUDA kernel for CUDA tensors (one launch), the plain
+    version for CPU tensors; neither reads a flag to the host.
+
+    ``prev_ext``, ``warped_ext`` are the (H + 2 ext, W + 2 ext) tiles (or
+    (B, ...) batches) extended by ``ext = window_size // 2 + 1`` px;
+    ``flow_u``, ``flow_v`` the (H, W) tile's flow, to which the crop
+    ``[ext:ext + H, ext:ext + W]`` of K6's (du, dv) is added in place, zero
+    outside the global interior (``window_size // 2`` px inside the level's
+    ``gh`` x ``gw`` border, the tile's origin at ``(gy0, gx0)``). ``ctrl``
+    is the int32 (3,) or (3, B) control: row 0 the latch (set: the round
+    is skipped, nothing read or written), row 2 the rounds run (the round
+    adds 1); row 1 is left alone. Returns the (2,) or (2, B) sum|du|,
+    sum|dv| over the crop: ``torch.sum`` of the kernel's block partials,
+    which a skipped round does not write (``parts``, optional, (2, B,
+    ``refine_blocks(H + 2 ext, W + 2 ext, window)``) float32, holds
+    them; a skipped round's sums are whatever it held)."""
+    dev, batch, ext = _check_tile_round(prev_ext, warped_ext, flow_u, flow_v, ctrl,
+                                        window_size, parts)
+    kw = dict(gy0=gy0, gx0=gx0, gh=gh, gw=gw, window_size=window_size,
+              det_threshold=det_threshold, relaxed_order=relaxed_order)
+    if dev.type == "cpu":
+        return fused_tile_round_ref(prev_ext, warped_ext, flow_u, flow_v, ctrl, **kw)
+
+    lib = _build.load()
+    he, we = prev_ext.shape[-2:]
+    n_blocks = lib.tpuflow_lk_refine_blocks(he, we, window_size)
+    if parts is None:
+        parts = torch.empty((2, batch, n_blocks), dtype=torch.float32, device=dev)
+    elif parts.shape != (2, batch, n_blocks) or parts.dtype != torch.float32:
+        raise ValueError(f"parts must be a float32 tensor of shape {(2, batch, n_blocks)}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.tpuflow_lk_fused_tile_round(
+        prev_ext.data_ptr(), warped_ext.data_ptr(), flow_u.data_ptr(), flow_v.data_ptr(),
+        ctrl.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), batch, he, we, ext, gy0, gx0,
+        gh, gw, window_size, int(relaxed_order), float(det_threshold), stream)
+    _build.check(lib, code, "lk_fused_tile_round")
+    launch_counts["lk_fused_tile_round"] += 1
+    if flow_u.ndim == 2:
+        return parts[:, 0].sum(dim=1)
+    # Each element's partials summed alone, as its 2-D launch's are.
+    return torch.stack([parts[:, b].contiguous().sum(dim=1) for b in range(batch)], dim=1)

@@ -44,10 +44,20 @@ class Counters:
     level_gathers: int = 0   # pyramid levels gathered whole (tiled_pyramidal)
     gather_bytes: int = 0    # bytes this rank contributed to all-gathers
     all_reduces: int = 0     # sums reduced over a group
+    convergence_reads: int = 0  # early-exit flags read to the host (the parity loop)
+    # Rounds run at each level by the latest device-controlled tiled solve:
+    # an int32 (local batch, levels) tensor on the mesh's device, written
+    # by the kernels (never read here); None after a host-steered solve.
+    level_rounds: torch.Tensor | None = None
 
     def reset(self) -> None:
         for f in dataclasses.fields(self):
-            setattr(self, f.name, 0)
+            setattr(self, f.name, None if f.name == "level_rounds" else 0)
+
+    def traffic(self) -> dict[str, int]:
+        """The counts, without ``level_rounds``."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+                if f.name != "level_rounds"}
 
 
 counters = Counters()
@@ -62,7 +72,9 @@ def through_host(group, t: torch.Tensor) -> bool:
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     """Sum ``t`` over ``group`` (the world when None); returns the sum on
     ``t``'s device. Every rank gets the same bits, so a decision taken
-    from the result is the same on every rank."""
+    from the result is the same on every rank. Under NCCL the sum stays
+    on the card and nothing is read to the host, so a CUDA graph can
+    capture it."""
     counters.all_reduces += 1
     buf = t.detach().to("cpu", copy=True) if through_host(group, t) else t.detach().clone()
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
@@ -71,11 +83,17 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
 
 def all_gather(t: torch.Tensor, group) -> list[torch.Tensor]:
     """Every rank's ``t`` (equal shapes) in group-rank order, on ``t``'s
-    device."""
+    device. Under NCCL into one tensor on the card (views of it come back),
+    which a CUDA graph can capture."""
     staged = through_host(group, t)
     src = (t.to("cpu") if staged else t).contiguous()
-    out = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    n = dist.get_world_size(group)
     counters.gather_bytes += src.numel() * src.element_size()
+    if src.is_cuda:
+        out = torch.empty((n, *src.shape), dtype=src.dtype, device=src.device)
+        dist.all_gather_into_tensor(out, src, group=group)
+        return list(out.unbind(0))
+    out = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(out, src, group=group)
     return [o.to(t.device) for o in out] if staged else out
 
@@ -165,7 +183,9 @@ def make_flow_mesh(
     creates the mesh's process groups (all ranks call ``dist.new_group``
     for every sub-group, in one order) and runs one collective on each
     group the rank belongs to, so that NCCL's communicators exist before
-    the first halo exchange. ``device`` defaults to the card
+    the first halo exchange; under NCCL it also runs one halo exchange, so
+    that every neighbour pair's point-to-point communicator exists before
+    a CUDA graph captures a send. ``device`` defaults to the card
     ``cuda:(LOCAL_RANK % device_count)``; without a card pass ``"cpu"``.
     Raises ``ValueError`` when the world has fewer ranks than the mesh, or
     when an NCCL mesh puts two ranks on one card."""
@@ -196,6 +216,11 @@ def make_flow_mesh(
         warm = torch.zeros(1, device=dev)
         for g in (mesh_group, spatial):
             all_reduce_sum(warm, g)
+        if dist.get_backend() == "nccl":
+            # ProcessGroupNCCL makes a pair's communicator at its first send.
+            from tpuflow_torch.sharding.halo import exchange_halo_2d
+
+            exchange_halo_2d(torch.zeros((2, 2), device=dev), 1, mesh, boundary="zero")
     return mesh
 
 

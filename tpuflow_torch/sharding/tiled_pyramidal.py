@@ -36,10 +36,34 @@ band.
 ``backend="cuda"`` runs the single-device fast path's kernels on the
 extended tiles: the banded warp (K1 packed-u8 on the finest level, K2
 packed-u16 on the coarse ones, K4 where the config packs nothing) and the
-fused LK solve K6; replicated levels run the single-device fast path's
-level under device control (``warp.warp_round`` and ``lk.refine_round``,
-K3 relaxed order, K5 exact order) at the static band, with no host read.
-For CPU tensors each wrapper runs its plain version.
+fused LK solve K6, and keeps the reference's control flow on the device,
+as the untiled fast path does. The reference refines each tiled level in
+a ``lax.while_loop`` whose condition is ``i < iterations & ~converged``,
+``converged`` taken from ``lax.psum`` of the tiles' sum|du|, sum|dv|.
+Here every tiled level launches all ``cfg.iterations`` rounds, and each
+round reads the level's int32 latch from device memory: the flow is
+clipped to the band where the latch is clear (a frozen flow is never
+re-clipped), the warp (``warp.warp_round``) and K6's round form
+(``lk.fused_tile_round``: the solve on the halo-extended tile, its crop
+added into the tile's flow in place, block partials of |du|, |dv|) skip
+where it is set; the partials are summed, all-reduced over the batch
+slice on the card (NCCL) and ORed into the latch on the device as
+``s / npix < thr`` in float32. Every rank gets the same reduced bits, so
+every latch is the same, and every rank issues the same collectives in
+the same order whether or not a round is skipped. No value is read to
+the host, so one step is a fixed sequence of launches and collectives,
+which ``flow.graphed.TiledGraphedStream`` captures as a CUDA graph on
+each rank of an NCCL mesh. Each level's latch and rounds run sit in a
+per-element (levels, 3) int32 table; ``counters.level_rounds`` is the
+latest call's (local batch, levels) rounds, a device tensor. Replicated
+levels run the single-device fast path's level under device control
+(``warp.warp_round`` and ``lk.refine_round``, K3 relaxed order, K5 exact
+order) at the static band, with no host read and no collective. For CPU
+tensors each wrapper runs its plain version.
+
+The parity path (``backend="torch"``) keeps the reference's loop with
+the early exit read to the host once a round (``counters.
+convergence_reads``).
 """
 
 from __future__ import annotations
@@ -49,7 +73,7 @@ import torch.nn.functional as F
 
 from tpuflow_torch.core import ops
 from tpuflow_torch.core.config import PyramidConfig
-from tpuflow_torch.flow.pyramidal import _refine_level, _refine_level_device
+from tpuflow_torch.flow.pyramidal import _refine_level, _refine_level_device, _warp_packing
 from tpuflow_torch.flow.single_scale import BACKENDS
 from tpuflow_torch.kernels import lk, torch_ref, warp
 from tpuflow_torch.sharding import dist_pyramid
@@ -147,12 +171,19 @@ def _local_lk_cuda(prev_ext, warped, gy0, gx0, gh, gw, mesh, window, det_thresho
                         gy0, gx0, gh, gw, half)
 
 
-def _refine_tiled(prev_t, curr_t, u, v, dims, lvl, mesh, cfg, backend):
-    """Refinement rounds on this rank's tiles of level ``lvl``."""
+def _tile_origin(dims, lvl, mesh):
+    """Level ``lvl``'s global shape and this rank's tile origin there."""
     lh, lw = dims[lvl]
-    th, tw = lh // mesh.ty, lw // mesh.tx
     _, iy, ix = mesh.coords
-    gy0, gx0 = iy * th, ix * tw
+    return lh, lw, iy * (lh // mesh.ty), ix * (lw // mesh.tx)
+
+
+def _refine_tiled(prev_t, curr_t, u, v, dims, lvl, mesh, cfg, backend):
+    """Refinement rounds on this rank's tiles of level ``lvl``, the early
+    exit read to the host once a round (the parity path's loop; with
+    ``backend="cuda"`` the kernels' host-steered twin of
+    ``_refine_tiled_device``)."""
+    lh, lw, gy0, gx0 = _tile_origin(dims, lvl, mesh)
     finest = lvl == len(dims) - 1
     use_u8 = cfg.warp_packed_u8 and finest and backend == "cuda"
     use_u16 = cfg.warp_packed_u16 and not use_u8 and backend == "cuda"
@@ -187,13 +218,66 @@ def _refine_tiled(prev_t, curr_t, u, v, dims, lvl, mesh, cfg, backend):
         # Global means over the batch slice's tiles; every rank reads the
         # same reduced bits, so every rank runs the same rounds.
         sums = all_reduce_sum(torch.stack([du.abs().sum(), dv.abs().sum()]), mesh.spatial)
+        counters.convergence_reads += 1
         if bool((sums[0] / npix < thr) & (sums[1] / npix < thr)):
             break
     return u, v
 
 
-def _one(prev_t, curr_t, mesh, cfg, backend, dims, sharded):
-    """Tiled pyramidal flow of one frame pair from this rank's finest tiles."""
+def _refine_tiled_device(prev_t, curr_t, u, v, dims, lvl, mesh, cfg, ctrl):
+    """``cfg.iterations`` rounds of the fast path on this rank's tiles of
+    level ``lvl`` under device control: the reference's sharded
+    ``lax.while_loop`` with its ``lax.psum`` early exit. ``ctrl`` is the
+    level's (3,) int32 latch, -, rounds run, all 0 on entry (row 1 is the
+    refine kernel's ticket on a replicated level; unused here)."""
+    lh, lw, gy0, gx0 = _tile_origin(dims, lvl, mesh)
+    md, mdv = cfg.max_disp, cfg.max_disp_v_effective
+    warp_halo = md + 1
+    window = cfg.window_size
+    ext = window // 2 + 1
+    thr = cfg.convergence_threshold
+    npix = float(lh * lw)
+    th, tw = u.shape
+    packing = _warp_packing(cfg, lvl == len(dims) - 1)
+    latch = ctrl[0:1]
+    pad = (warp_halo,) * 4
+    # The frames' extended tiles do not change between rounds.
+    curr_ext = halo_mod.exchange_halo_2d(curr_t, warp_halo, mesh, boundary="zero")
+    prev_ext = halo_mod.exchange_halo_2d(prev_t, ext, mesh, boundary="symm")
+    # Round 0 always runs (the latch starts clear), so what a skipped
+    # round keeps here was written before.
+    warped_ext = torch.empty_like(curr_ext)
+    parts = None
+    if curr_t.is_cuda:
+        n_blocks = lk.refine_blocks(th + 2 * ext, tw + 2 * ext, window)
+        parts = torch.zeros((2, 1, n_blocks), dtype=torch.float32, device=u.device)
+    frozen = latch != 0
+    for i in range(cfg.iterations):
+        # A frozen flow keeps the bits the round that latched left it.
+        u = torch.where(frozen, u, u.clamp(-md, md))
+        v = torch.where(frozen, v, v.clamp(-mdv, mdv))
+        warp.warp_round(curr_ext, F.pad(u, pad), F.pad(v, pad), warped_ext, latch, max_disp=md,
+                        ladder=(mdv,), packing=packing)
+        val = warped_ext[warp_halo:warp_halo + th, warp_halo:warp_halo + tw]
+        warped = torch.where(_inside(u, v, gy0, gx0, lh, lw), val, 0.0)
+        warped_x = halo_mod.exchange_halo_2d(warped, ext, mesh, boundary="symm")
+        sums = lk.fused_tile_round(prev_ext, warped_x, u, v, ctrl, gy0=gy0, gx0=gx0, gh=lh,
+                                   gw=lw, window_size=window, det_threshold=cfg.det_threshold,
+                                   parts=parts)
+        if i + 1 == cfg.iterations:
+            break  # the last round's latch decides nothing
+        # Global means over the batch slice's tiles, reduced on the card:
+        # every rank gets the same bits, so every rank latches alike.
+        s_all = all_reduce_sum(sums, mesh.spatial)
+        latch.bitwise_or_((s_all / npix < thr).all().to(torch.int32))
+        frozen = latch != 0
+    return u, v
+
+
+def _one(prev_t, curr_t, mesh, cfg, backend, dims, sharded, ctrl):
+    """Tiled pyramidal flow of one frame pair from this rank's finest
+    tiles. ``ctrl`` is the pair's (levels, 3) int32 latch table, all 0 on
+    entry, or None for the host-steered loop."""
     n_levels = cfg.levels
     sigma = 1.0 / cfg.scale_factor
     first_sharded = sharded.index(True)
@@ -233,8 +317,9 @@ def _one(prev_t, curr_t, mesh, cfg, backend, dims, sharded):
             if backend == "cuda":
                 # The fast path's level under device control, at the static
                 # band: no host read, no collective.
-                ctrl = torch.zeros(lk.CTRL_ROWS, dtype=torch.int32, device=u.device)
-                u, v = _refine_level_device(full_prev[lvl], full_curr[lvl], u, v, cfg, ctrl,
+                level_ctrl = ctrl[lvl] if ctrl is not None else torch.zeros(
+                    lk.CTRL_ROWS, dtype=torch.int32, device=u.device)
+                u, v = _refine_level_device(full_prev[lvl], full_curr[lvl], u, v, cfg, level_ctrl,
                                             None, finest=False)
             else:
                 u, v, _ = _refine_level(full_prev[lvl], full_curr[lvl], u, v, cfg,
@@ -249,8 +334,12 @@ def _one(prev_t, curr_t, mesh, cfg, backend, dims, sharded):
         else:
             u_t, v_t = dist_pyramid.sharded_upsample_flow(u_t, v_t, dims[lvl - 1], (lh, lw),
                                                           mesh=mesh)
-        u_t, v_t = _refine_tiled(tiles_prev[lvl], tiles_curr[lvl], u_t, v_t, dims, lvl, mesh,
-                                 cfg, backend)
+        if ctrl is not None:
+            u_t, v_t = _refine_tiled_device(tiles_prev[lvl], tiles_curr[lvl], u_t, v_t, dims, lvl,
+                                            mesh, cfg, ctrl[lvl])
+        else:
+            u_t, v_t = _refine_tiled(tiles_prev[lvl], tiles_curr[lvl], u_t, v_t, dims, lvl,
+                                     mesh, cfg, backend)
     return u_t, v_t
 
 
@@ -267,11 +356,23 @@ def tiled_lucas_kanade_pyramidal(
     the global (B, H, W) flow back. Matches ``lucas_kanade_pyramidal(...,
     rtl_clamp=True)`` (the module docstring states how closely) with
     ``backend="torch"``; ``backend="cuda"`` swaps the tile's warp and LK
-    solve for the fast path's kernels. Raises ``ValueError`` where the mesh
-    does not divide the frames or the finest level's tiles are no wider
-    than twice the warp halo (``max_disp + 1``)."""
+    solve for the fast path's kernels and keeps the early exit on the
+    device (no host read). Raises ``ValueError`` where the mesh does not
+    divide the frames or the finest level's tiles are no wider than twice
+    the warp halo (``max_disp + 1``)."""
+    return _tiled_solve(frame_prev, frame_curr, mesh, config, backend,
+                        device_control=backend == "cuda")
+
+
+def _tiled_solve(frame_prev, frame_curr, mesh, config, backend, device_control):
+    """``tiled_lucas_kanade_pyramidal`` under device control (one latch
+    table a pair; ``counters.level_rounds`` set) or with the early exit
+    read to the host (``device_control=False``; with ``backend="cuda"`` the
+    same kernels' host-steered loop, the twin device control is held to)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if device_control and backend != "cuda":
+        raise ValueError("device control runs the kernels: backend='cuda'")
     cfg = config or PyramidConfig()
     check_tiling(frame_prev.shape, mesh)
     _, gh, gw = frame_prev.shape
@@ -285,6 +386,13 @@ def tiled_lucas_kanade_pyramidal(
         )
     prev_l = local_tiles(frame_prev, mesh)
     curr_l = local_tiles(frame_curr, mesh)
-    outs = [_one(p, c, mesh, cfg, backend, dims, sharded) for p, c in zip(prev_l, curr_l)]
+    outs, ctrls = [], []
+    for p, c in zip(prev_l, curr_l):
+        ctrl = None
+        if device_control:
+            ctrl = torch.zeros((cfg.levels, lk.CTRL_ROWS), dtype=torch.int32, device=p.device)
+            ctrls.append(ctrl)
+        outs.append(_one(p, c, mesh, cfg, backend, dims, sharded, ctrl))
+    counters.level_rounds = torch.stack([c[:, 2] for c in ctrls]) if ctrls else None
     return gather_tiles(torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs]),
                         mesh)

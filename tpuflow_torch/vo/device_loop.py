@@ -5,15 +5,19 @@ reseeding, with no host read of its own.
 Counterpart of ``tpuflow.vo.device_loop``. The reference jits the step
 into one device program and ``lax.scan``s chunks of frames. Here ``step``
 is eager PyTorch on the frames' device, and ``scan_steps`` replays it as a
-CUDA graph on the card (``backend="cuda"``, no mesh): the step is captured
-once per frame shape and device for each front end (its config, fb check
-and grid), its ``FrontEndState`` updated in place inside the graph, and
-each replay's ``ObsRecord`` copied out. A step is captured again where the
-kernel wrappers bound now are not the ones it captured
+CUDA graph on the card (``backend="cuda"``, no mesh or an NCCL mesh): the
+step is captured once per frame shape and device for each front end (its
+config, fb check, grid and mesh), its ``FrontEndState`` updated in place
+inside the graph, and each replay's ``ObsRecord`` copied out. With an
+NCCL mesh every rank captures the tiled flow's step, its halo exchanges,
+all-reduces and gathers included, and replays it in step with the others
+(the tiled path keeps its early exit on the device,
+``sharding.tiled_pyramidal``). A step is captured again where the kernel
+wrappers bound now are not the ones it captured
 (``graphed.bound_kernels``), so a swapped wrapper is never bypassed.
 Elsewhere (the CPU, the parity backend, whose flow reads its early exit to
-the host, and a mesh, whose collectives keep the ranks in step) a chunk is
-a loop over eager steps.
+the host, and a gloo mesh, which stages its collectives through host
+memory) a chunk is a loop over eager steps.
 Two things keep the step free of host reads:
 
 - every shape is static: the track table is fixed-capacity, reseeding
@@ -317,8 +321,9 @@ class FrontEnd:
 
     def graphed(self, frames: torch.Tensor) -> bool:
         """Whether ``scan_steps`` replays a CUDA graph for these frames: the
-        fast path on the card with no mesh."""
-        return self.backend == "cuda" and self.mesh is None and frames.device.type == "cuda"
+        fast path on the card, with no mesh or an NCCL mesh."""
+        return (self.backend == "cuda" and frames.device.type == "cuda"
+                and (self.mesh is None or graphed.graphable_mesh(self.mesh)))
 
     def scan_steps(
         self, state: FrontEndState, frames: torch.Tensor
