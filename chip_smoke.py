@@ -138,9 +138,11 @@ failure raises and the script exits non-zero):
    bound); the step as ``flow.TiledGraphedStream`` replays over 8
    alternating pairs and the still pair, bit for bit the eager steps; ms
    a pair eager and graphed (host clock, median and spread of 3), device
-   busy of each and its parts; against the untiled ``rtl_clamp`` path; K6's
-   tile round timed at each extended-tile shape, running and skipped,
-   beside its bound and its plain version;
+   busy of each and its parts, the replay's device launches
+   (torch.profiler); against the untiled ``rtl_clamp`` path; K6's tile
+   round timed at each extended-tile shape, running and skipped, beside
+   its bound, its plain version, an empty kernel on its grid and the
+   launch floor;
    ``tiled_lucas_kanade_single_scale`` against
    ``lucas_kanade_single_scale(backend="torch")``; the mesh-tiled VO
    session graphed and eager at world 1 (identical records) against an
@@ -158,8 +160,9 @@ failure raises and the script exits non-zero):
    ``ba.solve(8)`` over the ``[vo]`` phase's 1080p problem in 4
    observation shards against the unsharded solve, twice; (e) NCCL with
    one rank per card where the machine has two cards or more, eager and
-   graphed (a refused capture printed) (``--mesh-cards-only`` runs (e)
-   alone);
+   graphed (a refused capture printed; the replay's device busy and
+   launches), every launch of one eager step a config held against its
+   plain version on every rank (``--mesh-cards-only`` runs (e) alone);
 9. profile: device time by kernel and the device's busy share over 4 frames
    of each stream (torch.profiler);
 10. 4k (``[4k]`` lines): the port above 1080p, on ``--seed`` frames at
@@ -544,13 +547,14 @@ MESH_BA_ATOL = 1e-4
 # Phase 8 (a): each tiled step timed as a stream of MESH_PAIRS pairs (b, a,
 # b, ...), eager and graphed, MESH_RUNS times.
 MESH_PAIRS = 8
-# K6's tile round: its sums are torch.sum of its block partials, whose
-# worst-order depth (kernels.lk.tile_round_depth: a lane's adds down its
-# walk, the warp's butterfly, the block's warps, one add a partial) bounds
-# them within gamma_depth = depth u / (1 - depth u) of the exact (float64)
-# sum of the same |du|. torch's own sum of the same du (the plain
-# version's du.abs().sum()) adds ~n / threads terms a thread and then
-# trees, far shallower, so the two lie within 2 gamma_depth of each other.
+# K6's tile round: its sums are added in the kernel from its block
+# partials, in an order whose depth (kernels.lk.tile_round_depth: a lane's
+# adds down its walk, the warp's butterfly, the block's warps, then in the
+# last block a thread's strided run of partials, the butterfly and the
+# warps) bounds them within gamma_depth = depth u / (1 - depth u) of the
+# exact (float64) sum of the same |du|. torch's own sum of the same du (the
+# plain version's du.abs().sum()) adds ~n / threads terms a thread and
+# then trees, so the two lie within 2 gamma_depth of each other.
 MESH_WALL_S = 300.0  # each group of rank processes, start-up included
 # The warps' vertical bands (the adaptive ladder's 2/3/8, none, the widest).
 WARP_BANDS = (0, 2, 3, 8, 31)
@@ -1880,6 +1884,13 @@ def busy_ms(run) -> tuple[float, ...]:
     return busy_of(device_events(run))
 
 
+def device_launches(events) -> tuple[int, int]:
+    """The kernels, and the copies and fills, that the device ran in
+    ``events``."""
+    kernels = sum(e.count for e in events if not e.key.startswith("Mem"))
+    return kernels, sum(e.count for e in events) - kernels
+
+
 # The round kernels' names in a trace -> their launch counters: the warp's
 # first template argument is its packing, the column walk's second its
 # order (true: relaxed, K3) and its fourth its mode (0: refine).
@@ -2747,13 +2758,16 @@ def mesh_rank(rank: int, work: str, device: str) -> None:
 
 def nccl_rank(rank: int, world: int, work: str, shape) -> None:
     """One rank per card over NCCL (phase 8 e): the tiled flow under each
-    config, its launches a frame pair and host-clock ms."""
+    config, its launches a frame pair and host-clock ms, then one eager
+    step with every kernel launch held against its plain version."""
     initialize_multihost(f"file://{work}/store_nccl", world, rank, backend="nccl")
     mesh = make_flow_mesh(*shape)
     ops.pin_f32_matmul()
     frames = np.load(f"{work}/frames.npz")
     a, b = (torch.from_numpy(frames[k]).to(mesh.device) for k in ("a", "b"))
     report, arrays = {}, {}
+    found: dict = {}
+    tiles: dict = {}
     for config in MESH_CONFIGS:
         cfg = PYRAMID_CONFIGS[config]
 
@@ -2777,12 +2791,21 @@ def nccl_rank(rank: int, world: int, work: str, shape) -> None:
             report[config]["graphed_same"] = bool(torch.equal(gu, u) and torch.equal(gv, v))
             report[config]["graphed_ms"] = [t / MESH_PAIRS for t in _host_ms(
                 lambda: [stream.step(c[None]) for _, c in _alternating(a, b)])]
+            events = device_events(lambda: stream.step(b[None]))
+            report[config]["graphed_device_ms"] = busy_of(events)
+            report[config]["graphed_launches"] = device_launches(events)
             del stream
         except Exception as exc:  # noqa: BLE001 - the refusal is the reading
             report[config]["graphed_error"] = f"{type(exc).__name__}: {exc}"[:2000]
+        with checked_kernels(found, tiles):
+            run()
         dist.barrier(mesh.group)
         if rank == 0:
             arrays[f"{config}/u"], arrays[f"{config}/v"] = u[0].cpu().numpy(), v[0].cpu().numpy()
+    report["kernels"] = {n: {"x".join(map(str, s)): e for s, e in shapes.items()}
+                         for n, shapes in found.items()}
+    report["tile_sums"] = {"x".join(map(str, s)): {k: t[k] for k in (
+        "running", "skipped", "sum_rel", "sum_rel_f64", "gamma")} for s, t in tiles.items()}
     dist.barrier()
     np.savez(f"{work}/nccl{rank}.npz", **arrays)
     with open(f"{work}/nccl{rank}.json", "w") as fh:
@@ -2805,7 +2828,8 @@ def check_nccl_across_cards(dev, work: str, untiled: dict, untiled_dev: dict) ->
     got = np.load(f"{work}/nccl0.npz")
     print(f"[mesh] (e) NCCL across {world} of {cards} cards, one rank each, mesh "
           f"{_mesh_name(shape)}: ran in {time.perf_counter() - t0:.1f} s (start-up included)")
-    for config, rep0 in reports[0].items():
+    for config in MESH_CONFIGS:
+        rep0 = reports[0][config]
         if any(r[config]["digest"] != rep0["digest"] for r in reports):
             raise AssertionError(f"mesh nccl {config}: the ranks hold different flows")
         if "graphed_error" in rep0:
@@ -2813,11 +2837,16 @@ def check_nccl_across_cards(dev, work: str, untiled: dict, untiled_dev: dict) ->
                   f"on rank 0: {rep0['graphed_error']}")
         else:
             gms = sorted(rep0["graphed_ms"])
+            kernels, copies = rep0["graphed_launches"]
+            busy = _device_note([r[config]["graphed_device_ms"] for r in reports],
+                                untiled_dev[config])
             print(f"[mesh] (e) {_mesh_name(shape)} {config} graphed over NCCL "
                   f"(TiledGraphedStream on every rank): first replay bit for bit the eager "
                   f"step on every rank: {all(r[config]['graphed_same'] for r in reports)}; "
                   f"{gms[len(gms) // 2]:.3f} ms a pair (host clock, median of {len(gms)} "
-                  f"streams of {MESH_PAIRS}, spread {gms[0]:.3f}-{gms[-1]:.3f})")
+                  f"streams of {MESH_PAIRS}, spread {gms[0]:.3f}-{gms[-1]:.3f}); rank 0's "
+                  f"device launches a replay {kernels} kernels, {copies} copies and fills; "
+                  f"graphed {busy}")
             if not all(r[config]["graphed_same"] for r in reports):
                 raise AssertionError(f"mesh nccl {config}: graphed differs from eager")
         u, v = (torch.from_numpy(got[f"{config}/{c}"]).to(dev) for c in "uv")
@@ -2833,6 +2862,19 @@ def check_nccl_across_cards(dev, work: str, untiled: dict, untiled_dev: dict) ->
               f"{_device_note([r[config]['device_ms'] for r in reports], untiled_dev[config])}")
         if not (p999 <= MESH_P999 and mx <= MESH_MAX):
             raise AssertionError(f"mesh nccl {config}: p99.9 {p999}, max {mx}")
+    for shape_key, t in sorted(reports[0]["tile_sums"].items()):
+        print(f"[mesh] (e) lk_fused_tile_round on {shape_key} extended tiles: {t['running']} "
+              f"running, {t['skipped']} skipped launches a rank 0; sums within {t['sum_rel']:.3g} "
+              f"of du.abs().sum() (limit {2 * t['gamma']:.3g}), {t['sum_rel_f64']:.3g} of the "
+              f"float64 sum (limit {t['gamma']:.3g})")
+    for name in sorted(reports[0]["kernels"]):
+        worst = max(max(r["kernels"][name].values()) for r in reports)
+        print(f"[mesh] (e) {name} on tile shapes {sorted(reports[0]['kernels'][name])}, every "
+              f"rank: max |d| against the plain version {worst:.3g}")
+        if worst != 0.0:
+            raise AssertionError(f"mesh nccl: {name} differs from its plain version on a tile")
+    if "lk_fused_tile_round" not in reports[0]["kernels"]:
+        raise AssertionError("mesh nccl: no tile round was checked")
 
 
 def _device_note(per_rank: list, untiled) -> str:
@@ -2886,9 +2928,11 @@ def time_tile_round(tiles: dict, smi: str) -> dict:
     """Phase 8 (a): K6's tile round at each extended-tile shape the 1080p
     world-1 step gave it (the first running launch's inputs): a skipped
     call (latch set) bit-exact to the plain version (u, v and the control
-    untouched); device ms running and skipped beside the bound and the
-    plain version's. Returns the kernel's reading (the finest shape's)."""
+    untouched); device ms running and skipped beside the bound, the plain
+    version's, an empty kernel on the round's grid and the one-block launch
+    floor. Returns the kernel's reading (the finest shape's)."""
     reading: dict = {"max_abs_err": 0.0, "by_shape": {}}
+    floor_ms = device_ms(_build.launch_empty)
     for shape in sorted(tiles, reverse=True):
         (prev_ext, warped_ext, u, v), kw = tiles[shape]["inputs"]
         kw = {k: x for k, x in kw.items() if k != "parts"}
@@ -2906,16 +2950,22 @@ def time_tile_round(tiles: dict, smi: str) -> dict:
                                                         **kw))
         plain_ms = device_ms(lambda: lk.fused_tile_round_ref(prev_ext, warped_ext, us, vs, run,
                                                              **kw))
+        window = kw.get("window_size", 5)
+        empty_ms = device_ms(lambda: lk.launch_tile_round_empty(*shape, window))
+        rows = _build.load().tpuflow_lk_tile_round_rows(*shape, window)
         t = tiles[shape]
         print(f"[mesh] (a) lk_fused_tile_round {shape[0]}x{shape[1]} extended tile: "
               f"{t['running']} running and {t['skipped']} skipped launches bit-exact to the "
               f"plain version, sums within {t['sum_rel']:.3g} of du.abs().sum() (limit "
               f"{2 * t['gamma']:.3g}) and {t['sum_rel_f64']:.3g} of the float64 sum (limit "
               f"{t['gamma']:.3g}, depth {t['depth']}); a skipped call a no-op; {ms:.4f} ms "
-              f"({_bound_note('lk_fused_tile_round', shape, ms)}); skipped {skip_ms:.4f}; plain "
+              f"({_bound_note('lk_fused_tile_round', shape, ms)}); {rows} rows a block, "
+              f"{lk.tile_round_blocks(*shape, window)} blocks; skipped {skip_ms:.4f}; an empty "
+              f"kernel on its grid {empty_ms:.4f}; launch floor {floor_ms:.4f}; plain "
               f"{plain_ms:.4f} ms; {smi}")
         reading["by_shape"][f"{shape[0]}x{shape[1]}"] = {
-            "ms": ms, "skipped_ms": skip_ms, "plain_ms": plain_ms,
+            "ms": ms, "skipped_ms": skip_ms, "empty_grid_ms": empty_ms,
+            "launch_floor_ms": floor_ms, "plain_ms": plain_ms, "walk_rows": rows,
             "running_launches": t["running"], "skipped_launches": t["skipped"],
             "sum_rel": t["sum_rel"], "sum_rel_f64": t["sum_rel_f64"], "sum_depth": t["depth"]}
         if "ms" not in reading:  # the finest level's tile, the largest
@@ -2984,7 +3034,9 @@ def check_world_one(a, b, mesh, untiled, untiled_dev, smi) -> tuple[dict, dict]:
             lambda: [step(p, c) for p, c in _alternating(a, b)])]
         graphed_ms = [t / MESH_PAIRS for t in _host_ms(graphed_stream)]
         dev_eager = busy_ms(lambda: step(a, b))
-        dev_graphed = busy_ms(lambda: stream.step(b[None]))
+        graphed_events = device_events(lambda: stream.step(b[None]))
+        dev_graphed = busy_of(graphed_events)
+        g_kernels, g_copies = device_launches(graphed_events)
         its = cfg.iterations
         eager_sorted, graphed_sorted = sorted(eager_ms), sorted(graphed_ms)
         per_pair = {k: n / MESH_PAIRS for k, n in g_counts.items()}
@@ -2999,7 +3051,9 @@ def check_world_one(a, b, mesh, untiled, untiled_dev, smi) -> tuple[dict, dict]:
         print(f"[mesh] (a) {config} graphed (TiledGraphedStream, captured in {capture_s:.3f} s): "
               f"{MESH_PAIRS} alternating pairs bit for bit the eager steps: "
               f"{'yes' if same else 'NO'}; rounds {g_rounds}; still pair bit for bit: "
-              f"{'yes' if same_still else 'NO'}; launches a pair {per_pair}; ms a pair, host "
+              f"{'yes' if same_still else 'NO'}; launches a pair {per_pair}; device launches "
+              f"a replay (torch.profiler) {g_kernels} kernels, {g_copies} copies and fills; ms "
+              f"a pair, host "
               f"clock, median of {MESH_RUNS} streams of {MESH_PAIRS}: eager "
               f"{eager_sorted[len(eager_ms) // 2]:.3f} (spread {eager_sorted[0]:.3f}-"
               f"{eager_sorted[-1]:.3f}), graphed {graphed_sorted[len(graphed_ms) // 2]:.3f} "

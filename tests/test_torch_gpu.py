@@ -47,6 +47,11 @@ refine's in-kernel sums within 1e-6 relative of torch.sum of its block
 partials, each batch element latched alone; the graphed stream
 (``flow.GraphedStream``) and the VO front end's graphed ``scan_steps``
 bit-identical to the eager steps, with the eager step's launch counts.
+K6's tile round: u, v and the control bit for bit the plain version's at
+odd crops, windows 3/5/7, both orders, running and skipped, its
+in-kernel sums within their depth's limit; one kernel a call, its ticket
+0 after every round; a graphed tiled step with no reduction after a
+round.
 The grid seed (``kernels.seed``) bit-identical to its plain version at
 1080x1920 and 121x163, margins 0, 3, 13 and 20 (cells all ``-inf``), on
 noise, blurred noise and constant patches (exact ties), grid steps 8, 16
@@ -60,6 +65,8 @@ the card equals the CPU's at 640x480, bit for bit. The native reader
 (``io.stream.FrameStream``) feeds ``prefetch_to_device`` 64 frames through
 its few pinned buffers, each reused many times, with no stale frame.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -1445,6 +1452,96 @@ def test_tile_round_kernel_matches_plain(cuda, shape, window, relaxed, latch):
     assert float(((sums - want).abs() / want.clamp_min(1e-30)).max()) <= 2 * gamma
 
 
+def _device_kernels(run) -> list:
+    """The device's kernel events (copies and fills left out) of one
+    ``run()`` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.key.startswith("Mem")]
+
+
+def _graph_node_types(graph) -> list[int]:
+    """The node types of a graph captured with ``keep_graph=True``, read
+    through the driver API (``CUgraphNodeType``: 0 a kernel, 1 a copy, 2 a
+    fill)."""
+    import ctypes
+
+    driver = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    assert driver.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert driver.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert driver.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        types.append(kind.value)
+    return types
+
+
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("latch", [0, 1])
+def test_tile_round_is_one_launch(cuda, batch, latch):
+    """A call of the tile round, running or skipped, a plane or a batch, is
+    one kernel on the device (its sums are finished in it) and no copy or
+    fill: the call captured in a CUDA graph holds one node, a kernel, and
+    the graph's replay gives the eager call's u, v, control and sums."""
+    rng = np.random.default_rng(11)
+    prev, curr, u, v = _tile_inputs(rng, (70, 233), 5, cuda, batch)
+    ctrl = torch.zeros((3,) if batch is None else (3, batch), dtype=torch.int32, device=cuda)
+    ctrl[0] = latch
+    kw = dict(gy0=0, gx0=0, gh=70, gw=233)
+    want = [t.clone() for t in (u, v, ctrl)]
+    sums_eager = lk.fused_tile_round(prev, curr, *want, **kw).clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # built and warm outside the capture
+        lk.fused_tile_round(prev, curr, u.clone(), v.clone(), ctrl.clone(), **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        sums = lk.fused_tile_round(prev, curr, u, v, ctrl, **kw)
+    assert _graph_node_types(graph) == [0]
+    graph.instantiate()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(u, want[0]) and torch.equal(v, want[1]) and torch.equal(ctrl, want[2])
+    if not latch:
+        assert torch.equal(sums, sums_eager)
+
+
+def test_tile_round_resets_its_ticket(cuda):
+    """The ticket (ctrl row 1) is 0 again after a running round and after
+    a skipped one, so the next round, and a graph's replay, finds it so:
+    the same frames give the same sums round after round, each element's
+    those of its plane's call."""
+    rng = np.random.default_rng(5)
+    prev, curr, u, v = _tile_inputs(rng, (135, 240), 5, cuda, batch=2)
+    kw = dict(gy0=0, gx0=0, gh=135, gw=240)
+    ctrl = torch.zeros((3, 2), dtype=torch.int32, device=cuda)
+    first = lk.fused_tile_round(prev, curr, u, v, ctrl, **kw).clone()
+    assert ctrl[1].tolist() == [0, 0]
+    again = lk.fused_tile_round(prev, curr, u, v, ctrl, **kw)
+    assert torch.equal(again, first) and ctrl.tolist() == [[0, 0], [0, 0], [2, 2]]
+    ctrl[0, 1] = 1
+    third = lk.fused_tile_round(prev, curr, u, v, ctrl, **kw)
+    assert ctrl.tolist() == [[0, 1], [0, 0], [3, 2]]
+    assert torch.equal(third[:, 0], first[:, 0])
+    ctrl[0] = 1
+    lk.fused_tile_round(prev, curr, u, v, ctrl, **kw)
+    assert ctrl.tolist() == [[1, 1], [0, 0], [3, 2]]
+    for b in range(2):
+        one = lk.fused_tile_round(prev[b], curr[b], u[b].clone(), v[b].clone(),
+                                  torch.zeros(3, dtype=torch.int32, device=cuda), **kw)
+        assert torch.equal(one, first[:, b])
+
+
 def test_tile_round_batch_latches_per_element(cuda):
     rng = np.random.default_rng(3)
     prev, curr, u, v = _tile_inputs(rng, (37, 61), 5, cuda, batch=2)
@@ -1514,6 +1611,40 @@ def test_tiled_graphed_stream_equals_the_eager_step(nccl_world_one, config):
         assert torch.equal(stream.level_rounds, rounds)
         prev = frame
     assert stream.launches["lk_fused_tile_round"] == cfg.levels * cfg.iterations
+
+
+def test_tiled_graphed_replay_has_no_round_reductions(nccl_world_one, monkeypatch):
+    """A TiledGraphedStream replay launches one kernel a tile round: the
+    same step captured with a torch.sum of the round's block partials
+    after each round (what a round cost before its sums moved into the
+    kernel) replays levels x iterations kernels more, with the same flow."""
+    from tpuflow_torch.flow import TiledGraphedStream
+
+    mesh = nccl_world_one
+    cfg = PYRAMID_CONFIGS["default"]
+    a, b = _tiled_pair(mesh.device)
+    rounds = cfg.levels * cfg.iterations
+
+    def replay(stream):
+        out = []
+        events = _device_kernels(lambda: out.append(stream.step(b[None])))
+        n_rounds = sum(e.count for e in events
+                       if re.search(r"lk_walk_kernel<\d+, (true|false), \d+, 3>", e.key))
+        return sum(e.count for e in events), n_rounds, out[0]
+
+    n_new, rounds_new, flow_new = replay(TiledGraphedStream(a[None], cfg, mesh))
+    fused = lk.fused_tile_round
+
+    def with_reduction(*args, **kw):
+        sums = fused(*args, **kw)
+        kw["parts"][:, 0].sum(dim=1)
+        return sums
+
+    monkeypatch.setattr(lk, "fused_tile_round", with_reduction)
+    n_old, rounds_old, flow_old = replay(TiledGraphedStream(a[None], cfg, mesh))
+    assert rounds_new == rounds_old == rounds
+    assert n_old - n_new == rounds
+    assert torch.equal(flow_new[0], flow_old[0]) and torch.equal(flow_new[1], flow_old[1])
 
 
 def test_tiled_graphed_stream_refuses_cpu_frames_and_gloo(nccl_world_one):

@@ -10,7 +10,10 @@ Limits:
 - ``fused_tile_round_ref`` equals ``lucas_kanade_fused_ref`` on the
   extended tile, cropped, zeroed outside the global interior and added
   into the tile's flow, bit for bit, and its sums ``du.abs().sum()`` of
-  that crop; a set latch leaves the flow and the round count untouched;
+  that crop, (2,) for a plane and (2, B) for a batch whose columns are its
+  planes' sums; a set latch leaves the flow and the round count
+  untouched; the depth of the kernel's in-kernel sums
+  (``kernels.lk.tile_round_depth_of``) equals a hand count of its adds;
 - the device-controlled step equals the host-steered loop of the same
   kernels (the early exit read to the host) bit for bit, rounds and all,
   and stays within 1e-3 px of the reference's Pallas path, the limit of
@@ -174,6 +177,38 @@ def test_tile_round_batch_keeps_one_latch_an_element():
     assert torch.equal(bu[0], u) and torch.equal(bv[0], v) and torch.equal(sums[:, 0], s0)
     assert torch.equal(bu[1], u2) and torch.equal(bv[1], v2)
     assert ctrl.tolist() == [[0, 1], [0, 0], [3, 2]]
+
+
+def test_tile_round_sums_shapes_and_batch_elements():
+    """On CPU tensors the round returns (2,) sums for a plane and (2, B)
+    for a batch, each element's column equal to its plane's call."""
+    cases = [_tile_case(20 + i, 5) for i in range(3)]
+    ctrl = torch.zeros((lk.CTRL_ROWS, 3), dtype=torch.int32)
+    bu, bv = torch.stack([c[2] for c in cases]), torch.stack([c[3] for c in cases])
+    sums = lk.fused_tile_round(torch.stack([c[0] for c in cases]),
+                               torch.stack([c[1] for c in cases]), bu, bv, ctrl,
+                               gy0=0, gx0=0, gh=19, gw=23)
+    assert sums.shape == (2, 3) and sums.dtype == torch.float32
+    for b, (prev, curr, u, v, _) in enumerate(cases):
+        one = lk.fused_tile_round(prev, curr, u, v, torch.zeros(lk.CTRL_ROWS, dtype=torch.int32),
+                                  gy0=0, gx0=0, gh=19, gw=23)
+        assert one.shape == (2,) and torch.equal(sums[:, b], one)
+        assert torch.equal(bu[b], u) and torch.equal(bv[b], v)
+
+
+@pytest.mark.parametrize("rows, threads, blocks, depth", [
+    # 1080p world-1 tiles at window 5: a lane's 31 adds, the butterfly's 5,
+    # 3 across 4 warps; then 6 partials a thread (646 over 128), 5 of them
+    # rounded, the butterfly's 5 and the 3 across the warps.
+    (32, 128, 646, 31 + 5 + 3 + 5 + 5 + 3),
+    (16, 128, 350, 15 + 5 + 3 + 2 + 5 + 3),  # 546x966: 3 partials a thread
+    (4, 128, 345, 3 + 5 + 3 + 2 + 5 + 3),  # 276x486
+    (1, 128, 1, 0 + 5 + 3 + 0 + 5 + 3),  # one row, one block: exact first adds
+    (32, 128, 2516, 31 + 5 + 3 + 19 + 5 + 3),  # 4K tile: 20 partials a thread
+    (8, 64, 129, 7 + 5 + 1 + 2 + 5 + 1),  # two warps, 3 partials a thread
+])
+def test_tile_round_depth_counts_the_in_kernel_order(rows, threads, blocks, depth):
+    assert lk.tile_round_depth_of(rows, threads, blocks) == depth
 
 
 @pytest.mark.parametrize("bad", ["shape", "ctrl", "window"])

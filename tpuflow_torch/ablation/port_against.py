@@ -1,21 +1,27 @@
-"""The port's two kernels of the reference's device control flow, the grid
-seed (``csrc/seed.cu``) and the IMU scan (``csrc/imu_scan.cu``), timed
-against another version of the same two sources, in turns on one card.
+"""The port's kernels of the reference's device control flow, the grid seed
+(``csrc/seed.cu``), the IMU scan (``csrc/imu_scan.cu``) and K6's tile round
+(``csrc/lk_fused.cu`` with its ``lk_tile.cuh``), timed against another
+version of the same sources, in turns on one card.
 
-Builds the other directory's ``seed.cu`` and ``imu_scan.cu`` alone with the
+Builds the other directory's ``seed.cu``, ``imu_scan.cu`` and
+``lk_fused.cu`` (with that directory's ``lk_tile.cuh``) alone with the
 package's nvcc flags into ``build/tpuflow_torch/against/``, checks that both
 versions give the plain versions' results (the seed bit for bit on the
 natural 1080p frame and a textured one at grid 16, margins 0 and 13; the
-scan bit for bit against the plain loop on ``swing_imu``'s 751 samples)
-and that the two scans agree bit for bit on random samples (2 to 10,000,
-printing each one's distance from the plain loop in r), then times the
-other version, this one, this one, the other (``eval.timing.device_ms``):
-the seed at 1080p, grid 16, margin 13, taken and with a false predicate,
-and on the frame's first eighth of rows; the scan at 1, 128 and 751
-samples, with and without bias Jacobians; an empty kernel's launch floor
-before and after. Prints one line a case, ptxas's report of the other
-build, and one JSON object; a difference found by the checks fails the run
-after the timings. Needs a CUDA device. For
+scan bit for bit against the plain loop on ``swing_imu``'s 751 samples; the
+tile round's u, v and control bit for bit, running and skipped, at the
+1080p world-1 extended tiles, window 5) and that the two scans agree bit
+for bit on random samples (2 to 10,000, printing each one's distance from
+the plain loop in r), then times the other version, this one, this one,
+the other (``eval.timing.device_ms``): the seed at 1080p, grid 16, margin
+13, taken and with a false predicate, and on the frame's first eighth of
+rows; the scan at 1, 128 and 751 samples, with and without bias
+Jacobians; the tile round running and skipped at each tile, each version
+through its own C signature (one without a ``sums`` argument is followed
+by ``torch.sum`` of its block partials, as its wrapper did); an empty
+kernel's launch floor before and after. Prints one line a case, ptxas's
+report of the other build, and one JSON object; a difference found by the
+checks fails the run after the timings. Needs a CUDA device. For
 example, against the parent commit's sources unpacked under the gitignored
 ``build/``:
 
@@ -37,16 +43,29 @@ from tpuflow_torch.kernels import _build
 from tpuflow_torch.kernels import imu as imu_kernel
 from tpuflow_torch.kernels import seed
 
-ENTRIES = ("tpuflow_seed_grid", "tpuflow_imu_preintegrate")
-SOURCES = ("seed.cu", "imu_scan.cu")
+ENTRIES = ("tpuflow_seed_grid", "tpuflow_imu_preintegrate", "tpuflow_lk_fused_tile_round")
+SOURCES = ("seed.cu", "imu_scan.cu", "lk_fused.cu")
 GRID, MARGINS = 16, (0, 13)
 SCAN_SAMPLES = (1, 128, 751)
 RANDOM_SAMPLES = (2, 3, 129, 751, 10_000)
+# The tile round's extended tiles on the 1080p world-1 path (window 5).
+TILE_SHAPES = ((1086, 1926), (546, 966), (276, 486))
+TILE_WINDOW = 5
+# A tile round entry without the sums argument (its wrapper summed the
+# block partials with torch.sum after it).
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+TILE_ROUND_PARTS_ONLY = (_P,) * 7 + (_I,) * 10 + (_F, _P)
+
+
+def with_sums(lib) -> bool:
+    """Whether a library's tile round finishes its own sums (its C entry
+    takes a ``sums`` pointer; such a library exports its own block count)."""
+    return hasattr(lib, "tpuflow_lk_tile_round_blocks")
 
 
 def build_other(csrc: Path) -> tuple[ctypes.CDLL, str]:
-    """The other directory's two sources built alone into a shared library,
-    and ptxas's log."""
+    """The other directory's sources built alone into a shared library, and
+    ptxas's log."""
     lib_path = _build.BUILD_DIR / "against" / "libport_other.so"
     log = _build.build([csrc / name for name in SOURCES], lib_path)
     lib = ctypes.CDLL(str(lib_path))
@@ -54,6 +73,11 @@ def build_other(csrc: Path) -> tuple[ctypes.CDLL, str]:
         fn = getattr(lib, name)
         fn.argtypes = list(_build._SIGNATURES[name])
         fn.restype = ctypes.c_int
+    if with_sums(lib):
+        lib.tpuflow_lk_tile_round_blocks.argtypes = [_I, _I, _I]
+        lib.tpuflow_lk_tile_round_blocks.restype = _I
+    else:
+        lib.tpuflow_lk_fused_tile_round.argtypes = list(TILE_ROUND_PARTS_ONLY)
     return lib, log
 
 
@@ -77,6 +101,71 @@ def scan_call(lib, samples, n, jac):
                                         torch.cuda.current_stream().cuda_stream)
     _build.check(_build.load(), code, "imu_preintegrate")
     return out
+
+
+def tile_inputs(dev, shape):
+    """An extended tile's frames (a textured frame and it shifted by 1 px
+    plus noise, seeded by the shape) and the crop's flow."""
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng(shape[0])
+    prev = np.round(gaussian_filter(rng.uniform(0.0, 255.0, shape), 2.0))
+    warped = np.roll(prev, 1, axis=1) + rng.normal(0.0, 0.5, shape)
+    ext = TILE_WINDOW // 2 + 1
+    crop = (shape[0] - 2 * ext, shape[1] - 2 * ext)
+    u, v = (rng.uniform(-3.0, 3.0, crop) for _ in range(2))
+    return [torch.from_numpy(x.astype(np.float32)).to(dev) for x in (prev, warped, u, v)]
+
+
+class TileRound:
+    """One library's tile round on one extended tile at the world-1 tile
+    origin (the whole level), through the library's own C signature."""
+
+    def __init__(self, lib, prev, warped):
+        self.lib, self.prev, self.warped = lib, prev, warped
+        self.shape = tuple(prev.shape)
+        self.ext = TILE_WINDOW // 2 + 1
+        this = _build.load()
+        blocks = (lib.tpuflow_lk_tile_round_blocks if with_sums(lib)
+                  else this.tpuflow_lk_refine_blocks)(*self.shape, TILE_WINDOW)
+        self.parts = torch.empty((2, 1, blocks), dtype=torch.float32, device=prev.device)
+        self.sums = torch.empty(2, dtype=torch.float32, device=prev.device)
+
+    def __call__(self, u, v, ctrl):
+        """One round on u, v in place; returns the sums (a skipped round's
+        are stale)."""
+        h, w = u.shape
+        args = [self.prev.data_ptr(), self.warped.data_ptr(), u.data_ptr(), v.data_ptr(),
+                ctrl.data_ptr(), self.parts[0].data_ptr(), self.parts[1].data_ptr()]
+        if with_sums(self.lib):
+            args.append(self.sums.data_ptr())
+        code = self.lib.tpuflow_lk_fused_tile_round(
+            *args, 1, *self.shape, self.ext, 0, 0, h, w, TILE_WINDOW, 0, 1e-4,
+            torch.cuda.current_stream().cuda_stream)
+        _build.check(_build.load(), code, "lk_fused_tile_round")
+        return self.sums if with_sums(self.lib) else self.parts[:, 0].sum(dim=1)
+
+
+def check_tile_round(libs, tiles) -> list[str]:
+    """Each library's tile round against the plain version at each tile:
+    u, v and the control bit for bit, running and skipped."""
+    from tpuflow_torch.kernels import lk
+
+    failures = []
+    for shape, (prev, warped, u, v) in tiles.items():
+        h, w = u.shape
+        kw = dict(gy0=0, gx0=0, gh=h, gw=w, window_size=TILE_WINDOW)
+        for latch in (0, 1):
+            ctrl0 = torch.tensor([latch, 0, 2], dtype=torch.int32, device=u.device)
+            want = [t.clone() for t in (u, v, ctrl0)]
+            lk.fused_tile_round_ref(prev, warped, *want, **kw)
+            for label, lib in libs.items():
+                got = [t.clone() for t in (u, v, ctrl0)]
+                TileRound(lib, prev, warped)(*got)
+                if not all(torch.equal(g, x) for g, x in zip(got, want)):
+                    failures.append(f"tile round {shape[0]}x{shape[1]}, latch {latch}: the "
+                                    f"{label} version differs from the plain version")
+    return failures
 
 
 def scan_samples(dev, jac: bool):
@@ -128,11 +217,13 @@ def main() -> None:
     from tpuflow_torch.eval.timing import card_label, device_ms, require_cuda
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("other", type=Path, help="a csrc directory with seed.cu and imu_scan.cu")
+    parser.add_argument("other", type=Path,
+                        help="a csrc directory with seed.cu, imu_scan.cu, lk_fused.cu, lk_tile.cuh")
     args = parser.parse_args()
     dev = require_cuda()
     this, (other, log) = _build.load(), build_other(args.other)
-    print(f"seed and scan kernels on {card_label()}: this tree's against {args.other}")
+    print(f"seed, scan and tile round kernels on {card_label()}: this tree's against "
+          f"{args.other}")
     print("other build, ptxas: " + " | ".join(
         line.strip() for line in log.splitlines() if "registers" in line or "spill" in line))
     libs = {"this": this, "other": other}
@@ -161,8 +252,11 @@ def main() -> None:
             if not torch.equal(got, want):
                 failures.append(f"scan, bias_jacobians={jac}: the {label} version differs from "
                                 f"the plain loop by {float((got - want).abs().max())}")
+    tiles = {shape: tile_inputs(dev, shape) for shape in TILE_SHAPES}
+    failures += check_tile_round(libs, tiles)
     print("against the plain versions (seed: 2 frames x margins 0, 13; scan: swing_imu, 751 "
-          "samples, with and without bias Jacobians): " + ("; ".join(failures) or "bit-identical"))
+          "samples, with and without bias Jacobians; tile round: the 1080p world-1 extended "
+          "tiles, running and skipped): " + ("; ".join(failures) or "bit-identical"))
     # The two scans against each other on random samples, and each one's
     # distance from the plain loop in r.
     for n in RANDOM_SAMPLES:
@@ -191,6 +285,15 @@ def main() -> None:
         for n in SCAN_SAMPLES:
             cases[f"scan {n} samples{' bias Jacobians' if jac else ''}"] = (
                 lambda lib, s=samples, n=n, jac=jac: scan_call(lib, s, n, jac))
+    run = torch.zeros(3, dtype=torch.int32, device=dev)
+    skip = torch.tensor([1, 0, 0], dtype=torch.int32, device=dev)
+    for shape, (prev, warped, u, v) in tiles.items():
+        rounds = {label: TileRound(lib, prev, warped) for label, lib in libs.items()}
+        uw, vw = u.clone(), v.clone()  # the timed rounds add into these
+        for what, ctrl in (("running", run), ("skipped", skip)):
+            cases[f"tile round {shape[0]}x{shape[1]} {what}"] = (
+                lambda lib, r=rounds, c=ctrl, uw=uw, vw=vw:
+                r["this" if lib is this else "other"](uw, vw, c))
     doc = {"card": card_label(), "floor_ms": [device_ms(_build.launch_empty, reps=200)]}
     for name, run in cases.items():
         times = {"other": [], "this": []}

@@ -14,14 +14,20 @@
 // path under device control, the body of the reference's sharded
 // lax.while_loop from the fused solve through the guarded add
 // (tpuflow/sharding/tiled_pyramidal.py:176-212, :309-310): the same walk
-// on the halo-extended tile, its crop added into the tile's flow, and
-// block partials of |du|, |dv| for the tiled loop to reduce across the mesh.
+// on the halo-extended tile, its crop's flow brought through the walk's
+// cp.async ring and added in place, and sum|du|, sum|dv| finished by the
+// element's last block for the tiled loop to reduce across the mesh; one
+// launch a round. It is bound by device memory: 8 B a pixel of the
+// extended tile and 16 B a pixel of its crop. lk_tile.cuh says what the
+// design does about it.
 
 #include "lk_tile.cuh"
 
 using namespace tpuflow_lk;
 
 namespace {
+
+__global__ void __launch_bounds__(kWalkThreads) walk_empty_kernel() {}
 
 template <bool kRelaxed, int kSum>
 int launch_mode(int window, bool with_det, const LkArgs& args, int batch,
@@ -62,19 +68,43 @@ extern "C" int tpuflow_lk_fused(const float* prev, const float* curr,
   return launch_mode<false, kUniform>(window, with_det, args, batch, s);
 }
 
+// Block partials of one element of the tile round on a (height, width)
+// extended tile, and the output rows each block walks.
+extern "C" int tpuflow_lk_tile_round_blocks(int height, int width, int window) {
+  return num_blocks<kTileRound>(height, width, window);
+}
+
+extern "C" int tpuflow_lk_tile_round_rows(int height, int width, int window) {
+  return tile_round_rows(height, width, window);
+}
+
+// An empty kernel on the tile round's grid and block: what launching the
+// grid costs, beside a skipped round.
+extern "C" int tpuflow_lk_tile_round_empty(int batch, int height, int width, int window,
+                                           void* stream) {
+  if (batch < 1 || batch > kMaxBatch || window < 3 || window > kMaxWindow)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid =
+      walk_grid(height, width, window, tile_round_rows(height, width, window), batch);
+  walk_empty_kernel<<<grid, kWalkThreads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+
 // One round of the tiled path on `batch` halo-extended tiles of (height,
 // width), each extended by `crop` px on every side: u and v are the tiles'
 // (height - 2 crop, width - 2 crop) flow planes, updated in place where the
 // element's latch (ctrl row 0) is clear; part_du, part_dv receive one
-// partial sum a block (tpuflow_lk_refine_blocks(height, width, window) an
-// element); ctrl row 2 counts the rounds run. (gy0, gx0) is the crop's
-// global origin and (gh, gw) the level's global shape.
+// partial sum a block (tpuflow_lk_tile_round_blocks(height, width, window)
+// an element) and sums the (2, batch) sum|du|, sum|dv| of a running
+// element, added in the kernel; ctrl row 1 is the ticket (0 between
+// launches), row 2 counts the rounds run. (gy0, gx0) is the crop's global
+// origin and (gh, gw) the level's global shape.
 extern "C" int tpuflow_lk_fused_tile_round(const float* prev_ext, const float* warped_ext,
                                            float* u, float* v, int* ctrl, float* part_du,
-                                           float* part_dv, int batch, int height, int width,
-                                           int crop, int gy0, int gx0, int gh, int gw,
-                                           int window, int relaxed, float det_threshold,
-                                           void* stream) {
+                                           float* part_dv, float* sums, int batch, int height,
+                                           int width, int crop, int gy0, int gx0, int gh,
+                                           int gw, int window, int relaxed,
+                                           float det_threshold, void* stream) {
   if (window < 3 || window > kMaxWindow || crop < window / 2 || height <= 2 * crop ||
       width <= 2 * crop)
     return (int)cudaErrorInvalidValue;
@@ -85,6 +115,7 @@ extern "C" int tpuflow_lk_fused_tile_round(const float* prev_ext, const float* w
   args.v_out = v;
   args.part_du = part_du;
   args.part_dv = part_dv;
+  args.sums = sums;
   args.height = height;
   args.width = width;
   args.det_threshold = det_threshold;

@@ -28,12 +28,6 @@ extern "C" int tpuflow_lk_refine_blocks(int height, int width, int window) {
 // Threads of the column walk's block, which share a round's final sum.
 extern "C" int tpuflow_lk_walk_threads() { return kWalkThreads; }
 
-// Output rows one block walks on a (height, width) plane (a lane's adds
-// into its block partial).
-extern "C" int tpuflow_lk_walk_rows(int height, int width, int window) {
-  return walk_rows(height, width, window);
-}
-
 extern "C" int tpuflow_lk_refine(const float* prev, const float* warped,
                                  const float* u_in, const float* v_in,
                                  const void* converged, float* u_out,

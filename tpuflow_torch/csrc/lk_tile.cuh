@@ -44,17 +44,22 @@
 //     [crop, crop + tile_h) x [crop, crop + tile_w) only, zeroed outside
 //     the global interior (the crop's global row gy0 + y and column
 //     gx0 + x within window / 2 of the level's gh x gw border), added into
-//     the tile's u, v in place, and one partial sum of |du| and of |dv|
-//     per block over the crop. A set latch (ctrl row 0) skips the round:
-//     no frame read, no partial written, u and v untouched. The latch is
-//     not set here: the tiled loop sums the partials across the mesh's ranks
-//     first and latches on the device from the reduced sums. A running
-//     round adds one to its element's round count (ctrl row 2).
+//     the tile's u, v in place, and sum|du|, sum|dv| over the crop: one
+//     partial a block, which the element's last block adds into the two
+//     sums as the refine round's are added. A set latch (ctrl row 0) skips
+//     the round: no frame read, no partial or sum written, u and v
+//     untouched. The latch is not set here: the tiled loop sums the sums
+//     across the mesh's ranks first and latches on the device from the
+//     reduced sums. A running round adds one to its element's round count
+//     (ctrl row 2).
 //
 // Bound on this card: device memory. Each pixel's bytes, each input read
 // once and each output written once: 24 B for the refine (prev, warped,
 // u, v in; u, v out), 16 B fused (prev, curr in; u, v out), 20 B with
-// |det|; at 1080p 0.0149, 0.0099 and 0.0124 ms at 3.35 TB/s. The ~100 f32
+// |det|; at 1080p 0.0149, 0.0099 and 0.0124 ms at 3.35 TB/s. The tile
+// round moves 8 B a pixel of the extended tile (prev, warped in) and 16 B
+// a pixel of its crop (u, v in and out): 0.0149 ms on the 1080p tile
+// extended to 1086x1926. The ~100 f32
 // operations a pixel take a third of that at the card's f32 rate. What a
 // design must avoid is on chip: staging whole tiles in shared memory and
 // re-reading them per window tap spends ~130 shared-memory words an
@@ -110,6 +115,24 @@
 //     warps in order), writes the two sums, ORs sdu / n_px < thr &
 //     sdv / n_px < thr (f32, as the reference) into the latch, counts the
 //     round and resets the ticket. No host read and no second launch.
+// The tile round (K6's round on a halo-extended tile) keeps the walk and
+// changes its own traffic and control:
+//   - the crop's u, v ride in the ring a step ahead, as the refine's do,
+//     at the crop's coordinates (zero-filled outside the crop), so the
+//     in-place add reads them from shared memory and stores once: read
+//     from device memory after the solve, they would be a load that every
+//     output row's store waits on;
+//   - the element's last block adds the block partials into its two sums
+//     (finish_round, the ticket in ctrl row 1), so a round is one launch
+//     and no reduction follows it; it does not latch;
+//   - its walk rows come from tile_round_rows (two blocks an SM, not four:
+//     longer walks on the coarse tiles, chosen by a sweep on the card,
+//     ablation/tile_walk.py);
+//   - a skipped round's blocks read the latch and return. An empty kernel
+//     on the same grid takes ~0.0004 ms over the one-block launch floor at
+//     the 1080p tile, the latch's read ~0.0002 more (H100 80GB HBM3,
+//     700 W): what a skipped round costs over the floor is the grid's
+//     launch, which the round's running form needs.
 // Built with -fmad=false: no product is fused into an FMA, so each pixel
 // is bit-identical to the plain PyTorch version in kernels/lk.py.
 
@@ -273,8 +296,8 @@ __device__ __forceinline__ void solve_store(const LkArgs& args, const float (&s)
       dv = 0.0f;
     }
     if (store) {
-      *u_dst = *u_dst + du;
-      *v_dst = *v_dst + dv;
+      *u_dst = u_in + du;
+      *v_dst = v_in + dv;
       acc_u += fabsf(du);
       acc_v += fabsf(dv);
     }
@@ -296,11 +319,13 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kStripWarps = 4;                 // strips (warps) per block
 constexpr int kWalkThreads = kStripWarps * kLanes;
 
-// The end of a refine round under device control, called by every thread
-// of each block after the block's partials are written: the element's
-// last block sums its partials, latches, counts the round and resets the
-// ticket (see the note above). `red` is the block's [2][kStripWarps]
-// scratch, free again once thread 0 has written its partials.
+// The end of a refine round under device control, or of a tile round,
+// called by every thread of each block after the block's partials are
+// written: the element's last block sums its partials, and (refine only)
+// latches and counts the round, then resets the ticket (see the note
+// above). `red` is the block's [2][kStripWarps] scratch, free again once
+// thread 0 has written its partials.
+template <int kMode>
 __device__ __forceinline__ void finish_round(const LkArgs& args,
                                              float (&red)[2][kStripWarps]) {
   __shared__ bool last;
@@ -342,9 +367,11 @@ __device__ __forceinline__ void finish_round(const LkArgs& args,
     }
     args.sums[z] = su;
     args.sums[batch + z] = sv;
-    const float n_px = (float)(args.height * args.width);
-    if (su / n_px < args.thr && sv / n_px < args.thr) args.ctrl[z] = 1;
-    args.ctrl[2 * batch + z] += 1;
+    if constexpr (kMode == kRefine) {
+      const float n_px = (float)(args.height * args.width);
+      if (su / n_px < args.thr && sv / n_px < args.thr) args.ctrl[z] = 1;
+      args.ctrl[2 * batch + z] += 1;
+    }
     tickets[z] = 0;
   }
 }
@@ -432,9 +459,9 @@ __global__ void __launch_bounds__(kWalkThreads, walk_min_blocks<kWindow>())
   constexpr int kOutW = strip_width(kWindow);
   constexpr int kOrder =
       kSum == kGaussian ? kWeighted : (kRelaxed ? kTree : kSequential);
-  // Per frame row of a ring slot: prev and curr, and for the refine the
-  // carried u and v at the output row of the same step.
-  constexpr int kPlanes = kMode == kRefine ? 4 : 2;
+  // Per frame row of a ring slot: prev and curr, and for the refine and the
+  // tile round the carried u and v at the output row of the same step.
+  constexpr int kPlanes = kMode == kRefine || kMode == kTileRound ? 4 : 2;
 
   __shared__ float stage[kStripWarps][kStages][2][kPlanes][kLanes];
   __shared__ float red[2][kStripWarps];  // refine and tile round only
@@ -464,6 +491,14 @@ __global__ void __launch_bounds__(kWalkThreads, walk_min_blocks<kWindow>())
   float* u_out_c = args.u_out + out_c;
   float* v_out_c = args.v_out + out_c;
   float* det_out_c = kMode == kFusedDet ? args.det_out + out_c : u_out_c;  // else unused
+  // A tile round's flow planes: (tile_h, tile_w) each, per element, updated
+  // in place at the crop's coordinates (cy, cx) = (r0 + y, xo) - crop.
+  const int cx = xo - args.crop;
+  const bool crop_col = kMode == kTileRound && out_lane && (unsigned)cx < (unsigned)args.tile_w;
+  const size_t crop_c =
+      (size_t)blockIdx.z * args.tile_h * args.tile_w + (crop_col ? cx : 0);
+  float* u_crop_c = args.u_out + crop_c;  // tile round only
+  float* v_crop_c = args.v_out + crop_c;
   const uint32_t stage_lane =
       static_cast<uint32_t>(__cvta_generic_to_shared(&stage[warp][0][0][0][lane]));
   constexpr uint32_t kPlaneBytes = kLanes * sizeof(float);
@@ -491,6 +526,16 @@ __global__ void __launch_bounds__(kWalkThreads, walk_min_blocks<kWindow>())
       const unsigned uv_off = uv_ok ? (unsigned)((r0 + y) * width) : 0u;
       cp_async4(dst + 2 * kPlaneBytes, u_in_c + uv_off, uv_ok);
       cp_async4(dst + 3 * kPlaneBytes, v_in_c + uv_off, uv_ok);
+    } else if constexpr (kMode == kTileRound) {
+      // The crop's u, v at the output row formed at this row's step, zero
+      // outside the crop.
+      const int y = f - 2 - 2 * kHalf;
+      const int cy = r0 + y - args.crop;
+      const bool uv_ok = crop_col && (unsigned)y < (unsigned)n_out &&
+                         (unsigned)cy < (unsigned)args.tile_h;
+      const unsigned uv_off = uv_ok ? (unsigned)(cy * args.tile_w) : 0u;
+      cp_async4(dst + 2 * kPlaneBytes, u_crop_c + uv_off, uv_ok);
+      cp_async4(dst + 3 * kPlaneBytes, v_crop_c + uv_off, uv_ok);
     }
   };
   auto fetch = [&](int j) {
@@ -547,8 +592,6 @@ __global__ void __launch_bounds__(kWalkThreads, walk_min_blocks<kWindow>())
     if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) args.ctrl[2 * gridDim.z + blockIdx.z] += 1;
   }
   float acc_u = 0.0f, acc_v = 0.0f;
-  // A tile round's flow planes: (tile_h, tile_w) each, per element.
-  const size_t tile_plane = (size_t)blockIdx.z * args.tile_h * args.tile_w;
 
   // Window sums and the solve of output row y (if in range) from gradient
   // rows in ring slots g0 + 1 .. g0 + kWindow (mod kWindow), oldest first.
@@ -563,12 +606,12 @@ __global__ void __launch_bounds__(kWalkThreads, walk_min_blocks<kWindow>())
       s[pl] = lane_window_sum<kWindow, kOrder>(window_sum<kWindow, kOrder>(col, taps), taps);
     }
     if constexpr (kMode == kTileRound) {
-      const int cy = r0 + y - args.crop, cx = xo - args.crop;
-      const bool in_crop = out_lane && y < n_out && (unsigned)cy < (unsigned)args.tile_h &&
-                           (unsigned)cx < (unsigned)args.tile_w;
-      const size_t t = tile_plane + (in_crop ? (size_t)cy * args.tile_w + cx : 0);
-      solve_store<kHalf, kMode>(args, s, r0 + y, xo, in_crop, false, 0.0f, 0.0f, 0.0f,
-                                args.u_out + t, args.v_out + t, nullptr, acc_u, acc_v);
+      const int cy = r0 + y - args.crop;
+      const bool in_crop = crop_col && y < n_out && (unsigned)cy < (unsigned)args.tile_h;
+      const unsigned t = in_crop ? (unsigned)(cy * args.tile_w) : 0u;
+      solve_store<kHalf, kMode>(args, s, r0 + y, xo, in_crop, false, 0.0f, row[2 * kLanes],
+                                row[3 * kLanes], u_crop_c + t, v_crop_c + t, nullptr, acc_u,
+                                acc_v);
       return;
     }
     const unsigned o = (unsigned)((r0 + y) * width);
@@ -661,7 +704,9 @@ __global__ void __launch_bounds__(kWalkThreads, walk_min_blocks<kWindow>())
       args.part_dv[b] = sv;
     }
     if constexpr (kMode == kRefine) {
-      if (args.ctrl != nullptr) finish_round(args, red);
+      if (args.ctrl != nullptr) finish_round<kMode>(args, red);
+    } else {
+      finish_round<kMode>(args, red);  // the tile round's sums, not its latch
     }
   }
 }
@@ -679,23 +724,48 @@ inline int walk_rows(int height, int width, int window) {
   return rows;
 }
 
-// The walk's grid for a batch.
-inline dim3 walk_grid(int height, int width, int window, int batch) {
+// Output rows a block of the tile round walks: kMaxRows, halved down to
+// kMinRows while the tile would give fewer than kTileFillBlocks blocks (two
+// an SM). That gives the coarse tiles fewer, longer walks than walk_rows
+// does: at the 1080p world-1 tiles a sweep of 2-32 rows and 2/4/8 ring
+// slots on the card (ablation/tile_walk.py) read each tile fastest at
+// about two blocks an SM, and two slots fastest but on the finest tile's
+// 32-row walks, where four read 1-3% faster. A walk re-reads 2 + 2*(w/2)
+// frame rows at its top, so halving the rows past that buys more re-read
+// rows than parallel walks. A function of the tile alone, as walk_rows.
+constexpr int kTileFillBlocks = 264;
+inline int tile_round_rows(int height, int width, int window) {
   const int strips = (width + strip_width(window) - 1) / strip_width(window);
-  const int rows = walk_rows(height, width, window);
+  const int cols = (strips + kStripWarps - 1) / kStripWarps;
+  int rows = kMaxRows;
+  while (rows > kMinRows && cols * ((height + rows - 1) / rows) < kTileFillBlocks) rows /= 2;
+  return rows;
+}
+
+// The walk's grid for a batch at `rows` output rows a block.
+inline dim3 walk_grid(int height, int width, int window, int rows, int batch) {
+  const int strips = (width + strip_width(window) - 1) / strip_width(window);
   return dim3((strips + kStripWarps - 1) / kStripWarps, (height + rows - 1) / rows, batch);
 }
 
-// Blocks per batch element (the refine's partial sums per element).
+// Rows a block walks in a mode: the tile round's own rule, else walk_rows.
+template <int kMode>
+inline int mode_rows(int height, int width, int window) {
+  if constexpr (kMode == kTileRound) return tile_round_rows(height, width, window);
+  return walk_rows(height, width, window);
+}
+
+// Blocks per batch element (a mode's partial sums per element).
+template <int kMode = kRefine>
 inline int num_blocks(int height, int width, int window) {
-  const dim3 g = walk_grid(height, width, window, 1);
+  const dim3 g = walk_grid(height, width, window, mode_rows<kMode>(height, width, window), 1);
   return (int)(g.x * g.y);
 }
 
 template <int kWindow, bool kRelaxed, int kSum, int kMode>
 int launch(const LkArgs& args, int batch, cudaStream_t stream) {
-  const dim3 grid = walk_grid(args.height, args.width, kWindow, batch);
-  const int rows = walk_rows(args.height, args.width, kWindow);
+  const int rows = mode_rows<kMode>(args.height, args.width, kWindow);
+  const dim3 grid = walk_grid(args.height, args.width, kWindow, rows, batch);
   lk_walk_kernel<kWindow, kRelaxed, kSum, kMode><<<grid, kWalkThreads, 0, stream>>>(args, rows);
   return (int)cudaGetLastError();
 }

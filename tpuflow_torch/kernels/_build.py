@@ -72,12 +72,15 @@ _SIGNATURES = {
     "tpuflow_lk_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _P),
     # as tpuflow_lk_fused without taps
     "tpuflow_lk_fused_mxu": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-    # prev_ext, warped_ext, u, v (in place), ctrl, part_du, part_dv, batch,
-    # height, width (extended), crop, gy0, gx0, gh, gw, window, relaxed,
-    # det_threshold, stream: K6's round on halo-extended tiles
+    # prev_ext, warped_ext, u, v (in place), ctrl, part_du, part_dv, sums,
+    # batch, height, width (extended), crop, gy0, gx0, gh, gw, window,
+    # relaxed, det_threshold, stream: K6's round on halo-extended tiles
     "tpuflow_lk_fused_tile_round": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
+    # batch, height, width (extended), window, stream: an empty kernel on
+    # the tile round's grid
+    "tpuflow_lk_tile_round_empty": (_I, _I, _I, _I, _P),
     # a, out, in_cols, out_rows, out_cols, n_shifts, row offsets (host
     # i32[n_shifts]), column offsets (host i32[n_shifts]), stream
     "tpuflow_shift_ablation": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
@@ -142,8 +145,9 @@ def load() -> ctypes.CDLL:
     lib.tpuflow_lk_refine_blocks.restype = ctypes.c_int
     lib.tpuflow_lk_walk_threads.argtypes = []
     lib.tpuflow_lk_walk_threads.restype = ctypes.c_int
-    lib.tpuflow_lk_walk_rows.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    lib.tpuflow_lk_walk_rows.restype = ctypes.c_int
+    for name in ("tpuflow_lk_tile_round_blocks", "tpuflow_lk_tile_round_rows"):
+        getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_int
     lib.tpuflow_lk_refine_mxu_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.tpuflow_lk_refine_mxu_blocks.restype = ctypes.c_int
     lib.tpuflow_lk_mxu_mma.argtypes = [ctypes.c_int, ctypes.c_int]

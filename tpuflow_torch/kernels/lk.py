@@ -33,9 +33,10 @@ else.
 device control, with its plain version ``fused_tile_round_ref``: the fused
 solve on a tile extended by ``window // 2 + 1`` px, its crop zeroed
 outside the level's global interior and added into the tile's ``u``,
-``v`` in place, and block partials of |du|, |dv| over the crop, unless
-the element's latch in device memory is set (then nothing is read or
-written). It does not latch: the tiled loop reduces the sums across the
+``v`` in place, and sum|du|, sum|dv| over the crop, added in the kernel
+from its block partials in a fixed order, unless the element's latch in
+device memory is set (then nothing is read or written). One launch a
+call. It does not latch: the tiled loop reduces the sums across the
 mesh's ranks first and latches on the device from the reduced sums.
 
 Both take the reference's parameters, in its order and with its defaults;
@@ -588,19 +589,45 @@ def lucas_kanade_fused(
     return (u, v, det) if return_confidence else (u, v)
 
 
-def tile_round_depth(height: int, width: int, window_size: int) -> int:
-    """Rounded additions a pixel's |du| can pass through on its way into a
-    tile round's sum, ``torch.sum`` of the block partials taken as the
-    worst order (one add a partial): a lane's adds down its walk (the
-    first exact), the warp's 5-level butterfly, the adds across the
-    block's 4 warps, then the partials' sum. ``height``, ``width`` are the
-    extended tile's. The terms are non-negative, so the float32 sum lies
-    within ``depth * 2**-24`` relative of the exact sum (needs the
-    library)."""
+def tile_round_blocks(height: int, width: int, window_size: int) -> int:
+    """Block partials of one (height, width) extended tile's tile round
+    (the CUDA kernel's grid; needs the library)."""
+    return _build.load().tpuflow_lk_tile_round_blocks(height, width, window_size)
+
+
+def launch_tile_round_empty(height: int, width: int, window_size: int = 5,
+                            batch: int = 1) -> None:
+    """Launch an empty kernel on the tile round's grid and block for a
+    (height, width) extended tile on the current CUDA stream: what the
+    grid's launch costs, beside a skipped round (a measurement)."""
     lib = _build.load()
-    rows = lib.tpuflow_lk_walk_rows(height, width, window_size)
-    threads = lib.tpuflow_lk_walk_threads()
-    return rows - 1 + 5 + threads // 32 - 1 + refine_blocks(height, width, window_size) - 1
+    _build.check(lib, lib.tpuflow_lk_tile_round_empty(
+        batch, height, width, window_size, torch.cuda.current_stream().cuda_stream),
+        "tile round empty kernel")
+
+
+def tile_round_depth_of(rows: int, threads: int, blocks: int) -> int:
+    """Rounded additions a pixel's |du| can pass through on its way into a
+    tile round's in-kernel sum, for a walk of ``rows`` output rows a
+    block, ``threads`` a block and ``blocks`` partials an element: a
+    lane's adds down its walk (the first exact), the warp's 5-level
+    butterfly, the adds across the block's warps; then, in the element's
+    last block, a thread's strided adds over the partials (the first
+    exact), the butterfly and the warps again. The terms are
+    non-negative, so the float32 sum lies within ``depth * 2**-24``
+    relative of the exact sum."""
+    warps = threads // 32
+    per_thread = -(-blocks // threads)
+    return (rows - 1 + 5 + warps - 1) + (per_thread - 1 + 5 + warps - 1)
+
+
+def tile_round_depth(height: int, width: int, window_size: int) -> int:
+    """``tile_round_depth_of`` the tile round's walk on a (height, width)
+    extended tile (needs the library)."""
+    lib = _build.load()
+    return tile_round_depth_of(lib.tpuflow_lk_tile_round_rows(height, width, window_size),
+                               lib.tpuflow_lk_walk_threads(),
+                               tile_round_blocks(height, width, window_size))
 
 
 def _check_tile_round(prev_ext, warped_ext, u, v, ctrl, window_size, parts):
@@ -616,7 +643,7 @@ def _check_tile_round(prev_ext, warped_ext, u, v, ctrl, window_size, parts):
     batch = u.shape[0] if u.ndim == 3 else 1
     want = (CTRL_ROWS, batch) if u.ndim == 3 else (CTRL_ROWS,)
     if ctrl.dtype != torch.int32 or tuple(ctrl.shape) != want:
-        raise ValueError(f"ctrl must be an int32 tensor of shape {want} (latch, -, rounds)")
+        raise ValueError(f"ctrl must be an int32 tensor of shape {want} (latch, ticket, rounds)")
     dev = _device_of((prev_ext, warped_ext, u, v, ctrl)
                      + (() if parts is None else (parts,)))
     return dev, batch, ext
@@ -688,8 +715,8 @@ def fused_tile_round(
     parts: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One round of the tiled path on a halo-extended tile (K6's round
-    form): the CUDA kernel for CUDA tensors (one launch), the plain
-    version for CPU tensors; neither reads a flag to the host.
+    form): the CUDA kernel for CUDA tensors (one launch, nothing else),
+    the plain version for CPU tensors; neither reads a flag to the host.
 
     ``prev_ext``, ``warped_ext`` are the (H + 2 ext, W + 2 ext) tiles (or
     (B, ...) batches) extended by ``ext = window_size // 2 + 1`` px;
@@ -698,12 +725,13 @@ def fused_tile_round(
     outside the global interior (``window_size // 2`` px inside the level's
     ``gh`` x ``gw`` border, the tile's origin at ``(gy0, gx0)``). ``ctrl``
     is the int32 (3,) or (3, B) control: row 0 the latch (set: the round
-    is skipped, nothing read or written), row 2 the rounds run (the round
-    adds 1); row 1 is left alone. Returns the (2,) or (2, B) sum|du|,
-    sum|dv| over the crop: ``torch.sum`` of the kernel's block partials,
-    which a skipped round does not write (``parts``, optional, (2, B,
-    ``refine_blocks(H + 2 ext, W + 2 ext, window)``) float32, holds
-    them; a skipped round's sums are whatever it held)."""
+    is skipped, nothing read or written), row 1 the kernel's ticket (0
+    between launches), row 2 the rounds run (the round adds 1). Returns
+    the (2,) or (2, B) sum|du|, sum|dv| over the crop, which the kernel's
+    last block adds from its block partials in a fixed order (``parts``,
+    optional, (2, B, ``tile_round_blocks(H + 2 ext, W + 2 ext,
+    window)``) float32, receives the partials). A skipped element's sums
+    are not written, so they are undefined."""
     dev, batch, ext = _check_tile_round(prev_ext, warped_ext, flow_u, flow_v, ctrl,
                                         window_size, parts)
     kw = dict(gy0=gy0, gx0=gx0, gh=gh, gw=gw, window_size=window_size,
@@ -713,19 +741,18 @@ def fused_tile_round(
 
     lib = _build.load()
     he, we = prev_ext.shape[-2:]
-    n_blocks = lib.tpuflow_lk_refine_blocks(he, we, window_size)
+    n_blocks = lib.tpuflow_lk_tile_round_blocks(he, we, window_size)
     if parts is None:
         parts = torch.empty((2, batch, n_blocks), dtype=torch.float32, device=dev)
     elif parts.shape != (2, batch, n_blocks) or parts.dtype != torch.float32:
         raise ValueError(f"parts must be a float32 tensor of shape {(2, batch, n_blocks)}")
+    sums = torch.empty((2, batch) if flow_u.ndim == 3 else (2,), dtype=torch.float32,
+                       device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.tpuflow_lk_fused_tile_round(
         prev_ext.data_ptr(), warped_ext.data_ptr(), flow_u.data_ptr(), flow_v.data_ptr(),
-        ctrl.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), batch, he, we, ext, gy0, gx0,
-        gh, gw, window_size, int(relaxed_order), float(det_threshold), stream)
+        ctrl.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), sums.data_ptr(), batch, he,
+        we, ext, gy0, gx0, gh, gw, window_size, int(relaxed_order), float(det_threshold), stream)
     _build.check(lib, code, "lk_fused_tile_round")
     launch_counts["lk_fused_tile_round"] += 1
-    if flow_u.ndim == 2:
-        return parts[:, 0].sum(dim=1)
-    # Each element's partials summed alone, as its 2-D launch's are.
-    return torch.stack([parts[:, b].contiguous().sum(dim=1) for b in range(batch)], dim=1)
+    return sums

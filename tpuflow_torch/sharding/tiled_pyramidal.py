@@ -228,8 +228,8 @@ def _refine_tiled_device(prev_t, curr_t, u, v, dims, lvl, mesh, cfg, ctrl):
     """``cfg.iterations`` rounds of the fast path on this rank's tiles of
     level ``lvl`` under device control: the reference's sharded
     ``lax.while_loop`` with its ``lax.psum`` early exit. ``ctrl`` is the
-    level's (3,) int32 latch, -, rounds run, all 0 on entry (row 1 is the
-    refine kernel's ticket on a replicated level; unused here)."""
+    level's (3,) int32 latch, ticket, rounds run, all 0 on entry (the
+    ticket is the tile round kernel's, 0 between launches)."""
     lh, lw, gy0, gx0 = _tile_origin(dims, lvl, mesh)
     md, mdv = cfg.max_disp, cfg.max_disp_v_effective
     warp_halo = md + 1
@@ -245,12 +245,13 @@ def _refine_tiled_device(prev_t, curr_t, u, v, dims, lvl, mesh, cfg, ctrl):
     curr_ext = halo_mod.exchange_halo_2d(curr_t, warp_halo, mesh, boundary="zero")
     prev_ext = halo_mod.exchange_halo_2d(prev_t, ext, mesh, boundary="symm")
     # Round 0 always runs (the latch starts clear), so what a skipped
-    # round keeps here was written before.
+    # round keeps here was written before; its sums are undefined, and the
+    # latch they are ORed into is set.
     warped_ext = torch.empty_like(curr_ext)
     parts = None
     if curr_t.is_cuda:
-        n_blocks = lk.refine_blocks(th + 2 * ext, tw + 2 * ext, window)
-        parts = torch.zeros((2, 1, n_blocks), dtype=torch.float32, device=u.device)
+        n_blocks = lk.tile_round_blocks(th + 2 * ext, tw + 2 * ext, window)
+        parts = torch.empty((2, 1, n_blocks), dtype=torch.float32, device=u.device)
     frozen = latch != 0
     for i in range(cfg.iterations):
         # A frozen flow keeps the bits the round that latched left it.
