@@ -162,7 +162,8 @@ failure raises and the script exits non-zero):
    one rank per card where the machine has two cards or more, eager and
    graphed (a refused capture printed; the replay's device busy and
    launches), every launch of one eager step a config held against its
-   plain version on every rank (``--mesh-cards-only`` runs (e) alone);
+   plain version on every rank (``--mesh-cards-only`` runs (e) and phase
+   10's four-card parts alone);
 9. profile: device time by kernel and the device's busy share over 4 frames
    of each stream (torch.profiler);
 10. 4k (``[4k]`` lines): the port above 1080p, on ``--seed`` frames at
@@ -179,7 +180,30 @@ failure raises and the script exits non-zero):
    generated on the card, the ``production`` verifier with the dense
    ground truth, every launch held against its plain version, each
    pattern's pyramidal dense EPE against the committed capture by
-   check_4k.sh's rule); the stage profiler at 4K under ``production``
+   check_4k.sh's rule); the tiled path at 4K, the reference's design
+   point (``[mesh4k]`` lines): (a) NCCL world 1 in this process, every
+   level tiled (extended tiles 2166x3846, 1086x1926, 546x966), checked as
+   phase 8 (a) checks 1080p (host reads 0 under sync debug "error", the
+   host-steered twin, the still pair, every launch against its plain
+   version, the graphed stream, ms and busy, the untiled ``rtl_clamp``
+   result, K6's tile round timed at each 4K tile) with its peak device
+   memory; (b-c) on four cards only (``--mesh-cards-only``; the one-card
+   run prints that they did not run): one NCCL rank a card at 1x2x2, 1x4x1
+   and 2x1x2 (two streams, a -> b and b -> a, one a batch slice), both
+   configs eager and graphed, every launch on every rank against its plain
+   version, the assembled flow of each element against the untiled card
+   result, rounds, launches, halo and gather bytes, each rank's busy beside
+   world 1's; the tiled VO session on 1x2x2 (``default``, grid 16, 8
+   frames) graphed on every rank against its eager twin and an untiled
+   ``rtl_clamp`` session, and ``ba.solve(8)`` over its observations in
+   one shard a card over NCCL against the unsharded solve; the VO path at
+   4K (``[vo4k]`` lines): the grid seed kernel at 2160x3840 (32,400 cells)
+   as phase 6 checks it at 1080p, and an untiled ``OdometrySession`` at
+   3840x2160, fx = fy = 1920, grid 16, 8 frames, under ``production`` and
+   ``default`` with the forward-backward check, as phase 6 checks its
+   sessions (graphed, eager and plain-version records identical, host
+   reads 0, two ``solve(8)`` with the same bits, ms a frame, peak device
+   memory); the stage profiler at 4K under ``production``
    (the benign row included) and ``production_fullband``; one
    ``production`` and one ``default`` pair at 5120x2880 and 7680x4320,
    every launch bit-exact to its plain version, the step captured as a
@@ -245,7 +269,10 @@ the same result and running the same rounds,
 the tiled VO session's alive flags identical on 99.9% of the slot records,
 its landmark ids identical and its live tracks within 1e-3 px on 99.9% of them and 0.05 px on all,
 the sharded solve's mean reprojection error within 1e-4 px of the
-unsharded one's and two sharded solves bit-identical (``MESH_*``).
+unsharded one's and two sharded solves bit-identical (``MESH_*``); at
+4K the same limits, every level tiled, and on four cards the sharded
+solve's camera translations within 2e-2 of the unsharded solve's
+(``BA_POSES_ATOL``, the reference's limit).
 
 Each kernel's time is printed beside its bound (``eval/bounds.py``: the
 bytes one call must move over the card's 3.35 TB/s) and its share of it;
@@ -448,6 +475,15 @@ PATH_KERNELS = {
                                        "lk_fused_tile_round", "lk_refine"},
     "mesh 1x4x1 default": {"warp_exact", "lk_fused_tile_round", "lk_refine_exact"},
     "mesh vo": {"warp_exact", "lk_fused_tile_round", "seed_grid"},
+    # Phase 10, the tiled path at 4K: every level tiled on every mesh (no
+    # replicated level, so no K3 / K5), at NCCL world 1 and, with
+    # --mesh-cards-only, one rank a card on four cards.
+    **{f"mesh4k {mesh} production_fullband{g}": {"warp_packed_u8", "warp_packed_u16",
+                                                  "lk_fused_tile_round"}
+       for mesh in ("1x1x1", "1x2x2", "1x4x1", "2x1x2") for g in ("", " graphed")},
+    **{f"mesh4k {mesh} default{g}": {"warp_exact", "lk_fused_tile_round"}
+       for mesh in ("1x1x1", "1x2x2", "1x4x1", "2x1x2") for g in ("", " graphed")},
+    "mesh4k vo graphed": {"warp_exact", "lk_fused_tile_round", "seed_grid"},
 }
 # The kernels whose main paths are phase 8's (the tiled flow), held to the
 # launch check after it rather than after phase 4.
@@ -481,6 +517,8 @@ VO_SESSIONS = {"production": ("production", None, 1), "default": ("default", 1.0
 # frame's grid seed (FrontEnd.init).
 VO_START_LAUNCHES = {"seed_grid": 1}
 VO_GRID = 16
+# fx = fy as a fraction of the frame's width (1080p: 1536 px).
+VO_FOCAL = 0.8
 VO_RUNS = 3
 VO_BA_ITERATIONS = 8
 # The chunked square loop at 1080p: the gate's 320-px field of view scaled
@@ -1655,15 +1693,16 @@ def vo_chunk(a, b):
     return torch.stack([b if i % 2 == 0 else a for i in range(N_FRAMES)])
 
 
-def vo_session(a, chunk, name: str, eager: bool = False):
-    """The 1080p OdometrySession ``name`` (VO_SESSIONS) on the card: start
-    on a, then the chunk through process_frames (each step one replay of
-    the captured step), or with ``eager`` frame by frame through
-    process_frame (each step eager). Returns it and the chunk's seconds
-    (host clock to a synchronize)."""
+def vo_session(a, chunk, name: str, eager: bool = False, focal: float = VO_FOCAL):
+    """The OdometrySession ``name`` (VO_SESSIONS) on the card at a's size,
+    fx = fy = ``focal`` times its width: start on a, then the chunk through
+    process_frames (each step one replay of the captured step), or with
+    ``eager`` frame by frame through process_frame (each step eager).
+    Returns it and the chunk's seconds (host clock to a synchronize)."""
     config, fb, stride = VO_SESSIONS[name]
-    fx = fy = 0.8 * WIDTH
-    sess = OdometrySession((fx, fy, WIDTH / 2.0, HEIGHT / 2.0), keyframe_stride=stride,
+    h, w = a.shape
+    fx = fy = focal * w
+    sess = OdometrySession((fx, fy, w / 2.0, h / 2.0), keyframe_stride=stride,
                            grid_step=VO_GRID, backend="cuda", pyramid_config=config,
                            fb_check_threshold=fb, device=a.device)
     sess.start(a)
@@ -1701,58 +1740,68 @@ def _same_records(x, y) -> bool:
                for f, g in zip(x[:3], y[:3])) and x[3] == y[3]
 
 
-def check_vo_session(a, b, chunk, name: str, smi: str):
-    """Phase 6, one 1080p session (VO_SESSIONS): (a) two eager steps under
-    sync debug "error"; the graphed session's launches, host reads, reseeds
-    taken and time a frame; (g) the same session stepped eagerly, its
+def check_vo_session(a, b, chunk, name: str, smi: str, focal: float = VO_FOCAL,
+                     tag: str = "vo"):
+    """Phase 6 at 1080p (and phase 10 at 4K), one session (VO_SESSIONS) at
+    a's size over the chunk: (a) two eager steps under sync debug "error";
+    the graphed session's launches, host reads, reseeds taken, time a
+    frame and peak device memory; (g) the same session stepped eagerly, its
     ObsRecords and reseeds identical to the graphed ones, and its time a
     frame; then solve(ba_iterations=8) twice (identical bits) and the same
     session through the plain versions, its ObsRecords identical too."""
     config, fb, stride = VO_SESSIONS[name]
     dev = a.device
-    vo_session(a, chunk, name)  # warm-up, and the step's capture
-    vo_session(a, chunk[:2], name, eager=True)
-    probe = vo_session(a, chunk[:0], name)[0]
+    h, w = a.shape
+    n = len(chunk)
+
+    def session(frames, eager=False):
+        return vo_session(a, frames, name, eager=eager, focal=focal)
+
+    session(chunk)  # warm-up, and the step's capture
+    session(chunk[:2], eager=True)
+    probe = session(chunk[:0])[0]
     torch.cuda.synchronize()
     with no_sync():
         probe.process_frame(chunk[0])
         probe.process_frame(chunk[1])
     torch.cuda.synchronize()
     pyramidal.counters.reset()
+    torch.cuda.reset_peak_memory_stats()
     ((sess, _), syncs), counts = counted(
-        f"vo {name}", lambda: host_syncs(lambda: vo_session(a, chunk, name)))
+        f"vo {name}", lambda: host_syncs(lambda: session(chunk)))
+    peak = torch.cuda.max_memory_allocated() / 2**30
     reads = (pyramidal.counters.convergence_reads, pyramidal.counters.band_reads)
     reseeds = int(pyramidal.counters.reseeds(dev))
-    seconds = sorted(vo_session(a, chunk, name)[1] for _ in range(VO_RUNS))
-    ms = [1000 * s / N_FRAMES for s in seconds]
+    seconds = sorted(session(chunk)[1] for _ in range(VO_RUNS))
+    ms = [1000 * s / n for s in seconds]
     alive = int(sess._dev.alive.sum())
-    print(f"[vo] {name} session {HEIGHT}x{WIDTH}, grid {VO_GRID} "
-          f"({sess._dev.alive.numel()} slots), keyframe stride {stride}, {N_FRAMES} frames "
+    print(f"[{tag}] {name} session {h}x{w}, fx = fy = {focal * w:g}, grid {VO_GRID} "
+          f"({sess._dev.alive.numel()} slots), keyframe stride {stride}, {n} frames "
           f"through process_frames{', fb check 1.0 px' if fb else ''}, each step a graph "
           f"replay: front end {_spread(ms)} ({smi}), tracks alive {alive}, landmarks "
-          f"{sess.n_landmarks}, reseeds taken {reseeds} of {N_FRAMES} steps (the seed kernel's "
+          f"{sess.n_landmarks}, reseeds taken {reseeds} of {n} steps (the seed kernel's "
           f"device counter), launches {counts}, host reads convergence {reads[0]} band "
           f"{reads[1]} (the capture's launches, added a replay), synchronizing operations "
           f"{len(syncs)}; two eager steps under sync debug "
-          f"\"error\": none")
+          f"\"error\": none; peak device memory {peak:.2f} GiB")
     if syncs or sum(reads):
         raise AssertionError(f"vo {name}: {len(syncs)} synchronizing operations "
                              f"{sorted(set(syncs))}, flow reads {reads}")
     if alive < 0.5 * sess._dev.alive.numel():
         raise AssertionError(f"vo {name}: only {alive} tracks alive")
-    if not 0 < reseeds <= N_FRAMES // stride:
-        raise AssertionError(f"vo {name}: {reseeds} reseeds taken in {N_FRAMES} steps at "
+    if not 0 < reseeds <= n // stride:
+        raise AssertionError(f"vo {name}: {reseeds} reseeds taken in {n} steps at "
                              f"stride {stride}")
 
     pyramidal.counters.reset()
-    first, e_counts = counted(f"vo {name}", lambda: vo_session(a, chunk, name, eager=True))
+    first, e_counts = counted(f"vo {name}", lambda: session(chunk, eager=True))
     e_reseeds = int(pyramidal.counters.reseeds(dev))
-    e_runs = [first] + [vo_session(a, chunk, name, eager=True) for _ in range(VO_RUNS - 1)]
+    e_runs = [first] + [session(chunk, eager=True) for _ in range(VO_RUNS - 1)]
     eager = e_runs[0][0]
-    e_ms = [1000 * s / N_FRAMES for _, s in e_runs]
+    e_ms = [1000 * s / n for _, s in e_runs]
     got, want = _records(sess), _records(eager)
     same = _same_records(got, want) and e_reseeds == reseeds
-    print(f"[vo] {name} the same session stepped eagerly (process_frame): {_spread(e_ms)}, "
+    print(f"[{tag}] {name} the same session stepped eagerly (process_frame): {_spread(e_ms)}, "
           f"launches {e_counts}, reseeds taken {e_reseeds}; {len(got[0])} ObsRecords "
           f"{'bit-identical' if same else 'DIFFER'} to the graphed session's")
     if not same:
@@ -1768,7 +1817,7 @@ def check_vo_session(a, b, chunk, name: str, smi: str):
     same = all(np.array_equal(getattr(r0, f), getattr(r1, f))
                for f in ("poses_r", "poses_t", "landmarks"))
     finite = all(np.isfinite(getattr(r0, f)).all() for f in ("poses_r", "poses_t", "landmarks"))
-    print(f"[vo] {name} solve(ba_iterations={VO_BA_ITERATIONS}) over {len(sess.keyframes)} "
+    print(f"[{tag}] {name} solve(ba_iterations={VO_BA_ITERATIONS}) over {len(sess.keyframes)} "
           f"keyframes, {sum(int(v.sum()) for v in sess.obs_valid)} valid observations: "
           f"{solve_s[0]:.3f} s, then {solve_s[1]:.3f} s; mean reprojection error "
           f"{r0.mean_reprojection_error:.4f} px; two solves {'bit-identical' if same else 'DIFFER'}")
@@ -1779,7 +1828,7 @@ def check_vo_session(a, b, chunk, name: str, smi: str):
     before = launch_counts()
     pyramidal.counters.reset()
     with plain_versions():
-        plain, plain_s = vo_session(a, chunk, name, eager=True)
+        plain, plain_s = session(chunk, eager=True)
     if launch_counts() != before:
         raise AssertionError("the plain VO session launched a kernel")
     p_reseeds = int(pyramidal.counters.reseeds(dev))
@@ -1787,8 +1836,8 @@ def check_vo_session(a, b, chunk, name: str, smi: str):
     puv = _records(plain)[0]
     xy = max(float(np.abs(x - y)[v].max(initial=0.0)) for x, y, v in zip(uv, puv, ok))
     same = _same_records(_records(sess), _records(plain)) and p_reseeds == reseeds
-    print(f"[vo] {name} session through the plain versions on the card: "
-          f"{1000 * plain_s / N_FRAMES:.3f} ms/frame, reseeds taken {p_reseeds}; ObsRecords "
+    print(f"[{tag}] {name} session through the plain versions on the card: "
+          f"{1000 * plain_s / n:.3f} ms/frame, reseeds taken {p_reseeds}; ObsRecords "
           f"{'bit-identical' if same else 'DIFFER'} to the graphed session's (max |dxy| of "
           f"live tracks {xy:.3g} px)")
     if not same:
@@ -1801,15 +1850,17 @@ def _span(times: tuple[float, float]) -> str:
     return f"{times[0]:.5f}-{times[1]:.5f}"
 
 
-def check_seed_kernel(a) -> dict:
-    """Phase 6: the grid seed kernel at 1080p, bit for bit against its plain
-    version on the stream frame and the natural frame at margins 0 and the
-    sessions' seed margin; its device time beside its bound and the plain
+def check_seed_kernel(a, smi: str, tag: str = "vo") -> dict:
+    """Phase 6 at 1080p (and phase 10 at 4K): the grid seed kernel at a's
+    size, bit for bit against its plain version on the stream frame and the
+    natural frame at margins 0 and the sessions' seed margin, taken and with
+    its predicate false; its device time beside its bound and the plain
     version's (the masked reseed every step paid before the gate); a call
     whose predicate is false beside the launch floor."""
     dev = a.device
-    natural = profile.natural_pair(device=dev)[0].contiguous()
-    margin = device_loop.FrontEnd(grid_step=VO_GRID).margin_for(HEIGHT, WIDTH, for_cull=False)
+    h, w = a.shape
+    natural = profile.natural_pair(h, w, device=dev)[0].contiguous()
+    margin = device_loop.FrontEnd(grid_step=VO_GRID).margin_for(h, w, for_cull=False)
     worst = 0.0
     for label, frame in (("stream", a), ("natural", natural)):
         for m in (0, margin):
@@ -1818,12 +1869,18 @@ def check_seed_kernel(a) -> dict:
             err = max_abs(xy, want_xy)
             flips = int((alive != want_alive).sum())
             worst = max(worst, err)
-            print(f"[vo] seed kernel, {label} frame {HEIGHT}x{WIDTH}, grid {VO_GRID}, margin {m}: "
+            off = torch.zeros((), dtype=torch.bool, device=dev)
+            _, off_alive = seed.seed_grid(frame, VO_GRID, margin=m, predicate=off)
+            want_off = seed.seed_grid_ref(frame, VO_GRID, margin=m, predicate=off)
+            off_same = torch.equal(off_alive, want_off[1]) and not bool(off_alive.any())
+            print(f"[{tag}] seed kernel, {label} frame {h}x{w}, grid {VO_GRID}, margin {m}: "
                   f"{alive.numel()} cells, {int(alive.sum())} alive; max |dxy| {err} and "
-                  f"{flips} alive flags against the plain version")
-            if err or flips:
+                  f"{flips} alive flags against the plain version; predicate false: every cell "
+                  f"dead as the plain version's: {off_same}")
+            if err or flips or not off_same:
                 raise AssertionError(f"seed kernel differs from its plain version ({label}, "
-                                     f"margin {m}): max |dxy| {err}, {flips} alive flags")
+                                     f"margin {m}): max |dxy| {err}, {flips} alive flags, "
+                                     f"predicate false alike {off_same}")
     ms = device_ms(lambda: seed.seed_grid(a, VO_GRID, margin=margin))
     plain_ms = device_ms(lambda: seed.seed_grid_ref(a, VO_GRID, margin=margin))
     off = torch.zeros((), dtype=torch.bool, device=dev)
@@ -1832,17 +1889,19 @@ def check_seed_kernel(a) -> dict:
     if bool(off_alive.any()):
         raise AssertionError("a seed call with a false predicate left a cell alive")
     floor_ms = device_ms(_build.launch_empty)
-    bound_ms, by = bounds.seed_bound(HEIGHT, WIDTH, VO_GRID)
-    print(f"[vo] seed kernel at {HEIGHT}x{WIDTH}, grid {VO_GRID}, margin {margin}: device "
-          f"{ms:.5f} ms a call (first design: {_span(SEED_FIRST_MS['taken'])}), bound "
+    bound_ms, by = bounds.seed_bound(h, w, VO_GRID)
+    first = {k: f" (first design at 1080p: {_span(t)})" if (h, w) == (HEIGHT, WIDTH) else ""
+             for k, t in SEED_FIRST_MS.items()}
+    print(f"[{tag}] seed kernel at {h}x{w}, grid {VO_GRID}, margin {margin}: device "
+          f"{ms:.5f} ms a call{first['taken']}, bound "
           f"{bound_ms:.5f} ms ({by}), {100 * bound_ms / ms:.1f}% of it, launch floor "
           f"{floor_ms:.5f} ms; plain "
           f"version (the masked reseed paid every step before the gate) {plain_ms:.4f} ms; "
-          f"predicate false {off_ms:.5f} ms (first design: {_span(SEED_FIRST_MS['skipped'])}), "
-          f"{1000 * (off_ms - floor_ms):.2f} us over the floor")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "shape": [HEIGHT, WIDTH],
+          f"predicate false {off_ms:.5f} ms{first['skipped']}, "
+          f"{1000 * (off_ms - floor_ms):.2f} us over the floor; {smi}")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "shape": [h, w],
             "grid_step": VO_GRID, "margin": margin, "skipped_ms": off_ms,
-            "launch_floor_ms": floor_ms, "bytes": bounds.seed_bytes(HEIGHT, WIDTH, VO_GRID),
+            "launch_floor_ms": floor_ms, "bytes": bounds.seed_bytes(h, w, VO_GRID),
             "bound_ms": bound_ms, "bound_by": by}
 
 
@@ -2664,11 +2723,14 @@ def _mesh_name(shape) -> str:
     return "x".join(map(str, shape))
 
 
-def _session_1080(a, config: str, mesh=None, rtl_clamp: bool = False):
-    """A 1080p session started on ``a``. ``rtl_clamp`` gives an untiled
-    session the saturation of the tiled flow's, its counterpart."""
-    fx = fy = 0.8 * WIDTH
-    sess = OdometrySession((fx, fy, WIDTH / 2.0, HEIGHT / 2.0), grid_step=VO_GRID,
+def _tracked_session(a, config: str, mesh=None, rtl_clamp: bool = False,
+                     focal: float = VO_FOCAL):
+    """A session at a's size started on ``a``, fx = fy = ``focal`` times
+    its width. ``rtl_clamp`` gives an untiled session the saturation of
+    the tiled flow's, its counterpart."""
+    h, w = a.shape
+    fx = fy = focal * w
+    sess = OdometrySession((fx, fy, w / 2.0, h / 2.0), grid_step=VO_GRID,
                            backend="cuda", pyramid_config=config, mesh=mesh, device=a.device)
     if rtl_clamp:
         sess._fe = device_loop.FrontEnd(grid_step=VO_GRID, keyframe_stride=sess.keyframe_stride,
@@ -2723,7 +2785,7 @@ def mesh_rank(rank: int, work: str, device: str) -> None:
 
     # (c) the mesh-tiled VO session.
     chunk = vo_chunk(a, b)[:MESH_VO_FRAMES]
-    sess = _session_1080(a, "default", vo_mesh)
+    sess = _tracked_session(a, "default", vo_mesh)
     dist.barrier(vo_mesh.group)
     ms, counts = counted("mesh vo", lambda: _host_ms(lambda: sess.process_frames(chunk), 1))
     report["vo_ms"] = ms[0] / MESH_VO_FRAMES
@@ -2756,10 +2818,64 @@ def mesh_rank(rank: int, work: str, device: str) -> None:
     dist.destroy_process_group()
 
 
+def _nccl_flow(mesh, prev, curr, config: str, path: str, found: dict, tiles: dict,
+               note=lambda what: None):
+    """One config's tiled step over an NCCL mesh on global (B, H, W)
+    frames: its launches a pair (counted as ``path``), traffic, this rank's
+    rounds a level, host-clock ms and device busy; the step graphed on every
+    rank (a refused capture recorded, not hidden), its first replay against
+    the eager step, ms a pair over MESH_PAIRS alternating pairs, busy and
+    launches of a replay; then one eager step with every kernel launch held
+    against its plain version (``checked_kernels``); ``note`` hears each
+    stage's end. Returns the report and the eager flow."""
+    cfg = PYRAMID_CONFIGS[config]
+
+    def run():
+        return tiled_lucas_kanade_pyramidal(prev, curr, mesh, config=cfg, backend="cuda")
+
+    run()  # warm-up: operator slices, NCCL buffers
+    mesh_counters.reset()
+    (u, v), counts = counted(path, run)
+    traffic = mesh_counters.traffic()
+    rounds = mesh_counters.level_rounds.tolist()
+    dist.barrier(mesh.group)
+    report = {"launches": counts, "traffic": traffic, "rounds": rounds, "ms": _host_ms(run),
+              "device_ms": busy_ms(run), "digest": _digest(u.cpu().numpy(), v.cpu().numpy())}
+    note("eager")
+    # The step graphed on every rank, its halo exchanges (NCCL point to
+    # point) captured too; a refused capture is recorded, not hidden.
+    try:
+        stream = TiledGraphedStream(prev, cfg, mesh)
+        gu, gv = stream.step(curr)
+        report["graphed_same"] = bool(torch.equal(gu, u) and torch.equal(gv, v))
+        report["graphed_ms"] = [t / MESH_PAIRS for t in _host_ms(
+            lambda: [stream.step(c) for _, c in _alternating(prev, curr)])]
+        events = device_events(lambda: stream.step(curr))
+        report["graphed_device_ms"] = busy_of(events)
+        report["graphed_launches"] = device_launches(events)
+        del stream
+    except Exception as exc:  # noqa: BLE001 - the refusal is the reading
+        report["graphed_error"] = f"{type(exc).__name__}: {exc}"[:2000]
+    note("graphed")
+    with checked_kernels(found, tiles):
+        run()
+    dist.barrier(mesh.group)
+    return report, u, v
+
+
+def _checked_report(found: dict, tiles: dict) -> tuple[dict, dict]:
+    """``checked_kernels``' findings as JSON: each kernel's worst |d| by
+    tile shape, and the tile round's launches and sum distances by shape."""
+    return ({n: {"x".join(map(str, s)): e for s, e in shapes.items()}
+             for n, shapes in found.items()},
+            {"x".join(map(str, s)): {k: t[k] for k in (
+                "running", "skipped", "sum_rel", "sum_rel_f64", "gamma")}
+             for s, t in tiles.items()})
+
+
 def nccl_rank(rank: int, world: int, work: str, shape) -> None:
     """One rank per card over NCCL (phase 8 e): the tiled flow under each
-    config, its launches a frame pair and host-clock ms, then one eager
-    step with every kernel launch held against its plain version."""
+    config at 1080p (``_nccl_flow``)."""
     initialize_multihost(f"file://{work}/store_nccl", world, rank, backend="nccl")
     mesh = make_flow_mesh(*shape)
     ops.pin_f32_matmul()
@@ -2769,43 +2885,11 @@ def nccl_rank(rank: int, world: int, work: str, shape) -> None:
     found: dict = {}
     tiles: dict = {}
     for config in MESH_CONFIGS:
-        cfg = PYRAMID_CONFIGS[config]
-
-        def run():
-            return tiled_lucas_kanade_pyramidal(a[None], b[None], mesh, config=cfg,
-                                                backend="cuda")
-
-        run()
-        mesh_counters.reset()
-        (u, v), counts = counted(f"mesh {_mesh_name(shape)} {config}", run)
-        traffic = mesh_counters.traffic()
-        dist.barrier(mesh.group)
-        report[config] = {"launches": counts, "traffic": traffic, "ms": _host_ms(run),
-                          "device_ms": busy_ms(run),
-                          "digest": _digest(u.cpu().numpy(), v.cpu().numpy())}
-        # The step graphed on every rank, its halo exchanges (NCCL point to
-        # point) captured too; a refused capture is recorded, not hidden.
-        try:
-            stream = TiledGraphedStream(a[None], cfg, mesh)
-            gu, gv = stream.step(b[None])
-            report[config]["graphed_same"] = bool(torch.equal(gu, u) and torch.equal(gv, v))
-            report[config]["graphed_ms"] = [t / MESH_PAIRS for t in _host_ms(
-                lambda: [stream.step(c[None]) for _, c in _alternating(a, b)])]
-            events = device_events(lambda: stream.step(b[None]))
-            report[config]["graphed_device_ms"] = busy_of(events)
-            report[config]["graphed_launches"] = device_launches(events)
-            del stream
-        except Exception as exc:  # noqa: BLE001 - the refusal is the reading
-            report[config]["graphed_error"] = f"{type(exc).__name__}: {exc}"[:2000]
-        with checked_kernels(found, tiles):
-            run()
-        dist.barrier(mesh.group)
+        report[config], u, v = _nccl_flow(mesh, a[None], b[None], config,
+                                          f"mesh {_mesh_name(shape)} {config}", found, tiles)
         if rank == 0:
             arrays[f"{config}/u"], arrays[f"{config}/v"] = u[0].cpu().numpy(), v[0].cpu().numpy()
-    report["kernels"] = {n: {"x".join(map(str, s)): e for s, e in shapes.items()}
-                         for n, shapes in found.items()}
-    report["tile_sums"] = {"x".join(map(str, s)): {k: t[k] for k in (
-        "running", "skipped", "sum_rel", "sum_rel_f64", "gamma")} for s, t in tiles.items()}
+    report["kernels"], report["tile_sums"] = _checked_report(found, tiles)
     dist.barrier()
     np.savez(f"{work}/nccl{rank}.npz", **arrays)
     with open(f"{work}/nccl{rank}.json", "w") as fh:
@@ -2881,22 +2965,42 @@ def _device_note(per_rank: list, untiled) -> str:
     """Each rank's device busy ms a frame pair, with its parts in the port's
     kernels, in copies and in NCCL's kernels (torch.profiler, one run),
     beside the untiled path's."""
-    def one(ms):
-        return f"{ms[0]:.3f} ({ms[1]:.3f}, {ms[2]:.3f}, {ms[3]:.3f})"
-
     return (f"device busy ms a pair by rank (in the port's kernels, in copies, in NCCL) "
-            f"{', '.join(one(ms) for ms in per_rank)}, one profiled run each; "
-            f"untiled {one(untiled)}")
+            f"{', '.join(_busy(ms) for ms in per_rank)}, one profiled run each; "
+            f"untiled {_busy(untiled)}")
 
 
-def _spawn(target, args_of, n: int, what: str) -> None:
+def session_problem(sess) -> "ba.BAProblem":
+    """The bundle-adjustment problem ``sess.solve`` builds from its
+    keyframes (the solve run once to build it)."""
+    captured = {}
+    solve = ba.solve
+
+    def capture(p, *args, **kw):
+        captured.setdefault("problem", p)
+        return solve(p, *args, **kw)
+
+    ba.solve = capture
+    try:
+        sess.solve(ba_iterations=VO_BA_ITERATIONS)
+    finally:
+        ba.solve = solve
+    return captured["problem"]
+
+
+def _busy(ms) -> str:
+    """A ``busy_of`` reading: busy ms (in the port's kernels, copies, NCCL)."""
+    return f"{ms[0]:.3f} ({ms[1]:.3f}, {ms[2]:.3f}, {ms[3]:.3f})"
+
+
+def _spawn(target, args_of, n: int, what: str, wall: float = MESH_WALL_S) -> None:
     """Start n processes of ``target`` and wait for all, each within the
-    phase's wall limit; any failure or hang fails the phase."""
+    wall limit; any failure or hang fails the phase."""
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=target, args=args_of(r)) for r in range(n)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + MESH_WALL_S
+    deadline = time.monotonic() + wall
     try:
         for p in procs:
             p.join(max(1.0, deadline - time.monotonic()))
@@ -2908,7 +3012,7 @@ def _spawn(target, args_of, n: int, what: str) -> None:
     codes = [p.exitcode for p in procs]
     if hung or any(codes):
         raise AssertionError(f"[mesh] {what}: exit codes {codes}, "
-                             f"{len(hung)} killed at the {MESH_WALL_S} s limit")
+                             f"{len(hung)} killed at the {wall} s limit")
 
 
 def _tile_step(mesh, cfg):
@@ -2924,9 +3028,19 @@ def _alternating(a, b, n: int = MESH_PAIRS):
     return [(a, b) if i % 2 == 0 else (b, a) for i in range(n)]
 
 
-def time_tile_round(tiles: dict, smi: str) -> dict:
-    """Phase 8 (a): K6's tile round at each extended-tile shape the 1080p
-    world-1 step gave it (the first running launch's inputs): a skipped
+def shard_plan(shape, ty: int, tx: int, cfg) -> list[bool]:
+    """Which levels of a (..., H, W) frame the tiled path runs tiled on a
+    mesh of ty x tx tiles (coarse to fine), as ``tiled_pyramidal`` plans
+    them."""
+    from tpuflow_torch.sharding import tiled_pyramidal as tp
+
+    dims = tp._level_shapes(*shape[-2:], cfg.levels, cfg.scale_factor)
+    return tp._shard_plan(dims, ty, tx, cfg.max_disp + 1)
+
+
+def time_tile_round(tiles: dict, smi: str, tag: str = "[mesh] (a)") -> dict:
+    """Phase 8 (a) (and 10 at 4K): K6's tile round at each extended-tile
+    shape the world-1 step gave it (the first running launch's inputs): a skipped
     call (latch set) bit-exact to the plain version (u, v and the control
     untouched); device ms running and skipped beside the bound, the plain
     version's, an empty kernel on the round's grid and the one-block launch
@@ -2954,7 +3068,7 @@ def time_tile_round(tiles: dict, smi: str) -> dict:
         empty_ms = device_ms(lambda: lk.launch_tile_round_empty(*shape, window))
         rows = _build.load().tpuflow_lk_tile_round_rows(*shape, window)
         t = tiles[shape]
-        print(f"[mesh] (a) lk_fused_tile_round {shape[0]}x{shape[1]} extended tile: "
+        print(f"{tag} lk_fused_tile_round {shape[0]}x{shape[1]} extended tile: "
               f"{t['running']} running and {t['skipped']} skipped launches bit-exact to the "
               f"plain version, sums within {t['sum_rel']:.3g} of du.abs().sum() (limit "
               f"{2 * t['gamma']:.3g}) and {t['sum_rel_f64']:.3g} of the float64 sum (limit "
@@ -2973,8 +3087,10 @@ def time_tile_round(tiles: dict, smi: str) -> dict:
     return reading
 
 
-def check_world_one(a, b, mesh, untiled, untiled_dev, smi) -> tuple[dict, dict]:
-    """Phase 8 (a), NCCL at world 1, mesh 1x1x1, each of MESH_CONFIGS: the
+def check_world_one(a, b, mesh, untiled, untiled_dev, smi, tag: str = "[mesh] (a)",
+                    path: str = "mesh", max_px: dict | None = None) -> tuple[dict, dict]:
+    """Phase 8 (a) at 1080p (and 10 at 4K, ``tag`` "[mesh4k] (a)", ``path``
+    "mesh4k"), NCCL at world 1, mesh 1x1x1, each of MESH_CONFIGS: the
     device-controlled step eager under sync debug "error" (host reads 0,
     counted), bit for bit its host-steered twin (``_tiled_solve(...,
     device_control=False)``, the early exit read to the host), the rounds
@@ -2984,8 +3100,9 @@ def check_world_one(a, b, mesh, untiled, untiled_dev, smi) -> tuple[dict, dict]:
     over MESH_PAIRS alternating pairs, bit for bit the eager steps, rounds
     included; ms a pair eager and graphed (host clock, median and spread of
     MESH_RUNS streams), device busy of each; the limits against the
-    untiled card result. Returns the launches a pair by path and K6's tile
-    round's reading."""
+    untiled card result (the max |d| ``max_px[config]`` where given, else
+    MESH_MAX). Returns the launches a pair by path and K6's tile round's
+    reading."""
     from tpuflow_torch.sharding import tiled_pyramidal as tp
 
     tiles: dict = {}
@@ -2993,11 +3110,12 @@ def check_world_one(a, b, mesh, untiled, untiled_dev, smi) -> tuple[dict, dict]:
     counts_by_path: dict = {}
     for config in MESH_CONFIGS:
         cfg = PYRAMID_CONFIGS[config]
+        plan = shard_plan(a.shape, mesh.ty, mesh.tx, cfg)
         step = _tile_step(mesh, cfg)
         step(a, b)  # warm-up: operator slices, NCCL buffers
         mesh_counters.reset()
         with no_sync():
-            (u, v), counts = counted(f"mesh 1x1x1 {config}", lambda: step(a, b))
+            (u, v), counts = counted(f"{path} 1x1x1 {config}", lambda: step(a, b))
         reads = mesh_counters.convergence_reads
         rounds = mesh_counters.level_rounds[0].tolist()
         counts_by_path[f"1x1x1 {config}"] = counts
@@ -3012,6 +3130,7 @@ def check_world_one(a, b, mesh, untiled, untiled_dev, smi) -> tuple[dict, dict]:
             step(a, b)
             step(a, a)
         p999, mx = _p999_max(u[0], v[0], *untiled[config])
+        limit = (max_px or {}).get(config, MESH_MAX)
 
         t0 = time.perf_counter()
         stream = TiledGraphedStream(a[None], cfg, mesh)
@@ -3022,7 +3141,7 @@ def check_world_one(a, b, mesh, untiled, untiled_dev, smi) -> tuple[dict, dict]:
             stream.reset(a[None])
             return [stream.step(c[None]) for _, c in _alternating(a, b)]
 
-        flows, g_counts = counted(f"mesh 1x1x1 {config} graphed", graphed_stream)
+        flows, g_counts = counted(f"{path} 1x1x1 {config} graphed", graphed_stream)
         same = all(torch.equal(f[0], want[i % 2][0]) and torch.equal(f[1], want[i % 2][1])
                    for i, f in enumerate(flows))
         g_rounds = stream.level_rounds[0].tolist()
@@ -3040,15 +3159,16 @@ def check_world_one(a, b, mesh, untiled, untiled_dev, smi) -> tuple[dict, dict]:
         its = cfg.iterations
         eager_sorted, graphed_sorted = sorted(eager_ms), sorted(graphed_ms)
         per_pair = {k: n / MESH_PAIRS for k, n in g_counts.items()}
-        print(f"[mesh] (a) NCCL world 1, mesh 1x1x1, {config}, under device control: host reads "
+        print(f"{tag} NCCL world 1, mesh 1x1x1, {config} {a.shape[0]}x{a.shape[1]}, under device "
+              f"control: shard plan by level (coarse to fine) {plan}; host reads "
               f"a pair {reads} (counter; the step ran under sync debug \"error\"); rounds run "
               f"a level {rounds}, skipped {[its - r for r in rounds]}; bit for bit the "
               f"host-steered loop: {'yes' if twin else 'NO'}; still pair (a, a): rounds "
               f"{still_rounds}, skipped {[its - r for r in still_rounds]}, bit for bit the "
               f"host-steered loop: {'yes' if still_twin else 'NO'}; tiled against untiled "
               f"(rtl_clamp, same card) p99.9 |d| {p999:.3g} px, max {mx:.3g} px (limits "
-              f"{MESH_P999}, {MESH_MAX}); launches a pair {counts}; {smi}")
-        print(f"[mesh] (a) {config} graphed (TiledGraphedStream, captured in {capture_s:.3f} s): "
+              f"{MESH_P999}, {limit}); launches a pair {counts}; {smi}")
+        print(f"{tag} {config} graphed (TiledGraphedStream, captured in {capture_s:.3f} s): "
               f"{MESH_PAIRS} alternating pairs bit for bit the eager steps: "
               f"{'yes' if same else 'NO'}; rounds {g_rounds}; still pair bit for bit: "
               f"{'yes' if same_still else 'NO'}; launches a pair {per_pair}; device launches "
@@ -3061,25 +3181,28 @@ def check_world_one(a, b, mesh, untiled, untiled_dev, smi) -> tuple[dict, dict]:
               f"{_device_note([dev_eager], untiled_dev[config])}; graphed "
               f"{_device_note([dev_graphed], untiled_dev[config])}; {smi}")
         if not (reads == 0 and twin and still_twin and same and same_still
-                and still_rounds == [1] * cfg.levels and p999 <= MESH_P999 and mx <= MESH_MAX):
-            raise AssertionError(f"mesh 1x1x1 {config}: reads {reads}, twin {twin}, still "
+                and still_rounds == [1] * cfg.levels and p999 <= MESH_P999 and mx <= limit):
+            raise AssertionError(f"{path} 1x1x1 {config}: reads {reads}, twin {twin}, still "
                                  f"{still_twin} {still_rounds}, graphed {same} {same_still}, "
                                  f"p99.9 {p999}, max {mx}")
+        top = sorted(graphed_events, key=lambda e: -e.self_device_time_total)[:6]
+        print(f"{tag} {config} graphed replay's largest device times (us, calls): " + "; ".join(
+            f"{e.self_device_time_total:.1f}, {e.count} {e.key[:60]}" for e in top))
         if per_pair != {k: float(n) for k, n in counts.items()}:
-            raise AssertionError(f"mesh 1x1x1 {config}: graphed launches {per_pair} against "
+            raise AssertionError(f"{path} 1x1x1 {config}: graphed launches {per_pair} against "
                                  f"eager {counts}")
         del stream
     for name, shapes in sorted(found.items()):
         worst = max(shapes.values())
-        print(f"[mesh] (a) {name} on extended tile shapes {sorted(shapes)}: max |d| against the "
+        print(f"{tag} {name} on extended tile shapes {sorted(shapes)}: max |d| against the "
               f"plain version {worst:.3g}")
         if worst != 0.0:
-            raise AssertionError(f"mesh 1x1x1: {name} differs from its plain version")
+            raise AssertionError(f"{path} 1x1x1: {name} differs from its plain version")
     if set(found) != {"warp_packed_u8", "warp_packed_u16", "warp_exact", "lk_fused_tile_round"}:
-        raise AssertionError(f"mesh 1x1x1: kernels checked {sorted(found)}")
+        raise AssertionError(f"{path} 1x1x1: kernels checked {sorted(found)}")
     if not any(t["skipped"] for t in tiles.values()):
-        raise AssertionError("mesh 1x1x1: no skipped tile round was checked")
-    return counts_by_path, time_tile_round(tiles, smi)
+        raise AssertionError(f"{path} 1x1x1: no skipped tile round was checked")
+    return counts_by_path, time_tile_round(tiles, smi, tag)
 
 
 def check_world_one_vo(a, b, mesh, ref_sess) -> None:
@@ -3089,12 +3212,12 @@ def check_world_one_vo(a, b, mesh, ref_sess) -> None:
     timed, a replay a frame) and stepped eagerly: records identical; the
     first chunk's against the untiled rtl_clamp session by (c)'s limits."""
     chunk = vo_chunk(a, b)[:MESH_VO_FRAMES]
-    graphed_sess = _session_1080(a, "default", mesh)
+    graphed_sess = _tracked_session(a, "default", mesh)
     if not graphed_sess._fe.graphed(chunk):
         raise AssertionError("mesh vo: an NCCL world-1 session is not graphed")
     _, counts = counted("mesh 1x1x1 vo graphed", lambda: graphed_sess.process_frames(chunk))
     ms = _host_ms(lambda: graphed_sess.process_frames(chunk), 1)
-    eager_sess = _session_1080(a, "default", mesh)
+    eager_sess = _tracked_session(a, "default", mesh)
     eager_ms = _host_ms(lambda: [eager_sess.process_frame(f) for f in chunk], 2)
 
     def rec(sess, field, n=None):
@@ -3154,7 +3277,7 @@ def _check_mesh(a, b, fa, fb, smi, dev, work, t_phase) -> tuple[dict, dict]:
     epe_untiled = {c: mean_epe([untiled[c]]) for c in MESH_CONFIGS}
     # (c)'s reference: the untiled rtl_clamp session, stepped eagerly as the
     # gloo ranks' mesh-tiled session steps (no capture timed).
-    ref_sess = _session_1080(a, "default", rtl_clamp=True)
+    ref_sess = _tracked_session(a, "default", rtl_clamp=True)
     ref_vo_ms = _host_ms(lambda: [ref_sess.process_frame(f)
                                   for f in vo_chunk(a, b)[:MESH_VO_FRAMES]], 1)[0] / MESH_VO_FRAMES
 
@@ -3178,21 +3301,9 @@ def _check_mesh(a, b, fa, fb, smi, dev, work, t_phase) -> tuple[dict, dict]:
     dist.destroy_process_group()
 
     # (d)'s problem: the [vo] phase's 1080p production session, 17 keyframes.
-    captured = {}
-    solve = ba.solve
-
-    def capture(p, *args, **kw):
-        captured.setdefault("problem", p)
-        return solve(p, *args, **kw)
-
-    sess = _session_1080(a, "production")
+    sess = _tracked_session(a, "production")
     sess.process_frames(vo_chunk(a, b))
-    ba.solve = capture
-    try:
-        sess.solve(ba_iterations=VO_BA_ITERATIONS)
-    finally:
-        ba.solve = solve
-    problem = captured["problem"]
+    problem = session_problem(sess)
     np.savez(f"{work}/ba.npz", **{f: getattr(problem, f).cpu().numpy()
                                  for f in ba.BAProblem._fields})
     single = ba.solve(problem, iterations=VO_BA_ITERATIONS)
@@ -3559,6 +3670,19 @@ def check_uhd(seed_: int, smi: str) -> tuple[dict, dict]:
         for name, n in path_counts.items():
             counts[name] = counts.get(name, 0) + n
     profile_stream(a, b, "production", tag="4k")
+    tiled_counts, readings["lk_fused_tile_round"], warps = check_world_one_uhd(a, b, smi)
+    for name, r in warps.items():
+        readings[name]["tiles"] = r["by_shape"]
+        for key, by in r["by_shape"].items():
+            h, w = map(int, key.split("x"))
+            by["bound_ms"] = bounds.bound(name, 1, h, w)[0]
+    readings["lk_fused_tile_round"]["launches_per_pair"] = {
+        path: c["lk_fused_tile_round"] for path, c in tiled_counts.items()}
+    vo_counts, seed_reading = check_vo_uhd(a, b, smi)
+    for path_counts in (*tiled_counts.values(), vo_counts):
+        for name, n in path_counts.items():
+            counts[name] = counts.get(name, 0) + n
+    check_cards_uhd(seed_, smi)
     del a, b
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="tpuflow_4k_") as tmp:
@@ -3575,11 +3699,465 @@ def check_uhd(seed_: int, smi: str) -> tuple[dict, dict]:
             plain = by.get("round_plain_ms", by.get("plain_ms"))
             by.update(bound_ms=bounds.bound(name, 1, h, w)[0])
             by["bound_share"] = by["bound_ms"] / ms
+            launches = (f"launches a 4K frame {r['launches_per_frame']}" if r["launches_per_frame"]
+                        else f"launches a 4K pair {r.get('launches_per_pair')}")
             print(f"[4k] kernels {name} {key} round: {ms:.5f} ms, bound {by['bound_ms']:.5f} ms "
-                  f"({100 * by['bound_share']:.1f}%), plain round {plain:.4f} ms; launches a 4K "
-                  f"frame {r['launches_per_frame']} ({smi})")
+                  f"({100 * by['bound_share']:.1f}%), plain round {plain:.4f} ms; {launches} "
+                  f"({smi})")
+    readings["seed_grid"] = seed_reading
     print(f"[4k] phase took {time.perf_counter() - t_phase:.1f} s")
     return {"4K": counts, "5K/8K": beyond_counts}, readings
+
+
+# -- phase 10: the tiled path and VO at 4K ------------------------------------------------------
+
+# The reference's tiled design point (tpuflow/sharding/tiled_pyramidal.py:
+# "at 4K up to (4, 4), every level shards"): on one card NCCL world 1, and
+# on four cards one rank a card at these meshes, every level tiled on each.
+# 2x1x2 carries two streams, one a batch slice of two ranks.
+UHD_MESHES = ((1, 2, 2), (1, 4, 1), (2, 1, 2))
+# The tiled 4K flow against the untiled card result: p99.9 MESH_P999 and max
+# MESH_MAX, but for production_fullband, whose coarse levels warp with K2's
+# 8.8 fixed-point corners, max 0.1 px. The tiled and untiled pyramids
+# differ by ~1 ulp (per-rank operator products against banded blocks,
+# divergence f), and a 1-ulp change can move a coarse pixel's 8.8 value by
+# 1/256, which the solve carries to the flow. At 4K NCCL world 1 read max
+# 0.0552 px at one pixel of 16.6M, 8 px from the border, p99.9 6.4e-4;
+# the untiled solve on the tiled path's own pyramid read 0.0558 from the
+# untiled result, and the tiled flow 0.0023 from that solve (NVIDIA H100
+# 80GB HBM3, 700.00 W); `default` read 0.0046. The limit is twice the
+# worst reading. [mesh4k] (a) holds the tiled flow to MESH_MAX against the
+# untiled solve on the tiled path's own pyramid, where no such flip occurs.
+UHD_MESH_MAX = {"production_fullband": 0.1, "default": MESH_MAX}
+# The 4K VO sessions: fx = fy = width / 2, grid 16 (32,400 track slots),
+# MESH_VO_FRAMES frames.
+UHD_VO_FOCAL = 0.5
+UHD_VO_SESSIONS = ("production", "default")
+# Sharded BA on four cards against the unsharded solve: camera translations
+# within 2e-2, the reference's limit (tests/test_vo.py): the shards' partial
+# sums add in another order, and LM's accept / reject decisions can part
+# there, so the mean reprojection errors are printed, not held to (d)'s
+# 1e-4 px.
+BA_POSES_ATOL = 2e-2
+# Each group of four-card ranks at 4K (one mesh, or the VO session and BA),
+# start-up included.
+UHD_CARDS_WALL_S = 150.0
+
+
+def _uhd_streams(a, b, batch: int):
+    """The (prev, curr) global batches of ``batch`` streams: element 0
+    a -> b, element 1 b -> a."""
+    return torch.stack([a, b][:batch]), torch.stack([b, a][:batch])
+
+
+def check_world_one_uhd(a, b, smi: str) -> tuple[dict, dict, dict]:
+    """Phase 10 (``[mesh4k] (a)``): the tiled path at 3840x2160 over NCCL at
+    world 1, as phase 8 (a) checks it at 1080p (``check_world_one``), with
+    the peak device memory, the tiled flow on its own pyramid
+    (``check_same_pyramid``) and the warps on the 4K extended tiles
+    (``time_tile_warps``). Returns the launches a pair by path, K6's tile
+    round's reading at the 4K tiles and the warps' readings there."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="tpuflow_mesh4k_")
+    try:
+        untiled = {c: _untiled(a, b, c) for c in MESH_CONFIGS}
+        untiled_dev = {c: busy_ms(lambda: _untiled(a, b, c)) for c in MESH_CONFIGS}
+        initialize_multihost(f"file://{work}/store", 1, 0, backend="nccl")
+        try:
+            mesh = make_flow_mesh(1, 1, 1, device=a.device)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counts, reading = check_world_one(a, b, mesh, untiled, untiled_dev, smi,
+                                              tag="[mesh4k] (a)", path="mesh4k",
+                                              max_px=UHD_MESH_MAX)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            check_same_pyramid(a, b, mesh, untiled)
+            warps = time_tile_warps(a.shape, a.device, smi)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[mesh4k] (a) NCCL world 1 at {a.shape[0]}x{a.shape[1]}: peak device memory "
+          f"{peak:.2f} GiB (both configs, eager, graphed and the plain versions' checks); "
+          f"took {time.perf_counter() - t0:.1f} s; {smi}")
+    return counts, reading, warps
+
+
+def time_tile_warps(shape, dev, smi: str) -> dict:
+    """[mesh4k] (a): K1, K2 and K4 as rounds (``check_round_warp``) on the
+    warp-extended tiles the 4K tiled step at world 1 gives them (each
+    level plus the warp halo, max_disp + 1 px a side; K1 on the finest
+    tile under ``production_fullband``, K2 on its coarse tiles, K4 on every
+    tile under ``default``): bit-exact, timed running and skipped beside
+    the bound, the plain round and the launch floor. Returns the
+    readings by kernel."""
+    from tpuflow_torch.sharding import tiled_pyramidal as tp
+
+    rng = np.random.default_rng(20)
+    floor_ms = device_ms(_build.launch_empty)
+    readings: dict = {}
+    seen = set()
+    for config in MESH_CONFIGS:
+        cfg = PYRAMID_CONFIGS[config]
+        halo = cfg.max_disp + 1
+        dims = tp._level_shapes(*shape, cfg.levels, cfg.scale_factor)
+        for lvl in reversed(range(cfg.levels)):
+            packing = pyramidal._warp_packing(cfg, lvl == cfg.levels - 1)
+            name = {"u8": "warp_packed_u8", "u16": "warp_packed_u16", "exact": "warp_exact"}[
+                packing]
+            h, w = dims[lvl][0] + 2 * halo, dims[lvl][1] + 2 * halo
+            if (name, h, w) in seen:
+                continue
+            seen.add((name, h, w))
+            readings.setdefault(name, {"max_abs_err": 0.0})
+            curr = torch.from_numpy(make_frames(lvl, h, w)[0]).to(dev)
+            check_round_warp(readings, name, curr, packing, cfg.max_disp, rng, dev, floor_ms,
+                             tag="mesh4k")
+    print(f"[mesh4k] (a) the warps on the 4K extended tiles: {sorted(seen)}; {smi}")
+    return readings
+
+
+def check_same_pyramid(a, b, mesh, untiled) -> None:
+    """[mesh4k] (a): at NCCL world 1 the tiled step against the untiled
+    device-controlled solve (``lucas_kanade_pyramidal_from_pyramids``) on
+    the pyramid the tiled path builds (``dist_pyramid.sharded_downsample``),
+    held to MESH_P999 and MESH_MAX: the tiled solve alone, without the
+    pyramids' rounding (divergence f) and what K2's packing makes of it;
+    beside it the two untiled solves' own distance."""
+    from tpuflow_torch.sharding import dist_pyramid
+    from tpuflow_torch.sharding import tiled_pyramidal as tp
+
+    for config in MESH_CONFIGS:
+        cfg = PYRAMID_CONFIGS[config]
+        dims = tp._level_shapes(*a.shape, cfg.levels, cfg.scale_factor)
+        pyramids = []
+        for frame in (a, b):
+            levels = [frame]
+            for lvl in range(cfg.levels - 1, 0, -1):
+                levels.insert(0, dist_pyramid.sharded_downsample(
+                    levels[0], dims[lvl], dims[lvl - 1], 1.0 / cfg.scale_factor, mesh=mesh))
+            pyramids.append(levels)
+        su, sv = pyramidal.lucas_kanade_pyramidal_from_pyramids(*pyramids, cfg, backend="cuda",
+                                                                rtl_clamp=True)
+        tu, tv = _tile_step(mesh, cfg)(a, b)
+        p999, mx = _p999_max(tu[0], tv[0], su, sv)
+        own = _p999_max(su, sv, *untiled[config])
+        print(f"[mesh4k] (a) {config}: tiled against the untiled solve on the tiled path's own "
+              f"pyramid p99.9 |d| {p999:.3g} px, max {mx:.3g} px (limits {MESH_P999}, "
+              f"{MESH_MAX}); that untiled solve against the untiled result p99.9 {own[0]:.3g} "
+              f"px, max {own[1]:.3g} px (the pyramids' rounding alone)")
+        if p999 > MESH_P999 or mx > MESH_MAX:
+            raise AssertionError(f"mesh4k {config}: the tiled solve on its own pyramid p99.9 "
+                                 f"{p999}, max {mx}")
+
+
+def check_vo_uhd(a, b, smi: str) -> tuple[dict, dict]:
+    """Phase 10 (``[vo4k]`` lines): the grid seed kernel at 2160x3840
+    (``check_seed_kernel``) and an untiled OdometrySession at 3840x2160 for
+    each of UHD_VO_SESSIONS, fx = fy = width / 2, grid VO_GRID, over
+    MESH_VO_FRAMES frames, as phase 6 checks its 1080p sessions
+    (``check_vo_session``). Returns the sessions' eager launches and the
+    seed kernel's reading."""
+    t0 = time.perf_counter()
+    seed_reading = check_seed_kernel(a, smi, tag="vo4k")
+    chunk = vo_chunk(a, b)[:MESH_VO_FRAMES]
+    counts: dict = {}
+    for name in UHD_VO_SESSIONS:
+        ms, path_counts = check_vo_session(a, b, chunk, name, smi, focal=UHD_VO_FOCAL,
+                                           tag="vo4k")
+        print(f"[vo4k] {name}: front end {ms:.3f} ms/frame, median of {VO_RUNS} runs")
+        for k, n in path_counts.items():
+            counts[k] = counts.get(k, 0) + n
+    print(f"[vo4k] took {time.perf_counter() - t0:.1f} s")
+    return counts, seed_reading
+
+
+def _progress(rank: int, t0: float, what: str) -> None:
+    """A four-card rank's progress line (its stage and host seconds), so
+    that a rank that stops shows where."""
+    print(f"[mesh4k] rank {rank}: {what} at {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def nccl_rank_uhd(rank: int, world: int, work: str, shape) -> None:
+    """One rank per card over NCCL at 3840x2160 (``--mesh-cards-only``), in
+    a process group of its own for each mesh: (b) the tiled flow on mesh
+    ``shape`` under each config (``_nccl_flow``); or, where ``shape`` is
+    None, (c) the mesh-tiled VO session on 1x2x2, ``default``, graphed
+    (its ``scan_steps`` replayed) and stepped eagerly, then bundle
+    adjustment over its observations: unsharded, and in one observation
+    shard a rank over NCCL, twice."""
+    t0 = time.perf_counter()
+    name = _mesh_name(shape) if shape else "vo"
+    initialize_multihost(f"file://{work}/store_{name}", world, rank, backend="nccl")
+    ops.pin_f32_matmul()
+    mesh = make_flow_mesh(*(shape or (1, 2, 2)))
+    _progress(rank, t0, f"mesh {_mesh_name(shape or (1, 2, 2))} made")
+    frames = np.load(f"{work}/frames.npz")
+    a, b = (torch.from_numpy(frames[k]).to(mesh.device) for k in ("a", "b"))
+    report: dict = {}
+    arrays = {}
+    if shape:
+        prev, curr = _uhd_streams(a, b, shape[0])
+        found: dict = {}
+        tiles: dict = {}
+        report["flow"] = {}
+        for config in MESH_CONFIGS:
+            key = f"{name} {config}"
+            report["flow"][key], u, v = _nccl_flow(
+                mesh, prev, curr, config, f"mesh4k {key}", found, tiles,
+                note=lambda what: _progress(rank, t0, f"{key} {what}"))
+            _progress(rank, t0, f"{key} checked")
+            if rank == 0:
+                arrays[f"{key}/u"], arrays[f"{key}/v"] = u.cpu().numpy(), v.cpu().numpy()
+        report["kernels"], report["tile_sums"] = _checked_report(found, tiles)
+    else:
+        report["vo"], report["ba"], arrays = _cards_vo(rank, world, mesh, a, b, t0)
+    dist.barrier()
+    np.savez(f"{work}/uhd_{name}_{rank}.npz", **arrays)
+    with open(f"{work}/uhd_{name}_{rank}.json", "w") as fh:
+        json.dump(report, fh)
+    dist.destroy_process_group()
+
+
+def _cards_vo(rank: int, world: int, mesh, a, b, t0: float) -> tuple[dict, dict, dict]:
+    """(c) on one rank: the tiled VO session graphed and eager, BA over its
+    observations unsharded and sharded over ``mesh.group``."""
+    chunk = vo_chunk(a, b)[:MESH_VO_FRAMES]
+    sess = _tracked_session(a, "default", mesh, focal=UHD_VO_FOCAL)
+    graphed = sess._fe.graphed(chunk)
+    eager = _tracked_session(a, "default", mesh, focal=UHD_VO_FOCAL)
+    dist.barrier(mesh.group)
+    eager_ms = _host_ms(lambda: [eager.process_frame(f) for f in chunk], 1)[0] / len(chunk)
+    _progress(rank, t0, "eager VO session done")
+    dist.barrier(mesh.group)
+    _, counts = counted("mesh4k vo graphed", lambda: sess.process_frames(chunk))
+    _progress(rank, t0, "graphed VO session done")
+    records = [np.stack(x) for x in (sess.obs_uv, sess.obs_valid, sess.obs_lm)]
+    vo = {"graphed": bool(graphed), "launches": counts, "eager_ms": eager_ms,
+          "same": _same_records(_records(sess), _records(eager)),
+          "digest": _digest(*records), "alive": int(sess._dev.alive.sum()),
+          "slots": int(sess._dev.alive.numel())}
+    arrays = {}
+    if rank == 0:
+        arrays["vo/uv"], arrays["vo/valid"], arrays["vo/lm"] = records
+    problem = session_problem(sess)
+    single_s, single = _host_runs(lambda: ba.solve(problem, iterations=VO_BA_ITERATIONS), 1)
+    n = problem.obs_uv.shape[0]
+    lo, hi = rank * n // world, (rank + 1) * n // world
+    local = problem._replace(obs_uv=problem.obs_uv[lo:hi], obs_cam=problem.obs_cam[lo:hi],
+                             obs_lm=problem.obs_lm[lo:hi], obs_valid=problem.obs_valid[lo:hi])
+    solves = []
+    dist.barrier(mesh.group)
+    sharded_s = _host_runs(lambda: solves.append(
+        ba.solve(local, iterations=VO_BA_ITERATIONS, axis_name=mesh.group)), 2)[0]
+    _progress(rank, t0, "BA done")
+    got = solves[0]
+    valid = problem.obs_valid
+    ba_report = {
+        "observations": n, "valid": int(valid.sum()), "shard": hi - lo, "single_s": single_s[0],
+        "sharded_s": sharded_s,
+        "repeat": all(torch.equal(x, y) for x, y in zip(*solves)),
+        "poses_t_max": float((got.poses_t - single.poses_t).abs().max()),
+        "error": float(ba.reprojection_errors(problem._replace(
+            poses_r=got.poses_r, poses_t=got.poses_t, landmarks=got.landmarks))[valid].mean()),
+        "error_single": float(ba.reprojection_errors(problem._replace(
+            poses_r=single.poses_r, poses_t=single.poses_t,
+            landmarks=single.landmarks))[valid].mean()),
+        "digest": _digest(got.poses_t.cpu().numpy())}
+    # The graphed session's time a frame: a second chunk, a replay a frame.
+    dist.barrier(mesh.group)
+    vo["graphed_ms"] = _host_ms(lambda: sess.process_frames(chunk), 1)[0] / len(chunk)
+    return vo, ba_report, arrays
+
+
+def _world_one_uhd(a, b, work: str) -> dict:
+    """The 4K tiled step at NCCL world 1 on card 0 (before the four-card
+    ranks start), each config: eager and graphed device busy ms a pair and
+    graphed host-clock ms, the four-card readings' baseline."""
+    out = {}
+    initialize_multihost(f"file://{work}/store_w1", 1, 0, backend="nccl")
+    try:
+        mesh = make_flow_mesh(1, 1, 1, device=a.device)
+        for config in MESH_CONFIGS:
+            cfg = PYRAMID_CONFIGS[config]
+            step = _tile_step(mesh, cfg)
+            step(a, b)
+            stream = TiledGraphedStream(a[None], cfg, mesh)
+            stream.step(b[None])
+            out[config] = {"device_ms": busy_ms(lambda: step(a, b)),
+                           "graphed_device_ms": busy_ms(lambda: stream.step(b[None])),
+                           "graphed_ms": [t / MESH_PAIRS for t in _host_ms(
+                               lambda: [stream.step(c[None]) for _, c in _alternating(a, b)])]}
+            del stream
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def check_cards_uhd(seed_: int, smi: str) -> None:
+    """The tiled path at 3840x2160 with one NCCL rank a card on four cards
+    (``--mesh-cards-only``; a printed line where the machine has fewer):
+    (b) each of UHD_MESHES under each config, every level tiled, against
+    the untiled card result of each element (``MESH_P999``, ``UHD_MESH_MAX``),
+    every rank's every launch bit-exact to its plain version, the graphed
+    step bit for bit the eager one, busy beside world 1's; (c) the 1x2x2
+    VO session graphed against its eager twin and against an untiled
+    rtl_clamp session, BA sharded over NCCL against the unsharded solve."""
+    cards = torch.cuda.device_count()
+    if cards < MESH_RANKS:
+        print(f"[mesh4k] (b-c) four cards, one NCCL rank each (meshes "
+              f"{', '.join(_mesh_name(s) for s in UHD_MESHES)}, the tiled VO session, BA over "
+              f"NCCL): not run, {cards} card; `python3 chip_smoke.py --mesh-cards-only` on four "
+              f"cards runs them")
+        return
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    fa, fb = make_frames(seed_, *UHD)
+    a, b = torch.from_numpy(fa).to(dev), torch.from_numpy(fb).to(dev)
+    work = tempfile.mkdtemp(prefix="tpuflow_mesh4k_")
+    try:
+        np.savez(f"{work}/frames.npz", a=fa, b=fb)
+        untiled = {(c, i): _untiled(*pair, c) for c in MESH_CONFIGS
+                   for i, pair in enumerate(((a, b), (b, a)))}
+        world_one = _world_one_uhd(a, b, work)
+        chunk = vo_chunk(a, b)[:MESH_VO_FRAMES]
+        ref_sess = _tracked_session(a, "default", rtl_clamp=True, focal=UHD_VO_FOCAL)
+        for f in chunk:
+            ref_sess.process_frame(f)
+        for shape in (*UHD_MESHES, None):
+            name = _mesh_name(shape) if shape else "vo"
+            t0 = time.perf_counter()
+            _spawn(nccl_rank_uhd, lambda r: (r, MESH_RANKS, work, shape), MESH_RANKS,
+                   f"4K nccl ranks, {name}", wall=UHD_CARDS_WALL_S)
+            reports = [json.load(open(f"{work}/uhd_{name}_{r}.json")) for r in range(MESH_RANKS)]
+            got = np.load(f"{work}/uhd_{name}_0.npz")
+            print(f"[mesh4k] (b-c) NCCL across {MESH_RANKS} of {cards} cards, one rank each, at "
+                  f"{UHD[1]}x{UHD[0]}, {name}: ran in {time.perf_counter() - t0:.1f} s "
+                  f"(start-up included); {smi}")
+            if shape:
+                _report_cards_flow(shape, reports, got, untiled, world_one, dev)
+            else:
+                _report_cards_vo(reports, got, ref_sess)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[mesh4k] four cards took {time.perf_counter() - t_phase:.1f} s")
+
+
+def _report_cards_flow(shape, reports, got, untiled, world_one, dev) -> None:
+    """(b): one mesh's lines and limits, each config."""
+    name = _mesh_name(shape)
+    per = shape[1] * shape[2]
+    for config in MESH_CONFIGS:
+        key = f"{name} {config}"
+        reps = [r["flow"][key] for r in reports]
+        rep0 = reps[0]
+        plan = shard_plan(UHD, shape[1], shape[2], PYRAMID_CONFIGS[config])
+        if any(r["digest"] != rep0["digest"] for r in reps):
+            raise AssertionError(f"mesh4k {key}: the ranks hold different flows")
+        errs = []
+        for i in range(shape[0]):
+            u, v = (torch.from_numpy(got[f"{key}/{c}"][i]).to(dev) for c in "uv")
+            errs.append(_p999_max(u, v, *untiled[(config, i)]))
+        ms = sorted(rep0["ms"])
+        w1 = world_one[config]
+        traffic = rep0["traffic"]
+        if "graphed_error" in rep0:
+            graphed = f"graphed: capture REFUSED on rank 0: {rep0['graphed_error']}"
+        else:
+            gms = sorted(rep0["graphed_ms"])
+            g1 = sorted(w1["graphed_ms"])
+            kernels, copies = rep0["graphed_launches"]
+            graphed = (f"graphed (TiledGraphedStream on every rank): first replay bit for bit "
+                       f"the eager step on every rank: "
+                       f"{all(r['graphed_same'] for r in reps)}; {gms[len(gms) // 2]:.3f} ms a "
+                       f"pair (host clock, median of {len(gms)} streams of {MESH_PAIRS}, spread "
+                       f"{gms[0]:.3f}-{gms[-1]:.3f}; world 1 {g1[len(g1) // 2]:.3f}); rank 0's "
+                       f"device launches a replay {kernels} kernels, {copies} copies and "
+                       f"fills; graphed busy ms a pair by rank (in the port's kernels, in "
+                       f"copies, in NCCL) "
+                       f"{', '.join(_busy(r['graphed_device_ms']) for r in reps)}; world 1 "
+                       f"{_busy(w1['graphed_device_ms'])}")
+        print(f"[mesh4k] (b) {key} over NCCL: shard plan by level {plan}; eager "
+              f"{ms[len(ms) // 2]:.3f} ms a pair (host clock, median of {len(ms)}, spread "
+              f"{ms[0]:.3f}-{ms[-1]:.3f}); " + "; ".join(
+                  f"element {i} ({'a->b' if i == 0 else 'b->a'}) p99.9 |d| {p:.3g} px, max "
+                  f"{m:.3g} px" for i, (p, m) in enumerate(errs))
+              + f" against the untiled card result (limits {MESH_P999}, "
+              f"{UHD_MESH_MAX[config]}); rounds a "
+              f"level by rank {[r['rounds'] for r in reps]}; host reads "
+              f"{[r['traffic']['convergence_reads'] for r in reps]}; launches a pair by rank "
+              f"{[r['launches'] for r in reps]}; rank 0: halo {traffic['halo_bytes']} B in "
+              f"{traffic['halo_exchanges']} exchanges, gathers {traffic['gather_bytes']} B, "
+              f"{traffic['all_reduces']} sums; eager busy ms a pair by rank "
+              f"{', '.join(_busy(r['device_ms']) for r in reps)}; world 1 "
+              f"{_busy(w1['device_ms'])}")
+        print(f"[mesh4k] (b) {key} {graphed}")
+        if not all(plan):
+            raise AssertionError(f"mesh4k {key}: levels not tiled {plan}")
+        if any(p > MESH_P999 or m > UHD_MESH_MAX[config] for p, m in errs):
+            raise AssertionError(f"mesh4k {key}: against the untiled result {errs}")
+        if any(r["traffic"]["convergence_reads"] for r in reps) or any(
+                r["rounds"] != reps[i // per * per]["rounds"] for i, r in enumerate(reps)):
+            raise AssertionError(f"mesh4k {key}: a host read, or ranks of a batch slice that "
+                                 f"ran other rounds")
+        if "graphed_error" not in rep0 and not all(r["graphed_same"] for r in reps):
+            raise AssertionError(f"mesh4k {key}: graphed differs from eager")
+    for shape_key, t in sorted(reports[0]["tile_sums"].items()):
+        print(f"[mesh4k] (b) {name} lk_fused_tile_round on {shape_key} extended tiles: "
+              f"{t['running']} running, {t['skipped']} skipped launches a rank 0; sums within "
+              f"{t['sum_rel']:.3g} of du.abs().sum() (limit {2 * t['gamma']:.3g}), "
+              f"{t['sum_rel_f64']:.3g} of the float64 sum (limit {t['gamma']:.3g})")
+    kernels = reports[0]["kernels"]
+    for kernel in sorted(kernels):
+        worst = max(max(r["kernels"][kernel].values()) for r in reports)
+        print(f"[mesh4k] (b) {name} {kernel} on tile shapes {sorted(kernels[kernel])}, every "
+              f"rank: max |d| against the plain version {worst:.3g}")
+        if worst != 0.0:
+            raise AssertionError(f"mesh4k {name}: {kernel} differs from its plain version")
+    if set(kernels) != {"warp_packed_u8", "warp_packed_u16", "warp_exact",
+                        "lk_fused_tile_round"}:
+        raise AssertionError(f"mesh4k {name}: kernels checked {sorted(kernels)}")
+
+
+def _report_cards_vo(reports, got, ref_sess) -> None:
+    """(c): the tiled 4K VO session and BA sharded over NCCL."""
+    vo = [r["vo"] for r in reports]
+    if any(r["digest"] != vo[0]["digest"] for r in vo):
+        raise AssertionError("mesh4k vo: the ranks hold different tracks")
+    ref = {f: np.stack(getattr(ref_sess, f"obs_{f}")) for f in ("uv", "valid", "lm")}
+    same = got["vo/valid"] == ref["valid"]
+    both = got["vo/valid"] & ref["valid"]
+    same_lm = bool(np.array_equal(got["vo/lm"], ref["lm"]))
+    d = np.abs(got["vo/uv"] - ref["uv"])[both].max(axis=1)
+    close = int((d <= 1e-3).sum())
+    print(f"[mesh4k] (c) VO session {UHD[0]}x{UHD[1]} default, fx = fy = "
+          f"{UHD_VO_FOCAL * UHD[1]:g}, grid {VO_GRID} ({vo[0]['slots']} slots), "
+          f"{MESH_VO_FRAMES} frames on 1x2x2 over NCCL: scan_steps graphed on every rank "
+          f"{all(r['graphed'] for r in vo)}; graphed {vo[0]['graphed_ms']:.3f} ms/frame (a "
+          f"second chunk), eager {vo[0]['eager_ms']:.3f}; graphed and eager records "
+          f"{'identical' if all(r['same'] for r in vo) else 'DIFFER'} on every rank; launches "
+          f"of the first chunk (capture included) {vo[0]['launches']}; tracks alive "
+          f"{vo[0]['alive']}; against the untiled rtl_clamp session: alive flags identical on "
+          f"{int(same.sum())} of {same.size}, landmark ids "
+          f"{'identical' if same_lm else 'DIFFER'}, of {both.sum()} tracks alive in both "
+          f"{close} within 1e-3 px, max {float(d.max(initial=0.0)):.3g} px")
+    if not (all(r["graphed"] and r["same"] for r in vo) and same.mean() >= 0.999 and same_lm
+            and close >= 0.999 * both.sum() and d.max(initial=0.0) <= MESH_MAX):
+        raise AssertionError("mesh4k vo: graphed, eager and untiled sessions differ")
+    bas = [r["ba"] for r in reports]
+    b0 = bas[0]
+    print(f"[mesh4k] (c) BA over the session's {b0['observations']} observations "
+          f"({b0['valid']} valid), one shard of ~{b0['shard']} a card over NCCL: "
+          f"solve({VO_BA_ITERATIONS}, axis_name=group) {b0['sharded_s'][0]:.3f} s, then "
+          f"{b0['sharded_s'][1]:.3f} s, against the unsharded solve's {b0['single_s']:.3f} s on "
+          f"one card; camera translations within {b0['poses_t_max']:.3g} of the unsharded "
+          f"solve's (limit {BA_POSES_ATOL}); mean reprojection error {b0['error']:.6f} px "
+          f"against {b0['error_single']:.6f} px; two sharded solves "
+          f"{'bit-identical' if all(r['repeat'] for r in bas) else 'DIFFER'}, every rank the "
+          f"same: {all(r['digest'] == b0['digest'] for r in bas)}")
+    if (b0["poses_t_max"] > BA_POSES_ATOL or not all(r["repeat"] for r in bas)
+            or any(r["digest"] != b0["digest"] for r in bas)):
+        raise AssertionError("mesh4k: the sharded solve differs")
 
 
 _WALK_NAMES = {(0, 1): "K3", (0, 0): "K5", (1, 0): "K6", (1, 1): "K6 relaxed",
@@ -3729,10 +4307,13 @@ def warp_ptxas(log: str) -> list[str]:
 
 
 def run_mesh_cards_only(seed: int, smi: str) -> None:
-    """Phase 8 (e) alone (``--mesh-cards-only``): the tiled step over NCCL
-    with one rank per card, eager and graphed, against the untiled result
-    of card 0. For a machine with several cards, where nothing else of the
-    smoke needs them."""
+    """Phase 8 (e) and phase 10's four-card parts alone
+    (``--mesh-cards-only``): the tiled step over NCCL with one rank per
+    card, eager and graphed, against the untiled result of card 0, at 1080p
+    (``check_nccl_across_cards``), then at 3840x2160 on UHD_MESHES with the
+    tiled VO session and BA sharded over NCCL (``check_cards_uhd``). For a
+    machine with several cards, where nothing else of the smoke needs
+    them."""
     dev = torch.device("cuda", 0)
     _build.load()
     fa, fb = make_frames(seed)
@@ -3746,13 +4327,17 @@ def run_mesh_cards_only(seed: int, smi: str) -> None:
         check_nccl_across_cards(dev, work, untiled, untiled_dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    del a, b, untiled
+    torch.cuda.empty_cache()
+    check_cards_uhd(seed, smi)
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--mesh-cards-only", action="store_true",
-                        help="run phase 8 (e) alone: NCCL across the machine's cards")
+                        help="run phase 8 (e) and the 4K four-card parts of phase 10 alone: "
+                             "NCCL across the machine's cards")
     args = parser.parse_args()
 
     # 1. device
@@ -3831,7 +4416,7 @@ def main() -> None:
 
     # 6. vo
     t0 = time.perf_counter()
-    port_readings = {"seed_grid": check_seed_kernel(a)}
+    port_readings = {"seed_grid": check_seed_kernel(a, smi)}
     chunk = vo_chunk(a, b)
     for name, (config, _, _) in VO_SESSIONS.items():
         vo_ms, vo_counts = check_vo_session(a, b, chunk, name, smi)
@@ -3903,7 +4488,8 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": counts[name], "launches_per_frame": per_frame, "library_ms": None,
-            "library": why, **r, "bound_share": r["bound_ms"] / r["ms"]})
+            "library": why, **r, "bound_share": r["bound_ms"] / r["ms"],
+            "launches_4k": uhd_counts["4K"].get(name, 0), "uhd": uhd_readings.get(name)})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

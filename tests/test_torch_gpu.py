@@ -51,14 +51,16 @@ K6's tile round: u, v and the control bit for bit the plain version's at
 odd crops, windows 3/5/7, both orders, running and skipped, its
 in-kernel sums within their depth's limit; one kernel a call, its ticket
 0 after every round; a graphed tiled step with no reduction after a
-round.
+round; at the 4K tiles (NCCL world 1 and 1x4x1) bit for bit, running and
+skipped, its walk rows, blocks and sum depth at every 4K tile (world 1,
+1x4x1, a 2x1x2 slice) equal to hand counts.
 The grid seed (``kernels.seed``) bit-identical to its plain version at
-1080x1920 and 121x163, margins 0, 3, 13 and 20 (cells all ``-inf``), on
-noise, blurred noise and constant patches (exact ties), grid steps 8, 16
-and 32; a false predicate writes alive 0 and counts no reseed, a true one
-counts one. The IMU scan (``kernels.imu``) within 2e-6 of the plain loop
-in r and 1e-5 of the largest entry in v, p and each Jacobian, at 1, 2 and
-751 samples. A stride-2 VO front end (odd steps skip the reseed) gives the
+2160x3840, 1080x1920 and 121x163, margins 0, 3, 13 and 20 (cells all
+``-inf``), on noise, blurred noise and constant patches (exact ties),
+grid steps 8, 16 and 32; a false predicate writes alive 0 and counts no
+reseed, a true one counts one (also at 2160x3840, margins 0 and 13). The
+IMU scan (``kernels.imu``) within 2e-6 of the plain loop in r and 1e-5
+of the largest entry in v, p and each Jacobian, at 1, 2 and 751 samples. A stride-2 VO front end (odd steps skip the reseed) gives the
 same records and reseed count graphed, eager and through the plain
 versions. The suite generator's warp (``eval.patterns.apply_motion``) on
 the card equals the CPU's at 640x480, bit for bit. The native reader
@@ -1023,7 +1025,7 @@ def _seed_frame(source: str, shape, dev):
     return torch.from_numpy(a.astype(np.float32)).to(dev)
 
 
-@pytest.mark.parametrize("shape", [(1080, 1920), (121, 163)])
+@pytest.mark.parametrize("shape", [(2160, 3840), (1080, 1920), (121, 163)])
 @pytest.mark.parametrize("margin", [0, 3, 13, 20])
 @pytest.mark.parametrize("source", ["noise", "texture", "patches"])
 def test_seed_kernel_bit_exact(cuda, shape, margin, source):
@@ -1057,6 +1059,21 @@ def test_seed_kernel_gated_on_the_device(cuda):
         seed.seed_grid(frame, 16, predicate=off.cpu())
     with pytest.raises(ValueError):
         seed.seed_grid(frame[:8], 16)  # no grid cell
+
+
+@pytest.mark.parametrize("margin", [0, 13])
+def test_seed_kernel_gated_at_4k(cuda, margin):
+    """At 2160x3840, grid 16 (135 x 240 cells, 32,400 track slots): a false
+    predicate leaves every cell dead and counts no reseed; a true one gives
+    the plain version's cells and counts one."""
+    frame = _seed_frame("texture", (2160, 3840), cuda)
+    taken = torch.zeros(1, dtype=torch.int32, device=cuda)
+    off = torch.tensor(False, device=cuda)
+    _, alive = seed.seed_grid(frame, 16, margin=margin, predicate=off, taken=taken)
+    assert alive.shape == (135 * 240,) and not bool(alive.any()) and int(taken) == 0
+    xy, alive = seed.seed_grid(frame, 16, margin=margin, predicate=~off, taken=taken)
+    want_xy, want_alive = seed.seed_grid_ref(frame, 16, margin=margin)
+    assert torch.equal(xy, want_xy) and torch.equal(alive, want_alive) and int(taken) == 1
 
 
 @pytest.mark.parametrize("n", [1, 2, 751])
@@ -1450,6 +1467,62 @@ def test_tile_round_kernel_matches_plain(cuda, shape, window, relaxed, latch):
     exact = torch.stack([du.double().abs().sum(), dv.double().abs().sum()])
     assert float(((sums.double() - exact).abs() / exact.clamp_min(1e-30)).max()) <= gamma
     assert float(((sums - want).abs() / want.clamp_min(1e-30)).max()) <= 2 * gamma
+
+
+# K6's tile round at 4K: the extended tiles of the three levels at NCCL
+# world 1, on 1x4x1 and on a 2x1x2 batch slice, each with its walk rows and
+# blocks (tile_round_rows: 32 rows, halved while the tile gives fewer than
+# 264 blocks, 26 output columns a strip at window 5, 4 strips a block) and
+# the depth of its in-kernel sums by hand (tile_round_depth_of).
+_TILES_4K = {
+    (2166, 3846): (32, 2516, 66), (1086, 1926): (32, 646, 52), (546, 966): (16, 350, 33),
+    (546, 3846): (32, 666, 52), (276, 1926): (16, 342, 33), (141, 966): (4, 360, 21),
+    (2166, 1926): (32, 1292, 57), (1086, 966): (32, 340, 49), (546, 486): (8, 345, 25),
+}
+
+
+@pytest.mark.parametrize("shape", list(_TILES_4K))
+def test_tile_round_walk_and_depth_at_the_4k_tiles(cuda, shape):
+    rows, blocks, depth = _TILES_4K[shape]
+    lib = _build.load()
+    assert lib.tpuflow_lk_tile_round_rows(*shape, 5) == rows
+    assert lk.tile_round_blocks(*shape, 5) == blocks
+    assert lk.tile_round_depth(*shape, 5) == depth
+    assert lk.tile_round_depth_of(rows, lib.tpuflow_lk_walk_threads(), blocks) == depth
+
+
+@pytest.mark.parametrize("shape", list(_TILES_4K)[:6])
+@pytest.mark.parametrize("latch", [0, 1])
+def test_tile_round_kernel_at_the_4k_tiles(cuda, shape, latch):
+    """The round at a 4K extended tile, its crop an inner rank's (world 1:
+    the whole level; 1x4x1: the second of four row bands), bit for bit the
+    plain version; a running round's sums within gamma_depth of the
+    float64 sum and twice that of du.abs().sum(); a set latch a no-op."""
+    rng = np.random.default_rng(shape[0] + shape[1])
+    h, w = shape[0] - 6, shape[1] - 6
+    world_one = shape in list(_TILES_4K)[:3]
+    gh, gw, gy0 = (h, w, 0) if world_one else (4 * h, w, h)
+    prev, curr, u, v = _tile_inputs(rng, (h, w), 5, cuda)
+    kw = dict(gy0=gy0, gx0=0, gh=gh, gw=gw, window_size=5)
+    ctrl = torch.tensor([latch, 0, 1], dtype=torch.int32, device=cuda)
+    u0, v0, ctrl_ref, ur, vr = u.clone(), v.clone(), ctrl.clone(), u.clone(), v.clone()
+    before = launch_counts()["lk_fused_tile_round"]
+    sums = lk.fused_tile_round(prev, curr, u, v, ctrl, **kw)
+    want = lk.fused_tile_round_ref(prev, curr, ur, vr, ctrl_ref, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["lk_fused_tile_round"] == before + 1
+    assert torch.equal(u, ur) and torch.equal(v, vr) and torch.equal(ctrl, ctrl_ref)
+    if latch:
+        assert torch.equal(u, u0) and torch.equal(v, v0) and ctrl.tolist() == [1, 0, 1]
+        return
+    assert ctrl.tolist() == [0, 0, 2]
+    depth = _TILES_4K[shape][2]
+    gamma = depth * 2.0 ** -24 / (1 - depth * 2.0 ** -24)
+    du, dv = lk.tile_round_delta_ref(prev, curr, **kw)
+    exact = torch.stack([du.double().abs().sum(), dv.double().abs().sum()])
+    assert float(exact.min()) > 0
+    assert float(((sums.double() - exact).abs() / exact).max()) <= gamma
+    assert float(((sums - want).abs() / want).max()) <= 2 * gamma
 
 
 def _device_kernels(run) -> list:

@@ -4,7 +4,10 @@ the CPU, where each kernel wrapper runs its plain version.
 The port runs in 4 gloo worker processes (tests/mesh_harness.py,
 tests/torch_mesh_worker.py), once per tiling for the whole module; the
 JAX side (``tpuflow.sharding``, Pallas in interpret mode) on the
-conftest's virtual CPU devices.
+conftest's virtual CPU devices. The tilings are 1x2x2, 1x4x1 and 2x1x2,
+whose "batch" axis gives each batch element a slice of two ranks: one
+latch an element, its sums reduced over its slice's ranks only, as the
+reference's ``lax.psum`` over ("ty", "tx").
 
 Limits:
 - ``fused_tile_round_ref`` equals ``lucas_kanade_fused_ref`` on the
@@ -55,7 +58,7 @@ from torch_mesh_worker import DEVICE_CFGS  # noqa: E402
 
 torch.set_num_threads(1)
 
-TILINGS = {"1x2x2": (1, 2, 2), "1x4x1": (1, 4, 1)}
+TILINGS = {"1x2x2": (1, 2, 2), "1x4x1": (1, 4, 1), "2x1x2": (2, 1, 2)}
 CASES = ["tiled_device", "no_host_read", "graph_refusals"]
 PALLAS_ATOL = 1e-3
 WITNESS_P999 = 2e-3
@@ -77,15 +80,36 @@ def _witness_pair(seed: int, size: int, dx: int):
     return prev, curr
 
 
-def _inputs() -> dict:
+def _inputs(name: str) -> dict:
+    """The frames of tiling ``name``: "pc" has one element a batch slice
+    (the second, where the mesh has two slices, moved 1 px where the first
+    moves 2), "wd" two elements."""
     rng = np.random.default_rng(1234)
     base = rng.uniform(0, 255, (80, 128)).astype(np.float32)
     # Element 0 converges at the finest level's first round, element 1 (a
     # textured field moved 1 px) later or not at all: one latch each.
     p0, c0 = _witness_pair(0, 6, 6)
     p1 = gaussian_filter(rng.uniform(0, 255, (128, 256)), 2.0).astype(np.float32)
-    return {"pc_prev": base[None], "pc_curr": np.roll(base, 2, axis=1)[None],
+    pc_prev, pc_curr = [base], [np.roll(base, 2, axis=1)]
+    if TILINGS[name][0] == 2:
+        other = rng.uniform(0, 255, (80, 128)).astype(np.float32)
+        pc_prev.append(other)
+        pc_curr.append(np.roll(other, 1, axis=1))
+    return {"pc_prev": np.stack(pc_prev), "pc_curr": np.stack(pc_curr),
             "wd_prev": np.stack([p0, p1]), "wd_curr": np.stack([c0, np.roll(p1, 1, axis=1)])}
+
+
+def _slice_lead(name: str, rank: int) -> int:
+    """The first rank of ``rank``'s batch slice."""
+    per = TILINGS[name][1] * TILINGS[name][2]
+    return rank // per * per
+
+
+def _rounds(ranks: list, name: str, key: str) -> np.ndarray:
+    """The global (B, levels) rounds run: each batch slice's local rounds,
+    read from its first rank, in batch order."""
+    per = TILINGS[name][1] * TILINGS[name][2]
+    return np.concatenate([ranks[r][key] for r in range(0, len(ranks), per)])
 
 
 @pytest.fixture(scope="module")
@@ -97,7 +121,7 @@ def port(tmp_path_factory):
         if name not in done:
             try:
                 done[name] = run_ranks(tmp_path_factory.mktemp(name), 4, ",".join(
-                    str(x) for x in TILINGS[name]), CASES, _inputs())
+                    str(x) for x in TILINGS[name]), CASES, _inputs(name))
             except RuntimeError as exc:
                 done[name] = exc
         if isinstance(done[name], Exception):
@@ -206,6 +230,14 @@ def test_tile_round_sums_shapes_and_batch_elements():
     (1, 128, 1, 0 + 5 + 3 + 0 + 5 + 3),  # one row, one block: exact first adds
     (32, 128, 2516, 31 + 5 + 3 + 19 + 5 + 3),  # 4K tile: 20 partials a thread
     (8, 64, 129, 7 + 5 + 1 + 2 + 5 + 1),  # two warps, 3 partials a thread
+    # 4K on 1x4x1 (546x3846, 276x1926, 141x966) and a 2x1x2 slice
+    # (2166x1926, 1086x966, 546x486): rows and blocks by tile_round_rows.
+    (32, 128, 666, 31 + 5 + 3 + 5 + 5 + 3),
+    (16, 128, 342, 15 + 5 + 3 + 2 + 5 + 3),
+    (4, 128, 360, 3 + 5 + 3 + 2 + 5 + 3),
+    (32, 128, 1292, 31 + 5 + 3 + 10 + 5 + 3),
+    (32, 128, 340, 31 + 5 + 3 + 2 + 5 + 3),
+    (8, 128, 345, 7 + 5 + 3 + 2 + 5 + 3),
 ])
 def test_tile_round_depth_counts_the_in_kernel_order(rows, threads, blocks, depth):
     assert lk.tile_round_depth_of(rows, threads, blocks) == depth
@@ -238,27 +270,37 @@ def test_tiled_graphed_stream_needs_the_card():
 @pytest.mark.parametrize("prefix", list(DEVICE_CFGS))
 def test_device_control_equals_the_host_steered_loop(port, name, prefix):
     """Bit for bit, on every rank, with no host read counted (the loop
-    counts its reads), and every rank ran the same rounds."""
+    counts its reads), and every rank of a batch slice ran the same rounds."""
     ranks = port(name)
-    for res in ranks:
+    for r, res in enumerate(ranks):
         for c in "uv":
             np.testing.assert_array_equal(res[f"tiled_device/{prefix}_{c}"],
                                           res[f"tiled_device/{prefix}_host_{c}"])
             np.testing.assert_array_equal(res[f"tiled_device/{prefix}_{c}"],
                                           ranks[0][f"tiled_device/{prefix}_{c}"])
         np.testing.assert_array_equal(res[f"tiled_device/{prefix}_rounds"],
-                                      ranks[0][f"tiled_device/{prefix}_rounds"])
+                                      ranks[_slice_lead(name, r)][f"tiled_device/{prefix}_rounds"])
         assert int(res[f"tiled_device/{prefix}_reads"]) == 0
         assert int(res[f"tiled_device/{prefix}_host_reads"]) > 0
 
 
 def _jax_pallas(name, prefix):
-    inp = _inputs()
-    devs = np.array(jax.devices()[:4]).reshape(TILINGS[name])
-    return jtp.tiled_lucas_kanade_pyramidal(
-        jnp.asarray(inp[f"{prefix}_prev"]), jnp.asarray(inp[f"{prefix}_curr"]),
+    """The reference's Pallas path (interpret mode) on the tiling's
+    frames. On a mesh with a "batch" axis each element runs alone on a
+    (1, ty, tx) mesh: its batch slice's tiles and reduction group. The
+    interpreter holds every device at each Pallas call, so a (2, ty, tx)
+    mesh whose slices run different numbers of rounds (the witness pair's)
+    never returns."""
+    inp = _inputs(name)
+    batch, ty, tx = TILINGS[name]
+    devs = np.array(jax.devices()[:ty * tx]).reshape(1, ty, tx)
+    prev, curr = inp[f"{prefix}_prev"], inp[f"{prefix}_curr"]
+    per = prev.shape[0] // batch
+    outs = [jtp.tiled_lucas_kanade_pyramidal(
+        jnp.asarray(prev[b * per:(b + 1) * per]), jnp.asarray(curr[b * per:(b + 1) * per]),
         Mesh(devs, ("batch", "ty", "tx")), config=JaxPyramidConfig(**DEVICE_CFGS[prefix]),
-        backend="pallas", interpret=True)
+        backend="pallas", interpret=True) for b in range(batch)]
+    return tuple(np.concatenate([np.asarray(o[i]) for o in outs]) for i in range(2))
 
 
 @pytest.mark.parametrize("name", list(TILINGS))
@@ -279,7 +321,7 @@ def test_frozen_flow_past_the_band_is_kept(port, name):
     element 1 runs more rounds on its own latch. Both against the
     reference's Pallas path (limits in the module docstring)."""
     res = port(name)[0]
-    rounds = res["tiled_device/wd_rounds"]
+    rounds = _rounds(port(name), name, "tiled_device/wd_rounds")
     its = DEVICE_CFGS["wd"]["iterations"]
     assert rounds.shape == (2, DEVICE_CFGS["wd"]["levels"])
     assert rounds[0, -1] == 1 and (rounds[1] > 1).any()
