@@ -54,6 +54,21 @@ failure raises and the script exits non-zero):
    batch; the two ablations' own measurements (their JSON and lines
    printed); the profiler's 1080p ``production`` report (its stream
    graphed);
+4b. batch (``[batch]`` lines): B independent 1080p streams in one graph
+   replay (the reference's ``jax.vmap`` over the pyramidal flow,
+   BASELINE.json config 4), on the suite's patterns made on the card by
+   ``eval.patterns`` (B=4: translate_medium, translate_vertical,
+   rotate_small, no_motion; B=16: the 13 patterns and ``natural_pair``
+   at 1, 2 and 3 px): K1-K5's rounds on B=4 with one band index a plane
+   (mixed), running, partly and all skipped, bit for bit their plain
+   versions and each plane's 2-D round, timed beside their bound; for
+   ``production`` and ``default`` at B=4 and B=16 an eager batched step
+   under sync debug "error", the batched ``GraphedStream`` over 8 steps
+   (counted) and every element bit for bit its own 2-D graphed stream
+   (flows, rounds a level, band indices); graphed ms a step and a stream
+   at B=1, 4 and 16 (median and spread of 3), the port's launches a replay
+   (equal at every B), the trace's kernels and copies a replay, device
+   busy share and peak memory;
 5. gate: the 13-pattern suite through both LK modes for each config with a
    committed Pallas baseline, within 10% of it (provenance guard included);
 6. vo: the visual-odometry path (``tpuflow_torch.vo``): the grid-seed
@@ -163,7 +178,14 @@ failure raises and the script exits non-zero):
    graphed (a refused capture printed; the replay's device busy and
    launches), every launch of one eager step a config held against its
    plain version on every rank (``--mesh-cards-only`` runs (e) and phase
-   10's four-card parts alone);
+   10's four-card parts alone, after ``[dp]``: bench_scaling's
+   data-parallel design point on a 4x1x1 mesh, one rank a card, each
+   rank's slice of a B=4 and a B=8 batch of 1080p streams in one batched
+   ``GraphedStream`` under ``default``, the slices all-gathered and held
+   element by element against one card's batch, graphed ms a step by rank
+   beside one card's; then three meshes in that NCCL world with live
+   ``TiledGraphedStream``s released by ``sharding.release_mesh`` and the
+   world destroyed, each rank under a watchdog);
 9. profile: device time by kernel and the device's busy share over 4 frames
    of each stream (torch.profiler);
 10. 4k (``[4k]`` lines): the port above 1080p, on ``--seed`` frames at
@@ -284,7 +306,7 @@ shared loads (LDS) a thread and K9's select instructions a pixel. It
 prints one JSON object of the kernels' readings on the line before the
 last (time, plain version's time, bytes, bound,
 share, launches on the main path and per stream frame, the launches of
-phase 10's eager runs at 4K and at 5K and 8K, and a one-call PyTorch
+phase 4b's batched streams, of phase 10's eager runs at 4K and at 5K and 8K, and a one-call PyTorch
 yardstick's time where one exists, else null with the reason),
 and ``{"ok": true, "device": {...}}`` as the last line. Frames are
 made from ``--seed`` with numpy and scipy; the suite is the committed
@@ -429,6 +451,10 @@ PATH_KERNELS = {
     "5K default pair": {"warp_exact", "lk_refine_exact"},
     "8K production pair": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
     "8K default pair": {"warp_exact", "lk_refine_exact"},
+    # Phase 4b: B independent streams in one graph replay (each counted
+    # run also steps every element's own 2-D stream).
+    "batch production": {"warp_packed_u8", "warp_packed_u16", "lk_refine"},
+    "batch default": {"warp_exact", "lk_refine_exact"},
     "single scale": {"lk_fused"},
     "single scale + confidence": {"lk_fused_conf"},
     "batched kernel API, window_mxu": {"lk_refine_mxu", "lk_fused_mxu", "lk_fused_conf_mxu"},
@@ -1565,6 +1591,250 @@ def check_stream(a, b, config: str, smi: str, tag: str = "main"):
     if epe > 0.5:
         raise AssertionError(f"{config}: mean EPE {epe} px against the known {SHIFT_PX} px shift")
     return counts, float(np.median(eager_ms)), float(np.median(graphed_ms))
+
+
+# -- phase 4b: batched streams -------------------------------------------------------------
+
+# B independent 1080p streams in one graph replay (the reference's jax.vmap
+# over the pyramidal flow, BASELINE.json config 4): B=4 mixes bands and
+# latches; B=16 is 13 patterns and 3 natural_pair shifts.
+BATCH_PATTERNS = ("translate_medium", "translate_vertical", "rotate_small", "no_motion")
+BATCH_NATURAL_DX = (1.0, 2.0, 3.0)
+BATCH_SIZES = (1, 4, 16)
+BATCH_FRAMES = 8  # steps a timed run (frame 1, frame 0, ...)
+BATCH_CONFIGS = ("production", "default")
+BATCH_BANDS = (0, 2, 1, 2)  # one band index a plane of the B=4 round check
+
+
+def batch_frames(dev, batch: int):
+    """The batch's first frames (the suite's base frame, each element) and
+    next frames, at 1080p on the card: B=4 ``BATCH_PATTERNS``' frame 1;
+    B=16 the 13 patterns' and ``natural_pair`` at ``BATCH_NATURAL_DX``
+    (whose frame 0 is the same base); B=1 the first pattern."""
+    base = patterns.load_base_texture(WIDTH, HEIGHT)
+    names = list(BATCH_PATTERNS) if batch <= 4 else list(patterns.TEST_PATTERNS)
+    nxt = [patterns.apply_motion(base, patterns.TEST_PATTERNS[n], dev) for n in names[:batch]]
+    labels = names[:batch]
+    if batch == 16:
+        for dx in BATCH_NATURAL_DX:
+            nxt.append(profile.natural_pair(HEIGHT, WIDTH, dx, device=dev)[1].cpu().numpy())
+            labels.append(f"natural_pair dx={dx:g}")
+    first = torch.from_numpy(np.stack([base] * batch).astype(np.float32)).to(dev)
+    return first, torch.from_numpy(np.stack(nxt).astype(np.float32)).to(dev), labels
+
+
+@contextmanager
+def logged_bands(log: list):
+    """Record every band index the driver picks (device tensors)."""
+    real = pyramidal._select_band_index
+
+    def logged(*args, **kw):
+        idx = real(*args, **kw)
+        log.append(idx)
+        return idx
+
+    pyramidal._select_band_index = logged
+    try:
+        yield log
+    finally:
+        pyramidal._select_band_index = real
+
+
+def run_batch(stream: GraphedStream, first, nxt, steps: int = BATCH_FRAMES, keep: bool = True):
+    """``steps`` replays of a (batched) graphed stream from ``first``'s
+    pyramid: frames nxt, first, nxt, ... Returns the flows and rounds of
+    each step (empty with ``keep=False``) and the seconds."""
+    cfg = stream.cfg
+    stream.reset(torch_ref.build_gaussian_pyramid(first, cfg.levels, cfg.scale_factor))
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        u, v = stream.step(nxt if i % 2 == 0 else first)
+        if keep:
+            out.append((u, v, stream.level_rounds.clone()))
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_batch_rounds(dev, first, nxt, floor_ms: float) -> None:
+    """K1-K5's rounds on a B=4 batch with one band index a plane
+    (``BATCH_BANDS``), at the levels of the batch's pyramid: running,
+    partly and all skipped, each bit for bit its plain version and each
+    plane's own 2-D round; one launch a round, timed beside its bound (B
+    planes' bytes) and the plain version."""
+    rng = np.random.default_rng(41)
+    band = torch.tensor(BATCH_BANDS, dtype=torch.int32, device=dev)
+    pyr_a = torch_ref.build_gaussian_pyramid(first, 3, 0.5)
+    pyr_b = torch_ref.build_gaussian_pyramid(nxt, 3, 0.5)
+    cases = [("warp_packed_u8", pyr_b[2], "u8"), ("warp_exact", pyr_b[2], "exact"),
+             ("warp_packed_u16", pyr_b[1], "u16"), ("warp_packed_u16", pyr_b[0], "u16"),
+             ("lk_refine", pyr_b[2], True), ("lk_refine_exact", pyr_b[2], False),
+             ("lk_refine", pyr_b[1], True)]
+    lines = []
+    for name, img, how in cases:
+        shape = tuple(img.shape)
+        u, v = _flow(rng, shape, 9.0, dev)
+        ms = None
+        for latch in ((0, 0, 0, 0), (0, 1, 0, 1), (1, 1, 1, 1)):
+            flag = torch.tensor(latch, dtype=torch.int32, device=dev)
+            if name.startswith("warp"):
+                fill = _flow(rng, shape, 100.0, dev)[0]
+                kw = dict(max_disp=8, ladder=LADDER, band=band, packing=how)
+                got = warp.warp_round(img, u, v, fill.clone(), flag, **kw)
+                want = warp.warp_round_ref(img, u, v, fill.clone(), flag, **kw)
+                ones = [fill[b] if latch[b] else warp.warp_round(
+                    img[b], u[b], v[b], fill[b].clone(), flag[b:b + 1],
+                    **dict(kw, band=band[b:b + 1])) for b in range(4)]
+                same = torch.equal(got, want) and all(torch.equal(got[b], ones[b])
+                                                      for b in range(4))
+                if not any(latch):
+                    out = torch.empty_like(img)
+                    ms = device_ms(lambda: warp.warp_round(img, u, v, out, flag, **kw))
+                    plain_ms = device_ms(lambda: warp.warp_round_ref(img, u, v, out, flag, **kw))
+            else:
+                prev = pyr_a[2] if shape == tuple(pyr_a[2].shape) else pyr_a[1]
+                ctrl = torch.zeros((lk.CTRL_ROWS, 4), dtype=torch.int32, device=dev)
+                ctrl[0] = flag
+                c0, c_ref = ctrl.clone(), ctrl.clone()
+                kw = dict(ladder=tuple(map(float, LADDER)), band=band, relaxed_order=how)
+                got = lk.refine_round(prev, img, u, v, ctrl, **kw)
+                want = lk.refine_round_ref(prev, img, u, v, c_ref, **kw)
+                same = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                        and torch.equal(ctrl, c_ref))
+                for b in range(4):
+                    one_c = c0[:, b].clone()
+                    one = lk.refine_round(prev[b], img[b], u[b], v[b], one_c,
+                                          **dict(kw, band=band[b:b + 1]))
+                    same = same and torch.equal(got[0][b], one[0]) and torch.equal(
+                        got[1][b], one[1]) and torch.equal(ctrl[:, b], one_c)
+                if not any(latch):
+                    ms = device_ms(lambda: lk.refine_round(prev, img, u, v, c0.clone(), **kw))
+                    plain_ms = device_ms(lambda: lk.refine_round_ref(prev, img, u, v, c0.clone(),
+                                                                     **kw))
+            torch.cuda.synchronize()
+            if not same:
+                raise AssertionError(f"[batch] {name} B=4 round at {shape}, bands {BATCH_BANDS}, "
+                                     f"latches {latch}: not bit for bit its plain version and "
+                                     f"its planes' 2-D rounds")
+        bound_ms = bounds.bound_ms(name, *shape)
+        lines.append(f"{name} {shape[0]}x{shape[1]}x{shape[2]} {ms:.4f} ms (bound "
+                     f"{bound_ms:.5f}, {100 * bound_ms / ms:.1f}%; plain {plain_ms:.4f})")
+    print(f"[batch] K1-K5 rounds on B=4 with bands {[LADDER[i] for i in BATCH_BANDS]} a plane, "
+          f"running, partly and all skipped: bit for bit their plain versions and each plane's "
+          f"own 2-D round; one launch a round: " + "; ".join(lines)
+          + f"; launch floor {floor_ms:.4f} ms")
+
+
+def check_batch_stream(config: str, first, nxt, labels, smi: str) -> dict:
+    """One config's batched stream against each element's 2-D graphed
+    stream, bit for bit (flows, rounds and bands), with the eager batched
+    step under sync debug "error" and counted; returns the launches of the
+    batched graphed run."""
+    cfg = PYRAMID_CONFIGS[config]
+    batch = first.shape[0]
+    carry = torch_ref.build_gaussian_pyramid(first, cfg.levels, cfg.scale_factor)
+    lucas_kanade_pyramidal_step(carry, nxt, cfg, backend="cuda")  # warm-up
+    torch.cuda.synchronize()
+    with no_sync():
+        lucas_kanade_pyramidal_step(carry, nxt, cfg, backend="cuda")
+    torch.cuda.synchronize()
+    stream = GraphedStream(first, cfg)
+    (flows, _), counts = counted(f"batch {config}", lambda: run_batch(stream, first, nxt))
+    with logged_bands([]) as bands:
+        lucas_kanade_pyramidal_step(carry, nxt, cfg, backend="cuda")
+    single = GraphedStream(first[0], cfg)
+    single_bands = []
+    for b in range(batch):
+        (one, _), _ = counted(f"batch {config}", lambda: run_batch(single, first[b], nxt[b]))
+        for (u, v, r), (ou, ov, orr) in zip(flows, one):
+            if not (torch.equal(u[b], ou) and torch.equal(v[b], ov) and torch.equal(r[b], orr)):
+                raise AssertionError(f"[batch] {config} B={batch} element {b} ({labels[b]}) is "
+                                     f"not its own 2-D stream: max |du| {max_abs(u[b], ou)}, "
+                                     f"rounds {r[b].tolist()} / {orr.tolist()}")
+        with logged_bands([]) as one_bands:
+            lucas_kanade_pyramidal_step([c[b] for c in carry], nxt[b], cfg, backend="cuda")
+        if [int(x[b]) for x in bands] != [int(x) for x in one_bands]:
+            raise AssertionError(f"[batch] {config} element {b}: bands "
+                                 f"{[int(x[b]) for x in bands]} against its own {one_bands}")
+        single_bands.append([int(x) for x in one_bands])
+    rounds = flows[0][2].tolist()
+    if any(not torch.isfinite(u).all() or not torch.isfinite(v).all() for u, v, _ in flows):
+        raise AssertionError(f"[batch] {config} B={batch}: non-finite flow")
+    print(f"[batch] {config} B={batch} at {HEIGHT}x{WIDTH} ({', '.join(labels)}): every element "
+          f"bit for bit its own 2-D graphed stream over {BATCH_FRAMES} steps (flows, rounds, "
+          f"bands); an eager batched step under sync debug \"error\": no synchronizing "
+          f"operation; first step's rounds a level by element {rounds}, band index a level by "
+          f"element {single_bands}; launches {counts} ({smi})")
+    del stream, single
+    return counts
+
+
+def time_batch(config: str, smi: str) -> dict:
+    """Graphed ms a step and a stream at each of BATCH_SIZES (median and
+    spread of STREAM_RUNS runs of BATCH_FRAMES steps, host clock), launches
+    a replay (the capture's, and the trace's kernels), device busy share
+    (torch.profiler) and peak device memory."""
+    cfg = PYRAMID_CONFIGS[config]
+    dev = torch.device("cuda", 0)
+    out = {}
+    for batch in BATCH_SIZES:
+        first, nxt, _ = batch_frames(dev, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        stream = GraphedStream(first, cfg)
+        run_batch(stream, first, nxt, 2, keep=False)
+        step_ms = [1000 * run_batch(stream, first, nxt, keep=False)[1] / BATCH_FRAMES
+                   for _ in range(STREAM_RUNS)]
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        events = device_events(lambda: run_batch(stream, first, nxt, keep=False))
+        busy, in_port = (t / BATCH_FRAMES for t in busy_of(events)[:2])
+        gemm = sum(e.self_device_time_total for e in events
+                   if "gemm" in e.key.lower()) / 1000 / BATCH_FRAMES
+        kernels, copies = device_launches(events)
+        port = sum(stream.launches.values())
+        med = float(np.median(step_ms))
+        out[batch] = {"step_ms": step_ms, "stream_ms": [t / batch for t in step_ms],
+                      "busy_ms": busy, "busy_share": busy / med, "port_ms": in_port,
+                      "gemm_ms": gemm, "port_launches": port,
+                      "traced_kernels": kernels / BATCH_FRAMES,
+                      "traced_copies": copies / BATCH_FRAMES, "peak_gib": peak}
+        print(f"[batch] {config} B={batch} graphed: {med:.3f} ms a step (runs "
+              f"{', '.join(f'{t:.3f}' for t in step_ms)}), {med / batch:.4f} ms a stream; "
+              f"{port} launches of the port's kernels a replay ({stream.launches}); the trace's "
+              f"kernels a replay {kernels / BATCH_FRAMES:.0f}, copies {copies / BATCH_FRAMES:.0f};"
+              f" busy {busy:.3f} ms a step ({in_port:.3f} in the port's kernels, {gemm:.3f} in "
+              f"GEMMs), {100 * busy / med:.1f}% of the host ms; peak "
+              f"{peak:.2f} GiB ({smi})")
+        del stream, first, nxt
+        torch.cuda.empty_cache()
+    launches = {b: out[b]["port_launches"] for b in BATCH_SIZES}
+    if len(set(launches.values())) != 1:
+        raise AssertionError(f"[batch] {config}: the port's launches a replay grow with B: "
+                             f"{launches}")
+    return out
+
+
+def check_batch(smi: str, floor_ms: float) -> tuple[dict, dict]:
+    """Phase 4b (``[batch]`` lines): B independent 1080p streams in one
+    graph replay. Returns the batched runs' launches and the timings."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    first, nxt, labels = batch_frames(dev, 4)
+    check_batch_rounds(dev, first, nxt, floor_ms)
+    counts, timings = {}, {}
+    for batch in (4, 16):
+        if batch == 16:
+            first, nxt, labels = batch_frames(dev, 16)
+        for config in BATCH_CONFIGS:
+            for name, n in check_batch_stream(config, first, nxt, labels, smi).items():
+                counts[name] = counts.get(name, 0) + n
+    del first, nxt
+    torch.cuda.empty_cache()
+    for config in BATCH_CONFIGS:
+        timings[config] = time_batch(config, smi)
+    print(f"[batch] phase took {time.perf_counter() - t0:.1f} s")
+    return counts, timings
 
 
 def check_single_scale(a, b, confidence: bool):
@@ -4306,9 +4576,134 @@ def warp_ptxas(log: str) -> list[str]:
     return tiles + walks
 
 
+# bench_scaling.py's data-parallel design point (measure_dp): a ("batch",)
+# mesh, 4x1x1, one rank a card, each rank's slice of a batch of 1080p
+# streams in one batched GraphedStream under `default`; the slices gathered
+# over the mesh's group and held element by element against one card's
+# whole batch. Then the teardown (sharding.mesh's order): three meshes in
+# the one NCCL world, each with a live TiledGraphedStream, released
+# (release_mesh), then the world destroyed, under a watchdog a rank.
+DP_BATCHES = (4, 8)
+DP_CONFIG = "default"
+DP_WATCHDOG_S = 180.0
+DP_TEARDOWN_MESHES = ((1, 2, 2), (1, 4, 1))  # beside the 4x1x1 mesh
+DP_TEARDOWN_SHAPE = (240, 320)
+
+
+def dp_rank(rank: int, world: int, work: str) -> None:
+    """One rank of the data-parallel check and the released teardown."""
+    import faulthandler
+
+    from tpuflow_torch.sharding import mesh as mesh_module
+    from tpuflow_torch.sharding import release_mesh
+
+    stacks = open(f"{work}/dp_{rank}_stacks.txt", "w")  # noqa: SIM115
+    faulthandler.dump_traceback_later(DP_WATCHDOG_S, exit=True, file=stacks)
+    t0 = time.perf_counter()
+    initialize_multihost(f"file://{work}/store_dp", world, rank, backend="nccl")
+    ops.pin_f32_matmul()
+    dev = torch.device("cuda", rank)
+    mesh = make_flow_mesh(world, 1, 1, device=dev)
+    cfg = PYRAMID_CONFIGS[DP_CONFIG]
+    report: dict = {"batches": {}}
+    for batch in DP_BATCHES:
+        first, nxt, labels = batch_frames(dev, batch)
+        per = batch // world
+        mine = slice(rank * per, (rank + 1) * per)
+        local = GraphedStream(first[mine].contiguous(), cfg)
+        whole = GraphedStream(first, cfg)
+        dist.barrier(mesh.group)
+        flows, _ = run_batch(local, first[mine].contiguous(), nxt[mine].contiguous(), 2)
+        whole_flows, _ = run_batch(whole, first, nxt, 2)
+        equal = []
+        for (u, v, r), (wu, wv, wr) in zip(flows, whole_flows):
+            gathered = [torch.cat(mesh_module.all_gather(t.contiguous(), mesh.group))
+                        for t in (u, v, r)]
+            equal.append([bool(torch.equal(gathered[0][b], wu[b])
+                               and torch.equal(gathered[1][b], wv[b])
+                               and torch.equal(gathered[2][b], wr[b])) for b in range(batch)])
+        dist.barrier(mesh.group)
+        local_ms = [1000 * run_batch(local, first[mine].contiguous(), nxt[mine].contiguous(),
+                                     keep=False)[1] / BATCH_FRAMES for _ in range(STREAM_RUNS)]
+        whole_ms = [1000 * run_batch(whole, first, nxt, keep=False)[1] / BATCH_FRAMES
+                    for _ in range(STREAM_RUNS)]
+        report["batches"][batch] = {"equal": equal, "labels": labels, "local_ms": local_ms,
+                                    "whole_ms": whole_ms}
+        del local, whole, first, nxt
+    # The teardown: two more meshes in this world, a live tiled graph on each.
+    a, b = (t[:1, :DP_TEARDOWN_SHAPE[0], :DP_TEARDOWN_SHAPE[1]].contiguous()
+            for t in batch_frames(dev, 1)[:2])
+    meshes, streams = [mesh], []
+    for shape in DP_TEARDOWN_MESHES:
+        m = make_flow_mesh(*shape, device=dev)
+        stream = TiledGraphedStream(a, cfg, m)
+        stream.step(b)
+        meshes.append(m)
+        streams.append(stream)
+    torch.cuda.synchronize(dev)
+    live = sum(len(mesh_module._GRAPHS.get(m, ())) for m in meshes)
+    with open(f"{work}/dp_{rank}.json", "w") as fh:
+        json.dump(report, fh)
+    t1 = time.perf_counter()
+    for m in meshes:
+        release_mesh(m)
+    t2 = time.perf_counter()
+    dist.destroy_process_group()
+    t3 = time.perf_counter()
+    faulthandler.cancel_dump_traceback_later()
+    with open(f"{work}/dp_{rank}_teardown.json", "w") as fh:
+        json.dump({"live_graphs": live, "closed": all(s._graph is None for s in streams),
+                   "release_s": t2 - t1, "destroy_s": t3 - t2,
+                   "rank_s": t3 - t0}, fh)
+
+
+def check_data_parallel(smi: str) -> None:
+    """``[dp]`` lines (``--mesh-cards-only``): bench_scaling's data-parallel
+    design point on a 4x1x1 mesh (``dp_rank``) and the released teardown;
+    each rank within DP_WATCHDOG_S."""
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    if world < 4:
+        print(f"[dp] 4x1x1 data-parallel mesh: not run, {world} card")
+        return
+    world = 4
+    work = tempfile.mkdtemp(prefix="tpuflow_dp_")
+    try:
+        _spawn(dp_rank, lambda r: (r, world, work), world, "dp 4x1x1",
+               wall=DP_WATCHDOG_S + 30.0)
+        reports = [json.load(open(f"{work}/dp_{r}.json")) for r in range(world)]
+        teardowns = [json.load(open(f"{work}/dp_{r}_teardown.json")) for r in range(world)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for batch in map(str, DP_BATCHES):
+        equal = [r["batches"][batch]["equal"] for r in reports]
+        if not all(all(all(step) for step in e) for e in equal):
+            raise AssertionError(f"[dp] B={batch}: gathered slices against one card's batch, "
+                                 f"by rank and step: {equal}")
+        local = [float(np.median(r["batches"][batch]["local_ms"])) for r in reports]
+        whole = reports[0]["batches"][batch]["whole_ms"]
+        print(f"[dp] 4x1x1 ({DP_CONFIG}, {HEIGHT}x{WIDTH}), B={batch} "
+              f"({', '.join(reports[0]['batches'][batch]['labels'])}): {int(batch) // world} "
+              f"stream(s) a card; every element of every rank's gathered slice bit for bit one "
+              f"card's batched result, 2 steps, on all 4 ranks; graphed ms a step of the local "
+              f"slice by rank (median of {STREAM_RUNS}) {', '.join(f'{t:.3f}' for t in local)}; "
+              f"one card's whole batch {_spread(whole)} ({smi})")
+    if not all(t["closed"] and t["live_graphs"] == len(DP_TEARDOWN_MESHES) for t in teardowns):
+        raise AssertionError(f"[dp] teardown: {teardowns}")
+    release = ", ".join(f"{t['release_s']:.2f}" for t in teardowns)
+    destroy = ", ".join(f"{t['destroy_s']:.2f}" for t in teardowns)
+    print(f"[dp] teardown: 3 meshes (4x1x1 and {', '.join(map(_mesh_name, DP_TEARDOWN_MESHES))}) "
+          f"in one NCCL world with {teardowns[0]['live_graphs']} live TiledGraphedStreams a rank, "
+          f"released (release_mesh: graphs closed, then groups) in {release} s, then "
+          f"destroy_process_group returned in {destroy} s by rank (watchdog "
+          f"{DP_WATCHDOG_S:.0f} s); phase {time.perf_counter() - t0:.1f} s")
+
+
 def run_mesh_cards_only(seed: int, smi: str) -> None:
-    """Phase 8 (e) and phase 10's four-card parts alone
-    (``--mesh-cards-only``): the tiled step over NCCL with one rank per
+    """The data-parallel 4x1x1 mesh and the released teardown
+    (``check_data_parallel``), then phase 8 (e) and phase 10's four-card
+    parts alone (``--mesh-cards-only``): the tiled step over NCCL with one
+    rank per
     card, eager and graphed, against the untiled result of card 0, at 1080p
     (``check_nccl_across_cards``), then at 3840x2160 on UHD_MESHES with the
     tiled VO session and BA sharded over NCCL (``check_cards_uhd``). For a
@@ -4316,6 +4711,7 @@ def run_mesh_cards_only(seed: int, smi: str) -> None:
     them."""
     dev = torch.device("cuda", 0)
     _build.load()
+    check_data_parallel(smi)
     fa, fb = make_frames(seed)
     a, b = torch.from_numpy(fa).to(dev), torch.from_numpy(fb).to(dev)
     work = tempfile.mkdtemp(prefix="tpuflow_mesh_")
@@ -4400,6 +4796,14 @@ def main() -> None:
         path_counts, _, stream_ms[config] = check_stream(a, b, config, smi)
         counts.update(path_counts)
     stream_counts = dict(counts)  # the two streams' kernels, N_FRAMES frames each
+
+    # 4b. batched streams
+    batch_counts, _ = check_batch(smi, device_ms(_build.launch_empty))
+    missing = [name for name in set().union(PATH_KERNELS["batch production"],
+                                            PATH_KERNELS["batch default"])
+               if not batch_counts.get(name)]
+    if missing:
+        raise AssertionError(f"kernels launched on no batched stream: {missing}")
     counts.update(check_single_scale(a, b, confidence=False))
     counts.update(check_single_scale(a, b, confidence=True))
     counts.update(check_mxu_path(a, b))
@@ -4473,6 +4877,7 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": counts[name], "launches_per_frame": stream_counts.get(name, 0) / N_FRAMES,
+            "launches_batch": batch_counts.get(name, 0),
             "tiled_launches_per_pair": {path: c[name] for path, c in tiled_launches.items()
                                         if name in c},
             "library_ms": None, "library": NO_LIBRARY_CALL.get(name), **r,

@@ -44,7 +44,14 @@ the refine round bit-identical to their plain versions and to the
 host-int band's calls at each band index and when skipped (a skipped
 warp leaves ``out`` untouched, a skipped refine passes u, v through), the
 refine's in-kernel sums within 1e-6 relative of torch.sum of its block
-partials, each batch element latched alone; the graphed stream
+partials, each batch element latched alone; batched streams: K1-K5's
+rounds on B=4 with one band index a plane (mixed), running and skipped,
+bit for bit their plain versions and each plane's own 2-D round, a
+batched ``GraphedStream`` of four streams bit for bit each stream's own
+2-D ``GraphedStream`` and the batched eager step (rounds included), and,
+where four cards are present, a 4x1x1 data-parallel mesh whose gathered
+slices equal one card's batch and whose released teardown returns; the
+graphed stream
 (``flow.GraphedStream``) and the VO front end's graphed ``scan_steps``
 bit-identical to the eager steps, with the eager step's launch counts.
 K6's tile round: u, v and the control bit for bit the plain version's at
@@ -917,6 +924,167 @@ def test_refine_round_batch_latches_each_element(cuda):
     assert torch.equal(ctrl, ctrl_ref)
 
 
+_MIXED_BANDS = (0, 2, 1, 2)  # one band index a plane of a B=4 batch
+
+
+@pytest.mark.parametrize("shape", [(4, 37, 61), (4, 270, 480), (4, 1025, 1024)])
+@pytest.mark.parametrize("packing", ["u8", "u16", "exact"])
+def test_warp_round_takes_a_band_a_plane(cuda, shape, packing):
+    """Batched streams: a B=4 round with one band index a plane (mixed
+    bands), running, partly skipped and all skipped: one launch, bit for
+    bit its plain version and each plane's own 2-D round at its own band."""
+    rng = np.random.default_rng(23)
+    img = _rand(rng, shape, 0, 255, cuda).round()
+    u, v = _rand(rng, shape, -9, 9, cuda), _rand(rng, shape, -9, 9, cuda)
+    band = torch.tensor(_MIXED_BANDS, dtype=torch.int32, device=cuda)
+    kw = dict(max_disp=8, ladder=_LADDER, packing=packing)
+    for latch in ((0, 0, 0, 0), (0, 1, 0, 1), (1, 1, 1, 1)):
+        flag = torch.tensor(latch, dtype=torch.int32, device=cuda)
+        fill = _rand(rng, shape, -1, 1, cuda)
+        before = launch_counts()[_WARP_COUNTER[packing]]
+        got = warp.warp_round(img, u, v, fill.clone(), flag, band=band, **kw)
+        launched = launch_counts()[_WARP_COUNTER[packing]] - before
+        want = warp.warp_round_ref(img, u, v, fill.clone(), flag, band=band, **kw)
+        torch.cuda.synchronize()
+        assert launched == 1 and torch.equal(got, want)
+        for b in range(shape[0]):
+            one = warp.warp_round(img[b], u[b], v[b], fill[b].clone(), flag[b:b + 1],
+                                  band=band[b:b + 1], **kw)
+            assert torch.equal(got[b], fill[b] if latch[b] else one), b
+
+
+@pytest.mark.parametrize("shape", [(4, 17, 33), (4, 270, 480), (4, 540, 960)])
+@pytest.mark.parametrize("relaxed", [True, False])
+def test_refine_round_takes_a_band_a_plane(cuda, shape, relaxed):
+    """Batched streams: a B=4 refine round with one band index a plane,
+    running and partly skipped: u, v and the control bit for bit its plain
+    version (its sums to rtol 1e-5) and each plane's own 2-D round."""
+    rng = np.random.default_rng(29)
+    prev, warped = _smooth(rng, shape, cuda)
+    u, v = _rand(rng, shape, -5, 5, cuda), _rand(rng, shape, -5, 5, cuda)
+    band = torch.tensor(_MIXED_BANDS, dtype=torch.int32, device=cuda)
+    kw = dict(ladder=tuple(map(float, _LADDER)), band=band, relaxed_order=relaxed)
+    for latch in ((0, 0, 0, 0), (1, 0, 1, 0)):
+        ctrl = torch.zeros((lk.CTRL_ROWS, shape[0]), dtype=torch.int32, device=cuda)
+        ctrl[0] = torch.tensor(latch, dtype=torch.int32, device=cuda)
+        ctrl0, ctrl_ref = ctrl.clone(), ctrl.clone()
+        got = lk.refine_round(prev, warped, u, v, ctrl, **kw)
+        want = lk.refine_round_ref(prev, warped, u, v, ctrl_ref, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+        assert torch.equal(ctrl, ctrl_ref)
+        for b in range(shape[0]):
+            one_ctrl = ctrl0[:, b].clone()
+            one = lk.refine_round(prev[b], warped[b], u[b], v[b], one_ctrl,
+                                  **dict(kw, band=band[b:b + 1]))
+            assert torch.equal(got[0][b], one[0]) and torch.equal(got[1][b], one[1]), b
+            assert torch.equal(got[2][:, b], one[2]) and torch.equal(ctrl[:, b], one_ctrl), b
+
+
+def _streams(dev, batch: int = 4, shape=(240, 320)):
+    """B textured streams' first frames and next frames: moved 2 px right,
+    still, moved 3 px down and 0.5 px right, and 1 px both ways (repeated
+    past four)."""
+    from scipy.ndimage import shift as nd_shift
+
+    rng = np.random.default_rng(8)
+    a = np.round(gaussian_filter(rng.uniform(0, 255, shape), 2.0))
+    moves = [(0.0, 2.0), (0.0, 0.0), (3.0, 0.5), (1.0, 1.0)]
+    nxt = [np.round(nd_shift(a, moves[b % 4], order=1, mode="constant", cval=128.0))
+           for b in range(batch)]
+    first = torch.from_numpy(np.stack([a] * batch).astype(np.float32)).to(dev)
+    return first, torch.from_numpy(np.stack(nxt).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("config", ["production", "default"])
+def test_batched_graphed_stream_is_each_streams_own(cuda, config):
+    """Four streams in one GraphedStream: each step's flow and rounds bit
+    for bit each element's own 2-D GraphedStream and the batched eager
+    step; the replay launches as many kernels as one stream's."""
+    cfg = PYRAMID_CONFIGS[config]
+    first, nxt = _streams(cuda)
+    stream = GraphedStream(first, cfg)
+    singles = [GraphedStream(first[b], cfg) for b in range(4)]
+    assert stream.launches == singles[0].launches
+    carry = torch_ref.build_gaussian_pyramid(first, cfg.levels, cfg.scale_factor)
+    for frames in (nxt, first, nxt):
+        u, v = stream.step(frames)
+        eu, ev, carry = lucas_kanade_pyramidal_step(carry, frames, cfg, backend="cuda")
+        assert torch.equal(u, eu) and torch.equal(v, ev)
+        assert torch.equal(stream.level_rounds, pyramidal.counters.level_rounds)
+        assert stream.level_rounds.shape == (4, cfg.levels)
+        for b, single in enumerate(singles):
+            su, sv = single.step(frames[b])
+            assert torch.equal(u[b], su) and torch.equal(v[b], sv), b
+            assert torch.equal(stream.level_rounds[b], single.level_rounds), b
+    assert stream.level_rounds[1].tolist() == [1] * cfg.levels
+
+
+def _dp_rank(rank: int, world: int, addr: str, out: str) -> None:
+    """One rank of the 4x1x1 data-parallel mesh: the batched GraphedStream
+    on its slice of a B=4 and a B=8 batch, the slices all-gathered and
+    held against the whole batch on this card; then the mesh released and
+    the world destroyed."""
+    import json
+
+    import torch.distributed as dist
+
+    from tpuflow_torch.sharding import initialize_multihost, make_flow_mesh, release_mesh
+    from tpuflow_torch.sharding.mesh import all_gather
+
+    initialize_multihost(addr, world, rank, backend="nccl")
+    dev = torch.device("cuda", rank)
+    mesh = make_flow_mesh(world, 1, 1, device=dev)
+    cfg = PYRAMID_CONFIGS["default"]
+    equal = []
+    for batch in (4, 8):
+        first, nxt = _streams(dev, batch)
+        per = batch // world
+        mine = slice(rank * per, (rank + 1) * per)
+        local = GraphedStream(first[mine].contiguous(), cfg)
+        u, v = local.step(nxt[mine].contiguous())
+        gathered = [torch.cat(all_gather(t, mesh.group)) for t in (u, v, local.level_rounds)]
+        whole = GraphedStream(first, cfg)
+        wu, wv = whole.step(nxt)
+        equal.append([bool(torch.equal(gathered[0][b], wu[b]) and torch.equal(gathered[1][b], wv[b])
+                           and torch.equal(gathered[2][b], whole.level_rounds[b]))
+                      for b in range(batch)])
+        del local, whole
+    release_mesh(mesh)
+    dist.destroy_process_group()
+    with open(f"{out}/rank{rank}.json", "w") as f:
+        json.dump(equal, f)
+
+
+def test_data_parallel_mesh_gathers_each_streams_own(tmp_path):
+    """bench_scaling's data-parallel design point on a 4x1x1 mesh, one
+    rank a card: each rank's slice of a batch, gathered, equals one card's
+    batch element by element, and the teardown returns."""
+    import json
+    import socket
+
+    import torch.multiprocessing as mp
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        addr = f"tcp://localhost:{s.getsockname()[1]}"
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_dp_rank, args=(r, 4, addr, str(tmp_path))) for r in range(4)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+    assert not hung and [p.exitcode for p in procs] == [0] * 4
+    for r in range(4):
+        assert json.loads((tmp_path / f"rank{r}.json").read_text()) == [[True] * 4, [True] * 8]
+
+
 def _launches(fn):
     before = launch_counts()
     out = fn()
@@ -1686,26 +1854,72 @@ def test_tiled_graphed_stream_equals_the_eager_step(nccl_world_one, config):
     assert stream.launches["lk_fused_tile_round"] == cfg.levels * cfg.iterations
 
 
+def _graph_kernel_nodes(graph) -> int:
+    """Kernel nodes of a graph captured with ``keep_graph=True``, those of
+    its child graphs included, read through the driver API
+    (``CUgraphNodeType``: 0 a kernel, 4 a child graph)."""
+    import ctypes
+
+    driver = ctypes.CDLL("libcuda.so.1")
+
+    def count(handle) -> int:
+        n = ctypes.c_size_t(0)
+        assert driver.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+        nodes = (ctypes.c_void_p * n.value)()
+        assert driver.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+        total = 0
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            assert driver.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+            if kind.value == 0:
+                total += 1
+            elif kind.value == 4:
+                child = ctypes.c_void_p()
+                assert driver.cuGraphChildGraphNodeGetGraph(ctypes.c_void_p(node),
+                                                            ctypes.byref(child)) == 0
+                total += count(child)
+        return total
+
+    return count(ctypes.c_void_p(graph.raw_cuda_graph()))
+
+
 def test_tiled_graphed_replay_has_no_round_reductions(nccl_world_one, monkeypatch):
     """A TiledGraphedStream replay launches one kernel a tile round: the
     same step captured with a torch.sum of the round's block partials
     after each round (what a round cost before its sums moved into the
-    kernel) replays levels x iterations kernels more, with the same flow."""
+    kernel) holds levels x iterations kernel nodes more, counted in each
+    captured graph through the driver API, and replays with the same flow
+    and the same tile rounds. The kernels of a torch.profiler trace of
+    each replay are printed beside the node counts, not held: on the
+    card's torch 2.11 the trace once read 400 / 404 for graphs whose nodes
+    differ by 9, and later 391 / 400 for nodes 391 / 400, so a trace does
+    not count a replay's kernels reliably."""
     from tpuflow_torch.flow import TiledGraphedStream
 
     mesh = nccl_world_one
     cfg = PYRAMID_CONFIGS["default"]
     a, b = _tiled_pair(mesh.device)
     rounds = cfg.levels * cfg.iterations
+    kept = []
+
+    class KeptGraph(torch.cuda.CUDAGraph):
+        """The stream's graph, its node list kept after the capture (the
+        replay instantiates it; what it runs is unchanged)."""
+
+        def __init__(self, keep_graph=False):
+            super().__init__(True)
+            kept.append(self)
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", KeptGraph)
 
     def replay(stream):
         out = []
         events = _device_kernels(lambda: out.append(stream.step(b[None])))
         n_rounds = sum(e.count for e in events
                        if re.search(r"lk_walk_kernel<\d+, (true|false), \d+, 3>", e.key))
-        return sum(e.count for e in events), n_rounds, out[0]
+        return _graph_kernel_nodes(kept[-1]), n_rounds, sum(e.count for e in events), out[0]
 
-    n_new, rounds_new, flow_new = replay(TiledGraphedStream(a[None], cfg, mesh))
+    n_new, rounds_new, traced_new, flow_new = replay(TiledGraphedStream(a[None], cfg, mesh))
     fused = lk.fused_tile_round
 
     def with_reduction(*args, **kw):
@@ -1714,7 +1928,10 @@ def test_tiled_graphed_replay_has_no_round_reductions(nccl_world_one, monkeypatc
         return sums
 
     monkeypatch.setattr(lk, "fused_tile_round", with_reduction)
-    n_old, rounds_old, flow_old = replay(TiledGraphedStream(a[None], cfg, mesh))
+    n_old, rounds_old, traced_old, flow_old = replay(TiledGraphedStream(a[None], cfg, mesh))
+    print(f"kernel nodes {n_new} / {n_old} (with the sums); torch.profiler's kernels a replay "
+          f"{traced_new} / {traced_old}")
+    assert len(kept) == 2
     assert rounds_new == rounds_old == rounds
     assert n_old - n_new == rounds
     assert torch.equal(flow_new[0], flow_old[0]) and torch.equal(flow_new[1], flow_old[1])

@@ -48,16 +48,20 @@ def config_from_reference(cfg: Any) -> PyramidConfig:
 def pyramid_from_numpy(
     levels: Sequence[np.ndarray], device: torch.device | str | None = None
 ) -> list[torch.Tensor]:
-    """A pyramid carry from (H, W) arrays ordered coarse first: float32,
+    """A pyramid carry from (H, W) arrays ordered coarse first, or from
+    (B, H, W) ones (a batched JAX pyramid, e.g. ``jax.vmap`` of
+    ``build_gaussian_pyramid``: B streams, carried on together): float32,
     contiguous, on ``device``: the card unless the caller names another;
     raises without a card."""
     device = resolve_device(device)
     out = []
     for i, level in enumerate(levels):
         a = np.asarray(level)
-        if a.ndim != 2:
-            raise ValueError(f"level {i} has shape {a.shape}; (H, W) expected")
-        if out and (out[-1].shape[0] > a.shape[0] or out[-1].shape[1] > a.shape[1]):
+        if a.ndim not in (2, 3) or (out and (a.ndim != out[-1].ndim
+                                             or a.shape[:-2] != tuple(out[-1].shape[:-2]))):
+            raise ValueError(f"level {i} has shape {a.shape}; (H, W), or (B, H, W) with one B "
+                             "for every level, expected")
+        if out and (out[-1].shape[-2] > a.shape[-2] or out[-1].shape[-1] > a.shape[-1]):
             raise ValueError("levels must be ordered coarse first")
         out.append(torch.from_numpy(np.array(a, np.float32)).to(device))
     return out

@@ -136,9 +136,10 @@ def linspace_grid(n_src: int, n_dst: int) -> np.ndarray:
 
 
 def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Resample to (out_h, out_w) on the linspace grid as two banded
-    matmuls against the two-tap interpolation operators."""
-    h, w = img.shape
+    """Resample an (H, W) plane or a (B, H, W) batch to (out_h, out_w) on
+    the linspace grid as two banded matmuls against the two-tap
+    interpolation operators."""
+    h, w = img.shape[-2:]
     out = _banded_left(_resample_matrix_np, (h, out_h), img)
     return _banded_right(out, _resample_matrix_np, (w, out_w))
 
@@ -146,9 +147,10 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 def downsample_fused(
     img: torch.Tensor, out_h: int, out_w: int, sigma: float
 ) -> torch.Tensor:
-    """Gaussian smooth + linspace bilinear resample, composed per axis in
-    f64 into one operator ``D = R @ G`` and applied as two f32 matmuls."""
-    h, w = img.shape
+    """Gaussian smooth + linspace bilinear resample of an (H, W) plane or a
+    (B, H, W) batch, composed per axis in f64 into one operator
+    ``D = R @ G`` and applied as two f32 matmuls."""
+    h, w = img.shape[-2:]
     out = _banded_left(_downsample_matrix_np, (h, out_h, sigma), img)
     return _banded_right(out, _downsample_matrix_np, (w, out_w, sigma))
 
@@ -192,8 +194,23 @@ def _operator_blocks(builder, args: tuple, device: torch.device):
     )
 
 
+def _per_plane(fn, img: torch.Tensor) -> torch.Tensor | None:
+    """``fn`` on each plane of a (B, H, W) batch, stacked; None for a plane.
+    A GEMM blocks a batched or widened operand otherwise than a plane, so
+    its adds would round in another order: each plane goes through the
+    plane's own products, and an element equals its plane's call bit for
+    bit."""
+    if img.ndim == 2:
+        return None
+    return torch.stack([fn(plane) for plane in img.unbind(0)])
+
+
 def _banded_left(builder, args: tuple, img: torch.Tensor) -> torch.Tensor:
-    """``D @ img`` exploiting D's band structure (see ``_BAND_BLOCK``)."""
+    """``D @ img`` exploiting D's band structure (see ``_BAND_BLOCK``), on
+    an (H, W) plane or each plane of a (B, H, W) batch."""
+    batched = _per_plane(lambda p: _banded_left(builder, args, p), img)
+    if batched is not None:
+        return batched
     if img.is_cuda:
         pin_f32_matmul()
     blocks = _operator_blocks(builder, args, img.device)
@@ -204,7 +221,11 @@ def _banded_left(builder, args: tuple, img: torch.Tensor) -> torch.Tensor:
 
 
 def _banded_right(img: torch.Tensor, builder, args: tuple) -> torch.Tensor:
-    """``img @ D.T`` exploiting D's band structure (column blocks)."""
+    """``img @ D.T`` exploiting D's band structure (column blocks), on an
+    (H, W) plane or each plane of a (B, H, W) batch."""
+    batched = _per_plane(lambda p: _banded_right(p, builder, args), img)
+    if batched is not None:
+        return batched
     if img.is_cuda:
         pin_f32_matmul()
     blocks = _operator_blocks(builder, args, img.device)

@@ -59,15 +59,18 @@ extern "C" int tpuflow_lk_refine(const float* prev, const float* warped,
 // One round under device control. ctrl holds the int32 latch, ticket and
 // round count of each of the `batch` elements (3 x batch, the tickets 0
 // between launches); band (or null: ladder[0]) indexes the ladder of
-// vertical bands; sums receives (2, batch) sum|du|, sum|dv|.
+// vertical bands, n_band indices: 1 (every element's) or `batch` (one an
+// element); sums receives (2, batch) sum|du|, sum|dv|.
 extern "C" int tpuflow_lk_refine_round(const float* prev, const float* warped,
                                        const float* u_in, const float* v_in, int* ctrl,
-                                       const int* band, const float* ladder, int n_ladder,
-                                       float* u_out, float* v_out, float* part_du,
-                                       float* part_dv, float* sums, int batch, int height,
-                                       int width, int window, int relaxed, float det_threshold,
-                                       float max_disp, float thr, void* stream) {
-  if (n_ladder < 1 || n_ladder > kMaxLadder || (band == nullptr && n_ladder != 1))
+                                       const int* band, int n_band, const float* ladder,
+                                       int n_ladder, float* u_out, float* v_out,
+                                       float* part_du, float* part_dv, float* sums, int batch,
+                                       int height, int width, int window, int relaxed,
+                                       float det_threshold, float max_disp, float thr,
+                                       void* stream) {
+  if (n_ladder < 1 || n_ladder > kMaxLadder || (band == nullptr && n_ladder != 1) ||
+      (band != nullptr && n_band != 1 && n_band != batch))
     return (int)cudaErrorInvalidValue;
   LkArgs args{};
   args.prev = prev;
@@ -85,6 +88,7 @@ extern "C" int tpuflow_lk_refine_round(const float* prev, const float* warped,
   args.max_disp_v = ladder[0];
   args.ctrl = ctrl;
   args.band = band;
+  args.band_stride = n_band > 1 ? 1 : 0;
   for (int i = 0; i < n_ladder; ++i) args.ladder[i] = ladder[i];
   args.n_ladder = n_ladder;
   args.sums = sums;

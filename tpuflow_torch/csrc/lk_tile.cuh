@@ -108,7 +108,9 @@
 //     level converged before this round, and the block copies u_in, v_in
 //     to u_out, v_out bit for bit and returns (no re-clip: the
 //     reference's loop never runs such a round). Its sums are 0;
-//   - max_disp_v is ladder[*band], the index read from device memory;
+//   - max_disp_v is ladder[band[z]], the element's index read from device
+//     memory (one index for the whole batch, or one a plane: a batch of
+//     independent streams);
 //   - the block that finishes an element's round last (a ticket counter
 //     in device memory) adds the element's block partials in a fixed
 //     order (each thread a strided run, then the block's butterfly and its
@@ -187,7 +189,10 @@ struct LkArgs {
   // A refine round under device control (null: none): per element, an
   // int32 latch, a ticket counter and a round count, each `batch` long.
   int* ctrl;
-  const int* band;  // index into ladder (null: ladder[0])
+  // Index into ladder (null: ladder[0]): element z's at band[band_stride
+  // * z], one index for the batch (stride 0) or one a plane (stride 1).
+  const int* band;
+  int band_stride;
   float ladder[kMaxLadder];
   int n_ladder;
   float* sums;  // (2, batch): the element's sum|du|, then sum|dv|
@@ -579,8 +584,10 @@ __global__ void __launch_bounds__(kWalkThreads, walk_min_blocks<kWindow>())
         }
         return;
       }
-      max_disp_v = ladder_at(args.ladder,
-                             args.band ? min(max(*args.band, 0), args.n_ladder - 1) : 0);
+      max_disp_v = ladder_at(
+          args.ladder,
+          args.band ? min(max(args.band[args.band_stride * blockIdx.z], 0), args.n_ladder - 1)
+                    : 0);
     } else {
       frozen = args.converged[blockIdx.z] != 0;
     }

@@ -83,7 +83,9 @@
 // since its rows depend on the band. The switch is one launch, with
 // shared memory sized for the ladder's widest band and the window's rows
 // from the band read (the grid does not depend on the band); every output
-// bit is as the host-int band's launch gives it. (The switch's own form,
+// bit is as the host-int band's launch gives it. A batch of independent
+// streams reads one band index a plane (element z's, band[z]); one index
+// may also serve every plane. (The switch's own form,
 // one launch per candidate band whose blocks return at once unless the
 // index read is theirs, was measured 5-6 us a round slower and dropped.)
 
@@ -116,7 +118,8 @@ warp_tile_kernel(const float* __restrict__ image, const float* __restrict__ flow
   if (ctl.latch != nullptr && ctl.latch[blockIdx.z] != 0) return;
   int max_disp_v = mdv_arg;
   if (ctl.band != nullptr) {
-    max_disp_v = ladder_at(ctl.ladder, min(max(*ctl.band, 0), ctl.n_ladder - 1));
+    const int idx = ctl.band[ctl.band_stride * blockIdx.z];
+    max_disp_v = ladder_at(ctl.ladder, min(max(idx, 0), ctl.n_ladder - 1));
   }
 
   const int col = threadIdx.x % kTileW, row = threadIdx.x / kTileW;
@@ -292,15 +295,17 @@ extern "C" int tpuflow_warp_banded_as(const float* img, const float* u, const fl
 
 // One round of the pyramidal driver under device control, the flow
 // clamped: skipped where latch[b] != 0 (out untouched), the band
-// ladder[*band] (ladder[0] where band is null), in one launch sized for
-// the widest band. latch is the int32 flag of each of the `batch` elements.
+// ladder[band[b]] (ladder[0] where band is null), in one launch sized for
+// the widest band. latch is the int32 flag of each of the `batch` elements;
+// band holds n_band indices, 1 (every plane's) or `batch` (one a plane).
 extern "C" int tpuflow_warp_round(const float* img, const float* u, const float* v, float* out,
-                                  const int* latch, const int* band, const int* ladder,
-                                  int n_ladder, int batch, int height, int width, int max_disp,
-                                  int packing, void* stream) {
-  if (n_ladder < 1 || n_ladder > kMaxLadder || (band == nullptr && n_ladder != 1))
+                                  const int* latch, const int* band, int n_band,
+                                  const int* ladder, int n_ladder, int batch, int height,
+                                  int width, int max_disp, int packing, void* stream) {
+  if (n_ladder < 1 || n_ladder > kMaxLadder || (band == nullptr && n_ladder != 1) ||
+      (band != nullptr && n_band != 1 && n_band != batch))
     return (int)cudaErrorInvalidValue;
-  Control ctl{latch, band, {}, n_ladder};
+  Control ctl{latch, band, {}, n_ladder, n_band > 1 ? 1 : 0};
   int widest = 0;
   for (int i = 0; i < n_ladder; ++i) {
     if (ladder[i] < 0) return (int)cudaErrorInvalidValue;

@@ -23,12 +23,15 @@ constexpr int kMaxLadder = 8;
 
 // A round's device control (warp.cu): the latch of each batch element
 // (nonzero: skip; null: never), the band index in device memory (null:
-// the launch's max_disp_v) into the ladder.
+// the launch's max_disp_v) into the ladder: element z reads
+// band[band_stride * z], one index for the whole batch (stride 0) or one
+// per plane (stride 1).
 struct Control {
   const int* latch;
   const int* band;
   int ladder[kMaxLadder];
   int n_ladder;
+  int band_stride;
 };
 
 // ladder[i] with every index static: an index computed at run time into a

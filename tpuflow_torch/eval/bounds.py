@@ -38,6 +38,11 @@ For example the refine at 1080x1920 moves 24 * 2,073,600 = 49,766,400 B,
 0.014855 ms at 3.35 TB/s. No timing here: these are the counts a chip
 run's times are divided by.
 
+A batch of B planes (the batched kernel API, and one round of B
+independent streams, each plane at its own band) moves B times a plane's
+bytes and does B times its operations, so every bound here is B times the
+plane's (``batch``): the warps' band does not enter their counts.
+
 The port's two kernels with no Pallas counterpart (``PORT_KERNELS``), the
 reference's ``lax.cond`` and ``lax.scan`` on the card, have bounds of their
 own shapes:

@@ -33,7 +33,9 @@ exchanges, all-reduces and the final gather included, and each pair is
 one replay a rank. Every rank of the mesh must construct the stream and
 step it with the same frames, as with the eager call. A gloo mesh stages
 its collectives through host memory and is never graphed: it raises, as a
-CPU tensor does.
+CPU tensor does. Its graph holds the mesh's NCCL communicators, so it is
+freed before the mesh's groups are destroyed: ``sharding.release_mesh``
+closes every such stream (``close``), and the VO front end's graphs too.
 """
 
 from __future__ import annotations
@@ -100,7 +102,13 @@ class GraphedStream:
     shape, ``cfg`` and device. ``step(frame)`` returns the flow from the
     carry to ``frame`` and makes ``frame``'s pyramid the carry.
     ``level_rounds`` is the graph's int32 (levels,) tensor of the rounds
-    each level ran in the latest step (overwritten by the next replay)."""
+    each level ran in the latest step (overwritten by the next replay).
+
+    A (B, H, W) carry and frames are B independent streams (cameras) in one
+    capture and one replay a step: each element takes its own band and
+    latch at every level and its flow is its own 2-D stream's bit for bit;
+    ``level_rounds`` is then (B, levels), and ``reset`` seeds every
+    element's carry at once."""
 
     def __init__(self, carry, cfg: PyramidConfig) -> None:
         if isinstance(carry, torch.Tensor):
@@ -173,6 +181,7 @@ class TiledGraphedStream:
     latest step. Raises ``ValueError`` for a CPU tensor or a gloo mesh."""
 
     def __init__(self, first: torch.Tensor, cfg: PyramidConfig, mesh) -> None:
+        from tpuflow_torch.sharding import mesh as mesh_module
         from tpuflow_torch.sharding import tiled_pyramidal
 
         _check_cuda(first, "the first frame")
@@ -200,6 +209,13 @@ class TiledGraphedStream:
         self._graph, (self._u, self._v, self.level_rounds), self.launches, self._kernels = (
             capture(body, torch.cuda.Stream(self.device)))
         self._prev.copy_(saved)
+        mesh_module.hold_graph(mesh, self)
+
+    def close(self) -> None:
+        """Free the graph (and the NCCL work it captured) before the mesh's
+        groups go (``sharding.release_mesh`` calls it); a later ``step``
+        raises."""
+        self._graph = None
 
     def reset(self, first: torch.Tensor) -> None:
         """Start the stream anew at ``first``, a frame of the captured shape."""
@@ -215,6 +231,8 @@ class TiledGraphedStream:
     def step(self, frame: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """One pair: the global ``(u, v)`` from the previous frame to
         ``frame``, caller-owned."""
+        if self._graph is None:
+            raise RuntimeError("the stream was closed (its mesh released)")
         self._check(frame)
         if not same_kernels(self._kernels):
             raise RuntimeError("the kernel wrappers bound now are not the ones the graph "

@@ -30,6 +30,21 @@ early-exit flag is read once per round (the ``lax.while_loop`` condition),
 and with ``rtl_clamp`` and an adaptive band ladder the band index once per
 level (the ``lax.switch`` operand). Both are counted in ``counters``; the
 fast path leaves them at 0.
+
+Batched streams (the reference's ``jax.vmap`` over the solve, BASELINE
+config 4): every entry point also takes (B, H, W) frames and pyramids of
+(B, h, w) levels, B independent streams. Each element is solved as its own
+stream would be: its own band at each level, its own latch and round
+count. On the fast path that is one launch a round for the whole batch,
+each kernel reading its plane's latch and band index (``ctrl`` holds one
+column an element, the band one index an element), and an element's flow
+is its 2-D solve's bit for bit. Under ``vmap`` the reference runs a
+level until every element has converged, its refine kernel re-clips a
+converged element and its ``lax.switch`` runs every band on every
+element; the batched ``lax.while_loop`` keeps an element's carry once its
+own condition fails, so the per-frame result stands, and the port keeps
+it (ROADMAP divergence p). The parity path solves each element in turn,
+its host reads counted as a plane's.
 """
 
 from __future__ import annotations
@@ -50,10 +65,11 @@ class Counters:
     convergence_reads: int = 0  # early-exit flags read to the host
     band_reads: int = 0  # adaptive band indices read to the host
     # Rounds run at each level by the latest parity-path solve, coarsest
-    # level first.
-    level_iterations: list[int] = dataclasses.field(default_factory=list)
+    # level first (for a batch, one such list an element).
+    level_iterations: list = dataclasses.field(default_factory=list)
     # The same for the latest fast-path solve: an int32 (levels,) tensor on
-    # the solve's device, written by the kernels (never read here).
+    # the solve's device, (B, levels) for a batch, written by the kernels
+    # (never read here).
     level_rounds: torch.Tensor | None = None
     # Keyframe reseeds the VO front end's steps took (the reference's
     # lax.cond branch), by device: a one-element int32 tensor that the seed
@@ -138,15 +154,18 @@ def _select_band_index(
     """Index of the narrowest adequate vertical band, from the upsampled
     coarse-level flow: band ``b`` is rejected if more than
     ``frac_threshold`` of the masked interior's |v| exceeds ``b - 1``.
-    Returns a 0-d int32 tensor on the flow's device."""
-    h, w = flow_v.shape
+    Returns a 0-d int32 tensor on the flow's device for an (H, W) flow, and
+    a (B,) one, each element's own index, for a (B, H, W) batch (the
+    counts are sums of ones, exact in any order, so each equals its
+    plane's)."""
+    h, w = flow_v.shape[-2:]
     m_y = min(margin, max((h - 1) // 2, 0))
     m_x = min(margin, max((w - 1) // 2, 0))
-    interior = flow_v[m_y : h - m_y, m_x : w - m_x].abs()
-    n = interior.numel()
-    idx = torch.zeros((), dtype=torch.int32, device=flow_v.device)
+    interior = flow_v[..., m_y : h - m_y, m_x : w - m_x].abs()
+    n = interior.shape[-2] * interior.shape[-1]
+    idx = torch.zeros(flow_v.shape[:-2], dtype=torch.int32, device=flow_v.device)
     for b in bands[:-1]:
-        frac = (interior > (b - 1.0)).to(torch.float32).sum() / n
+        frac = (interior > (b - 1.0)).to(torch.float32).sum(dim=(-2, -1)) / n
         idx = idx + (frac > frac_threshold).to(torch.int32)
     return idx
 
@@ -166,7 +185,8 @@ def _refine_level_device(
     it (``ctrl``'s latch, the reference's while-loop condition); the band
     is ``adaptive_v_bands[band]``, or the static band where ``band`` is
     None. ``ctrl`` is this level's (3,) int32 latch, ticket and round count,
-    all 0 on entry."""
+    all 0 on entry; for a (B, h, w) batch (3, B), one column and one band
+    index an element."""
     ladder = cfg.adaptive_v_bands if band is not None else (cfg.max_disp_v_effective,)
     packing = _warp_packing(cfg, finest)
     # Round 0 always runs (the latch starts clear), so a skipped round's
@@ -216,7 +236,9 @@ def lucas_kanade_pyramidal(
     rtl_clamp: bool = False,
     return_levels: bool = False,
 ):
-    """Coarse-to-fine dense flow between two (H, W) float32 frames.
+    """Coarse-to-fine dense flow between two (H, W) float32 frames, or
+    between each pair of two (B, H, W) batches (B independent streams, each
+    element solved as alone; the reference's ``jax.vmap``).
 
     Gaussian pyramids (sigma = 1/scale smoothing + linspace bilinear
     resample), zero flow at the coarsest level, then per level
@@ -249,11 +271,18 @@ def lucas_kanade_pyramidal_from_pyramids(
     return_levels: bool = False,
 ):
     """Coarse-to-fine refinement on prebuilt Gaussian pyramids (coarse
-    first), so a stream can reuse each frame's pyramid."""
+    first), so a stream can reuse each frame's pyramid. Levels are (h, w)
+    planes or (B, h, w) batches, one stream an element."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if pyr_prev[0].ndim not in (2, 3) or any(
+            a.shape != b.shape or a.ndim != pyr_prev[0].ndim for a, b in zip(pyr_prev, pyr_curr)):
+        raise ValueError("the two pyramids must hold levels of one shape each, all (h, w) or "
+                         "all (B, h, w)")
     if backend == "cuda":
         return _from_pyramids_device(pyr_prev, pyr_curr, cfg, return_levels)
+    if pyr_prev[0].ndim == 3:
+        return _from_pyramids_each(pyr_prev, pyr_curr, cfg, backend, rtl_clamp, return_levels)
     flow_u = torch.zeros_like(pyr_prev[0])
     flow_v = torch.zeros_like(pyr_prev[0])
 
@@ -280,14 +309,38 @@ def lucas_kanade_pyramidal_from_pyramids(
     return flow_u, flow_v
 
 
+def _from_pyramids_each(pyr_prev, pyr_curr, cfg: PyramidConfig, backend: Backend,
+                        rtl_clamp: bool, return_levels: bool):
+    """The parity path on a batch: each element's solve in turn, with its
+    own early exit and band and its own host reads, counted as a plane's.
+    ``counters.level_iterations`` holds one list of rounds an element."""
+    outs, iterations = [], []
+    for b in range(pyr_prev[0].shape[0]):
+        outs.append(lucas_kanade_pyramidal_from_pyramids(
+            [p[b] for p in pyr_prev], [c[b] for c in pyr_curr], cfg, backend=backend,
+            rtl_clamp=rtl_clamp, return_levels=return_levels))
+        iterations.append(counters.level_iterations)
+    counters.level_iterations = iterations
+    u = torch.stack([o[0] for o in outs])
+    v = torch.stack([o[1] for o in outs])
+    if not return_levels:
+        return u, v
+    levels = [(torch.stack([o[2][i][0] for o in outs]), torch.stack([o[2][i][1] for o in outs]))
+              for i in range(cfg.levels)]
+    return u, v, levels
+
+
 def _from_pyramids_device(pyr_prev, pyr_curr, cfg: PyramidConfig, return_levels: bool):
     """The fast path's coarse-to-fine solve under device control: no host
-    read, the same launches every frame."""
+    read, the same launches every frame, one launch a round for a whole
+    batch."""
     dev = pyr_prev[0].device
     flow_u = torch.zeros_like(pyr_prev[0])
     flow_v = torch.zeros_like(pyr_prev[0])
-    # Each level's latch, ticket and round count, cleared once a solve.
-    ctrl = torch.zeros((cfg.levels, lk.CTRL_ROWS), dtype=torch.int32, device=dev)
+    # Each level's latch, ticket and round count (one column an element of
+    # a batch), cleared once a solve.
+    ctrl = torch.zeros((cfg.levels, lk.CTRL_ROWS, *pyr_prev[0].shape[:-2]), dtype=torch.int32,
+                       device=dev)
     margin = 2 * (cfg.max_disp + cfg.window_size)
     levels = []
     for level in range(cfg.levels):
@@ -303,7 +356,8 @@ def _from_pyramids_device(pyr_prev, pyr_curr, cfg: PyramidConfig, return_levels:
             finest=level == cfg.levels - 1)
         if return_levels:
             levels.append((flow_u, flow_v))
-    counters.level_rounds = ctrl[:, 2]
+    # (levels,) for a plane; (B, levels) for a batch, as the tiled path's.
+    counters.level_rounds = ctrl[:, 2].T if ctrl.ndim == 3 else ctrl[:, 2]
     if return_levels:
         return flow_u, flow_v, levels
     return flow_u, flow_v
@@ -317,7 +371,9 @@ def lucas_kanade_pyramidal_step(
     backend: Backend = "torch",
     rtl_clamp: bool = False,
 ):
-    """One streaming step: ``(pyr_prev, frame) -> (u, v, pyr_curr)``.
+    """One streaming step: ``(pyr_prev, frame) -> (u, v, pyr_curr)``, for
+    an (H, W) frame or a (B, H, W) batch of B independent streams (the
+    carry's levels then (B, h, w)).
 
     Builds only the new frame's pyramid and returns it as the next step's
     carry. Seed the carry with ``torch_ref.build_gaussian_pyramid(first,

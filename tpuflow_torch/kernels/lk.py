@@ -403,8 +403,9 @@ def _check_round(planes, ctrl, band, ladder, window_size, parts) -> torch.device
     want = (CTRL_ROWS, batch) if planes[0].ndim == 3 else (CTRL_ROWS,)
     if ctrl.dtype != torch.int32 or tuple(ctrl.shape) != want:
         raise ValueError(f"ctrl must be an int32 tensor of shape {want} (latch, ticket, rounds)")
-    if band is not None and (band.dtype != torch.int32 or band.numel() != 1):
-        raise ValueError("band must be a one-element int32 tensor")
+    if band is not None and (band.dtype != torch.int32 or band.numel() not in (1, batch)):
+        raise ValueError("band must be an int32 tensor holding one index, or one a plane of "
+                         "the batch")
     tensors = (*planes, ctrl) + (() if band is None else (band,))
     dev = _device_of(tensors + (() if parts is None else (parts,)))
     return dev
@@ -475,8 +476,10 @@ def refine_round(
     through bit for bit; else the round's ``sdu / n_px < thr & sdv / n_px <
     thr`` is ORed in), row 1 the kernel's ticket counter (0 between
     launches), row 2 the rounds run, each updated in place on the device.
-    ``max_disp_v`` is ``ladder[band]`` (``band`` a one-element int32
-    tensor; None takes ``ladder[0]``). ``parts``, optional, (2, B,
+    ``max_disp_v`` is ``ladder[band]`` (``band`` an int32 tensor, one index
+    for every plane or, for a batch of independent streams, a (B,) one,
+    plane b at ``ladder[band[b]]``; None takes ``ladder[0]``). ``parts``,
+    optional, (2, B,
     ``refine_blocks(H, W, window)``) float32, receives the kernel's block
     partials (CUDA only)."""
     planes = (frame_prev, warped, flow_u, flow_v)
@@ -502,10 +505,11 @@ def refine_round(
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.tpuflow_lk_refine_round(
         frame_prev.data_ptr(), warped.data_ptr(), flow_u.data_ptr(), flow_v.data_ptr(),
-        ctrl.data_ptr(), None if band is None else band.data_ptr(), bands, len(ladder),
-        u_out.data_ptr(), v_out.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
-        sums.data_ptr(), batch, h, w, window_size, int(relaxed_order), float(det_threshold),
-        float(max_disp), float(convergence_threshold), stream)
+        ctrl.data_ptr(), None if band is None else band.data_ptr(),
+        0 if band is None else band.numel(), bands, len(ladder), u_out.data_ptr(),
+        v_out.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), sums.data_ptr(), batch,
+        h, w, window_size, int(relaxed_order), float(det_threshold), float(max_disp),
+        float(convergence_threshold), stream)
     name = "lk_refine" if relaxed_order else "lk_refine_exact"
     _build.check(lib, code, name)
     launch_counts[name] += 1

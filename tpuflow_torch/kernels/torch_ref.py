@@ -95,9 +95,10 @@ def upsample_flow(
     flow_u: torch.Tensor, flow_v: torch.Tensor, target_shape: tuple[int, int]
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Bilinear flow upsampling on the linspace grid, then u scaled by
-    ``fine_w/coarse_w`` and v by ``fine_h/coarse_h``."""
-    ch, cw = flow_u.shape
-    th, tw = target_shape
+    ``fine_w/coarse_w`` and v by ``fine_h/coarse_h``; (H, W) planes or
+    (B, H, W) batches, each plane as alone."""
+    ch, cw = flow_u.shape[-2:]
+    th, tw = tuple(target_shape)[-2:]
     scale_x = tw / cw
     scale_y = th / ch
     u = ops.resize_bilinear(flow_u, th, tw) * scale_x
@@ -107,9 +108,10 @@ def upsample_flow(
 
 def downsample_image(image: torch.Tensor, scale_factor: float = 0.5) -> torch.Tensor:
     """One pyramid step: Gaussian smooth (sigma = 1/scale) then linspace
-    bilinear resample to ``int(dim * scale)``, as the fused operator."""
+    bilinear resample to ``int(dim * scale)``, as the fused operator; an
+    (H, W) plane or a (B, H, W) batch, each plane as alone."""
     sigma = 1.0 / scale_factor
-    h, w = image.shape
+    h, w = image.shape[-2:]
     nh, nw = int(h * scale_factor), int(w * scale_factor)
     return ops.downsample_fused(image, nh, nw, sigma)
 
@@ -117,7 +119,9 @@ def downsample_image(image: torch.Tensor, scale_factor: float = 0.5) -> torch.Te
 def build_gaussian_pyramid(
     image: torch.Tensor, num_levels: int, scale_factor: float = 0.5
 ) -> list[torch.Tensor]:
-    """Gaussian pyramid, list ordered coarse -> fine (level 0 = coarsest)."""
+    """Gaussian pyramid, list ordered coarse -> fine (level 0 = coarsest),
+    of an (H, W) frame or of each frame of a (B, H, W) batch (then every
+    level is (B, h, w))."""
     levels = [image]
     current = image
     for _ in range(num_levels - 1):
@@ -129,14 +133,16 @@ def build_gaussian_pyramid(
 
 def ladder_value(band: torch.Tensor | None, ladder: tuple, dtype: torch.dtype,
                  device: torch.device) -> torch.Tensor:
-    """``ladder[band]`` as a 0-d tensor on ``device``, chosen on the device
-    (no host read; the index clamped into the ladder, as the kernels
-    clamp it); ``ladder[0]`` where ``band`` is None. The plain versions'
-    form of the band a device-controlled round reads."""
+    """``ladder[band]`` chosen on the device (no host read; the index
+    clamped into the ladder, as the kernels clamp it); ``ladder[0]`` where
+    ``band`` is None. The plain versions' form of the band a
+    device-controlled round reads: a 0-d tensor for one index, a (B, 1, 1)
+    one for a (B,) band (one index a plane of a (B, H, W) batch)."""
     out = torch.full((), ladder[0], dtype=dtype, device=device)
     if band is None:
         return out
-    idx = band.clamp(0, len(ladder) - 1)
+    idx = band.reshape(-1, 1, 1) if band.numel() > 1 else band.reshape(())
+    idx = idx.clamp(0, len(ladder) - 1)
     for i in range(1, len(ladder)):
         out = torch.where(idx == i, torch.full((), ladder[i], dtype=dtype, device=device), out)
     return out

@@ -40,7 +40,9 @@ one round of the pyramidal driver under device control: it reads the
 round's skip flag (the level's converged latch) and the band index from
 device memory, so the driver never reads either to the host. A skipped
 round leaves ``out`` as it was. On the card the band switch is one launch
-sized for the ladder's widest band (``csrc/warp.cu``).
+sized for the ladder's widest band (``csrc/warp.cu``). A batch of
+independent streams passes one band index a plane: each plane warps at its
+own band, as it would alone.
 """
 
 from __future__ import annotations
@@ -114,7 +116,8 @@ def warp_banded_ref(
 ) -> torch.Tensor:
     """Plain PyTorch version of the banded warp kernel, for (H, W) planes
     or (B, H, W) batches. ``max_disp_v`` may be a 0-d integer tensor on
-    the image's device (a band read from the device, never to the host)."""
+    the image's device (a band read from the device, never to the host),
+    or a (B, 1, 1) one for a batch, each plane at its own band."""
     packing = resolve_packing(packed_u8, packed_u16, packing)
     if max_disp_v is None:
         max_disp_v = max_disp
@@ -261,10 +264,12 @@ def _check_round(image, flow_u, flow_v, out, latch, band, ladder, max_disp, pack
         raise ValueError("out must be a float32 tensor of the image's shape and device")
     if latch.dtype != torch.int32 or latch.numel() != batch or latch.device != image.device:
         raise ValueError("latch must hold one int32 flag per plane on the image's device")
-    if band is not None and (band.dtype != torch.int32 or band.numel() != 1
+    if band is not None and (band.dtype != torch.int32 or band.numel() not in (1, batch)
                              or band.device != image.device):
-        raise ValueError("band must be a one-element int32 tensor on the image's device")
-    if image.device.type == "cuda" and not (out.is_contiguous() and latch.is_contiguous()):
+        raise ValueError("band must be an int32 tensor on the image's device holding one index, "
+                         "or one a plane of the batch")
+    if image.device.type == "cuda" and not (out.is_contiguous() and latch.is_contiguous()
+                                            and (band is None or band.is_contiguous())):
         raise ValueError("the CUDA warp needs contiguous tensors")
 
 
@@ -281,8 +286,9 @@ def warp_round_ref(
     packing: str = "exact",
 ) -> torch.Tensor:
     """Plain PyTorch version of ``warp_round``: the clamped warp at band
-    ``ladder[band]`` written into ``out`` where ``latch`` is 0, ``out``
-    kept where it is set."""
+    ``ladder[band]`` (a plane's own where ``band`` holds one index a
+    plane) written into ``out`` where ``latch`` is 0, ``out`` kept where it
+    is set."""
     mdv = torch_ref.ladder_value(band, ladder, torch.int32, image.device)
     warped = warp_banded_ref(image, flow_u, flow_v, max_disp, clamp_flow=True, max_disp_v=mdv,
                              packing=packing)
@@ -304,10 +310,12 @@ def warp_round(
     packing: str = "exact",
 ) -> torch.Tensor:
     """One round's warp under device control, into ``out``: the flow
-    clamped to ``max_disp`` and ``ladder[band]`` (``band`` a one-element
-    int32 tensor on the device; None takes ``ladder[0]``), skipped where
-    the int32 ``latch`` of a plane is set. The CUDA kernel for CUDA
-    tensors (one launch), the plain version for CPU tensors. Neither reads a flag to the host."""
+    clamped to ``max_disp`` and ``ladder[band]`` (``band`` an int32 tensor
+    on the device, one index for every plane or, for a (B, H, W) batch of
+    independent streams, a (B,) one, plane b at ``ladder[band[b]]``; None
+    takes ``ladder[0]``), skipped where the int32 ``latch`` of a plane is
+    set. The CUDA kernel for CUDA tensors (one launch), the plain version
+    for CPU tensors. Neither reads a flag to the host."""
     _check_round(image, flow_u, flow_v, out, latch, band, ladder, max_disp, packing)
     if image.device.type == "cpu":
         return warp_round_ref(image, flow_u, flow_v, out, latch, max_disp=max_disp,
@@ -320,8 +328,9 @@ def warp_round(
     bands = (ctypes.c_int * len(ladder))(*ladder)
     code = lib.tpuflow_warp_round(
         image.data_ptr(), flow_u.data_ptr(), flow_v.data_ptr(), out.data_ptr(),
-        latch.data_ptr(), None if band is None else band.data_ptr(), bands, len(ladder),
-        batch, h, w, max_disp, PACKINGS[packing], stream)
+        latch.data_ptr(), None if band is None else band.data_ptr(),
+        0 if band is None else band.numel(), bands, len(ladder), batch, h, w, max_disp,
+        PACKINGS[packing], stream)
     name = _COUNTER[packing]
     _build.check(lib, code, name)
     launch_counts[name] += 1

@@ -17,6 +17,24 @@ own: under NCCL the strips and sums stay on the card; gloo's
 point-to-point operations take CPU tensors only, so under gloo every
 collective here goes through host memory (``through_host``). There is
 no switch from one backend to the other on failure: the caller picks it.
+
+Teardown order. A CUDA graph that captured NCCL work on a mesh's groups
+(``flow.TiledGraphedStream``, a mesh-tiled VO front end's graphed step)
+holds that group's communicator: while such a graph is referenced,
+``dist.destroy_process_group`` never returns on any rank (four cards,
+torch 2.11: ``python -m tpuflow_torch.ablation.teardown``'s ``live``
+scenario; with every graph freed it returns, one mesh or three). A
+reference is easily kept (a session, a loop variable), so every rank
+releases each mesh it made, in the same order on every rank, and then
+destroys the world::
+
+    release_mesh(mesh)          # the mesh's graphs freed, then its groups
+    dist.destroy_process_group()
+
+``release_mesh`` closes every graph captured over the mesh (each holder
+registered itself with ``hold_graph``; a closed stream raises on its next
+step), waits for the card, and destroys the mesh's own process groups, so
+the groups of several ``make_flow_mesh`` calls do not outlive their use.
 """
 
 from __future__ import annotations
@@ -24,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import socket
+import weakref
 from datetime import timedelta
 
 import torch
@@ -222,6 +241,39 @@ def make_flow_mesh(
 
             exchange_halo_2d(torch.zeros((2, 2), device=dev), 1, mesh, boundary="zero")
     return mesh
+
+
+# Objects that hold a CUDA graph captured over a mesh's groups, by mesh:
+# each has ``close()``, which frees its graph.
+_GRAPHS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+# Meshes whose groups ``release_mesh`` has destroyed.
+_RELEASED: weakref.WeakSet = weakref.WeakSet()
+
+
+def hold_graph(mesh: FlowMesh, holder) -> None:
+    """Record that ``holder`` keeps a CUDA graph captured over ``mesh``'s
+    groups: ``release_mesh`` calls its ``close()`` before the groups go."""
+    if mesh in _RELEASED:
+        raise ValueError("this mesh was released: make a new one")
+    _GRAPHS.setdefault(mesh, weakref.WeakSet()).add(holder)
+
+
+def release_mesh(mesh: FlowMesh) -> None:
+    """Free every CUDA graph captured over ``mesh``, then destroy the
+    mesh's process groups (see the module's teardown order). Every rank of
+    the world calls it for the same meshes in the same order; a second
+    call does nothing. The mesh takes no more collectives afterwards."""
+    if mesh in _RELEASED:
+        return
+    for holder in list(_GRAPHS.pop(mesh, ())):
+        holder.close()
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    _RELEASED.add(mesh)
+    if not dist.is_initialized() or mesh.rank not in mesh.ranks:
+        return
+    for group in (mesh.spatial, mesh.group):
+        dist.destroy_process_group(group)
 
 
 def initialize_multihost(

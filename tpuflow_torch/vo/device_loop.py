@@ -121,11 +121,22 @@ class _GraphedStep:
 
         self._graph, self._obs, self.launches, self.kernels = graphed.capture(
             body, torch.cuda.Stream(frame.device))
+        if fe.mesh is not None:
+            from tpuflow_torch.sharding import mesh as mesh_module
+
+            mesh_module.hold_graph(fe.mesh, self)
+
+    def close(self) -> None:
+        """Free the graph before the mesh's groups go
+        (``sharding.release_mesh``); a later ``run`` raises."""
+        self._graph = None
 
     def run(self, state: FrontEndState, frames: torch.Tensor
             ) -> tuple[FrontEndState, ObsRecord]:
         """Step through a (T, H, W) chunk from ``state``; returns the final
         state and the T ObsRecords stacked, all caller-owned."""
+        if self._graph is None:
+            raise RuntimeError("the front end's graph was closed (its mesh released)")
         _copy_state(self._state, state)
         t = frames.shape[0]
         out = ObsRecord(*(torch.empty((t, *f.shape), dtype=f.dtype, device=f.device)
