@@ -41,7 +41,9 @@ failure raises and the script exits non-zero):
    plain round versions, skipped rounds leaving their outputs bit-identical, the
    refine's in-kernel sums against torch.sum of its block partials and its
    latch as torch reads those sums; each timed beside its bound, the
-   reference-signature entry's time and the launch floor;
+   reference-signature entry's time and the launch floor, the warps' rounds
+   also as a breakdown (an empty kernel on the body's grid, skipped, band 8
+   on zero and on random flow, band 2, the entry);
 4. main paths: each path run with the launch counts reset just before and
    read just after. Each stream (16 frames): an eager step under torch's
    sync debug mode "error"; the eager device-control stream (no host
@@ -794,19 +796,35 @@ def check_round_warp(readings, name, curr, packing, max_disp, rng, dev, floor_ms
 
     t = {f"band_{LADDER[i]}": device_ms(rnd(i)) for i in (2, 0)}
     t["skipped"] = device_ms(rnd(2, one))
+    # The breakdown: the grid alone, the control words (skipped), the
+    # corners' spread (zero against random flow), the band (8 against 2),
+    # the round form (against the entry).
+    still = torch.zeros_like(u)
+    t["zero_flow"] = device_ms(lambda: warp.warp_round(curr, still, still, out, zero,
+                                                       max_disp=max_disp, ladder=LADDER,
+                                                       band=idx[2], packing=packing))
+    geo = warp.tile_geometry(*shape, max_disp, 8)
+    t["empty_grid"] = device_ms(lambda: warp.launch_empty_on_grid(*shape, 1, geo))
     entry_ms = device_ms(lambda: warp.warp_banded(curr, u, v, max_disp=max_disp, clamp_flow=True,
                                                   max_disp_v=8, packing=packing))
     plain_ms = device_ms(lambda: warp.warp_round_ref(curr, u, v, out, zero, max_disp=max_disp,
                                                      ladder=LADDER, band=idx[2],
                                                      packing=packing))
     ms = t["band_8"]
+    block = (f"staged {geo['tile_w']}x{geo['rows']}" if geo["staged"] else
+             f"gathers {geo['tile_w']}x{geo['rows']}, {geo['cols']} column"
+             f"{'s' if geo['cols'] > 1 else ''} a thread")
     print(f"[{tag}] {name} round {shape[0]}x{shape[1]}: bit-exact to the host-int band and the "
           f"plain round at bands {LADDER}, skipped rounds untouched; {ms:.4f} ms at band 8 "
           f"({_bound_note(name, shape, ms)}), {t['band_2']:.4f} at 2; skipped "
           f"{t['skipped']:.4f}; entry warp_banded {entry_ms:.4f}; plain round {plain_ms:.4f}; "
-          f"launch floor {floor_ms:.4f} ms")
+          f"launch floor {floor_ms:.4f} ms; breakdown ({block}, {geo['threads']} threads): "
+          f"an empty kernel on its grid {t['empty_grid']:.4f}, skipped +"
+          f"{t['skipped'] - t['empty_grid']:.4f} over it, zero flow {t['zero_flow']:.4f} "
+          f"(random +{ms - t['zero_flow']:.4f}), band 2 {ms - t['band_2']:+.4f} below band 8, "
+          f"the round {ms - entry_ms:+.4f} over the entry")
     readings[name].setdefault("by_shape", {}).setdefault(f"{shape[0]}x{shape[1]}", {}).update(
-        round_ms=t, entry_ms=entry_ms, round_plain_ms=plain_ms)
+        round_ms=t, entry_ms=entry_ms, round_plain_ms=plain_ms, block=geo)
     # The largest shape of phase 3, as _record (phase 10 keeps its shapes only).
     if "round_ms" not in readings[name] and "ms" in readings[name]:
         readings[name].update(round_ms=t, entry_ms=readings[name]["ms"], ms=ms,
@@ -2221,10 +2239,11 @@ def device_launches(events) -> tuple[int, int]:
 
 
 # The round kernels' names in a trace -> their launch counters: the warp's
-# first template argument is its packing, the column walk's second its
-# order (true: relaxed, K3) and its fourth its mode (0: refine).
+# first template argument (staged tile or gathers) is its packing, the
+# column walk's second its order (true: relaxed, K3) and its fourth its
+# mode (0: refine).
 _TRACED_KERNELS = (
-    (re.compile(r"tpuflow_warp::warp_tile_kernel<(\d+),"),
+    (re.compile(r"tpuflow_warp::warp_(?:tile|gather)_kernel<(\d+),"),
      {"0": "warp_exact", "8": "warp_packed_u8", "16": "warp_packed_u16"}),
     (re.compile(r"tpuflow_lk::lk_walk_kernel<\d+, (true|false), \d+, 0>"),
      {"true": "lk_refine", "false": "lk_refine_exact"}),
@@ -4563,17 +4582,24 @@ def warp_ptxas(log: str) -> list[str]:
     """ptxas's registers and spill stores of each warp instantiation, the
     walk ablation's included (their shared memory is dynamic, sized by the
     band: see the [kernels] lines)."""
-    tiles = [f"{_WARP_NAMES[packing, clamp]} {'staged' if staged else 'gather'} {tw}x{rows} "
-             f"{threads} threads: {regs} regs/{spill} B spilled/{stack} B stack"
-             for (packing, clamp, staged, tw, rows, threads), regs, spill, _, stack in ptxas_usage(
-                 log, r"_ZN12tpuflow_warp16warp_tile_kernelILi(\d+)ELb(\d)ELb(\d)ELi(\d+)"
-                      r"ELi(\d+)ELi(\d+)E")]
+    tiles = [f"{_WARP_NAMES[packing, clamp]} staged {tw}x{rows} {threads} threads: {regs} regs/"
+             f"{spill} B spilled/{stack} B stack"
+             for (packing, clamp, tw, rows, threads), regs, spill, _, stack in ptxas_usage(
+                 log, r"_ZN12tpuflow_warp16warp_tile_kernelILi(\d+)ELb(\d)ELi(\d+)ELi(\d+)"
+                      r"ELi(\d+)E")]
+    gathers = [f"{_WARP_NAMES[packing, clamp]} gather {tx * cols}x{ty * passes} {tx * ty} "
+               f"threads, {cols} column{'s' if cols > 1 else ''} a thread, flow "
+               f"{'with the control words' if first else 'after the latch'}: {regs} regs/"
+               f"{spill} B spilled/{stack} B stack"
+               for (packing, clamp, cols, tx, ty, passes, first), regs, spill, _, stack
+               in ptxas_usage(log, r"_ZN12tpuflow_warp18warp_gather_kernelILi(\d+)ELb(\d)"
+                                   r"ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E")]
     walks = [f"{_WARP_NAMES[packing, clamp]} walk {tw}x{step} {threads} threads: {regs} regs/"
              f"{spill} B spilled"
              for (packing, clamp, tw, step, threads), regs, spill, _, _ in ptxas_usage(
                  log, r"_ZN12tpuflow_warp16warp_walk_kernelILi(\d+)ELb(\d)ELi(\d+)ELi(\d+)"
                       r"ELi(\d+)E")]
-    return tiles + walks
+    return tiles + gathers + walks
 
 
 # bench_scaling.py's data-parallel design point (measure_dp): a ("batch",)

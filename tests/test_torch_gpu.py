@@ -126,15 +126,18 @@ def test_warp_kernel_bit_exact(cuda, shape, packing, band):
 
 
 # The warp's blocks (csrc/warp.cu): planes under 2**20 pixels gather their
-# corners in 32x16 blocks, larger ones stage the band in 128x32 tiles.
-# Shapes at and across the block edges (widths 31-33, 127-129, 255-257,
-# heights around 16 and 32), widths that are not a multiple of 4 (4-byte
-# staging), planes smaller than a block down to 1x1, one row and one
-# column, and staged planes with ragged last tiles, one tile row, one
-# narrow tile column, and an odd width.
+# corners, several consecutive columns a thread, larger ones stage the band
+# in 128x32 tiles. Shapes at and across the block edges (widths 31-33,
+# 127-129, 255-257, heights around 16 and 32), widths that are not a
+# multiple of 4 (4-byte staging; the gathers' scalar path, 197x333 and
+# 271x479 also a ragged last thread), planes smaller than a block down to
+# 1x1, one row and one column, staged planes with ragged last tiles, one
+# tile row, one narrow tile column, and an odd width, and the 2**20-pixel
+# boundary (1023x1024 gathers, 1024x1024 stages).
 _TILE_SHAPES = [(1, 1), (1, 200), (200, 1), (3, 5), (15, 31), (16, 32), (17, 33), (31, 127),
-                (33, 129), (65, 61), (130, 1922), (270, 480), (545, 960), (1057, 1920),
-                (1025, 1027), (9, 120000), (120000, 9)]
+                (33, 129), (65, 61), (130, 1922), (197, 333), (270, 480), (271, 479),
+                (545, 960), (1023, 1024), (1024, 1024), (1057, 1920), (1025, 1027),
+                (9, 120000), (120000, 9)]
 # (max_disp, max_disp_v): the narrowest and widest bands, and a mix.
 _TILE_BANDS = [(0, 0), (8, 3), (0, 31), (31, 0), (31, 31)]
 
@@ -156,6 +159,10 @@ def _warp_as(block, *args):
 # and through the walk ablation at one and three steps a walk (the same
 # output bit for bit).
 _BLOCKS = [None, False, True, "walk16", "walk48"]
+# The gathers' blocks (csrc/warp.cu kGatherSmall, kGatherLarge): output
+# columns, rows, threads, consecutive columns a thread.
+_GATHER_SMALL = (32, 8, 256, 1)
+_GATHER_LARGE = (32, 32, 256, 1)
 
 
 @pytest.mark.parametrize("staged", _BLOCKS)
@@ -194,19 +201,19 @@ def test_exact_warp_far_outside_the_band_unclamped(cuda, shape, staged):
 
 @pytest.mark.parametrize("staged", [None, "walk32"])
 @pytest.mark.parametrize("packing", ["u8", "u16", "exact"])
-def test_warp_unaligned_base_bit_exact(cuda, packing, staged):
-    # A staged plane whose width is a multiple of 4, on a base that is not
-    # 16-byte aligned, stages by 4-byte copies; the walk also stages an
-    # unaligned flow so.
+@pytest.mark.parametrize("shape", [(1025, 1024), (540, 960), (270, 480)])
+def test_warp_unaligned_base_bit_exact(cuda, packing, staged, shape):
+    # Planes whose width is a multiple of 4, on bases that are not 16-byte
+    # aligned: the staged plane stages by 4-byte copies, the gathered ones
+    # take their scalar path; the walk also stages an unaligned flow so.
     rng = np.random.default_rng(11)
-    shape = (1025, 1024)
     buf = _rand(rng, (3, shape[0] * shape[1] + 1), 0, 255, cuda)
     buf[1:] = buf[1:] * (18 / 255) - 9  # flows in [-9, 9]
     if packing == "u8":
         buf[0] = buf[0].round()
     img, u, v = (b[1:].view(shape) for b in buf)
-    assert u.data_ptr() % 16 != 0 and v.data_ptr() % 16 != 0
-    assert img.data_ptr() % 16 != 0 and warp.tile_geometry(*shape, 8, 8)["staged"]
+    assert u.data_ptr() % 16 != 0 and v.data_ptr() % 16 != 0 and img.data_ptr() % 16 != 0
+    assert warp.tile_geometry(*shape, 8, 8)["staged"] == (shape[0] * shape[1] >= 1 << 20)
     for md, mdv in _TILE_BANDS:
         got = _warp_as(staged, img, u, v, md, mdv, packing, True)
         want = warp.warp_banded_ref(img, u, v, md, clamp_flow=True, max_disp_v=mdv,
@@ -234,13 +241,22 @@ def test_batched_warp_tiles_per_element(cuda, shape, packing, clamp):
 
 
 def test_warp_geometry_by_plane_size(cuda):
-    # The production pyramid's coarse levels gather, its 1080p level stages
-    # the band: 29,792 B at md = mdv = 8, 72,960 B at the widest band.
-    gather = dict(staged=0, tile_w=32, rows=16, threads=256, smem_bytes=0)
-    assert warp.tile_geometry(270, 480, 8, 8) == gather
-    assert warp.tile_geometry(540, 960, 8, 8) == gather
-    assert warp.tile_geometry(1023, 1025, 8, 8) == gather
-    staged = dict(staged=1, tile_w=128, rows=32, threads=256)
+    # The production pyramid's coarse levels gather (270x480 in the small
+    # planes' block, under 2**18 pixels, 540x960 in the large ones'), its
+    # 1080p level stages the band: 29,792 B at md = mdv = 8, 72,960 B at
+    # the widest band. The block depends on the plane alone, not the band.
+    small = dict(staged=0, tile_w=_GATHER_SMALL[0], rows=_GATHER_SMALL[1],
+                 threads=_GATHER_SMALL[2], smem_bytes=0, cols=_GATHER_SMALL[3])
+    large = dict(staged=0, tile_w=_GATHER_LARGE[0], rows=_GATHER_LARGE[1],
+                 threads=_GATHER_LARGE[2], smem_bytes=0, cols=_GATHER_LARGE[3])
+    assert warp.tile_geometry(270, 480, 8, 8) == small
+    assert warp.tile_geometry(270, 480, 31, 2) == small
+    assert warp.tile_geometry(511, 512, 8, 8) == small
+    assert warp.tile_geometry(512, 512, 8, 8) == large
+    assert warp.tile_geometry(540, 960, 8, 8) == large
+    assert warp.tile_geometry(1023, 1025, 8, 8) == large
+    assert warp.tile_geometry(1023, 1024, 8, 8) == large
+    staged = dict(staged=1, tile_w=128, rows=32, threads=256, cols=1)
     assert warp.tile_geometry(1024, 1024, 8, 8) == dict(staged, smem_bytes=49 * 152 * 4)
     assert warp.tile_geometry(1080, 1920, 8, 8) == dict(staged, smem_bytes=49 * 152 * 4)
     assert warp.tile_geometry(1080, 1920, 31, 31) == dict(staged, smem_bytes=95 * 192 * 4)
@@ -847,29 +863,49 @@ def test_s87_on_the_card_matches_the_cpu(cuda):
 
 # -- the main path under device control: the round kernels and the graphs --
 
-_ROUND_SHAPES = [(37, 61), (270, 480), (1025, 1024)]  # the last staged (>= 2^20 px)
+# The gathers' ragged widths, 1-row and 1-column planes, the coarse 1080p
+# planes and the largest gathered one, then a staged one (>= 2^20 px).
+_ROUND_SHAPES = [(37, 61), (1, 333), (197, 1), (197, 333), (270, 480), (271, 479), (540, 960),
+                 (1023, 1024), (1025, 1024)]
+# (ladder, band index): the adaptive ladder's rungs 2 / 3 / 8, a one-band
+# ladder without an index, and the narrowest and widest bands 0 and 31.
+_ROUND_BANDS = [((2, 3, 8), 0), ((2, 3, 8), 1), ((2, 3, 8), 2), ((5,), None), ((0, 31), 0),
+                ((0, 31), 1)]
+
+
+def _offset(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """``t``'s values on a base ``offset`` floats past a fresh allocation's
+    (16-byte aligned) one."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 @pytest.mark.parametrize("shape", _ROUND_SHAPES)
 @pytest.mark.parametrize("packing", ["u8", "u16", "exact"])
-@pytest.mark.parametrize("index", [0, 1, 2, None])
-def test_warp_round_bit_exact_at_each_band_and_skipped(cuda, shape, packing, index):
+@pytest.mark.parametrize("ladder,index", _ROUND_BANDS)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_warp_round_bit_exact_at_each_band_and_skipped(cuda, shape, packing, ladder, index,
+                                                       offset):
+    # offset 1: every plane (image, flow, out) one float past a 16-byte
+    # boundary, which sends the gathers down their scalar path.
     rng = np.random.default_rng(17)
-    img = _rand(rng, shape, 0, 255, cuda).round()
-    u, v = _rand(rng, shape, -9, 9, cuda), _rand(rng, shape, -9, 9, cuda)
-    ladder = (2, 3, 8) if index is not None else (5,)
+    img = _offset(_rand(rng, shape, 0, 255, cuda).round(), offset)
+    u = _offset(_rand(rng, shape, -9, 9, cuda), offset)
+    v = _offset(_rand(rng, shape, -9, 9, cuda), offset)
     band = None if index is None else torch.tensor(index, dtype=torch.int32, device=cuda)
     kw = dict(max_disp=8, ladder=ladder, band=band, packing=packing)
     mdv = ladder[index or 0]
     for latch in (0, 1):
         flag = torch.tensor(latch, dtype=torch.int32, device=cuda)
-        fill = _rand(rng, shape, -1, 1, cuda)
+        fill = _offset(_rand(rng, shape, -1, 1, cuda), offset)
         before = launch_counts()[_WARP_COUNTER[packing]]
-        got = warp.warp_round(img, u, v, fill.clone(), flag, **kw)
+        got = warp.warp_round(img, u, v, _offset(fill, offset), flag, **kw)
         launched = launch_counts()[_WARP_COUNTER[packing]] - before
         want = warp.warp_round_ref(img, u, v, fill.clone(), flag, **kw)
         torch.cuda.synchronize()
-        assert launched == 1
+        assert launched == 1 and got.data_ptr() % 16 == 4 * offset
         assert torch.equal(got, want)
         if latch:
             assert torch.equal(got, fill)
@@ -927,18 +963,21 @@ def test_refine_round_batch_latches_each_element(cuda):
 _MIXED_BANDS = (0, 2, 1, 2)  # one band index a plane of a B=4 batch
 
 
-@pytest.mark.parametrize("shape", [(4, 37, 61), (4, 270, 480), (4, 1025, 1024)])
+@pytest.mark.parametrize("shape", [(4, 37, 61), (4, 270, 480), (4, 1025, 1024), (3, 197, 333),
+                                   (4, 540, 960)])
 @pytest.mark.parametrize("packing", ["u8", "u16", "exact"])
 def test_warp_round_takes_a_band_a_plane(cuda, shape, packing):
-    """Batched streams: a B=4 round with one band index a plane (mixed
-    bands), running, partly skipped and all skipped: one launch, bit for
-    bit its plain version and each plane's own 2-D round at its own band."""
+    """Batched streams: a round with one band index a plane (B=4: bands
+    2 / 8 / 3 / 8; B=3: 2 / 8 / 3), running, partly skipped (one latched
+    plane of three) and all skipped: one launch, bit for bit its plain
+    version and each plane's own 2-D round at its own band."""
     rng = np.random.default_rng(23)
     img = _rand(rng, shape, 0, 255, cuda).round()
     u, v = _rand(rng, shape, -9, 9, cuda), _rand(rng, shape, -9, 9, cuda)
-    band = torch.tensor(_MIXED_BANDS, dtype=torch.int32, device=cuda)
+    batch = shape[0]
+    band = torch.tensor(_MIXED_BANDS[:batch], dtype=torch.int32, device=cuda)
     kw = dict(max_disp=8, ladder=_LADDER, packing=packing)
-    for latch in ((0, 0, 0, 0), (0, 1, 0, 1), (1, 1, 1, 1)):
+    for latch in ((0,) * batch, (0, 1, 0, 1)[:batch], (1,) * batch):
         flag = torch.tensor(latch, dtype=torch.int32, device=cuda)
         fill = _rand(rng, shape, -1, 1, cuda)
         before = launch_counts()[_WARP_COUNTER[packing]]

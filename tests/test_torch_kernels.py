@@ -77,6 +77,36 @@ def test_warp_plain_matches_pallas(rng, band, frames):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=WARP_ATOL)
 
 
+@pytest.mark.parametrize("band", [2, 3, 8])
+@pytest.mark.parametrize("packing", ["u16", "exact"])
+def test_warp_plain_and_round_match_pallas_at_a_ragged_width(rng, band, packing):
+    # 37x203: a width that is a multiple of neither 4 nor 8, the planes the
+    # CUDA gathers serve through their scalar path; the entry's and the
+    # round's plain versions (the flow clamped) against the Pallas kernel.
+    shape = (37, 203)
+    img = rng.uniform(0, 255, shape).astype(np.float32)
+    u, v = _flow(rng, shape)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(pallas_warp.warp_image_banded(
+            jnp.asarray(img), jnp.asarray(u), jnp.asarray(v), max_disp=8, clamp_flow=True,
+            max_disp_v=band, packed_u16=packing == "u16"))
+    got = warp.warp_banded_ref(_t(img), _t(u), _t(v), 8, clamp_flow=True, max_disp_v=band,
+                               packing=packing)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=WARP_ATOL)
+    ladder = (2, 3, 8)
+    fill = _t(rng.uniform(-1, 1, shape))
+    for latch in (0, 1):
+        rnd = warp.warp_round_ref(_t(img), _t(u), _t(v), fill.clone(),
+                                  torch.tensor(latch, dtype=torch.int32), max_disp=8,
+                                  ladder=ladder,
+                                  band=torch.tensor(ladder.index(band), dtype=torch.int32),
+                                  packing=packing)
+        if latch:
+            assert torch.equal(rnd, fill)
+        else:
+            assert torch.equal(rnd, got)
+
+
 def test_warp_plain_zero_flow_and_edges(rng):
     img = np.round(rng.uniform(0, 255, (24, 40))).astype(np.float32)
     z = np.zeros_like(img)

@@ -1,28 +1,36 @@
 """The port's kernels of the reference's device control flow, the grid seed
-(``csrc/seed.cu``), the IMU scan (``csrc/imu_scan.cu``) and K6's tile round
-(``csrc/lk_fused.cu`` with its ``lk_tile.cuh``), timed against another
-version of the same sources, in turns on one card.
+(``csrc/seed.cu``), the IMU scan (``csrc/imu_scan.cu``), K6's tile round
+(``csrc/lk_fused.cu`` with its ``lk_tile.cuh``) and the banded warp's round
+on the coarse planes (``csrc/warp.cu`` with its ``warp.cuh``), timed
+against another version of the same sources, in turns on one card.
 
-Builds the other directory's ``seed.cu``, ``imu_scan.cu`` and
-``lk_fused.cu`` (with that directory's ``lk_tile.cuh``) alone with the
-package's nvcc flags into ``build/tpuflow_torch/against/``, checks that both
-versions give the plain versions' results (the seed bit for bit on the
-natural 1080p frame and a textured one at grid 16, margins 0 and 13; the
-scan bit for bit against the plain loop on ``swing_imu``'s 751 samples; the
-tile round's u, v and control bit for bit, running and skipped, at the
-1080p world-1 extended tiles, window 5) and that the two scans agree bit
-for bit on random samples (2 to 10,000, printing each one's distance from
-the plain loop in r), then times the other version, this one, this one,
-the other (``eval.timing.device_ms``): the seed at 1080p, grid 16, margin
-13, taken and with a false predicate, and on the frame's first eighth of
-rows; the scan at 1, 128 and 751 samples, with and without bias
-Jacobians; the tile round running and skipped at each tile, each version
-through its own C signature (one without a ``sums`` argument is followed
-by ``torch.sum`` of its block partials, as its wrapper did); an empty
+Builds the other directory's ``seed.cu``, ``imu_scan.cu``, ``lk_fused.cu``
+and ``warp.cu`` (each with that directory's headers) alone with the
+package's nvcc flags into ``build/tpuflow_torch/against/``, and this tree's
+``warp.cu`` alone beside it for ptxas's report; checks that both versions
+give the plain versions' results (the seed bit for bit on the natural 1080p
+frame and a textured one at grid 16, margins 0 and 13; the scan bit for bit
+against the plain loop on ``swing_imu``'s 751 samples; the tile round's u,
+v and control bit for bit, running and skipped, at the 1080p world-1
+extended tiles, window 5; the warp round bit for bit against
+``warp.warp_round_ref``, running and skipped, at bands 2 / 3 / 8 for K2
+(``u16``) and K4 (``exact``) at 540x960 and 270x480, and at one band index
+a plane (0 / 2 / 1 / 2) on B=4 batches of both) and that the two
+scans agree bit for bit on random samples (2 to 10,000, printing each
+one's distance from the plain loop in r), then times the other version,
+this one, this one, the other (``eval.timing.device_ms``): the seed at
+1080p, grid 16, margin 13, taken and with a false predicate, and on the
+frame's first eighth of rows; the scan at 1, 128 and 751 samples, with and
+without bias Jacobians; the tile round running and skipped at each tile,
+each version through its own C signature (one without a ``sums`` argument
+is followed by ``torch.sum`` of its block partials, as its wrapper did);
+the warp round's breakdown at each warp case (an empty kernel on that
+version's grid, skipped, band 8 on zero and on random +-9 px flow, band 2,
+the entry ``tpuflow_warp_banded``; the plain round once); an empty
 kernel's launch floor before and after. Prints one line a case, ptxas's
-report of the other build, and one JSON object; a difference found by the
-checks fails the run after the timings. Needs a CUDA device. For
-example, against the parent commit's sources unpacked under the gitignored
+report of both builds, and one JSON object; a difference found by the
+checks fails the run after the timings. Needs a CUDA device. For example,
+against the parent commit's sources unpacked under the gitignored
 ``build/``:
 
     git archive HEAD~1 tpuflow_torch/csrc | tar -x -C build/parent
@@ -39,12 +47,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tpuflow_torch.kernels import _build
+from tpuflow_torch.kernels import _build, warp
 from tpuflow_torch.kernels import imu as imu_kernel
 from tpuflow_torch.kernels import seed
 
-ENTRIES = ("tpuflow_seed_grid", "tpuflow_imu_preintegrate", "tpuflow_lk_fused_tile_round")
-SOURCES = ("seed.cu", "imu_scan.cu", "lk_fused.cu")
+ENTRIES = ("tpuflow_seed_grid", "tpuflow_imu_preintegrate", "tpuflow_lk_fused_tile_round",
+           "tpuflow_warp_round", "tpuflow_warp_banded")
+SOURCES = ("seed.cu", "imu_scan.cu", "lk_fused.cu", "warp.cu")
 GRID, MARGINS = 16, (0, 13)
 SCAN_SAMPLES = (1, 128, 751)
 RANDOM_SAMPLES = (2, 3, 129, 751, 10_000)
@@ -55,6 +64,12 @@ TILE_WINDOW = 5
 # block partials with torch.sum after it).
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 TILE_ROUND_PARTS_ONLY = (_P,) * 7 + (_I,) * 10 + (_F, _P)
+# The warp round's cases: K2 and K4 at the 1080p pyramids' coarse planes,
+# and a B=4 batch of each with one band index a plane.
+WARP_SHAPES = ((540, 960), (270, 480), (4, 540, 960), (4, 270, 480))
+WARP_PACKINGS = ("u16", "exact")
+WARP_LADDER = (2, 3, 8)
+WARP_MIXED = (0, 2, 1, 2)
 
 
 def with_sums(lib) -> bool:
@@ -73,12 +88,135 @@ def build_other(csrc: Path) -> tuple[ctypes.CDLL, str]:
         fn = getattr(lib, name)
         fn.argtypes = list(_build._SIGNATURES[name])
         fn.restype = ctypes.c_int
+    lib.tpuflow_warp_geometry.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
+    lib.tpuflow_warp_geometry.restype = None
     if with_sums(lib):
         lib.tpuflow_lk_tile_round_blocks.argtypes = [_I, _I, _I]
         lib.tpuflow_lk_tile_round_blocks.restype = _I
     else:
         lib.tpuflow_lk_fused_tile_round.argtypes = list(TILE_ROUND_PARTS_ONLY)
     return lib, log
+
+
+def warp_ptxas() -> str:
+    """ptxas's report of this tree's ``warp.cu`` built alone."""
+    return _build.build([_build.CSRC / "warp.cu"],
+                        _build.BUILD_DIR / "against" / "libport_this_warp.so")
+
+
+def ptxas_lines(log: str) -> str:
+    """Each kernel's registers and spill stores, by name and template
+    arguments."""
+    return "; ".join(f"{name} {regs} regs/{spill} B spilled"
+                     for name, regs, spill in _build.ptxas_entries(log))
+
+
+def warp_geometry(lib, height: int, width: int) -> dict:
+    """A library's warp block at a plane (its entry writes 5 or 6 ints)."""
+    out = (_I * 8)()
+    lib.tpuflow_warp_geometry(height, width, 8, 8, out)
+    return {"tile_w": out[1], "rows": out[2], "threads": out[3]}
+
+
+def warp_round_call(lib, img, u, v, out, latch, band, packing, ladder=WARP_LADDER,
+                    max_disp=8):
+    """One library's warp round (the flow clamped) into out, through its C
+    entry: ``warp.warp_round``'s call on another build."""
+    h, w = img.shape[-2:]
+    bands = (_I * len(ladder))(*ladder)
+    code = lib.tpuflow_warp_round(
+        img.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(), latch.data_ptr(),
+        None if band is None else band.data_ptr(), 0 if band is None else band.numel(), bands,
+        len(ladder), img.shape[0] if img.ndim == 3 else 1, h, w, max_disp,
+        warp.PACKINGS[packing], torch.cuda.current_stream().cuda_stream)
+    _build.check(_build.load(), code, "warp round")
+    return out
+
+
+def warp_entry_call(lib, img, u, v, out, packing):
+    """One library's warp entry at band 8, the flow clamped."""
+    h, w = img.shape[-2:]
+    code = lib.tpuflow_warp_banded(
+        img.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
+        img.shape[0] if img.ndim == 3 else 1, h, w, 8, 8, warp.PACKINGS[packing], 1,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(_build.load(), code, "warp entry")
+    return out
+
+
+def warp_inputs(dev, shape):
+    """An 8-bit image, random +-9 px flow, zero flow and a fill (seeded by
+    the shape)."""
+    rng = np.random.default_rng(sum(shape))
+
+    def rand(lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)).to(dev)
+
+    img = rand(0.0, 255.0).round()
+    u, v = rand(-9.0, 9.0), rand(-9.0, 9.0)
+    return img, u, v, torch.zeros_like(u), rand(-1.0, 1.0)
+
+
+def warp_bands(dev, shape) -> list[torch.Tensor]:
+    """The band indices a warp case is checked at: each rung for a plane,
+    one a plane for a batch."""
+    if len(shape) == 3:
+        return [torch.tensor(WARP_MIXED[:shape[0]], dtype=torch.int32, device=dev)]
+    return [torch.tensor([i], dtype=torch.int32, device=dev) for i in range(len(WARP_LADDER))]
+
+
+def check_warp(libs, cases) -> list[str]:
+    """Each library's warp round against the plain version at each case,
+    band and latch: bit for bit, and a skipped round leaves out as it was."""
+    failures = []
+    for (shape, packing), (img, u, v, _, fill) in cases.items():
+        batch = shape[0] if len(shape) == 3 else 1
+        for band in warp_bands(img.device, shape):
+            for latch in (0, 1):
+                flag = torch.full((batch,), latch, dtype=torch.int32, device=img.device)
+                want = warp.warp_round_ref(img, u, v, fill.clone(), flag, max_disp=8,
+                                           ladder=WARP_LADDER, band=band, packing=packing)
+                for label, lib in libs.items():
+                    got = warp_round_call(lib, img, u, v, fill.clone(), flag, band, packing)
+                    if not (torch.equal(got, want) and (not latch or torch.equal(got, fill))):
+                        failures.append(f"warp round {'x'.join(map(str, shape))} {packing}, "
+                                        f"bands {band.tolist()}, latch {latch}: the {label} "
+                                        f"version differs from the plain version")
+    return failures
+
+
+def warp_steps(dev, libs, shape, packing, img, u, v, zero) -> dict:
+    """One warp case's breakdown as timed steps: step -> fn(lib)."""
+    batch = shape[0] if len(shape) == 3 else 1
+    dst = torch.empty_like(img)
+    run = torch.zeros(batch, dtype=torch.int32, device=dev)
+    skip = torch.ones(batch, dtype=torch.int32, device=dev)
+    bands = warp_bands(dev, shape)
+    b8, b2 = bands[-1], bands[0]
+    grids = {id(lib): warp_geometry(lib, *shape[-2:]) for lib in libs.values()}
+    steps = {
+        "empty kernel on its grid": lambda lib: warp.launch_empty_on_grid(
+            *shape[-2:], batch, grids[id(lib)]),
+        "skipped": lambda lib: warp_round_call(lib, img, u, v, dst, skip, b8, packing),
+        "band 8 zero flow": lambda lib: warp_round_call(lib, img, zero, zero, dst, run, b8,
+                                                        packing),
+        "band 8": lambda lib: warp_round_call(lib, img, u, v, dst, run, b8, packing),
+        "band 2": lambda lib: warp_round_call(lib, img, u, v, dst, run, b2, packing),
+        "entry": lambda lib: warp_entry_call(lib, img, u, v, dst, packing),
+    }
+    if batch > 1:  # one mixed band index a plane: no band 8 / band 2 split
+        del steps["band 2"]
+    return steps
+
+
+def warp_timings(dev, libs, cases) -> dict:
+    """The warp round's breakdown as timed cases: name -> fn(lib)."""
+    out = {}
+    for (shape, packing), (img, u, v, zero, _) in cases.items():
+        label = f"warp round {'x'.join(map(str, shape))} {packing}"
+        for step, fn in warp_steps(dev, libs, shape, packing, img, u, v, zero).items():
+            out[f"{label} {step}"] = fn
+    return out
 
 
 def seed_call(lib, frame, margin, predicate=None):
@@ -218,14 +356,15 @@ def main() -> None:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("other", type=Path,
-                        help="a csrc directory with seed.cu, imu_scan.cu, lk_fused.cu, lk_tile.cuh")
+                        help="a csrc directory with seed.cu, imu_scan.cu, lk_fused.cu, "
+                             "lk_tile.cuh, warp.cu, warp.cuh")
     args = parser.parse_args()
     dev = require_cuda()
     this, (other, log) = _build.load(), build_other(args.other)
-    print(f"seed, scan and tile round kernels on {card_label()}: this tree's against "
-          f"{args.other}")
-    print("other build, ptxas: " + " | ".join(
-        line.strip() for line in log.splitlines() if "registers" in line or "spill" in line))
+    print(f"seed, scan, tile round and warp round kernels on {card_label()}: this tree's "
+          f"against {args.other}")
+    print("other build, ptxas: " + ptxas_lines(log))
+    print("this tree's warp.cu, ptxas: " + ptxas_lines(warp_ptxas()))
     libs = {"this": this, "other": other}
 
     # Both versions against the plain versions; a difference fails the run
@@ -254,9 +393,14 @@ def main() -> None:
                                 f"the plain loop by {float((got - want).abs().max())}")
     tiles = {shape: tile_inputs(dev, shape) for shape in TILE_SHAPES}
     failures += check_tile_round(libs, tiles)
+    warps = {(shape, packing): warp_inputs(dev, shape)
+             for shape in WARP_SHAPES for packing in WARP_PACKINGS}
+    failures += check_warp(libs, warps)
     print("against the plain versions (seed: 2 frames x margins 0, 13; scan: swing_imu, 751 "
           "samples, with and without bias Jacobians; tile round: the 1080p world-1 extended "
-          "tiles, running and skipped): " + ("; ".join(failures) or "bit-identical"))
+          "tiles, running and skipped; warp round: K2 and K4 at 540x960 and 270x480, bands "
+          "2 / 3 / 8, and B=4 batches of both with mixed bands, running and skipped): "
+          + ("; ".join(failures) or "bit-identical"))
     # The two scans against each other on random samples, and each one's
     # distance from the plain loop in r.
     for n in RANDOM_SAMPLES:
@@ -294,7 +438,16 @@ def main() -> None:
             cases[f"tile round {shape[0]}x{shape[1]} {what}"] = (
                 lambda lib, r=rounds, c=ctrl, uw=uw, vw=vw:
                 r["this" if lib is this else "other"](uw, vw, c))
+    cases.update(warp_timings(dev, libs, warps))
     doc = {"card": card_label(), "floor_ms": [device_ms(_build.launch_empty, reps=200)]}
+    for (shape, packing), (img, u, v, _, _) in warps.items():
+        batch = shape[0] if len(shape) == 3 else 1
+        band, out = warp_bands(dev, shape)[-1], torch.empty_like(img)
+        zero = torch.zeros(batch, dtype=torch.int32, device=dev)
+        name = f"warp round {'x'.join(map(str, shape))} {packing} plain"
+        doc[name] = device_ms(lambda: warp.warp_round_ref(
+            img, u, v, out, zero, max_disp=8, ladder=WARP_LADDER, band=band, packing=packing))
+        print(f"{name}: {doc[name]:.5f} ms", flush=True)
     for name, run in cases.items():
         times = {"other": [], "this": []}
         for label in ("other", "this", "this", "other"):

@@ -56,15 +56,41 @@
 //   Shared memory: (32 + 2*mdv + 1) x pitch(128, md) floats: 29,792 B at
 //   md = mdv = 8, 72,960 B at 31. A window that does not fit the card is
 //   refused before launch.
-// - Smaller planes (the coarse levels: K2, and K4 there) read each corner
-//   through L1 after the flow, decoded where it is read, 2 outputs a thread
-//   in 32x16 blocks, so 540x960 is one wave of 1,020 blocks; every corner
-//   address is valid (rows clamped, then masked), so a thread's four
-//   corner loads are in flight at once. Staged tiles, and a block that
-//   walks down a strip with the band's rows in a ring (warp_walk.cu, the
-//   walk ablation), measured slower there (PERF.md): with the few blocks
-//   an SM such a plane gives, a block waits for its window at a barrier,
-//   and the halo at band 8 is 2-3 times the outputs.
+// - Smaller planes (the coarse levels: K2, and K4 there) gather each
+//   corner through L1, decoded where it is read (warp_gather_kernel in
+//   warp.cuh). Bound: the same 16 B a pixel, device memory (0.00248 ms at
+//   540x960, 0.00062 at 270x480); what limits it is latency, so the body
+//   cuts the dependent memory round trips a thread makes before it stores
+//   from four (the latch, then the band index, then u and v, then the
+//   corners) to two:
+//     1. the latch, the band index and the thread's u and v are loaded
+//        together (volatile loads the compiler cannot sink below the
+//        latch's test); a set latch returns before any store, `out`
+//        untouched;
+//     2. the band clips v, and every corner load of the thread goes out at
+//        once; every address is valid (rows and the ragged edge clamped,
+//        then masked), so no load waits on a test.
+//   One column a thread (a warp's corner loads of one row cover 32
+//   consecutive outputs), one row in 32x8 blocks below 2^18 pixels (270x480:
+//   510 blocks) and four rows in 32x32 blocks above (540x960: 510 blocks),
+//   registers capped so that eight blocks of 256 threads fit an SM (the
+//   grid is one wave). Measured against the other shapes and load orders
+//   of ablation/warp_gather.py (PERF.md §6 has the times): two or four
+//   columns a thread, with 8- or 16-byte flow and output accesses, read
+//   0.5-2.8 us slower in 17 of 18 cases (a warp's corner load then spans
+//   up to four cache lines); the flow after the latch's test made running
+//   rounds 0.1-0.4 us slower in 5 of 6 cases, skipped ones 0.1-0.4 us
+//   faster and the graphed 1080p frames 1-2 us slower; a programmatic
+//   dependent launch made those 2-4 us slower. Breakdown at 540x960 K2
+//   (ablation/port_against.py, NVIDIA H100 80GB HBM3, 700 W): launch
+//   floor 0.00186 ms, an empty kernel on the grid 0.00215, skipped
+//   0.00288 (the control words and the flow), band 8 on zero flow 0.00494
+//   (the corners' trip and the stores), on random +-9 px flow 0.00532 (the
+//   corners' spread), band 2 0.00522, the entry 0.00523. Staged tiles, and a block
+//   that walks down a strip with the band's rows in a ring (warp_walk.cu,
+//   the walk ablation), measured slower there (PERF.md): with the few
+//   blocks an SM such a plane gives, a block waits for its window at a
+//   barrier, and the halo at band 8 is 2-3 times the outputs.
 // With the flow clipped, the band clamps and the row rule change nothing
 // and are compiled out (kClamp); that needs x + md and y + mdv to be exact
 // floats, so a plane's sides stay under 2^24.
@@ -77,10 +103,11 @@
 // by lax.switch, both on the device (tpuflow/flow/pyramidal.py:39-132,
 // :169-199). Here every round is launched, and each block first reads two
 // words of device memory: the element's converged latch (set: the round
-// is skipped, and the block returns before any load, leaving `out` as it
+// is skipped, and the block returns before any store, leaving `out` as it
 // was) and the band index, which picks max_disp_v from the ladder passed
-// as launch arguments. Both are read before the band's window is staged,
-// since its rows depend on the band. The switch is one launch, with
+// as launch arguments. The staged tile reads both before the band's
+// window is staged, since its rows depend on the band, and reads nothing
+// else on a set latch; the gathers read them with the flow. The switch is one launch, with
 // shared memory sized for the ladder's widest band and the window's rows
 // from the band read (the grid does not depend on the band); every output
 // bit is as the host-int band's launch gives it. A batch of independent
@@ -94,16 +121,17 @@
 namespace tpuflow_warp {
 
 // A block's outputs, `tile_w` columns by `rows` rows, on `threads`
-// threads; `staged`: corners from the band staged in shared memory, else
-// read from the image through L1.
+// threads, `cols` consecutive columns a thread; `staged`: corners from the
+// band staged in shared memory, else read from the image through L1.
 struct Geometry {
   bool staged;
   int tile_w;
   int rows;
   int threads;
+  int cols;
 };
 
-template <int kPacking, bool kClamp, bool kStaged, int kTileW, int kRows, int kThreads>
+template <int kPacking, bool kClamp, int kTileW, int kRows, int kThreads>
 __global__ void __launch_bounds__(kThreads)
 warp_tile_kernel(const float* __restrict__ image, const float* __restrict__ flow_u,
                  const float* __restrict__ flow_v, float* __restrict__ out, int height,
@@ -125,13 +153,9 @@ warp_tile_kernel(const float* __restrict__ image, const float* __restrict__ flow
   const int col = threadIdx.x % kTileW, row = threadIdx.x / kTileW;
   const int x_first = blockIdx.x * kTileW, y_first = blockIdx.y * kRows;
   const size_t plane = (size_t)blockIdx.z * height * width;
-  // The gathers address each load from an opaque plane base (one wide
-  // multiply-add a load; faster on the coarse planes); the staged tile
-  // measured no faster with it and keeps the compiler's addressing.
-  auto base = [&](const float* q) { return kStaged ? q + plane : plane_base(q, plane); };
-  const float* img = base(image);
-  const float* fu = base(flow_u);
-  const float* fv = base(flow_v);
+  const float* img = image + plane;
+  const float* fu = flow_u + plane;
+  const float* fv = flow_v + plane;
   out += plane;
   const int p = pitch(kTileW, max_disp);
   const int n_rows = kRows + 2 * max_disp_v + 1;
@@ -139,14 +163,12 @@ warp_tile_kernel(const float* __restrict__ image, const float* __restrict__ flow
   const int c_base = x_first - left_halo(max_disp);  // image column of tile column 0
 
   // 1. The band's window, before any flow is read.
-  if constexpr (kStaged) {
-    const uint32_t tile_s = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
-    if (vec & kVecImage)
-      stage<16, kThreads>(tile_s, img, r_base, n_rows, 0, n_rows, p, c_base, height, width);
-    else
-      stage<4, kThreads>(tile_s, img, r_base, n_rows, 0, n_rows, p, c_base, height, width);
-    cp_async_commit();
-  }
+  const uint32_t tile_s = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
+  if (vec & kVecImage)
+    stage<16, kThreads>(tile_s, img, r_base, n_rows, 0, n_rows, p, c_base, height, width);
+  else
+    stage<4, kThreads>(tile_s, img, r_base, n_rows, 0, n_rows, p, c_base, height, width);
+  cp_async_commit();
 
   // 2. The flow, in flight with the window (a plane holds < 2^31 pixels).
   const int x = x_first + col;
@@ -161,21 +183,19 @@ warp_tile_kernel(const float* __restrict__ image, const float* __restrict__ flow
   }
 
   // 3. Decode each staged pixel once, four at a time.
-  if constexpr (kStaged) {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();
-    if constexpr (kPacking != 0) {
-      float4* t4 = reinterpret_cast<float4*>(tile);
-      for (int i = threadIdx.x; i < n_rows * p / 4; i += kThreads) {
-        float4 a = t4[i];
-        a.x = decode<kPacking>(a.x);
-        a.y = decode<kPacking>(a.y);
-        a.z = decode<kPacking>(a.z);
-        a.w = decode<kPacking>(a.w);
-        t4[i] = a;
-      }
-      __syncthreads();
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  if constexpr (kPacking != 0) {
+    float4* t4 = reinterpret_cast<float4*>(tile);
+    for (int i = threadIdx.x; i < n_rows * p / 4; i += kThreads) {
+      float4 a = t4[i];
+      a.x = decode<kPacking>(a.x);
+      a.y = decode<kPacking>(a.y);
+      a.z = decode<kPacking>(a.z);
+      a.w = decode<kPacking>(a.w);
+      t4[i] = a;
     }
+    __syncthreads();
   }
   if (x >= width) return;
 
@@ -184,49 +204,27 @@ warp_tile_kernel(const float* __restrict__ image, const float* __restrict__ flow
   for (int k = 0; k < kPasses; ++k) {
     const int y = y_first + row + kRowStep * k;
     if (y >= height) break;
-    float res;
-    if constexpr (kStaged) {
-      // Image row y + f is tile row y - y_first + mdv + f: inside the
-      // window whenever the row rule lets that row count (a dropped row is
-      // read from the window's edge).
-      const int dy = y - y_first + max_disp_v;
-      res = warp_one<kPacking, kClamp>(
-          x, y, u[k], v[k], height, width, max_disp, max_disp_v,
-          [&](int f, int x0, int x1, float fxc, float fx) {
-            const int t = kClamp ? dy + f : min(max(dy + f, 0), n_rows - 1);
-            const float* r = tile + t * p;
-            return r[x0 - c_base] * fxc + r[x1 - c_base] * fx;
-          });
-    } else {
-      res = warp_one<kPacking, kClamp>(
-          x, y, u[k], v[k], height, width, max_disp, max_disp_v,
-          [&](int f, int x0, int x1, float fxc, float fx) {
-            return gather_row<kPacking>(img, y + f, x0, x1, fxc, fx, height, width);
-          });
-    }
-    out[y * width + x] = res;
+    // Image row y + f is tile row y - y_first + mdv + f: inside the window
+    // whenever the row rule lets that row count (a dropped row is read from
+    // the window's edge).
+    const int dy = y - y_first + max_disp_v;
+    out[y * width + x] = warp_one<kPacking, kClamp>(
+        x, y, u[k], v[k], height, width, max_disp, max_disp_v,
+        [&](int f, int x0, int x1, float fxc, float fx) {
+          const int t = kClamp ? dy + f : min(max(dy + f, 0), n_rows - 1);
+          const float* r = tile + t * p;
+          return r[x0 - c_base] * fxc + r[x1 - c_base] * fx;
+        });
   }
 }
 
 // Planes of this many pixels and more stage the band in 128x32 tiles;
-// smaller ones read their corners through L1 in 32x16 blocks (see the
-// design note above).
+// smaller ones gather their corners through L1 (see the design note
+// above), in the small plane's block under kSmallPixels, else the large
+// plane's.
 constexpr long kStagedMinPixels = 1L << 20;
-constexpr Geometry kStagedTile{true, 128, 32, 256};
-constexpr Geometry kGatherTile{false, 32, 16, 256};
-
-// The block a plane gets, a function of the plane alone (so a batch
-// element equals its 2-D launch): by its size where staged < 0, else
-// staged (1) or gathering (0) whatever its size.
-inline Geometry geometry(int height, int width, int staged) {
-  if (staged < 0) staged = (long)height * width >= kStagedMinPixels;
-  return staged ? kStagedTile : kGatherTile;
-}
-
-inline size_t smem_bytes(const Geometry& g, int max_disp, int max_disp_v) {
-  if (!g.staged) return 0;
-  return (size_t)(g.rows + 2 * max_disp_v + 1) * pitch(g.tile_w, max_disp) * sizeof(float);
-}
+constexpr long kSmallPixels = 1L << 18;
+constexpr Geometry kStagedTile{true, 128, 32, 256, 1};
 
 struct Args {
   const float* img;
@@ -234,31 +232,70 @@ struct Args {
   const float* v;
   float* out;
   int batch, height, width, max_disp, max_disp_v;  // max_disp_v sizes the window
-  int vec;  // kVecImage | kVecFlow
+  int vec;  // kVecImage | kVecFlow | kVecOut
   Control ctl;
 };
 
-template <int kPacking, bool kClamp, bool kStaged, int kTileW, int kRows, int kThreads>
-static int launch(const Args& a, cudaStream_t s) {
+inline dim3 grid_of(const Geometry& g, int batch, int height, int width) {
+  return dim3((width + g.tile_w - 1) / g.tile_w, (height + g.rows - 1) / g.rows, batch);
+}
+
+// A gathering block (warp.cuh's warp_gather_kernel): kCols columns a
+// thread, kTx x kTy threads, kPasses rows a thread, kMinBlocks blocks an
+// SM; the flow leaves with the control words.
+template <int kCols, int kTx, int kTy, int kPasses, int kMinBlocks>
+struct Gather {
+  static constexpr Geometry geometry{false, kTx * kCols, kTy * kPasses, kTx * kTy, kCols};
+
+  template <int kPacking, bool kClamp>
+  static int launch(const Args& a, cudaStream_t s) {
+    const dim3 grid = grid_of(geometry, a.batch, a.height, a.width);
+    if (grid.y > 65535) return (int)cudaErrorInvalidValue;  // gridDim.y
+    warp_gather_kernel<kPacking, kClamp, kCols, kTx, kTy, kPasses, true, kMinBlocks>
+        <<<grid, geometry.threads, 0, s>>>(a.img, a.u, a.v, a.out, a.height, a.width,
+                                           a.max_disp, a.max_disp_v, a.vec, a.ctl);
+    return (int)cudaGetLastError();
+  }
+};
+using GatherSmall = Gather<1, 32, 8, 1, 8>;  // planes under kSmallPixels (270x480)
+using GatherLarge = Gather<1, 32, 8, 4, 8>;  // the others (540x960)
+
+// The block a plane gets, a function of the plane alone (so a batch
+// element equals its 2-D launch): by its size where staged < 0, else
+// staged (1) or gathering (0) whatever its size.
+inline Geometry geometry(int height, int width, int staged) {
+  const long pixels = (long)height * width;
+  if (staged < 0) staged = pixels >= kStagedMinPixels;
+  if (staged) return kStagedTile;
+  return pixels < kSmallPixels ? GatherSmall::geometry : GatherLarge::geometry;
+}
+
+inline size_t smem_bytes(const Geometry& g, int max_disp, int max_disp_v) {
+  if (!g.staged) return 0;
+  return (size_t)(g.rows + 2 * max_disp_v + 1) * pitch(g.tile_w, max_disp) * sizeof(float);
+}
+
+template <int kPacking, bool kClamp>
+static int launch_staged(const Args& a, cudaStream_t s) {
   static int opted[kMaxDevices] = {};
-  auto kernel = warp_tile_kernel<kPacking, kClamp, kStaged, kTileW, kRows, kThreads>;
-  const size_t smem = smem_bytes({kStaged, kTileW, kRows, kThreads}, a.max_disp, a.max_disp_v);
+  constexpr Geometry g = kStagedTile;
+  auto kernel = warp_tile_kernel<kPacking, kClamp, g.tile_w, g.rows, g.threads>;
+  const size_t smem = smem_bytes(g, a.max_disp, a.max_disp_v);
   const cudaError_t err = allow_smem(kernel, smem, opted);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.width + kTileW - 1) / kTileW, (a.height + kRows - 1) / kRows, a.batch);
+  const dim3 grid = grid_of(g, a.batch, a.height, a.width);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;  // gridDim.y
-  kernel<<<grid, kThreads, smem, s>>>(a.img, a.u, a.v, a.out, a.height, a.width, a.max_disp,
-                                      a.max_disp_v, a.vec, a.ctl);
+  kernel<<<grid, g.threads, smem, s>>>(a.img, a.u, a.v, a.out, a.height, a.width, a.max_disp,
+                                       a.max_disp_v, a.vec, a.ctl);
   return (int)cudaGetLastError();
 }
 
 template <int kPacking, bool kClamp>
 int launch_geometry(const Geometry& g, const Args& a, cudaStream_t s) {
-  if (g.staged)
-    return launch<kPacking, kClamp, true, kStagedTile.tile_w, kStagedTile.rows,
-                  kStagedTile.threads>(a, s);
-  return launch<kPacking, kClamp, false, kGatherTile.tile_w, kGatherTile.rows,
-                kGatherTile.threads>(a, s);
+  if (g.staged) return launch_staged<kPacking, kClamp>(a, s);
+  if (g.rows == GatherSmall::geometry.rows)
+    return GatherSmall::launch<kPacking, kClamp>(a, s);
+  return GatherLarge::launch<kPacking, kClamp>(a, s);
 }
 
 inline int launch_any(const Geometry& g, int packing, bool clamp, const Args& a,
@@ -288,7 +325,7 @@ extern "C" int tpuflow_warp_banded_as(const float* img, const float* u, const fl
   if (!valid_plane(batch, height, width, max_disp, max_disp_v))
     return (int)cudaErrorInvalidValue;
   const Args a{img, u, v, out, batch, height, width, max_disp, max_disp_v,
-               copy_flags(img, u, v, width), Control{}};
+               copy_flags(img, u, v, width, out), Control{}};
   return launch_any(geometry(height, width, staged), packing, clamp_flow != 0, a,
                     static_cast<cudaStream_t>(stream));
 }
@@ -314,7 +351,7 @@ extern "C" int tpuflow_warp_round(const float* img, const float* u, const float*
   }
   if (!valid_plane(batch, height, width, max_disp, widest)) return (int)cudaErrorInvalidValue;
   const Args a{img, u, v, out, batch, height, width, max_disp, widest,
-               copy_flags(img, u, v, width), ctl};
+               copy_flags(img, u, v, width, out), ctl};
   return launch_any(geometry(height, width, -1), packing, true, a,
                     static_cast<cudaStream_t>(stream));
 }
@@ -328,7 +365,8 @@ extern "C" int tpuflow_warp_banded(const float* img, const float* u, const float
 }
 
 // The block a plane gets and the shared memory it stages at a band, into
-// out[5]: staged (0 or 1), tile width, rows, threads, bytes.
+// out[6]: staged (0 or 1), tile width, rows, threads, bytes, columns a
+// thread.
 extern "C" void tpuflow_warp_geometry(int height, int width, int max_disp, int max_disp_v,
                                       int* out) {
   const Geometry g = geometry(height, width, -1);
@@ -337,11 +375,19 @@ extern "C" void tpuflow_warp_geometry(int height, int width, int max_disp, int m
   out[2] = g.rows;
   out[3] = g.threads;
   out[4] = (int)smem_bytes(g, max_disp, max_disp_v);
+  out[5] = g.cols;
 }
 
 // One launch of an empty kernel: the floor under any kernel's time.
 extern "C" int tpuflow_empty(void* stream) {
   empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel on a grid of (gx, gy, gz) blocks of `threads` threads:
+// what a kernel on that grid costs before its body.
+extern "C" int tpuflow_empty_grid(int gx, int gy, int gz, int threads, void* stream) {
+  empty_kernel<<<dim3(gx, gy, gz), threads, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 

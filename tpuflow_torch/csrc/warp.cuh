@@ -1,7 +1,9 @@
 // The banded warp's parts, shared by its kernel (warp.cu) and the walk
 // ablation (warp_walk.cu): the corner decodes, the zero-filling cp.async
-// staging of the band's window, and one output in the Pallas kernel's f32
-// order. What the warp computes is set out in warp.cu.
+// staging of the band's window, one output in the Pallas kernel's f32
+// order, and the coarse planes' gathering body (which the gather ablation,
+// ablation/warp_gather.py, also builds at other shapes). What the warp
+// computes is set out in warp.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,10 +15,12 @@ constexpr int kMaxBatch = 65535;   // gridDim.z
 constexpr int kMaxSide = 1 << 24;  // x + md, y + mdv exact as floats
 constexpr int kMaxDevices = 64;
 
-// Copy flags: 16-byte copies of the image (kVecImage) and of the flow
-// (kVecFlow), where the row width and the planes' bases allow them.
+// Copy flags: 16-byte copies of the image (kVecImage), of the flow
+// (kVecFlow) and of the output (kVecOut), where the row width and the
+// planes' bases allow them.
 constexpr int kVecImage = 1;
 constexpr int kVecFlow = 2;
+constexpr int kVecOut = 4;
 
 // Longest band ladder a round takes (the adaptive configs' have 2 or 3).
 constexpr int kMaxLadder = 8;
@@ -191,10 +195,141 @@ __device__ __forceinline__ float gather_row(const float* img, int r, int x0, int
   return c0 * fxc + c1 * fx;
 }
 
-inline int copy_flags(const float* img, const float* u, const float* v, int width) {
+inline int copy_flags(const float* img, const float* u, const float* v, int width,
+                      const float* out = nullptr) {
   auto aligned = [](const float* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
   if (width % 4 != 0) return 0;
-  return (aligned(img) ? kVecImage : 0) | (aligned(u) && aligned(v) ? kVecFlow : 0);
+  return (aligned(img) ? kVecImage : 0) | (aligned(u) && aligned(v) ? kVecFlow : 0) |
+         (out != nullptr && aligned(out) ? kVecOut : 0);
+}
+
+// Loads the compiler may neither merge nor sink below a branch (volatile:
+// they have side effects), so that loads issued before the latch's test
+// leave together with the latch's; N floats (1, 2 or 4, the vector ones
+// from an 8- or 16-byte aligned address) through the read-only path.
+__device__ __forceinline__ int ld_early(const int* p) {
+  int r;
+  asm volatile("ld.global.nc.s32 %0, [%1];" : "=r"(r) : "l"(p));
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ void ld_early(const float* p, float* r) {
+  if constexpr (N == 4) {
+    asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(r[0]), "=f"(r[1]), "=f"(r[2]), "=f"(r[3]) : "l"(p));
+  } else if constexpr (N == 2) {
+    asm volatile("ld.global.nc.v2.f32 {%0, %1}, [%2];" : "=f"(r[0]), "=f"(r[1]) : "l"(p));
+  } else {
+    asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(r[0]) : "l"(p));
+  }
+}
+
+// N consecutive floats to an 8- or 16-byte aligned address (N = 2, 4), or one.
+template <int N>
+__device__ __forceinline__ void st_vec(float* p, const float* r) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(r[0], r[1]);
+  } else {
+    *p = r[0];
+  }
+}
+
+// The coarse planes' body (warp.cu's design note): each thread kCols
+// consecutive columns of kPasses rows kTy apart, a block kTx x kTy threads,
+// so kTx * kCols columns by kTy * kPasses rows, at least kMinBlocks blocks
+// resident an SM (the registers a thread capped to fit). Under device
+// control the latch, the band index and (kFlowFirst) the thread's u and v
+// go out in one memory round trip, the corners in the next; without
+// kFlowFirst the flow waits for the latch's test (three trips). A set
+// latch stores nothing. Every address a thread forms is inside the plane
+// (the ragged edge is clamped and its results dropped), so no load waits
+// on a test.
+template <int kPacking, bool kClamp, int kCols, int kTx, int kTy, int kPasses, bool kFlowFirst,
+          int kMinBlocks>
+__global__ void __launch_bounds__(kTx * kTy, kMinBlocks)
+warp_gather_kernel(const float* __restrict__ image, const float* __restrict__ flow_u,
+                   const float* __restrict__ flow_v, float* __restrict__ out, int height,
+                   int width, int max_disp, int mdv_arg, int vec, const Control ctl) {
+  static_assert(kCols == 1 || kCols == 2 || kCols == 4, "1, 2 or 4 columns a thread");
+  const int tx = threadIdx.x % kTx, ty = threadIdx.x / kTx;
+  const int x = blockIdx.x * (kTx * kCols) + tx * kCols;
+  const int y_first = blockIdx.y * (kTy * kPasses) + ty;
+  const size_t plane = (size_t)blockIdx.z * height * width;
+  const float* img = plane_base(image, plane);
+  const float* fu = plane_base(flow_u, plane);
+  const float* fv = plane_base(flow_v, plane);
+  out += plane;
+  // kCols columns as one 8- or 16-byte access: the row width a multiple of
+  // 4 and every base 16-byte aligned (x is a multiple of kCols).
+  const bool wide = kCols > 1 && (vec & (kVecFlow | kVecOut)) == (kVecFlow | kVecOut) &&
+                    x + kCols <= width;
+
+  float u[kPasses][kCols], v[kPasses][kCols];
+  auto load_flow = [&]() {
+#pragma unroll
+    for (int k = 0; k < kPasses; ++k) {
+      const int row = min(y_first + kTy * k, height - 1) * width;
+      if (wide) {
+        ld_early<kCols>(fu + row + x, u[k]);
+        ld_early<kCols>(fv + row + x, v[k]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          const int i = row + min(x + c, width - 1);
+          ld_early<1>(fu + i, &u[k][c]);
+          ld_early<1>(fv + i, &v[k][c]);
+        }
+      }
+    }
+  };
+
+  // Launched with programmatic stream serialization (the dependent-launch
+  // ablation, ablation/warp_gather.py), wait here for the kernel before to
+  // finish and its writes to land; a no-op on an ordinary launch.
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+
+  // 1. The control words (and, kFlowFirst, the flow): one round trip.
+  const int latch = ctl.latch != nullptr ? ld_early(ctl.latch + blockIdx.z) : 0;
+  const int idx = ctl.band != nullptr ? ld_early(ctl.band + ctl.band_stride * blockIdx.z) : 0;
+  if (kFlowFirst) load_flow();
+  if (latch != 0) return;
+  const int max_disp_v =
+      ctl.band != nullptr ? ladder_at(ctl.ladder, min(max(idx, 0), ctl.n_ladder - 1)) : mdv_arg;
+  if (!kFlowFirst) load_flow();
+  if (x >= width) return;
+
+  // 2. The corners: every output's four loads in flight at once.
+  float res[kPasses][kCols];
+#pragma unroll
+  for (int k = 0; k < kPasses; ++k) {
+    const int y = min(y_first + kTy * k, height - 1);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      res[k][c] = warp_one<kPacking, kClamp>(
+          min(x + c, width - 1), y, u[k][c], v[k][c], height, width, max_disp, max_disp_v,
+          [&](int f, int x0, int x1, float fxc, float fx) {
+            return gather_row<kPacking>(img, y + f, x0, x1, fxc, fx, height, width);
+          });
+    }
+  }
+
+  // 3. The stores.
+#pragma unroll
+  for (int k = 0; k < kPasses; ++k) {
+    const int y = y_first + kTy * k;
+    if (y >= height) break;
+    float* o = out + y * width + x;
+    if (wide) {
+      st_vec<kCols>(o, res[k]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        if (x + c < width) o[c] = res[k][c];
+    }
+  }
 }
 
 inline bool valid_plane(int batch, int height, int width, int max_disp, int max_disp_v) {

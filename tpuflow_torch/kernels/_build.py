@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -159,6 +160,8 @@ def load() -> ctypes.CDLL:
     lib.tpuflow_warp_geometry.restype = None
     lib.tpuflow_empty.argtypes = [ctypes.c_void_p]
     lib.tpuflow_empty.restype = ctypes.c_int
+    lib.tpuflow_empty_grid.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.tpuflow_empty_grid.restype = ctypes.c_int
     lib.tpuflow_error_string.argtypes = [ctypes.c_int]
     lib.tpuflow_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -189,6 +192,30 @@ def build(sources: list[Path], path: Path) -> str:
     return "".join(logs)
 
 
+def ptxas_entries(log: str, match: str = "") -> list[tuple[str, int, int]]:
+    """(kernel, registers, spill-store bytes) of each entry in ptxas's
+    report (``-Xptxas=-v``) whose mangled name contains ``match``; a
+    template kernel reads as ``name<arg,...>``."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            if match in name:
+                t = re.search(r"\d+([a-z_]+_kernel)I(.*)", name)
+                label = (f"{t.group(1)}<{','.join(re.findall(r'L[a-z](\d+)E', t.group(2)))}>"
+                         if t else name)
+                out.append((label, int(m.group(1)), spill))
+            name = None
+    return out
+
+
 def _check_nvcc(cmd: list[str], code: int, log: str) -> None:
     if code != 0:
         raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{log}")
@@ -201,6 +228,17 @@ def launch_empty() -> None:
 
     lib = load()
     check(lib, lib.tpuflow_empty(torch.cuda.current_stream().cuda_stream), "empty kernel")
+
+
+def launch_empty_grid(gx: int, gy: int, gz: int, threads: int) -> None:
+    """Launch the library's empty kernel on a (gx, gy, gz) grid of
+    ``threads``-thread blocks on the current stream: a grid's cost before
+    any body."""
+    import torch
+
+    lib = load()
+    check(lib, lib.tpuflow_empty_grid(gx, gy, gz, threads,
+                                      torch.cuda.current_stream().cuda_stream), "empty grid")
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

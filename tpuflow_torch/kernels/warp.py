@@ -72,11 +72,23 @@ MAX_SIDE = 1 << 24
 def tile_geometry(height: int, width: int, max_disp: int, max_disp_v: int) -> dict:
     """The CUDA kernel's block at a plane size and band: whether it stages
     the band in shared memory, its output columns and rows, its threads,
-    and the bytes of shared memory it stages."""
+    the bytes of shared memory it stages and the consecutive columns a
+    thread takes."""
     lib = _build.load()
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 6)()
     lib.tpuflow_warp_geometry(height, width, max_disp, max_disp_v, out)
-    return dict(zip(("staged", "tile_w", "rows", "threads", "smem_bytes"), out))
+    return dict(zip(("staged", "tile_w", "rows", "threads", "smem_bytes", "cols"), out))
+
+
+def launch_empty_on_grid(height: int, width: int, batch: int = 1,
+                         geometry: dict | None = None) -> None:
+    """Launch an empty kernel on the grid and block the warp takes on
+    ``batch`` (height, width) planes (``geometry`` as ``tile_geometry``
+    gives it, that plane's by default): what a launch of that grid costs
+    before its body, timed with ``eval.timing.device_ms``."""
+    g = geometry or tile_geometry(height, width, 8, 8)
+    _build.launch_empty_grid(-(-width // g["tile_w"]), -(-height // g["rows"]), batch,
+                             g["threads"])
 
 
 def _decode(image: torch.Tensor, packing: str) -> torch.Tensor:
