@@ -1,0 +1,9 @@
+"""Share of the traced window in which no kernel, copy or fill ran on the
+card (torch.profiler's timeline), in %."""
+
+
+def read(record: dict):
+    t = record["trace"]
+    if not t or t["window_s"] <= 0 or t["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
