@@ -1,0 +1,14 @@
+"""Host ms a step in the program's span ``tpuflow_torch.io.pinned_copy``
+(``io.stream``: the frames' copy into their pinned buffer, a buffer's
+allocation where one is made), one use an upload, over the run's uploads
+that no profiler recorded (``harness.program``); traced runs on the card
+only."""
+
+from flowbench.harness import program
+
+
+def read(record: dict):
+    if not record["trace"]:
+        return None
+    s = program.span_s_per_use("tpuflow_torch.io.pinned_copy")
+    return None if s is None else s * 1e3

@@ -83,7 +83,8 @@ import torch
 from scipy.ndimage import gaussian_filter
 
 from tpuflow_torch import PYRAMID_CONFIGS, lucas_kanade_pyramidal_step
-from tpuflow_torch.flow import GraphedStream
+from tpuflow_torch import telemetry
+from tpuflow_torch.flow import GraphedStream, graphed
 from tpuflow_torch.ablation import shift_ablation, warp_mxu_ablation, warp_walk
 from tpuflow_torch.flow import pyramidal
 from tpuflow_torch.kernels import _build, launch_counts, lk, seed, torch_ref, warp
@@ -1200,6 +1201,71 @@ def test_graph_replay_runs_the_captured_launches(cuda, config):
     assert _traced_port_launches(lambda: stream.step(frame)) == sum(stream.launches.values())
 
 
+def test_graphed_stream_counts_its_kernel_nodes(cuda):
+    """A B=3 GraphedStream's ``nodes``, counted at its capture through the
+    driver API, hold as many kernels as the same step captured here with
+    ``keep_graph=True``; the stream's flow is the eager step's bit for
+    bit."""
+    cfg = PYRAMID_CONFIGS["production"]
+    first, nxt = _streams(cuda, batch=3)
+    stream = GraphedStream(first, cfg)
+    carry = torch_ref.build_gaussian_pyramid(first, cfg.levels, cfg.scale_factor)
+    static, frame = [level.clone() for level in carry], nxt.clone()
+
+    def body():
+        u, v, pyr = lucas_kanade_pyramidal_step(static, frame, cfg, backend="cuda")
+        for dst, src in zip(static, pyr):
+            dst.copy_(src)
+        return u, v
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    own = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(own):
+        body()
+    print(f"B=3 production graph nodes: {stream.nodes}")
+    assert graphed.graph_nodes(own)["kernel"] == stream.nodes["kernel"] > 0
+    for frames in (nxt, first, nxt):
+        u, v = stream.step(frames)
+        eu, ev, carry = lucas_kanade_pyramidal_step(carry, frames, cfg, backend="cuda")
+        assert torch.equal(u, eu) and torch.equal(v, ev)
+
+
+def test_spans_put_no_annotation_on_the_device_timeline(cuda):
+    """Under torch.profiler a span, and each span of a chain, is on the
+    host's timeline alone: no device event carries its name (a tool that
+    sums the device's timeline would read an annotation there as device
+    work), while the kernels launched inside it are traced."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    x = torch.ones(1 << 20, device=cuda)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with telemetry.span("tpuflow_torch.test.card"):
+            (x * 2).sum()
+        with telemetry.chain("tpuflow_torch.test.first", "tpuflow_torch.test.then") as spans:
+            (x * 4).sum()
+            spans.next()
+            (x * 5).sum()
+        with record_function("test.user_scope"):
+            (x * 3).sum()
+        torch.cuda.synchronize()
+    on = {"host": set(), "device": []}
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            on["device"].append(e.name())
+        else:
+            on["host"].add(e.name())
+    print(f"record_function's scope on the device timeline: {'test.user_scope' in on['device']}")
+    for name in ("tpuflow_torch.test.card", "tpuflow_torch.test.first",
+                 "tpuflow_torch.test.then"):
+        assert name in on["host"]
+        assert name not in on["device"]
+    assert len([n for n in on["device"] if n != "test.user_scope"]) >= 4
+
+
 def test_graphs_follow_a_swapped_wrapper(cuda, monkeypatch):
     frames = torch.from_numpy(_vo_frames(3)).to(cuda)
     cfg = PYRAMID_CONFIGS["production"]
@@ -1745,26 +1811,6 @@ def _device_kernels(run) -> list:
             if e.device_type == DeviceType.CUDA and not e.key.startswith("Mem")]
 
 
-def _graph_node_types(graph) -> list[int]:
-    """The node types of a graph captured with ``keep_graph=True``, read
-    through the driver API (``CUgraphNodeType``: 0 a kernel, 1 a copy, 2 a
-    fill)."""
-    import ctypes
-
-    driver = ctypes.CDLL("libcuda.so.1")
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    count = ctypes.c_size_t(0)
-    assert driver.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0
-    nodes = (ctypes.c_void_p * count.value)()
-    assert driver.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0
-    types = []
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        assert driver.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
-        types.append(kind.value)
-    return types
-
-
 @pytest.mark.parametrize("batch", [None, 3])
 @pytest.mark.parametrize("latch", [0, 1])
 def test_tile_round_is_one_launch(cuda, batch, latch):
@@ -1787,7 +1833,7 @@ def test_tile_round_is_one_launch(cuda, batch, latch):
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         sums = lk.fused_tile_round(prev, curr, u, v, ctrl, **kw)
-    assert _graph_node_types(graph) == [0]
+    assert graphed.graph_nodes(graph) == {"kernel": 1}
     graph.instantiate()
     graph.replay()
     torch.cuda.synchronize()
@@ -1893,35 +1939,6 @@ def test_tiled_graphed_stream_equals_the_eager_step(nccl_world_one, config):
     assert stream.launches["lk_fused_tile_round"] == cfg.levels * cfg.iterations
 
 
-def _graph_kernel_nodes(graph) -> int:
-    """Kernel nodes of a graph captured with ``keep_graph=True``, those of
-    its child graphs included, read through the driver API
-    (``CUgraphNodeType``: 0 a kernel, 4 a child graph)."""
-    import ctypes
-
-    driver = ctypes.CDLL("libcuda.so.1")
-
-    def count(handle) -> int:
-        n = ctypes.c_size_t(0)
-        assert driver.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
-        nodes = (ctypes.c_void_p * n.value)()
-        assert driver.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
-        total = 0
-        for node in nodes:
-            kind = ctypes.c_int(-1)
-            assert driver.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
-            if kind.value == 0:
-                total += 1
-            elif kind.value == 4:
-                child = ctypes.c_void_p()
-                assert driver.cuGraphChildGraphNodeGetGraph(ctypes.c_void_p(node),
-                                                            ctypes.byref(child)) == 0
-                total += count(child)
-        return total
-
-    return count(ctypes.c_void_p(graph.raw_cuda_graph()))
-
-
 def test_tiled_graphed_replay_has_no_round_reductions(nccl_world_one, monkeypatch):
     """A TiledGraphedStream replay launches one kernel a tile round: the
     same step captured with a torch.sum of the round's block partials
@@ -1932,31 +1949,23 @@ def test_tiled_graphed_replay_has_no_round_reductions(nccl_world_one, monkeypatc
     each replay are printed beside the node counts, not held: on the
     card's torch 2.11 the trace once read 400 / 404 for graphs whose nodes
     differ by 9, and later 391 / 400 for nodes 391 / 400, so a trace does
-    not count a replay's kernels reliably."""
+    not count a replay's kernels reliably. The stream keeps its captured
+    graph, and ``graphed.graph_nodes`` reads it again here."""
     from tpuflow_torch.flow import TiledGraphedStream
 
     mesh = nccl_world_one
     cfg = PYRAMID_CONFIGS["default"]
     a, b = _tiled_pair(mesh.device)
     rounds = cfg.levels * cfg.iterations
-    kept = []
-
-    class KeptGraph(torch.cuda.CUDAGraph):
-        """The stream's graph, its node list kept after the capture (the
-        replay instantiates it; what it runs is unchanged)."""
-
-        def __init__(self, keep_graph=False):
-            super().__init__(True)
-            kept.append(self)
-
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", KeptGraph)
 
     def replay(stream):
         out = []
         events = _device_kernels(lambda: out.append(stream.step(b[None])))
         n_rounds = sum(e.count for e in events
                        if re.search(r"lk_walk_kernel<\d+, (true|false), \d+, 3>", e.key))
-        return _graph_kernel_nodes(kept[-1]), n_rounds, sum(e.count for e in events), out[0]
+        kernels = graphed.graph_nodes(stream._graph)["kernel"]
+        assert kernels == stream.nodes["kernel"]
+        return kernels, n_rounds, sum(e.count for e in events), out[0]
 
     n_new, rounds_new, traced_new, flow_new = replay(TiledGraphedStream(a[None], cfg, mesh))
     fused = lk.fused_tile_round
@@ -1970,7 +1979,6 @@ def test_tiled_graphed_replay_has_no_round_reductions(nccl_world_one, monkeypatc
     n_old, rounds_old, traced_old, flow_old = replay(TiledGraphedStream(a[None], cfg, mesh))
     print(f"kernel nodes {n_new} / {n_old} (with the sums); torch.profiler's kernels a replay "
           f"{traced_new} / {traced_old}")
-    assert len(kept) == 2
     assert rounds_new == rounds_old == rounds
     assert n_old - n_new == rounds
     assert torch.equal(flow_new[0], flow_old[0]) and torch.equal(flow_new[1], flow_old[1])

@@ -54,7 +54,7 @@ from tpuflow_torch.eval import profile
 from tpuflow_torch.eval.timing import card_label, device_ms, resolve_device
 from tpuflow_torch.flow import graphed
 from tpuflow_torch.flow.pyramidal import lucas_kanade_pyramidal_step
-from tpuflow_torch.kernels import add_launch_counts, seed, torch_ref
+from tpuflow_torch.kernels import seed, torch_ref
 from tpuflow_torch.vo import tracking
 from tpuflow_torch.vo.device_loop import get_front_end
 
@@ -153,11 +153,11 @@ def profile_vo(
 def _replay(body, dev: torch.device):
     """``body`` captured once as a CUDA graph (``flow.graphed.capture``);
     returns a call that replays it and counts its launches."""
-    graph, _, launches, _ = graphed.capture(body, torch.cuda.Stream(dev))
+    graph, _, replays, _, _ = graphed.capture(body, torch.cuda.Stream(dev))
 
     def replay():
         graph.replay()
-        add_launch_counts(launches)
+        replays.replays += 1
 
     return replay
 

@@ -14,7 +14,12 @@ frame's pyramid (the carry) is updated in place by a copy captured in the
 graph, and ``u``, ``v`` come back as tensors the caller owns. The kernels'
 ``launch_counts`` are Python counters that the wrappers increment, which a
 replay never calls: the capture records what it launched, and each replay
-adds that to the counters (``kernels.add_launch_counts``).
+adds one to the graph's ``kernels.ReplayCounter``. The capture also counts
+the graph's nodes by type through the driver API (``graph_nodes``), a
+stream's ``nodes``. A step's host work is timed by two spans used back to
+back (``telemetry``): ``tpuflow_torch.flow.replay`` (the frame copy, the
+replay's launch and its count) and ``tpuflow_torch.flow.clone`` (the two
+output clones).
 
 A graph replays the kernel wrappers that were bound when it was captured
 (``bound_kernels``): ``GraphedStream.step`` raises where another is bound
@@ -40,15 +45,24 @@ closes every such stream (``close``), and the VO front end's graphs too.
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
+from tpuflow_torch import telemetry
 from tpuflow_torch.core import ops
 from tpuflow_torch.core.config import PyramidConfig
 from tpuflow_torch.flow import pyramidal
-from tpuflow_torch.kernels import (_build, add_launch_counts, launch_counts, lk, seed, torch_ref,
-                                   warp)
+from tpuflow_torch.kernels import (ReplayCounter, _build, add_launch_counts, launch_counts, lk,
+                                   seed, torch_ref, warp)
 
 WARMUP_STEPS = 2  # eager steps on a side stream before the capture
+# The driver API's CUgraphNodeType, by value.
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_event",
+              "event_record", "ext_semas_signal", "ext_semas_wait", "mem_alloc", "mem_free",
+              "batch_mem_op", "conditional")
+_STEP = telemetry.chain("tpuflow_torch.flow.replay", "tpuflow_torch.flow.clone")
 
 
 def _check_cuda(t: torch.Tensor, what: str) -> None:
@@ -69,12 +83,58 @@ def same_kernels(captured: tuple) -> bool:
     return all(a is b for a, b in zip(captured, bound_kernels()))
 
 
-def capture(body, stream: torch.cuda.Stream):
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> dict[str, int]:
+    """The nodes of a graph captured with ``keep_graph=True``, by type
+    (``NODE_TYPES``), those of its child graphs included, read through the
+    driver API (``cuGraphGetNodes``, ``cuGraphNodeGetType``)."""
+    driver = ctypes.CDLL("libcuda.so.1")
+    ptr = ctypes.c_void_p
+    for fn, args in ((driver.cuGraphGetNodes, [ptr, ptr, ctypes.POINTER(ctypes.c_size_t)]),
+                     (driver.cuGraphNodeGetType, [ptr, ctypes.POINTER(ctypes.c_int)]),
+                     (driver.cuGraphChildGraphNodeGetGraph, [ptr, ctypes.POINTER(ptr)])):
+        fn.argtypes, fn.restype = args, ctypes.c_int
+
+    def call(fn, *args) -> None:
+        status = fn(*args)
+        if status != 0:
+            raise RuntimeError(f"{fn.__name__} failed with CUresult {status}")
+
+    counts: dict[str, int] = {}
+
+    def walk(handle: ctypes.c_void_p) -> None:
+        n = ctypes.c_size_t(0)
+        call(driver.cuGraphGetNodes, handle, None, ctypes.byref(n))
+        nodes = (ctypes.c_void_p * n.value)()
+        call(driver.cuGraphGetNodes, handle, nodes, ctypes.byref(n))
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            call(driver.cuGraphNodeGetType, ctypes.c_void_p(node), ctypes.byref(kind))
+            name = NODE_TYPES[kind.value] if 0 <= kind.value < len(NODE_TYPES) else str(kind.value)
+            counts[name] = counts.get(name, 0) + 1
+            if name == "graph":
+                child = ctypes.c_void_p()
+                call(driver.cuGraphChildGraphNodeGetGraph, ctypes.c_void_p(node),
+                     ctypes.byref(child))
+                walk(child)
+
+    walk(ctypes.c_void_p(graph.raw_cuda_graph()))
+    return counts
+
+
+class Captured(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    out: object  # body's outputs as captured
+    replays: ReplayCounter  # the launches the capture recorded; add one a replay
+    kernels: tuple  # the wrappers it captured (``bound_kernels``)
+    nodes: dict  # its nodes by type (``graph_nodes``)
+
+
+def capture(body, stream: torch.cuda.Stream) -> Captured:
     """Warm ``body`` up on ``stream`` (the kernels' library loaded, cuBLAS
     handles and cached operator blocks made there), then capture it once on
-    the same stream. Returns the graph, body's outputs as captured, the
-    launches the capture recorded (taken back off the counters: a capture
-    runs nothing) and the wrappers it captured (``bound_kernels``)."""
+    the same stream, count its nodes and instantiate it. The launches the
+    capture recorded are taken back off the counters (a capture runs
+    nothing) and counted again a replay through ``Captured.replays``."""
     _build.load()
     ops.pin_f32_matmul()  # TF32 off around the captured cuBLAS matmuls
     stream.wait_stream(torch.cuda.current_stream(stream.device))
@@ -82,7 +142,7 @@ def capture(body, stream: torch.cuda.Stream):
         for _ in range(WARMUP_STEPS):
             body()
     torch.cuda.current_stream(stream.device).wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     kernels = bound_kernels()
     before = launch_counts()
     with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
@@ -90,10 +150,32 @@ def capture(body, stream: torch.cuda.Stream):
     after = launch_counts()
     recorded = {name: n - before[name] for name, n in after.items() if n != before[name]}
     add_launch_counts({name: -n for name, n in recorded.items()})
-    return graph, out, recorded, kernels
+    nodes = graph_nodes(graph)
+    graph.instantiate()
+    return Captured(graph, out, ReplayCounter(recorded), kernels, nodes)
 
 
-class GraphedStream:
+class _Replayed:
+    """What both streams share: the parts of their capture and the step's
+    replay, once the frame is checked."""
+
+    def _take(self, captured: Captured) -> None:
+        self._graph, self._replays, self._kernels = (captured.graph, captured.replays,
+                                                     captured.kernels)
+        self._u, self._v, self.level_rounds = captured.out
+        self.launches = captured.replays.launches  # a replay's launches by kernel
+        self.nodes = captured.nodes
+
+    def _replay(self, frame: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        with _STEP as spans:
+            self._frame.copy_(frame)
+            self._graph.replay()
+            self._replays.replays += 1
+            spans.next()  # the clones start
+            return self._u.clone(), self._v.clone()
+
+
+class GraphedStream(_Replayed):
     """A pyramidal flow stream on the card, one graph replay a frame.
 
     ``carry`` seeds the stream: the previous frame's Gaussian pyramid,
@@ -103,6 +185,8 @@ class GraphedStream:
     carry to ``frame`` and makes ``frame``'s pyramid the carry.
     ``level_rounds`` is the graph's int32 (levels,) tensor of the rounds
     each level ran in the latest step (overwritten by the next replay).
+    ``launches`` holds the port's kernel launches a replay, ``nodes`` the
+    captured graph's nodes by type (``graph_nodes``).
 
     A (B, H, W) carry and frames are B independent streams (cameras) in one
     capture and one replay a step: each element takes its own band and
@@ -131,8 +215,7 @@ class GraphedStream:
                 dst.copy_(src)
             return u, v, rounds
 
-        self._graph, (self._u, self._v, self.level_rounds), self.launches, self._kernels = (
-            capture(body, torch.cuda.Stream(self.device)))
+        self._take(capture(body, torch.cuda.Stream(self.device)))
         self.reset(carry)
 
     def reset(self, carry) -> None:
@@ -154,10 +237,7 @@ class GraphedStream:
         if not same_kernels(self._kernels):
             raise RuntimeError("the kernel wrappers bound now are not the ones the graph "
                                "captured; make a new GraphedStream")
-        self._frame.copy_(frame)
-        self._graph.replay()
-        add_launch_counts(self.launches)
-        return self._u.clone(), self._v.clone()
+        return self._replay(frame)
 
 
 def graphable_mesh(mesh) -> bool:
@@ -168,7 +248,7 @@ def graphable_mesh(mesh) -> bool:
     return mesh.device.type == "cuda" and dist.get_backend(mesh.spatial) == "nccl"
 
 
-class TiledGraphedStream:
+class TiledGraphedStream(_Replayed):
     """The tiled pyramidal flow over an NCCL mesh, one graph replay a frame
     pair on each rank.
 
@@ -206,8 +286,7 @@ class TiledGraphedStream:
             return u, v, tiled_pyramidal.counters.level_rounds
 
         saved = self._prev.clone()
-        self._graph, (self._u, self._v, self.level_rounds), self.launches, self._kernels = (
-            capture(body, torch.cuda.Stream(self.device)))
+        self._take(capture(body, torch.cuda.Stream(self.device)))
         self._prev.copy_(saved)
         mesh_module.hold_graph(mesh, self)
 
@@ -237,7 +316,4 @@ class TiledGraphedStream:
         if not same_kernels(self._kernels):
             raise RuntimeError("the kernel wrappers bound now are not the ones the graph "
                                "captured; make a new TiledGraphedStream")
-        self._frame.copy_(frame)
-        self._graph.replay()
-        add_launch_counts(self.launches)
-        return self._u.clone(), self._v.clone()
+        return self._replay(frame)

@@ -26,6 +26,13 @@ The port of ``tpuflow.io.stream``:
   copy).
 - ``device_pairs``: consecutive (prev, curr) pairs of uploaded frames.
 
+An upload's host work is timed by three spans (``telemetry``), one use a
+frame each and back to back in ``prefetch_to_device``'s uploads (one
+chain): ``tpuflow_torch.io.buffer_wait`` (the wait for a pinned buffer's
+last copy), ``tpuflow_torch.io.pinned_copy`` (the copy into it, and its
+allocation where one is made) and ``tpuflow_torch.io.enqueue`` (the
+copy's launch on the side stream and the frame's hand-over).
+
 The device is the card unless the caller names another
 (``eval.timing.resolve_device``).
 """
@@ -41,11 +48,15 @@ from typing import Iterable, Iterator, Sequence
 import numpy as np
 import torch
 
+from tpuflow_torch import telemetry
 from tpuflow_torch.eval.timing import resolve_device
 from tpuflow_torch.io import fastio
 from tpuflow_torch.io.frames import load_frame_bin_ref
 
 _END = object()
+_UPLOAD = telemetry.chain("tpuflow_torch.io.buffer_wait", "tpuflow_torch.io.pinned_copy",
+                          "tpuflow_torch.io.enqueue")
+_BUFFER_WAIT, _PINNED_COPY, _ENQUEUE = _UPLOAD.spans
 
 
 def _readahead(frames: Iterable, depth: int = 3) -> Iterator:
@@ -150,6 +161,10 @@ def _as_tensor(frame) -> torch.Tensor:
     return frame if isinstance(frame, torch.Tensor) else torch.from_numpy(np.asarray(frame))
 
 
+def _pinned(shape, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+
 def _hand_over(frame: torch.Tensor, uploaded: torch.cuda.Event) -> torch.Tensor:
     """Order the consumer's stream after the frame's copy, and keep its
     memory from reuse until that stream is done with it."""
@@ -171,6 +186,25 @@ def _copy_out(pinned: torch.Tensor, dev: torch.device, copies: torch.cuda.Stream
     return out, done
 
 
+def _enqueue(pinned: torch.Tensor, dev: torch.device, copies: torch.cuda.Stream,
+             in_flight: collections.deque, lookahead: int
+             ) -> tuple[torch.Tensor | None, torch.cuda.Event]:
+    """Launch ``pinned``'s copy on ``copies``. Returns the oldest upload,
+    handed over, once more than ``lookahead`` are in flight (else None),
+    and the copy's event."""
+    out, done = _copy_out(pinned, dev, copies)
+    in_flight.append((out, done))
+    ready = _hand_over(*in_flight.popleft()) if len(in_flight) > lookahead else None
+    return ready, done
+
+
+def _drain(in_flight: collections.deque) -> Iterator[torch.Tensor]:
+    while in_flight:
+        with _ENQUEUE:
+            ready = _hand_over(*in_flight.popleft())
+        yield ready
+
+
 def _upload_ahead(frames: Iterable, lookahead: int, dev: torch.device) -> Iterator[torch.Tensor]:
     copies = torch.cuda.Stream(device=dev)
     # lookahead + 1 pinned buffers, used in turn: (buffer, its last copy's event).
@@ -180,20 +214,21 @@ def _upload_ahead(frames: Iterable, lookahead: int, dev: torch.device) -> Iterat
         host = _as_tensor(frame)
         k = i % len(slots)
         slot = slots[k]
-        if slot is not None:
-            slot[1].synchronize()  # the buffer's last copy has completed
-        if slot is None or slot[0].shape != host.shape or slot[0].dtype != host.dtype:
-            pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-        else:
-            pinned = slot[0]
-        pinned.copy_(host)
-        out, done = _copy_out(pinned, dev, copies)
+        with _UPLOAD as spans:
+            if slot is not None:
+                slot[1].synchronize()  # the buffer's last copy has completed
+            spans.next()  # the buffer wait ends, the pinned copy starts
+            if slot is None or slot[0].shape != host.shape or slot[0].dtype != host.dtype:
+                pinned = _pinned(host.shape, host.dtype)
+            else:
+                pinned = slot[0]
+            pinned.copy_(host)
+            spans.next()  # the enqueue starts
+            ready, done = _enqueue(pinned, dev, copies, in_flight, lookahead)
         slots[k] = (pinned, done)
-        in_flight.append((out, done))
-        while len(in_flight) > lookahead:
-            yield _hand_over(*in_flight.popleft())
-    while in_flight:
-        yield _hand_over(*in_flight.popleft())
+        if ready is not None:
+            yield ready
+    yield from _drain(in_flight)
 
 
 def _upload_stream(stream: FrameStream, lookahead: int, dev: torch.device
@@ -212,20 +247,21 @@ def _upload_stream(stream: FrameStream, lookahead: int, dev: torch.device
         nonlocal made
         if made < pool:
             made += 1
-            return torch.empty(shape, dtype=torch.float32, pin_memory=True)
+            with _PINNED_COPY:
+                return _pinned(shape, torch.float32)
         pinned, done = copied.popleft()
-        done.synchronize()
+        with _BUFFER_WAIT:
+            done.synchronize()
         return pinned
 
     in_flight: collections.deque = collections.deque()
     for pinned in stream.read_into(buffer):
-        out, done = _copy_out(pinned, dev, copies)
+        with _ENQUEUE:
+            ready, done = _enqueue(pinned, dev, copies, in_flight, lookahead)
         copied.append((pinned, done))
-        in_flight.append((out, done))
-        while len(in_flight) > lookahead:
-            yield _hand_over(*in_flight.popleft())
-    while in_flight:
-        yield _hand_over(*in_flight.popleft())
+        if ready is not None:
+            yield ready
+    yield from _drain(in_flight)
 
 
 def prefetch_to_device(

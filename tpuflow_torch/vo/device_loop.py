@@ -55,7 +55,7 @@ from tpuflow_torch.core.config import PyramidConfig
 from tpuflow_torch.flow import graphed, pyramidal
 from tpuflow_torch.flow.pyramidal import lucas_kanade_pyramidal_from_pyramids
 from tpuflow_torch.flow.single_scale import BACKENDS
-from tpuflow_torch.kernels import add_launch_counts, seed, torch_ref
+from tpuflow_torch.kernels import seed, torch_ref
 from tpuflow_torch.sharding.tiled_pyramidal import tiled_lucas_kanade_pyramidal
 from tpuflow_torch.vo import tracking
 
@@ -119,8 +119,9 @@ class _GraphedStep:
             _copy_state(self._state, new_state)
             return obs
 
-        self._graph, self._obs, self.launches, self.kernels = graphed.capture(
-            body, torch.cuda.Stream(frame.device))
+        captured = graphed.capture(body, torch.cuda.Stream(frame.device))
+        self._graph, self._obs, self._replays, self.kernels, self.nodes = captured
+        self.launches = self._replays.launches
         if fe.mesh is not None:
             from tpuflow_torch.sharding import mesh as mesh_module
 
@@ -144,7 +145,7 @@ class _GraphedStep:
         for i in range(t):
             self._frame.copy_(frames[i])
             self._graph.replay()
-            add_launch_counts(self.launches)
+            self._replays.replays += 1
             for dst, src in zip(out, self._obs):
                 dst[i].copy_(src)
         return _clone_state(self._state), out
